@@ -65,3 +65,9 @@ def small_ds():
     from tpu_ann.utils.datasets import SyntheticDataset
 
     return SyntheticDataset(d=32, nt=2000, nb=4000, nq=100)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the CUDA kernels of "
+        "tpu_ann_torch); skips without one")

@@ -1,0 +1,68 @@
+"""The PyTorch port (tpu_ann_torch) stands alone: importing it loads
+neither jax nor the JAX package, and no source file of it refers to them."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "tpu_ann_torch")
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import tpu_ann_torch\n"
+        "new = set(sys.modules) - before\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'tpu_ann'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _sources():
+    out = []
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files
+                if f.endswith((".py", ".cu", ".cuh"))]
+    return sorted(out)
+
+
+def test_sources_found():
+    names = {os.path.relpath(p, PKG) for p in _sources()}
+    assert {"__init__.py", "ops/ivf_scan_fused.py",
+            "csrc/ivf_scan_fused.cu", "kernels/__init__.py"} <= names
+
+
+@pytest.mark.parametrize("needle", ["import jax", "tpu_ann."])
+def test_no_reference_imports(needle):
+    hits = []
+    for path in _sources():
+        with open(path) as f:
+            if needle in f.read():
+                hits.append(os.path.relpath(path, ROOT))
+    assert not hits, hits
+
+
+def test_default_device_is_cuda_without_fallback():
+    """Indexes default to the GPU; without one they fail instead of
+    quietly running on the CPU."""
+    import torch
+
+    import tpu_ann_torch as T
+
+    if torch.cuda.is_available():
+        assert T.IndexFlat(8).device.type == "cuda"
+        assert T.make_ivf_flat(8, 4).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            T.IndexFlat(8)
+        with pytest.raises((AssertionError, RuntimeError)):
+            T.make_ivf_flat(8, 4)
+    assert T.IndexFlat(8, device="cpu").device.type == "cpu"

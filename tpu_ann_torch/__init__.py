@@ -1,0 +1,53 @@
+"""tpu_ann_torch — the PyTorch / CUDA port of tpu_ann for NVIDIA Hopper.
+
+It mirrors tpu_ann's layout and names (ops/, models/, utils/) and adds
+csrc/ (hand-written CUDA kernels) and kernels/ (their build and ctypes
+binding). Indexes hold tensors on one explicit device, ``device="cuda"``
+by default; nothing falls back to the CPU. This package never imports
+jax or tpu_ann: only the tests import both.
+
+Covered today: the IVF-Flat search path — make_ivf_flat -> train
+(k-means) -> add (assign + block-packed invlists) -> search /
+search_stats, through the hand-written fused invlist scan.
+"""
+
+from .models import (  # noqa: F401
+    Index,
+    IndexFlat,
+    IndexFlatIP,
+    IndexFlatL2,
+    IndexIVF,
+    IndexIVFFlat,
+    QueryLatencyStats,
+    SearchParameters,
+    SearchParametersIVF,
+    SearchStats,
+    Timer,
+    indexIVF_stats,
+    make_ivf_flat,
+)
+from .ops.distances import (  # noqa: F401
+    METRIC_INNER_PRODUCT,
+    METRIC_L2,
+    knn,
+)
+from .ops.ivf_scan import PackedInvLists, pack_invlists  # noqa: F401
+from .ops.ivf_scan_fused import (  # noqa: F401
+    scan_invlists_fused,
+    scan_invlists_fused_reference,
+)
+from .ops.kmeans import ClusteringParameters, kmeans  # noqa: F401
+from .utils.convert import (  # noqa: F401
+    flat_from_reference,
+    ivf_flat_from_reference,
+)
+from .utils.datasets import (  # noqa: F401
+    SIFT1M_CALIBRATED,
+    SyntheticDataset,
+    sift_surrogate,
+)
+from .utils.evaluation import (  # noqa: F401
+    knn_intersection_measure,
+    recall_at_r,
+    recall_k_at_k,
+)

@@ -1,0 +1,193 @@
+"""Index base API — PyTorch counterpart of `tpu_ann/models/base.py`
+(faiss/Index.h:77-317).
+
+Indexes hold tensors on one explicit device (``device=``, default
+``"cuda"``); the public ``search`` takes and returns numpy arrays like the
+reference's SWIG wrappers. Per-search timing stats mirror the fork's
+`QueryLatencyStats` split (faiss/IndexIVF.h:28-32).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.distances import METRIC_INNER_PRODUCT, METRIC_L2, is_similarity_metric
+
+
+@dataclasses.dataclass
+class SearchParameters:
+    """Base per-call search parameters (faiss/Index.h:64-69)."""
+
+    sel: Optional[Any] = None   # IDSelector
+
+
+@dataclasses.dataclass
+class QueryLatencyStats:
+    """Per-query latency/work arrays, all (nq,) — the fork's
+    `QueryLatencyStats {total_us, quantization_us, list_scan_us}`
+    (faiss/IndexIVF.h:28-32) plus the scanned-code count."""
+
+    total_us: np.ndarray = None
+    quantization_us: np.ndarray = None
+    list_scan_us: np.ndarray = None
+    ndis: np.ndarray = None
+
+    def percentiles(self, field: str = "total_us",
+                    qs=(50.0, 99.0, 99.9)) -> dict:
+        a = getattr(self, field)
+        return {f"p{q:g}": float(np.percentile(a, q)) for q in qs}
+
+
+@dataclasses.dataclass
+class SearchStats:
+    """Per-search timing and counters (fork's QueryLatencyStats +
+    IndexIVFStats). Times are wall-clock microseconds for the whole batch,
+    fenced by device synchronisation (see `Timer`)."""
+
+    nq: int = 0
+    total_us: float = 0.0
+    quantization_us: float = 0.0
+    list_scan_us: float = 0.0
+    ndis: int = 0           # number of distances evaluated
+    nlist_visited: int = 0  # number of invlists scanned
+    per_query: Optional[QueryLatencyStats] = None
+
+    def as_dict(self):
+        d = dataclasses.asdict(self)
+        d.pop("per_query", None)
+        return d
+
+    def accumulate(self, other: "SearchStats") -> None:
+        for f in dataclasses.fields(self):
+            if f.name == "per_query":
+                continue
+            setattr(self, f.name,
+                    getattr(self, f.name) + getattr(other, f.name))
+
+    def reset(self) -> None:
+        for f in dataclasses.fields(self):
+            if f.name == "per_query":
+                self.per_query = None
+                continue
+            setattr(self, f.name, type(getattr(self, f.name))(0))
+
+
+# Global cumulative counters, the role of faiss's `indexIVF_stats`
+# singleton (IndexIVF.h:567-583). Every *_stats search accumulates into it.
+indexIVF_stats = SearchStats()
+
+
+class Timer:
+    """Context-manager wall timer in microseconds (fork's Timer struct,
+    faiss/IndexIVF.cpp:32). On a CUDA device it synchronises at both edges,
+    so the interval covers the device work queued inside it."""
+
+    def __init__(self, device=None):
+        self.device = torch.device(device) if device is not None else None
+
+    def _sync(self):
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def __enter__(self):
+        self._sync()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._sync()
+        self.us = (time.perf_counter() - self.t0) * 1e6
+        return False
+
+
+def _as_f32(x) -> np.ndarray:
+    x = np.asarray(x, dtype=np.float32)
+    if x.ndim == 1:
+        x = x[None, :]
+    if x.ndim != 2:
+        raise ValueError(f"expected (n, d) array, got shape {x.shape}")
+    return np.ascontiguousarray(x)
+
+
+class Index:
+    """Abstract base (faiss/Index.h:77): `d`, `ntotal`, `metric_type`,
+    `is_trained`, the numpy-facing `search(x, k) -> (D, I)`, and the
+    device its tensors live on."""
+
+    def __init__(self, d: int, metric: int = METRIC_L2, *, device="cuda"):
+        if d <= 0:
+            raise ValueError("d must be positive")
+        self.d = int(d)
+        self.metric_type = int(metric)
+        self.ntotal = 0
+        self.is_trained = True
+        self.device = torch.device(device)
+
+    def train(self, x) -> None:  # noqa: D401 - faiss parity
+        """Default: no training needed (faiss Index::train)."""
+
+    def add(self, x) -> None:
+        raise NotImplementedError
+
+    def add_with_ids(self, x, ids) -> None:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support add_with_ids")
+
+    def search(self, x, k: int, *, params: Optional[Any] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        raise NotImplementedError
+
+    def search_stats(self, x, k: int, *, params: Optional[Any] = None):
+        """search() + SearchStats (faiss/IndexIVF.h:329-337). Default: the
+        whole search is timed as list_scan."""
+        with Timer(self.device) as t:
+            D, I = self.search(x, k, params=params)
+        stats = SearchStats(nq=len(np.atleast_2d(x)), total_us=t.us,
+                            list_scan_us=t.us)
+        indexIVF_stats.accumulate(stats)
+        return D, I, stats
+
+    def assign(self, x, k: int = 1) -> np.ndarray:
+        """Labels only (faiss Index::assign)."""
+        _, labels = self.search(x, k)
+        return labels
+
+    def reset(self) -> None:
+        raise NotImplementedError
+
+    @property
+    def is_similarity(self) -> bool:
+        return is_similarity_metric(self.metric_type)
+
+    def _check_input(self, x) -> np.ndarray:
+        x = _as_f32(x)
+        if x.shape[1] != self.d:
+            raise ValueError(f"input dim {x.shape[1]} != index dim {self.d}")
+        return x
+
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        if not x.flags.writeable:         # e.g. a view of a jax array
+            x = x.copy()
+        return torch.from_numpy(x).to(self.device)
+
+    def __repr__(self):
+        m = "IP" if self.metric_type == METRIC_INNER_PRODUCT else "L2"
+        return (f"{type(self).__name__}(d={self.d}, ntotal={self.ntotal}, "
+                f"metric={m}, device={self.device})")
+
+
+__all__ = [
+    "Index",
+    "SearchParameters",
+    "SearchStats",
+    "QueryLatencyStats",
+    "Timer",
+    "indexIVF_stats",
+    "METRIC_L2",
+    "METRIC_INNER_PRODUCT",
+]

@@ -1,0 +1,367 @@
+"""List-major fused IVF scan — PyTorch counterpart of
+`scan_invlists_fused` in `tpu_ann/ops/ivf_scan_pallas.py`, with its kernel
+hand-written in CUDA for Hopper (``csrc/ivf_scan_fused.cu``).
+
+With nq queries probing nprobe lists each, a query-major scan reads every
+probed list once per (query, probe) pair. Sorting the pairs by list id and
+tiling them instead lets one read of a list's rows feed every pair of the
+tile on that list. Lists are packed contiguously in id order, so the pairs
+of a sorted tile touch one contiguous range of blocks of the stream.
+
+Steps (the wrapper is plain torch around one kernel launch):
+  1. sort the pairs by list id (stable), compute each pair's block range
+     [pstart, pend) and each tile's range [min pstart, max pend);
+  2. the kernel (or, for CPU tensors, its plain version
+     `scan_pairs_reference`) computes each pair's exact top-kp over its
+     list with bf16 x bf16 -> f32 scores:
+       L2: max(||q||^2 + ||x||^2 - 2 q.x, 0)      IP: -q.x
+     ties go to the lower stream position, empty slots are (+inf, -1);
+  3. un-sort the pairs, merge per query to the top R candidates, re-rank
+     them exactly in f32 against the f32 packed storage, map stream
+     positions to row ids, and flip the sign back for IP.
+
+Unlike the reference, the per-pair top-kp is always exact: the reference's
+RW=512 lane-min reservoir (which can drop candidates) exists only because
+extraction rounds are expensive on the TPU's vector unit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from . import distances as D
+from .ivf_scan import PackedInvLists
+
+# pairs per tile: the CUDA kernel is written for this tile (kPT in the .cu)
+PT = 128
+# largest per-pair width the CUDA kernel keeps (one list entry per lane)
+KP_MAX = 32
+# kernel launches made by `scan_pairs` (one per call on a CUDA tensor)
+LAUNCHES = 0
+# the plain version's batches of tiles stay under this many f32 elements
+_PLAIN_BUDGET = 1 << 27
+
+
+@dataclasses.dataclass
+class PairPlan:
+    """Sorted (query, probe) pairs and their tiles, all on one device.
+
+    Per sorted pair (npairs padded to ntiles * PT): ``pair_q`` its query
+    row, ``pstart``/``pend`` its list's block range (padding pairs and -1
+    probes get an empty range). Per tile: ``tile_bs``/``tile_nb`` the block
+    range its pairs span. ``order`` is the sort permutation of the
+    flattened (nq * nprobe) pairs; ``ndis`` the scanned rows including
+    block padding (the reference's count)."""
+
+    order: torch.Tensor
+    pair_q: torch.Tensor
+    pstart: torch.Tensor
+    pend: torch.Tensor
+    tile_bs: torch.Tensor
+    tile_nb: torch.Tensor
+    ndis: torch.Tensor
+
+    @property
+    def ntiles(self) -> int:
+        return self.tile_bs.shape[0]
+
+
+def plan_pairs(probes: torch.Tensor, invlists: PackedInvLists,
+               pt: int = PT) -> PairPlan:
+    """Step 1: sort pairs by list id and compute pair and tile ranges."""
+    nq, nprobe = probes.shape
+    npairs = nq * nprobe
+    nblk = invlists.list_nblocks.long()
+    # contiguous stream starts (empty lists get zero-width ranges)
+    sstart = torch.cumsum(nblk, 0) - nblk
+    l_flat = probes.reshape(npairs).long()
+    order = torch.argsort(l_flat, stable=True)
+    ls = l_flat[order]
+    valid = ls >= 0
+    ls_safe = torch.where(valid, ls, 0)
+    p_start = torch.where(valid, sstart[ls_safe], 0)
+    p_end = p_start + torch.where(valid, nblk[ls_safe], 0)
+    pair_q = order // nprobe
+
+    ntiles = -(-npairs // pt)
+    pad = ntiles * pt - npairs
+    if pad:
+        # padding pairs: empty range, query row 0
+        z = p_start.new_zeros(pad)
+        p_start, p_end, pair_q = (torch.cat([p_start, z]),
+                                  torch.cat([p_end, z]),
+                                  torch.cat([pair_q, z]))
+    ps2 = p_start.view(ntiles, pt)
+    pe2 = p_end.view(ntiles, pt)
+    real = pe2 > ps2
+    tile_be = torch.where(real, pe2, 0).amax(1) if ntiles else pe2[:, 0]
+    tile_bs = torch.where(real, ps2, invlists.nblocks).amin(1) \
+        if ntiles else ps2[:, 0]
+    tile_bs = torch.minimum(tile_bs, tile_be)      # empty tile -> 0 length
+    ndis = torch.where(l_flat >= 0, nblk[l_flat.clamp(min=0)], 0).sum() \
+        * invlists.block_size
+    i32 = torch.int32
+    return PairPlan(order=order, pair_q=pair_q.to(i32),
+                    pstart=p_start.to(i32), pend=p_end.to(i32),
+                    tile_bs=tile_bs.to(i32),
+                    tile_nb=(tile_be - tile_bs).to(i32), ndis=ndis)
+
+
+# ---------------------------------------------------------------------------
+# Step 2: per-pair exact top-kp. `scan_pairs` launches the CUDA kernel on a
+# CUDA tensor and takes the plain version only for a CPU tensor.
+# ---------------------------------------------------------------------------
+
+def scan_pairs_reference(xq_bf16: torch.Tensor, qn: torch.Tensor,
+                         plan: PairPlan, invlists: PackedInvLists, kp: int,
+                         similarity: bool):
+    """Plain torch version of the kernel: the same per-pair top-kp.
+
+    Tiles are processed in batches whose gathered rows and scores stay
+    under ``_PLAIN_BUDGET`` float32 elements. Scores are f32 products of the
+    bf16-rounded operands (``q.bfloat16().float() @ x.bfloat16().float().T``);
+    a bf16 product would round the output on the CPU.
+    Returns (dist (npairs_pad, kp) f32, pos (npairs_pad, kp) int32)."""
+    dev = xq_bf16.device
+    d = xq_bf16.shape[1]
+    B = invlists.block_size
+    data = invlists.data_bf16.view(-1, d)
+    ids = invlists.ids.view(-1)
+    norms = invlists.norms.view(-1)
+    ntiles = plan.ntiles
+    pt = plan.pair_q.shape[0] // max(ntiles, 1)
+    out_d = torch.full((ntiles * pt, kp), float("inf"), device=dev)
+    out_p = torch.full((ntiles * pt, kp), -1, dtype=torch.int32, device=dev)
+    nrows = (plan.tile_nb.long() * B).cpu()
+    t0 = 0
+    while t0 < ntiles:
+        # widest batch of tiles whose padded rows fit the budget
+        t1, maxr = t0 + 1, int(nrows[t0])
+        while t1 < ntiles:
+            m = max(maxr, int(nrows[t1]))
+            if (t1 + 1 - t0) * max(m, 1) * (d + pt) > _PLAIN_BUDGET:
+                break
+            t1, maxr = t1 + 1, m
+        T = t1 - t0
+        if maxr == 0:
+            t0 = t1
+            continue
+        lane = torch.arange(maxr, device=dev)
+        base = plan.tile_bs[t0:t1].long()[:, None] * B
+        rows = base + lane[None, :]                               # (T, maxr)
+        inrange = lane[None, :] < (plan.tile_nb[t0:t1].long() * B)[:, None]
+        rows_c = torch.where(inrange, rows, 0)
+        x = data[rows_c].float()                                  # (T, maxr, d)
+        pq = plan.pair_q[t0 * pt:t1 * pt].long()
+        q = xq_bf16[pq].float().view(T, pt, d)
+        ip = torch.bmm(q, x.transpose(1, 2))                      # (T, pt, maxr)
+        pqn = qn[pq].view(T, pt, 1)
+        if similarity:
+            dis = -ip - pqn
+        else:
+            dis = torch.clamp(pqn + norms[rows_c][:, None, :] - 2.0 * ip,
+                              min=0.0)
+        lo = plan.pstart[t0 * pt:t1 * pt].long().view(T, pt, 1) * B
+        hi = plan.pend[t0 * pt:t1 * pt].long().view(T, pt, 1) * B
+        r3 = rows[:, None, :]
+        ok = (r3 >= lo) & (r3 < hi) & (ids[rows_c] >= 0)[:, None, :] \
+            & inrange[:, None, :]
+        dis = torch.where(ok, dis, float("inf"))
+        # stable sort: among equal scores the lower stream position wins
+        vals, sel = torch.sort(dis, dim=2, stable=True)
+        kk = min(kp, maxr)
+        vals = vals[:, :, :kk].reshape(T * pt, kk)
+        pos = torch.gather(r3.expand(T, pt, maxr), 2, sel[:, :, :kk])
+        pos = torch.where(torch.isinf(vals), -1, pos.reshape(T * pt, kk))
+        out_d[t0 * pt:t1 * pt, :kk] = vals
+        out_p[t0 * pt:t1 * pt, :kk] = pos.to(torch.int32)
+        t0 = t1
+    return out_d, out_p
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from ..kernels import load_library
+
+        lib = load_library("ivf_scan_fused")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.ivf_scan_fused.argtypes = [vp] * 10 + [ci] * 5 + [vp] * 3
+        lib.ivf_scan_fused.restype = ci
+        lib.ivf_scan_fused_tile_pairs.argtypes = []
+        lib.ivf_scan_fused_tile_pairs.restype = ci
+        if lib.ivf_scan_fused_tile_pairs() != PT:
+            raise RuntimeError("ivf_scan_fused: kernel tile size != PT")
+        _LIB = lib
+    return _LIB
+
+
+def _check(t: torch.Tensor, dtype, name: str, dev) -> None:
+    if t.dtype != dtype or t.device != dev or not t.is_contiguous():
+        raise ValueError(f"ivf_scan_fused: {name} must be a contiguous "
+                         f"{dtype} tensor on {dev} (got {t.dtype} on "
+                         f"{t.device})")
+
+
+def scan_pairs(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
+               invlists: PackedInvLists, kp: int, similarity: bool):
+    """Per-pair exact top-kp: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. Returns (dist, pos) of shape
+    (npairs_pad, kp)."""
+    global LAUNCHES
+    dev = xq_bf16.device
+    if dev.type == "cpu":
+        return scan_pairs_reference(xq_bf16, qn, plan, invlists, kp,
+                                    similarity)
+    if dev.type != "cuda":
+        raise ValueError(f"ivf_scan_fused: unsupported device {dev}")
+    d = xq_bf16.shape[1]
+    B = invlists.block_size
+    if d % 8:
+        raise ValueError(f"ivf_scan_fused: d must be a multiple of 8 "
+                         f"(got {d})")
+    if not 1 <= kp <= KP_MAX:
+        raise ValueError(f"ivf_scan_fused: kp must be in [1, {KP_MAX}] "
+                         f"(got {kp})")
+    if (invlists.nblocks + 1) * B >= 2**31:
+        raise ValueError("ivf_scan_fused: stream exceeds int32 positions")
+    if plan.pair_q.shape[0] != plan.ntiles * PT:
+        raise ValueError(f"ivf_scan_fused: plan must be tiled by PT={PT}")
+    _check(xq_bf16, torch.bfloat16, "xq_bf16", dev)
+    _check(qn, torch.float32, "qn", dev)
+    for name in ("pair_q", "pstart", "pend", "tile_bs", "tile_nb"):
+        _check(getattr(plan, name), torch.int32, name, dev)
+    _check(invlists.data_bf16, torch.bfloat16, "data_bf16", dev)
+    _check(invlists.ids, torch.int32, "ids", dev)
+    _check(invlists.norms, torch.float32, "norms", dev)
+
+    lib = _lib()
+    out_d = torch.empty((plan.ntiles * PT, kp), dtype=torch.float32,
+                        device=dev)
+    out_p = torch.empty((plan.ntiles * PT, kp), dtype=torch.int32,
+                        device=dev)
+    if plan.ntiles == 0:
+        return out_d, out_p
+    err = lib.ivf_scan_fused(
+        xq_bf16.data_ptr(), qn.data_ptr(), plan.pair_q.data_ptr(),
+        plan.pstart.data_ptr(), plan.pend.data_ptr(),
+        plan.tile_bs.data_ptr(), plan.tile_nb.data_ptr(),
+        invlists.data_bf16.data_ptr(), invlists.ids.data_ptr(),
+        invlists.norms.data_ptr(),
+        plan.ntiles, d, B, kp, int(similarity),
+        out_d.data_ptr(), out_p.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ivf_scan_fused: kernel launch failed with "
+                           f"CUDA error {err}")
+    LAUNCHES += 1
+    return out_d, out_p
+
+
+# ---------------------------------------------------------------------------
+# Step 3 and the public entry points
+# ---------------------------------------------------------------------------
+
+def default_kp(k: int) -> int:
+    """Per-pair width a bit above k, so the bf16 phase keeps every true
+    top-k candidate for the exact re-rank (reference :327)."""
+    return max(k, min(2 * k, k + 6))
+
+
+def merge_pairs(xq: torch.Tensor, pair_dist: torch.Tensor,
+                pair_pos: torch.Tensor, plan: PairPlan,
+                invlists: PackedInvLists, k: int, nprobe: int,
+                similarity: bool, refine: int):
+    """Step 3: un-sort, merge per query, exact f32 re-rank, map positions
+    to row ids. Returns (D (nq, k) f32, I (nq, k) int64)."""
+    nq, d = xq.shape
+    kp = pair_dist.shape[1]
+    npairs = nq * nprobe
+    pd = torch.empty((npairs, kp), dtype=pair_dist.dtype,
+                     device=pair_dist.device)
+    pp = torch.empty((npairs, kp), dtype=pair_pos.dtype,
+                     device=pair_pos.device)
+    pd[plan.order] = pair_dist[:npairs]
+    pp[plan.order] = pair_pos[:npairs]
+    pd = pd.view(nq, nprobe * kp)
+    pp = pp.view(nq, nprobe * kp).long()
+    width = nprobe * kp
+    if refine and refine > 1:
+        R = max(min(refine * k, width), min(k, width))
+        sel = torch.sort(pd, dim=1, stable=True)[1][:, :R]
+        cand = torch.gather(pp, 1, sel)                        # (nq, R)
+        safe = cand.clamp(min=0)
+        rows = invlists.data.view(-1, d)[safe]                 # (nq, R, d)
+        ipx = torch.bmm(rows, xq[:, :, None])[:, :, 0]
+        if similarity:
+            dis = -ipx
+        else:
+            rn = invlists.norms.view(-1)[safe]
+            qn2 = (xq * xq).sum(1, keepdim=True)
+            dis = torch.clamp(qn2 + rn - 2.0 * ipx, min=0.0)
+        dis = torch.where(cand >= 0, dis, float("inf"))
+        kk = min(k, R)
+        out_d, sel2 = torch.sort(dis, dim=1, stable=True)
+        out_d, out_p = out_d[:, :kk], torch.gather(cand, 1, sel2[:, :kk])
+    else:
+        kk = min(k, width)
+        out_d, sel = torch.sort(pd, dim=1, stable=True)
+        out_d, out_p = out_d[:, :kk], torch.gather(pp, 1, sel[:, :kk])
+    if kk < k:
+        out_d = torch.cat([out_d, out_d.new_full((nq, k - kk),
+                                                 float("inf"))], 1)
+        out_p = torch.cat([out_p, out_p.new_full((nq, k - kk), -1)], 1)
+    ids_flat = invlists.ids.view(-1)
+    out_i = torch.where(out_p >= 0, ids_flat[out_p.clamp(min=0)].long(), -1)
+    out_d = torch.where(out_p >= 0, out_d, float("inf"))
+    if similarity:
+        out_d = -out_d                 # back to user-facing (descending)
+    return out_d, out_i
+
+
+def _scan(xq, probes, invlists, k, metric, refine, kp, pair_fn, pt):
+    similarity = D.is_similarity_metric(metric)
+    xq = xq.float()
+    kp = int(kp) if kp else default_kp(k)
+    plan = plan_pairs(probes, invlists, pt)
+    qn = torch.zeros(xq.shape[0], device=xq.device) if similarity \
+        else D.l2_norms(xq)
+    pd, pp = pair_fn(xq.to(torch.bfloat16).contiguous(), qn.contiguous(),
+                     plan, invlists, kp, similarity)
+    Dv, Iv = merge_pairs(xq, pd, pp, plan, invlists, k, probes.shape[1],
+                         similarity, refine)
+    return Dv, Iv, plan.ndis
+
+
+def scan_invlists_fused(xq: torch.Tensor, probes: torch.Tensor,
+                        invlists: PackedInvLists, k: int,
+                        metric: int = D.METRIC_L2, *, refine: int = 4,
+                        kp: int = 0):
+    """List-major fused IVF scan (see module docstring).
+
+    Args:
+      xq: (nq, d) queries on the invlists' device. probes: (nq, nprobe)
+        list ids, -1 entries skipped. refine: the top refine*k merged
+        candidates are re-ranked in exact f32 (refine <= 1 keeps the bf16
+        distances). kp: per-pair width (0 = default_kp(k)).
+    Returns (D, I, ndis): (nq, k) distances and stored row ids (int64,
+    -1 for empty slots) and the scanned row count as a 0-d tensor.
+    """
+    return _scan(xq, probes, invlists, k, metric, refine, kp, scan_pairs, PT)
+
+
+def scan_invlists_fused_reference(xq: torch.Tensor, probes: torch.Tensor,
+                                  invlists: PackedInvLists, k: int,
+                                  metric: int = D.METRIC_L2, *,
+                                  refine: int = 4, kp: int = 0,
+                                  pt: int = PT):
+    """`scan_invlists_fused` with the plain version in place of the kernel
+    on any device; the result does not depend on the tile size ``pt``."""
+    return _scan(xq, probes, invlists, k, metric, refine, kp,
+                 scan_pairs_reference, pt)

@@ -37,7 +37,9 @@ def _sources():
 def test_sources_found():
     names = {os.path.relpath(p, PKG) for p in _sources()}
     assert {"__init__.py", "ops/ivf_scan_fused.py",
-            "csrc/ivf_scan_fused.cu", "kernels/__init__.py"} <= names
+            "csrc/ivf_scan_fused.cu", "kernels/__init__.py",
+            "ops/flat_knn_fused.py", "csrc/flat_knn_fused.cu",
+            "csrc/reservoir_topk.cu", "models/selectors.py"} <= names
 
 
 @pytest.mark.parametrize("needle", ["import jax", "tpu_ann."])

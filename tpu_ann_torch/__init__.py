@@ -6,14 +6,30 @@ binding). Indexes hold tensors on one explicit device, ``device="cuda"``
 by default; nothing falls back to the CPU. This package never imports
 jax or tpu_ann: only the tests import both.
 
-Covered today: the IVF-Flat search path — make_ivf_flat -> train
-(k-means) -> add (assign + block-packed invlists) -> search /
-search_stats, through the hand-written fused invlist scan.
+Covered today:
+- the IVF-Flat search path — make_ivf_flat -> train (k-means) -> add
+  (assign + block-packed invlists) -> search / search_stats, through the
+  hand-written fused invlist scan (K3);
+- the fused flat search path — an IndexFlat opted into bf16 search
+  (compute_dtype="bfloat16", approx_topk=True) on a CUDA device searches
+  through flat_knn_fused: the reservoir scan (K1), reservoir_topk (K2)
+  and the exact f32 re-rank; IDSelectors filter flat searches.
 """
 
 from .models import (  # noqa: F401
     Index,
+    IDSelector,
+    IDSelectorAll,
+    IDSelectorAnd,
+    IDSelectorArray,
+    IDSelectorBatch,
+    IDSelectorBitmap,
+    IDSelectorNot,
+    IDSelectorOr,
+    IDSelectorRange,
+    IDSelectorXOr,
     IndexFlat,
+    IndexFlat1D,
     IndexFlatIP,
     IndexFlatL2,
     IndexIVF,
@@ -30,6 +46,11 @@ from .ops.distances import (  # noqa: F401
     METRIC_INNER_PRODUCT,
     METRIC_L2,
     knn,
+)
+from .ops.flat_knn_fused import (  # noqa: F401
+    flat_knn_fused,
+    pack_flat_db,
+    reservoir_topk,
 )
 from .ops.ivf_scan import PackedInvLists, pack_invlists  # noqa: F401
 from .ops.ivf_scan_fused import (  # noqa: F401

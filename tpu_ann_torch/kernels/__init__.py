@@ -14,6 +14,7 @@ shared memory, spills) is kept beside each library as ``.log``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import glob
 import hashlib
@@ -87,3 +88,11 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     _LIBS[name] = lib
     return lib
+
+
+def load_libraries(names) -> dict:
+    """Build (one nvcc per source, all started together) and load several
+    libraries; returns {name: library}."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {n: pool.submit(load_library, n) for n in names}
+        return {n: f.result() for n, f in futures.items()}

@@ -8,10 +8,27 @@ from .base import (  # noqa: F401
     Timer,
     indexIVF_stats,
 )
-from .flat import IndexFlat, IndexFlatIP, IndexFlatL2  # noqa: F401
+from .flat import (  # noqa: F401
+    IndexFlat,
+    IndexFlat1D,
+    IndexFlatIP,
+    IndexFlatL2,
+)
 from .ivf import (  # noqa: F401
     IndexIVF,
     IndexIVFFlat,
     SearchParametersIVF,
     make_ivf_flat,
+)
+from .selectors import (  # noqa: F401
+    IDSelector,
+    IDSelectorAll,
+    IDSelectorAnd,
+    IDSelectorArray,
+    IDSelectorBatch,
+    IDSelectorBitmap,
+    IDSelectorNot,
+    IDSelectorOr,
+    IDSelectorRange,
+    IDSelectorXOr,
 )

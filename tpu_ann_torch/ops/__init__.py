@@ -1,3 +1,10 @@
-"""Operators: distances, k-means, packed invlists and the fused IVF scan."""
+"""Operators: distances, k-means, packed invlists, the fused IVF scan and
+the fused flat scan."""
 
-from . import distances, ivf_scan, ivf_scan_fused, kmeans  # noqa: F401
+from . import (  # noqa: F401
+    distances,
+    flat_knn_fused,
+    ivf_scan,
+    ivf_scan_fused,
+    kmeans,
+)

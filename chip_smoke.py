@@ -30,14 +30,34 @@ Phases, one line each; any failure raises and exits non-zero:
   6. K1 and K2 vs their plain torch versions at the flat path's shapes
      (1024 and 10k queries x 1M rows, W=2048 and 1024; k=10 and 40): bit
      for bit on the integer data; kernel and plain times at both batch
-     sizes.
-The last two lines are the kernels' JSON record and {"ok": true, ...}.
+     sizes; torch.topk on K2's input as its one-call yardstick.
+  7. out-of-core path on the same data: the base written to an np.memmap
+     in a temporary directory (removed at the end), the pinned
+     host-to-device bandwidth measured alone, IndexIVFFlatPaged(128, 4096,
+     <tmp>/index) -> train (10 iterations) -> add(memmap) -> a fresh
+     IndexIVFFlatPaged.load -> search / search_stats at nprobe 16 / 32 /
+     64, k=10, in three settings: the default window (8192 blocks), 1024-
+     block windows, and 1024-block windows over a resident half (the hot
+     tier). Recall@10 must reach the IVF floors; (D, I) must equal K3's
+     scan over a device copy of the same directory's arrays bit for bit;
+     each search launches K4 once per planned call and no K3 / K1 / K2.
+  8. K4 vs its plain torch version at the path's shapes (10k queries,
+     nprobe 32, the first call of each of the two default windows, the
+     second merging into the first's result), and on the same window
+     padded from d=96: bit for bit; kernel and plain times.
+The last two lines are the kernels' JSON record (each with its time,
+its plain version's, the card's bound for the same work and, where one
+torch call computes the same function, that call's time) and
+{"ok": true, ...}.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +68,7 @@ from tpu_ann_torch import kernels
 from tpu_ann_torch.ops import distances as TD
 from tpu_ann_torch.ops import flat_knn_fused as FK
 from tpu_ann_torch.ops import ivf_scan_fused as F
+from tpu_ann_torch.ops import ivf_scan_paged as P
 
 # recall@10 floors at nprobe 16 / 32 / 64: the JAX package's benchmark
 # recalls on this workload (0.8831 / 0.9718 / 0.9978) less 0.01 for
@@ -58,10 +79,16 @@ RECALL_FLOORS = {16: 0.8731, 32: 0.9618, 64: 0.9878}
 # the refine route, its 0.99516 at W=1024 (benchs/logs/r5_queue1.jsonl)
 # less about 0.001; IP on float data has no reference value
 FLAT_FLOORS = {"exact": 0.9969, "refine": 0.9942, "ip_float": 0.98}
-KERNELS = ("ivf_scan_fused", "flat_knn_fused", "reservoir_topk")
+KERNELS = ("ivf_scan_fused", "flat_knn_fused", "reservoir_topk",
+           "ivf_scan_paged")
 D, NLIST, K = 128, 4096, 10
 NB, NT, NQ = 1_000_000, 100_000, 10_000
 TIMED_REPS = 3
+# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s
+# and bf16 tensor-core FLOP/s. A kernel's bound is the larger of the bytes
+# it must move over the first and the products it must compute over the
+# second, both counted from this run's inputs.
+HBM_BPS, BF16_FLOPS = 3.35e12, 989e12
 
 
 def phase(name: str, **fields) -> None:
@@ -96,12 +123,48 @@ def host_ms(fn, reps: int) -> float:
 
 def reset_counts() -> None:
     F.LAUNCHES = 0
+    P.LAUNCHES = 0
     for name in FK.LAUNCHES:
         FK.LAUNCHES[name] = 0
 
 
 def counts() -> dict:
-    return {"ivf_scan_fused": F.LAUNCHES, **FK.LAUNCHES}
+    return {"ivf_scan_fused": F.LAUNCHES, **FK.LAUNCHES,
+            "ivf_scan_paged": P.LAUNCHES}
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for the work: bytes over HBM
+    bandwidth or bf16 products over the tensor-core peak, the larger."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def pair_scan_work(plan, ids, B, d, kp, lo, hi, ta=0, tb=None,
+                   running=False):
+    """Bytes and bf16 products the per-pair scan of tiles [ta, tb) needs
+    over stream blocks [lo, hi): every valid row of a pair's clamped range
+    scored against its query, each needed block read once, the queries,
+    the plan and the (pairs, kp) result written once (and, ``running``,
+    read once). ``ids`` (nblocks, B) are the blocks [lo, hi) of the
+    stream."""
+    tb = plan.ntiles if tb is None else tb
+    sl = slice(ta * F.PT, tb * F.PT)
+    ps = plan.pstart[sl].long().clamp(lo, hi) - lo
+    pe = plan.pend[sl].long().clamp(lo, hi) - lo
+    csum = torch.zeros(hi - lo + 1, dtype=torch.long, device=ids.device)
+    csum[1:] = torch.cumsum((ids[:hi - lo] >= 0).sum(1), 0)
+    rows = int((csum[pe] - csum[ps]).sum())
+    mark = torch.zeros(hi - lo + 1, dtype=torch.long, device=ids.device)
+    mark.index_add_(0, ps, torch.ones_like(ps))
+    mark.index_add_(0, pe, -torch.ones_like(pe))
+    blocks = int((torch.cumsum(mark, 0) > 0).sum())
+    npairs = ps.numel()
+    nq = int(plan.pair_q.max()) + 1
+    nbytes = (blocks * B * (2 * d + 8) + nq * (2 * d + 4) + npairs * 12
+              + npairs * kp * 8 * (2 if running else 1))
+    return nbytes, 2.0 * rows * d
 
 
 def assert_equal(name, a, b) -> None:
@@ -300,12 +363,16 @@ def main() -> None:
         "max_abs_err": max_abs_err_k3,
         "ms": ms,
         "plain_ms": plain_ms,
+        **bound(*pair_scan_work(plan, il.ids, il.block_size, D, kp, 0,
+                                il.nblocks)),
+        "library_ms": None,
     }
     del index, il, il_f, data_f
     torch.cuda.empty_cache()
 
     flat_records = flat_phases(xb, xq, gt, dev)
-    print(json.dumps({"kernels": [k3, *flat_records]}), flush=True)
+    k4 = paged_phases(xb, xt, xq, gt, dev)
+    print(json.dumps({"kernels": [k3, *flat_records, k4]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -391,6 +458,7 @@ def flat_phases(xb, xq, gt, dev) -> list:
     qv_10k = qv_10k.to(torch.bfloat16)
     k1_err = k2_err = 0.0
     k1, k2 = {}, {}
+    k2_library_ms = None
     for W in (2048, 1024):
         v1, p1 = FK.flat_reservoir(qv, data, bias, W)
         v0, p0 = FK.flat_reservoir_reference(qv, data, bias, W)
@@ -431,11 +499,21 @@ def flat_phases(xb, xq, gt, dev) -> list:
                                   20),
                 "plain_ms_10k": host_ms(
                     lambda: FK.reservoir_topk_reference(rv10, rp10, k), 5)}
+            if (W, k) == (2048, 10):
+                # one torch call selecting the same k smallest of the row
+                k2_library_ms = cuda_ms(
+                    lambda: torch.topk(v1, k, dim=1, largest=False), 20)
+        if W == 2048:
+            k1_bound = bound(data.numel() * 2 + bias.numel() * 4
+                             + qv.numel() * 2 + v1.numel() * 8,
+                             2.0 * len(q) * index.ntotal * D)
+            k2_bound = bound(v1.numel() * 8 + len(q) * 10 * 8, 0.0)
         del rv10, rp10
     phase("flat_kernel_check", nq=[len(q), NQ], nb=index.ntotal,
           k1_equal=True, k2_equal=True,
           k1={str(W): t for W, t in k1.items()},
-          k2={f"W{W}_k{k}": t for (W, k), t in k2.items()})
+          k2={f"W{W}_k{k}": t for (W, k), t in k2.items()},
+          k2_torch_topk_ms=k2_library_ms)
 
     return [{
         "name": "flat_knn_fused",
@@ -446,6 +524,8 @@ def flat_phases(xb, xq, gt, dev) -> list:
         "max_abs_err": k1_err,
         "ms": k1[2048]["ms"],
         "plain_ms": k1[2048]["plain_ms"],
+        **k1_bound,
+        "library_ms": None,
     }, {
         "name": "reservoir_topk",
         "route": "cuda",
@@ -455,7 +535,232 @@ def flat_phases(xb, xq, gt, dev) -> list:
         "max_abs_err": k2_err,
         "ms": k2[(2048, 10)]["ms"],
         "plain_ms": k2[(2048, 10)]["plain_ms"],
+        **k2_bound,
+        "library_ms": k2_library_ms,
     }]
+
+
+def pinned_gbps(dev, nbytes: int = 1 << 28) -> float:
+    """Host-to-device bandwidth of one pinned buffer, alone (GB/s)."""
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), 5)
+    return nbytes / ms / 1e6
+
+
+# (name, window_blocks, the first half of the stream resident on the
+# device): the default window, many windows with straddling tiles, and
+# the hot tier
+PAGED_SETTINGS = (("default", 8192, False), ("w1024", 1024, False),
+                  ("hot_half", 1024, True))
+
+
+def paged_search(idx, xq, gt, setting, nprobe):
+    """Phase 7 for one setting and nprobe: a warm-up, TIMED_REPS timed
+    searches (numpy in and out) and one search_stats; each search is
+    stats["calls"] K4 launches and nothing else."""
+    p = T.SearchParametersIVF(nprobe=nprobe)
+    before = counts()
+    Dv, Iv = idx.search(xq, K, params=p)                  # warm-up
+    times = []
+    for _ in range(TIMED_REPS):
+        t1 = time.perf_counter()
+        Dv, Iv = idx.search(xq, K, params=p)
+        times.append(time.perf_counter() - t1)
+    Ds, Is, st = idx.search_stats(xq, K, params=p)
+    now = counts()
+    n_calls = 2 + TIMED_REPS
+    ex = st.extra
+    k4 = now["ivf_scan_paged"] - before["ivf_scan_paged"]
+    if k4 != n_calls * ex["calls"]:
+        raise AssertionError(f"{setting} nprobe={nprobe}: {k4} K4 launches "
+                             f"for {n_calls} searches of {ex['calls']} "
+                             f"calls")
+    others = {k: now[k] - before[k] for k in now if k != "ivf_scan_paged"}
+    if any(others.values()):
+        raise AssertionError(f"{setting}: the paged path launched {others}")
+    if not (Dv.shape == Iv.shape == (NQ, K) and np.isfinite(Dv).all()
+            and (Iv >= 0).all() and (Iv < NB).all()):
+        raise AssertionError(f"{setting} nprobe={nprobe}: malformed results")
+    if not (np.array_equal(Ds, Dv) and np.array_equal(Is, Iv)):
+        raise AssertionError("search and search_stats disagree")
+    rec = T.recall_k_at_k(Iv, gt, K)
+    med = float(np.median(times))
+    phase("paged_search", setting=setting, nprobe=nprobe, recall_at_10=rec,
+          floor=RECALL_FLOORS[nprobe], qps=NQ / med,
+          search_ms=[t * 1e3 for t in times],
+          coarse_ms=st.quantization_us / 1e3,
+          list_scan_ms=st.list_scan_us / 1e3,
+          windows_ms=ex["windows_ms"], stage_ms=ex["stage_ms"],
+          upload_ms=ex["upload_ms"], gather_ms=ex["gather_ms"],
+          rerank_ms=ex["rerank_ms"], windows=ex["windows"],
+          calls=ex["calls"], windows_resident=ex["windows_resident"],
+          bytes_uploaded=ex["bytes_uploaded"],
+          upload_gbps=(ex["bytes_uploaded"] / ex["upload_ms"] / 1e6
+                       if ex["upload_ms"] else None),
+          launches=k4)
+    if rec < RECALL_FLOORS[nprobe]:
+        raise AssertionError(f"{setting}: recall@10 {rec} < floor "
+                             f"{RECALL_FLOORS[nprobe]} at nprobe {nprobe}")
+    return Dv, Iv, ex
+
+
+def paged_phases(xb, xt, xq, gt, dev) -> dict:
+    """Phases 7 and 8: the out-of-core path and K4; returns K4's record
+    of the kernels line. The index lives in a temporary directory that is
+    removed at the end."""
+    tmp = tempfile.mkdtemp(prefix="tpu_ann_paged_")
+    try:
+        return _paged_phases(xb, xt, xq, gt, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _paged_phases(xb, xt, xq, gt, dev, tmp) -> dict:
+    # -- 7. out-of-core path at real size ---------------------------------
+    link_gbps = pinned_gbps(dev)
+    t0 = time.perf_counter()
+    xb_mm = np.memmap(os.path.join(tmp, "xb.f32"), mode="w+",
+                      dtype=np.float32, shape=xb.shape)
+    xb_mm[:] = xb
+    xb_mm.flush()
+    path = os.path.join(tmp, "index")
+    t_write = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    build = T.IndexIVFFlatPaged(D, NLIST, path)
+    build.train(xt)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build.add(xb_mm)
+    t_add = time.perf_counter() - t0
+    del build, xb_mm
+    if any(counts().values()):
+        raise AssertionError(f"the paged build launched kernels: {counts()}")
+    idx = T.IndexIVFFlatPaged.load(path)
+    pil = idx.invlists
+    phase("paged_build", memmap_write_s=t_write, train_s=t_train,
+          add_s=t_add, nblocks=pil.nblocks, dp=pil.dp,
+          stream_bytes=pil.nbytes_stream(), pinned_link_gbps=link_gbps)
+
+    results = {}
+    reset_counts()
+    for setting, window, hot in PAGED_SETTINGS:
+        idx.window_blocks = window
+        idx.resident_blocks = pil.nblocks // 2 if hot else 0
+        idx._resident = None
+        for nprobe in (16, 32, 64):
+            results[setting, nprobe] = paged_search(idx, xq, gt, setting,
+                                                    nprobe)
+        ex = results[setting, 64][2]
+        if setting != "default" and ex["windows"] < 2:
+            raise AssertionError(f"{setting}: {ex['windows']} windows")
+        if setting == "hot_half" and ex["windows_resident"] < 1:
+            raise AssertionError("the hot tier served no window")
+    paged_launches = counts()
+    if paged_launches["ivf_scan_paged"] == 0:
+        raise AssertionError("the paged path did not run K4")
+    idx.resident_blocks, idx._resident = 0, None
+    torch.cuda.empty_cache()
+
+    # K3 over a device copy of the same directory's arrays, same probes
+    il = T.PackedInvLists.from_arrays(pil.data_f32, pil.ids, pil.norms,
+                                      pil.list_block_start, pil.list_nblocks,
+                                      device=dev)
+    xq_dev = torch.from_numpy(xq).to(dev)
+    for nprobe in (16, 32, 64):
+        _, probes = TD.knn(xq_dev, idx._cent_dev, nprobe)
+        D3, I3, _ = F.scan_invlists_fused(xq_dev, probes, il, K)
+        D3, I3 = D3.cpu().numpy(), I3.cpu().numpy()
+        for setting, _, _ in PAGED_SETTINGS:
+            Dp, Ip, _ = results[setting, nprobe]
+            if not (np.array_equal(Dp, D3) and np.array_equal(Ip, I3)):
+                raise AssertionError(
+                    f"{setting} nprobe={nprobe}: paged (D, I) differ from "
+                    f"K3's in {int((Dp != D3).sum())} / "
+                    f"{int((Ip != I3).sum())} entries")
+    del il
+    torch.cuda.empty_cache()
+    phase("paged_path", launches=paged_launches, equal_to_k3=True)
+
+    # -- 8. K4 vs its plain version at the path's shapes -------------------
+    _, probes = TD.knn(xq_dev, idx._cent_dev, 32)
+    plan = F.plan_pairs(probes, pil)
+    kp = F.default_kp(K)
+    qn = TD.l2_norms(xq_dev)
+    q16 = xq_dev.to(torch.bfloat16)
+    tbs = plan.tile_bs.long().cpu().numpy()
+    tbe = tbs + plan.tile_nb.long().cpu().numpy()
+    W = PAGED_SETTINGS[0][1]
+    entries = list(P._plan_windows(tbs, tbe, W, idx.tile_batch))
+    firsts = [e for i, e in enumerate(entries)
+              if i == 0 or e[0] != entries[i - 1][0]]
+    if len(firsts) < 2:
+        raise AssertionError("phase 8 needs two windows")
+    rd = torch.full((plan.ntiles * F.PT, kp), float("inf"), device=dev)
+    rp = torch.full(rd.shape, -1, dtype=torch.int32, device=dev)
+    k4_err, checks = 0.0, []
+    for w0, ta, tb in firsts[:2]:
+        win = P.window_of(pil, w0, min(W, pil.nblocks - w0), dev)
+        d96 = P.Window(win.data_bf16.clone(), win.ids, None)
+        d96.data_bf16[..., 96:] = 0
+        d96.norms = (d96.data_bf16.float() ** 2).sum(-1)
+        q96 = q16.clone()
+        q96[:, 96:] = 0
+        qn96 = (q96.float() ** 2).sum(1)
+        for name, w, q, n in (("d128", win, q16, qn), ("d96", d96, q96,
+                                                        qn96)):
+            r1 = (rd.clone(), rp.clone())
+            r0 = (rd.clone(), rp.clone())
+            P.scan_window(q, n, plan, w, w0, ta, tb, *r1, False)
+            P.scan_window_reference(q, n, plan, w, w0, ta, tb, *r0, False)
+            assert_equal(f"K4 {name} w0={w0} distances", r0[0], r1[0])
+            assert_equal(f"K4 {name} w0={w0} positions", r0[1], r1[1])
+            k4_err = max(k4_err, max_abs_err(r0[0], r1[0]))
+            if name == "d128":
+                nxt = r1
+                run = (rd.clone(), rp.clone())
+
+                def reset_run():
+                    run[0].copy_(rd)
+                    run[1].copy_(rp)
+
+                def call():
+                    reset_run()
+                    P.scan_window(q, n, plan, w, w0, ta, tb, *run, False)
+
+                def plain():
+                    reset_run()
+                    P.scan_window_reference(q, n, plan, w, w0, ta, tb,
+                                            *run, False)
+
+                copy_ms = cuda_ms(reset_run, 20)
+                checks.append({
+                    "w0": w0, "tiles": [ta, tb], "nblocks": w.nblocks,
+                    "ms": cuda_ms(call, 10) - copy_ms,
+                    "plain_ms": host_ms(plain, 2) - copy_ms,
+                    **bound(*pair_scan_work(plan, w.ids, w.block_size, D,
+                                            kp, w0, w0 + w.nblocks, ta, tb,
+                                            running=True))})
+        rd, rp = nxt
+        del win, d96
+    phase("paged_kernel_check", nq=NQ, nprobe=32, kp=kp, ntiles=plan.ntiles,
+          equal=True, d96_equal=True, max_abs_err=k4_err, calls=checks)
+    first = checks[0]
+    return {
+        "name": "ivf_scan_paged",
+        "route": "cuda",
+        "source": "tpu_ann_torch/csrc/ivf_scan_paged.cu",
+        "replaces": "tpu_ann/ops/ivf_scan_paged.py:339",
+        "launches": paged_launches["ivf_scan_paged"],
+        "max_abs_err": k4_err,
+        "ms": first["ms"],
+        "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"],
+        "library_ms": None,
+    }
 
 
 if __name__ == "__main__":

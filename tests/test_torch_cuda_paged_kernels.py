@@ -1,0 +1,125 @@
+"""The out-of-core window scan (K4, csrc/ivf_scan_paged.cu) against its
+plain torch version, and the pinned double-buffered pipeline against the
+synchronous path, on the card. Without a CUDA device these tests skip.
+
+Run on a GPU machine (no jax needed, hence --noconftest):
+    python -m pytest --noconftest -q tests/test_torch_cuda_paged_kernels.py
+
+Integer-valued data makes bf16 x bf16 -> f32 scores exact in both, and
+both keep the exact per-pair top-kp ordered by (distance, position), so
+every running result must be equal bit for bit after every call."""
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_ann_torch.ops import distances as TD
+from tpu_ann_torch.ops import ivf_scan_fused as F
+from tpu_ann_torch.ops import ivf_scan_paged as P
+
+pytestmark = pytest.mark.cuda
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+def _paged(path, d, B=128, nlist=40, n=4000, nq=300, nprobe=6, seed=0):
+    """An integer-valued paged index with 3 empty lists and queries whose
+    probes include the empty lists and some -1."""
+    rs = np.random.RandomState(seed)
+    xb = rs.randint(0, 256, size=(n, d)).astype(np.float32)
+    xq = rs.randint(0, 256, size=(nq, d)).astype(np.float32)
+    assign = rs.randint(nlist - 3, size=n)
+    sizes = np.bincount(assign, minlength=nlist)
+    pil = P.create_paged_invlists(path, nlist, sizes, d, block_size=B)
+    P.paged_add_chunk(pil, np.zeros(nlist, np.int64), xb, np.arange(n),
+                      assign)
+    probes = np.stack([rs.permutation(nlist)[:nprobe] for _ in range(nq)])
+    probes[::5, -1] = -1
+    probes[::7, 0] = nlist - 1                 # an empty list
+    return pil, xq, probes.astype(np.int32)
+
+
+@pytest.mark.parametrize("metric", [TD.METRIC_L2, TD.METRIC_INNER_PRODUCT])
+@pytest.mark.parametrize("W", [1, 3, 1024])
+@pytest.mark.parametrize("kp", [1, 10, 16, 32])
+@pytest.mark.parametrize("d", [32, 96, 128])
+def test_k4_equals_plain_every_call(tmp_path, d, kp, W, metric):
+    dev = _cuda()
+    pil, xq, probes = _paged(str(tmp_path / "p"), d)
+    sim = TD.is_similarity_metric(metric)
+    xq_t = torch.from_numpy(xq).to(dev)
+    plan = F.plan_pairs(torch.from_numpy(probes).long().to(dev), pil)
+    qn = torch.zeros(len(xq), device=dev) if sim else TD.l2_norms(xq_t)
+    xq_p = torch.zeros((len(xq), pil.dp), device=dev)
+    xq_p[:, :d] = xq_t
+    q16 = xq_p.bfloat16()
+    whole = P.upload_resident(pil, pil.nblocks, dev)
+    tbs = plan.tile_bs.long().cpu().numpy()
+    tbe = tbs + plan.tile_nb.long().cpu().numpy()
+    entries = list(P._plan_windows(tbs, tbe, W, 3))
+    assert entries
+    rd = torch.full((plan.ntiles * F.PT, kp), float("inf"), device=dev)
+    rp = torch.full(rd.shape, -1, dtype=torch.int32, device=dev)
+    ref = (rd.clone(), rp.clone())
+    before = P.LAUNCHES
+    for w0, ta, tb in entries:
+        win = whole.blocks(w0, min(W, pil.nblocks - w0))
+        P.scan_window(q16, qn, plan, win, w0, ta, tb, rd, rp, sim)
+        P.scan_window_reference(q16, qn, plan, win, w0, ta, tb, *ref, sim)
+        torch.cuda.synchronize()
+        assert torch.equal(rd, ref[0]), (w0, ta, tb)
+        assert torch.equal(rp, ref[1]), (w0, ta, tb)
+    assert P.LAUNCHES - before == len(entries)
+    assert (rp >= 0).any()
+    # the same per-pair result as K3's plain version over the whole stream
+    d3, p3 = F.scan_pairs_reference(q16, qn, plan, whole, kp, sim)
+    assert torch.equal(rd, d3) and torch.equal(rp, p3)
+
+
+@pytest.mark.parametrize("metric", [TD.METRIC_L2, TD.METRIC_INNER_PRODUCT])
+@pytest.mark.parametrize("W,TB", [(1, 1), (3, 2), (4, 4096), (8192, 4096)])
+def test_pinned_pipeline_equals_synchronous(tmp_path, metric, W, TB):
+    """The pinned, double-buffered pipeline on the card gives the same
+    (D, I) as the CPU path (plain copies, the plain version), as the
+    resident tier (device views, no copies), and as K3 over the same
+    content."""
+    dev = _cuda()
+    pil, xq, probes = _paged(str(tmp_path / "p"), 96)
+    s = {}
+    before = P.LAUNCHES
+    D1, I1, n1 = P.scan_invlists_paged(xq, probes, pil, 10, metric,
+                                       window_blocks=W, TB=TB, stats=s,
+                                       device=dev)
+    assert P.LAUNCHES - before == s["calls"]
+    D0, I0, n0 = P.scan_invlists_paged(xq, probes, pil, 10, metric,
+                                       window_blocks=W, TB=TB, device="cpu")
+    res = P.upload_resident(pil, pil.nblocks, dev)
+    s2 = {}
+    D2, I2, _ = P.scan_invlists_paged(xq, probes, pil, 10, metric,
+                                      window_blocks=W, TB=TB, resident=res,
+                                      stats=s2)
+    il = F.PackedInvLists.from_arrays(pil.data_f32, pil.ids, pil.norms,
+                                      pil.list_block_start,
+                                      pil.list_nblocks, device=dev)
+    D3, I3, _ = F.scan_invlists_fused(torch.from_numpy(xq).to(dev),
+                                      torch.from_numpy(probes).to(dev), il,
+                                      10, metric)
+    for Dx, Ix in ((D0, I0), (D2, I2), (D3.cpu().numpy(), I3.cpu().numpy())):
+        np.testing.assert_array_equal(D1, Dx)
+        np.testing.assert_array_equal(I1, Ix)
+    assert n1 == n0
+    if W < pil.nblocks:
+        assert s["windows"] >= 2 and s["bytes_uploaded"] > 0
+    assert s2["bytes_uploaded"] == 0
+    assert s2["windows_resident"] == s2["windows"]
+
+
+def test_k4_rejects_unsupported(tmp_path):
+    dev = _cuda()
+    pil, xq, probes = _paged(str(tmp_path / "p"), 32, n=500, nq=10)
+    with pytest.raises(ValueError):
+        P.scan_invlists_paged(xq, probes, pil, 10, kp=33, device=dev)

@@ -1,5 +1,6 @@
 """The PyTorch port (tpu_ann_torch) stands alone: importing it loads
-neither jax nor the JAX package, and no source file of it refers to them."""
+neither jax, the JAX package nor ml_dtypes (the GPU machine has none of
+them), and no source file of it refers to them."""
 
 import os
 import subprocess
@@ -18,7 +19,7 @@ def test_import_loads_no_jax():
         "import tpu_ann_torch\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
-        "'tpu_ann'))\n"
+        "'tpu_ann', 'ml_dtypes'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -39,10 +40,13 @@ def test_sources_found():
     assert {"__init__.py", "ops/ivf_scan_fused.py",
             "csrc/ivf_scan_fused.cu", "kernels/__init__.py",
             "ops/flat_knn_fused.py", "csrc/flat_knn_fused.cu",
-            "csrc/reservoir_topk.cu", "models/selectors.py"} <= names
+            "csrc/reservoir_topk.cu", "models/selectors.py",
+            "ops/ivf_scan_paged.py", "csrc/ivf_scan_paged.cu",
+            "csrc/ivf_scan_core.cuh", "models/ivf_paged.py",
+            "ops/topk.py"} <= names
 
 
-@pytest.mark.parametrize("needle", ["import jax", "tpu_ann."])
+@pytest.mark.parametrize("needle", ["import jax", "tpu_ann.", "ml_dtypes"])
 def test_no_reference_imports(needle):
     hits = []
     for path in _sources():
@@ -52,19 +56,24 @@ def test_no_reference_imports(needle):
     assert not hits, hits
 
 
-def test_default_device_is_cuda_without_fallback():
+def test_default_device_is_cuda_without_fallback(tmp_path):
     """Indexes default to the GPU; without one they fail instead of
     quietly running on the CPU."""
     import torch
 
     import tpu_ann_torch as T
 
+    path = str(tmp_path / "paged")
     if torch.cuda.is_available():
         assert T.IndexFlat(8).device.type == "cuda"
         assert T.make_ivf_flat(8, 4).device.type == "cuda"
+        assert T.IndexIVFFlatPaged(8, 4, path).device.type == "cuda"
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             T.IndexFlat(8)
         with pytest.raises((AssertionError, RuntimeError)):
             T.make_ivf_flat(8, 4)
+        with pytest.raises((AssertionError, RuntimeError)):
+            T.IndexIVFFlatPaged(8, 4, path)
     assert T.IndexFlat(8, device="cpu").device.type == "cpu"
+    assert T.IndexIVFFlatPaged(8, 4, path, device="cpu").device.type == "cpu"

@@ -13,7 +13,11 @@ Covered today:
 - the fused flat search path — an IndexFlat opted into bf16 search
   (compute_dtype="bfloat16", approx_topk=True) on a CUDA device searches
   through flat_knn_fused: the reservoir scan (K1), reservoir_topk (K2)
-  and the exact f32 re-rank; IDSelectors filter flat searches.
+  and the exact f32 re-rank; IDSelectors filter flat searches;
+- the out-of-core IVF search — IndexIVFFlatPaged: train -> streaming add
+  into an on-disk directory (the JAX package's format) -> load (mmap) ->
+  search, through a pinned, double-buffered host-to-device window pipeline
+  and the hand-written window scan (K4).
 """
 
 from .models import (  # noqa: F401
@@ -34,6 +38,7 @@ from .models import (  # noqa: F401
     IndexFlatL2,
     IndexIVF,
     IndexIVFFlat,
+    IndexIVFFlatPaged,
     QueryLatencyStats,
     SearchParameters,
     SearchParametersIVF,
@@ -57,7 +62,14 @@ from .ops.ivf_scan_fused import (  # noqa: F401
     scan_invlists_fused,
     scan_invlists_fused_reference,
 )
+from .ops.ivf_scan_paged import (  # noqa: F401
+    PagedInvLists,
+    create_paged_invlists,
+    open_paged_invlists,
+    scan_invlists_paged,
+)
 from .ops.kmeans import ClusteringParameters, kmeans  # noqa: F401
+from .ops.topk import merge_topk, topk_with_ids  # noqa: F401
 from .utils.convert import (  # noqa: F401
     flat_from_reference,
     ivf_flat_from_reference,

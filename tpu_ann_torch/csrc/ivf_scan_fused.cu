@@ -1,333 +1,26 @@
-// List-major fused IVF scan: per (query, probe) pair, the exact top-kp
+// List-major fused IVF scan (K3): per (query, probe) pair, the exact top-kp
 // stream rows of the pair's inverted list, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel tpu_ann/ops/ivf_scan_pallas.py::_grouped_kernel
 // (launched by scan_invlists_fused). Python side, plain version and
-// binding: tpu_ann_torch/ops/ivf_scan_fused.py.
-//
-// Work: the wrapper sorts the pairs by list id and cuts them into tiles of
-// kPT pairs. Lists are packed contiguously in id order, so a tile's pairs
-// cover one contiguous range of stream rows. One CTA owns one tile and
-// walks that range in chunks of kCR rows with a runtime loop: each chunk
-// is staged once in shared memory and feeds every pair of the tile whose
-// list it belongs to (list-major reuse). The tile's pairs form register
-// groups of kP consecutive pairs, dealt to the warps in turn, so the groups
-// of one list run on different warps; a lane scores two rows of the chunk
-// against its group's pairs with bf16 x bf16 -> f32 products (f32
-// accumulation).
-//   L2: max(|q|^2 + |x|^2 - 2 q.x, 0)          IP: -q.x - qn (qn = 0)
-// A row counts for a pair if it lies in the pair's list block range and
-// holds a real entry (id >= 0). Each pair keeps an exact sorted top-kp
-// spread over the warp's lanes (lane i holds entry i), ordered by
-// (distance, stream position): ties go to the lower position, empty slots
-// are (+inf, -1). A few new candidates are inserted one by one; many (the
-// first chunks of a list) are merged in at once with a warp bitonic sort.
-//
-// What bounds it on the H100: at d = 128 a streamed row is 256 B of bf16
-// plus 8 B of id and norm, and it feeds (pairs of the tile on its list) x d
-// fused multiply-adds. At the IVF4096 main path (1M rows, 10k queries,
-// nprobe 16-64) a list is probed by 40-160 pairs, so a row read feeds
-// thousands of FMAs: the kernel is bound by CUDA-core FMA issue and
-// shared-memory operand traffic, not by HBM. The design keeps the operand
-// reads low (queries converted to f32 once per tile and read as warp
-// broadcasts, rows read with bank-conflict-free 16-byte loads, 16
-// accumulators per lane) and skips a register group's work on chunks that
-// hold none of its pairs' lists. Tensor cores (mma.sync / wgmma), cp.async
-// or TMA double buffering and persistent CTAs are later steps.
+// binding: tpu_ann_torch/ops/ivf_scan_fused.py. The kernel itself, its
+// design and what bounds it are in ivf_scan_core.cuh, which the
+// out-of-core window scan (K4, ivf_scan_paged.cu) shares; K3 runs its
+// instantiation without the window code, over the whole stream.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see tpu_ann_torch/kernels). Plain C interface.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <climits>
+#include "ivf_scan_core.cuh"
 
 namespace {
 
-constexpr int kPT = 128;             // pairs per tile (one CTA)
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPW = kPT / kWarps;    // pairs per warp
-constexpr int kP = 8;                // pairs per register group
-constexpr int kNG = kPW / kP;        // register groups per warp
-constexpr int kCR = 64;              // stream rows per chunk (2 per lane)
-constexpr int kDS = 128;             // dims per shared-memory slice
-constexpr int kXS = kDS + 8;         // padded row stride of the chunk (bf16)
-constexpr int kKPMax = 32;           // one top-kp entry per lane
-constexpr int kSerialMax = 6;        // more candidates: bitonic merge
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kInf = __builtin_huge_valf();
-
-constexpr size_t kSmemBytes =
-    sizeof(float) * kPT * kDS            // qs: tile queries, f32
-    + sizeof(uint16_t) * kCR * kXS       // xs: chunk rows, bf16
-    + sizeof(int) * kCR                  // sid: chunk row ids
-    + sizeof(float) * kCR                // snorm: chunk row norms
-    + sizeof(int) * kPT * 3              // plo, phi, pq
-    + sizeof(float) * kPT                // pqn
-    + sizeof(int) * kWarps * kNG * 2;    // glo, ghi
-
-// 8 bf16 (one 16-byte vector) -> 8 f32; bf16 is the top half of an f32
-__device__ __forceinline__ void unpack8(const uint4 v, float (&f)[8]) {
-  f[0] = __uint_as_float(v.x << 16);
-  f[1] = __uint_as_float(v.x & 0xffff0000u);
-  f[2] = __uint_as_float(v.y << 16);
-  f[3] = __uint_as_float(v.y & 0xffff0000u);
-  f[4] = __uint_as_float(v.z << 16);
-  f[5] = __uint_as_float(v.z & 0xffff0000u);
-  f[6] = __uint_as_float(v.w << 16);
-  f[7] = __uint_as_float(v.w & 0xffff0000u);
-}
-
-__device__ __forceinline__ float dot8(const float4 a, const float4 b,
-                                      const float (&x)[8], float acc) {
-  acc = fmaf(a.x, x[0], acc);
-  acc = fmaf(a.y, x[1], acc);
-  acc = fmaf(a.z, x[2], acc);
-  acc = fmaf(a.w, x[3], acc);
-  acc = fmaf(b.x, x[4], acc);
-  acc = fmaf(b.y, x[5], acc);
-  acc = fmaf(b.z, x[6], acc);
-  acc = fmaf(b.w, x[7], acc);
-  return acc;
-}
-
-// (d1, p1) before (d2, p2): by distance, then by stream position
-__device__ __forceinline__ bool before(float d1, int p1, float d2, int p2) {
-  return d1 < d2 || (d1 == d2 && p1 < p2);
-}
-
-// Warp-wide: (d, p) holds a list sorted ascending over the 32 lanes; the
-// candidates (cd, cp), one per lane, in any order. Leaves in (d, p) the 32
-// smallest of both, sorted: bitonic sort of the candidates, then the
-// elementwise min with the reversed list (a bitonic sequence), then a
-// bitonic merge.
-__device__ __forceinline__ void merge32(float& d, int& p, float cd, int cp,
-                                        int lane) {
-#pragma unroll
-  for (int k = 2; k <= 32; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const float od = __shfl_xor_sync(kFull, cd, j);
-      const int op = __shfl_xor_sync(kFull, cp, j);
-      const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
-      if (before(od, op, cd, cp) == keep_min) {
-        cd = od;
-        cp = op;
-      }
-    }
-  }
-  const float rd = __shfl_sync(kFull, cd, 31 - lane);
-  const int rp = __shfl_sync(kFull, cp, 31 - lane);
-  if (before(rd, rp, d, p)) {
-    d = rd;
-    p = rp;
-  }
-#pragma unroll
-  for (int j = 16; j > 0; j >>= 1) {
-    const float od = __shfl_xor_sync(kFull, d, j);
-    const int op = __shfl_xor_sync(kFull, p, j);
-    if (before(od, op, d, p) == ((lane & j) == 0)) {
-      d = od;
-      p = op;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-ivf_scan_fused_kernel(
-    const uint16_t* __restrict__ xq,      // (nq, d) bf16 queries
-    const float* __restrict__ qn,         // (nq,) f32 |q|^2 (0 for IP)
-    const int* __restrict__ pair_q,       // (ntiles*kPT,) query row
-    const int* __restrict__ pstart,       // (ntiles*kPT,) first block
-    const int* __restrict__ pend,         // (ntiles*kPT,) end block
-    const int* __restrict__ tile_bs,      // (ntiles,) first block of tile
-    const int* __restrict__ tile_nb,      // (ntiles,) blocks of tile
-    const uint16_t* __restrict__ data,    // (nblocks+1, B, d) bf16 stream
-    const int* __restrict__ ids,          // (nblocks+1, B) int32, -1 = pad
-    const float* __restrict__ norms,      // (nblocks+1, B) f32 |x|^2
-    int d, int B, int kp, int similarity,
-    float* __restrict__ out_d,            // (ntiles*kPT, kp)
-    int* __restrict__ out_p) {            // (ntiles*kPT, kp) positions
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  uint16_t* xs = reinterpret_cast<uint16_t*>(qs + kPT * kDS);
-  int* sid = reinterpret_cast<int*>(xs + kCR * kXS);
-  float* snorm = reinterpret_cast<float*>(sid + kCR);
-  int* plo = reinterpret_cast<int*>(snorm + kCR);
-  int* phi = plo + kPT;
-  int* pq = phi + kPT;
-  float* pqn = reinterpret_cast<float*>(pq + kPT);
-  int* glo = reinterpret_cast<int*>(pqn + kPT);
-  int* ghi = glo + kWarps * kNG;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const long long pbase = static_cast<long long>(blockIdx.x) * kPT;
-  const int row0 = tile_bs[blockIdx.x] * B;
-  const int row1 = row0 + tile_nb[blockIdx.x] * B;
-
-  for (int p = tid; p < kPT; p += kThreads) {
-    const int q = pair_q[pbase + p];
-    pq[p] = q;
-    plo[p] = pstart[pbase + p] * B;
-    phi[p] = pend[pbase + p] * B;
-    pqn[p] = qn[q];
-  }
-  __syncthreads();
-  if (tid < kWarps * kNG) {
-    // row range of one register group's pairs (empty pairs excluded)
-    int lo = INT_MAX, hi = INT_MIN;
-    for (int p = tid * kP; p < tid * kP + kP; ++p) {
-      if (phi[p] > plo[p]) {
-        lo = min(lo, plo[p]);
-        hi = max(hi, phi[p]);
-      }
-    }
-    glo[tid] = lo;
-    ghi[tid] = hi;
-  }
-
-  float ld[kPW];
-  int lp[kPW];
-#pragma unroll
-  for (int j = 0; j < kPW; ++j) {
-    ld[j] = kInf;
-    lp[j] = -1;
-  }
-
-  const int nslices = (d + kDS - 1) / kDS;
-  for (int c0 = row0; c0 < row1; c0 += kCR) {
-    float acc[kNG][kP][2];
-#pragma unroll
-    for (int g = 0; g < kNG; ++g)
-#pragma unroll
-      for (int p = 0; p < kP; ++p) acc[g][p][0] = acc[g][p][1] = 0.f;
-
-    for (int s = 0; s < nslices; ++s) {
-      const int d0 = s * kDS;
-      const int nv = min(kDS, d - d0) / 8;  // 16-byte vectors per row slice
-      __syncthreads();                      // previous chunk fully consumed
-      for (int i = tid; i < kCR * nv; i += kThreads) {
-        const int r = i / nv, v = i - r * nv;
-        const int row = c0 + r;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (row < row1)
-          val = *reinterpret_cast<const uint4*>(
-              data + static_cast<size_t>(row) * d + d0 + v * 8);
-        *reinterpret_cast<uint4*>(xs + r * kXS + v * 8) = val;
-      }
-      if (s == 0) {
-        for (int r = tid; r < kCR; r += kThreads) {
-          const int row = c0 + r;
-          const bool in = row < row1;
-          sid[r] = in ? ids[row] : -1;
-          snorm[r] = in ? norms[row] : 0.f;
-        }
-      }
-      if (nslices > 1 || c0 == row0) {
-        for (int i = tid; i < kPT * nv; i += kThreads) {
-          const int p = i / nv, v = i - p * nv;
-          float f[8];
-          unpack8(*reinterpret_cast<const uint4*>(
-                      xq + static_cast<size_t>(pq[p]) * d + d0 + v * 8),
-                  f);
-          float4* dst = reinterpret_cast<float4*>(qs + p * kDS + v * 8);
-          dst[0] = make_float4(f[0], f[1], f[2], f[3]);
-          dst[1] = make_float4(f[4], f[5], f[6], f[7]);
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int g = 0; g < kNG; ++g) {
-        const int gi = g * kWarps + warp;             // register group
-        if (glo[gi] < c0 + kCR && ghi[gi] > c0) {   // warp-uniform
-          const float* qg = qs + gi * kP * kDS;
-          for (int v = 0; v < nv; ++v) {
-            float xa[8], xb[8];
-            unpack8(*reinterpret_cast<const uint4*>(xs + lane * kXS + v * 8),
-                    xa);
-            unpack8(*reinterpret_cast<const uint4*>(
-                        xs + (lane + 32) * kXS + v * 8),
-                    xb);
-#pragma unroll
-            for (int p = 0; p < kP; ++p) {
-              const float4 q0 =
-                  *reinterpret_cast<const float4*>(qg + p * kDS + v * 8);
-              const float4 q1 =
-                  *reinterpret_cast<const float4*>(qg + p * kDS + v * 8 + 4);
-              acc[g][p][0] = dot8(q0, q1, xa, acc[g][p][0]);
-              acc[g][p][1] = dot8(q0, q1, xb, acc[g][p][1]);
-            }
-          }
-        }
-      }
-    }
-
-    // scores -> per-pair top-kp, rows in increasing stream position
-#pragma unroll
-    for (int g = 0; g < kNG; ++g) {
-      const int gi = g * kWarps + warp;
-      if (!(glo[gi] < c0 + kCR && ghi[gi] > c0)) continue;
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        const int j = g * kP + p;
-        const int pr = gi * kP + p;
-        const int lo = plo[pr], hi = phi[pr];
-        const float qv = pqn[pr];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int rl = lane + 32 * r;
-          const int row = c0 + rl;
-          const float ip = acc[g][p][r];
-          const float dis = similarity
-                                ? -ip - qv
-                                : fmaxf(qv + snorm[rl] - 2.0f * ip, 0.0f);
-          const bool ok = row >= lo && row < hi && sid[rl] >= 0;
-          float thr = __shfl_sync(kFull, ld[j], kp - 1);
-          const bool cand = ok && dis < thr;
-          unsigned m = __ballot_sync(kFull, cand);
-          if (__popc(m) > kSerialMax) {
-            merge32(ld[j], lp[j], cand ? dis : kInf, cand ? row : INT_MAX,
-                    lane);
-            continue;
-          }
-          while (m) {
-            const int src = __ffs(m) - 1;
-            m &= m - 1;
-            const float dv = __shfl_sync(kFull, dis, src);
-            if (dv < thr) {
-              // insert after every kept entry <= dv (they have lower
-              // positions), shift the rest one lane up
-              const int idx =
-                  __popc(__ballot_sync(kFull, lane < kp && ld[j] <= dv));
-              const float ud = __shfl_up_sync(kFull, ld[j], 1);
-              const int up = __shfl_up_sync(kFull, lp[j], 1);
-              if (lane == idx) {
-                ld[j] = dv;
-                lp[j] = c0 + src + 32 * r;
-              } else if (lane > idx) {
-                ld[j] = ud;
-                lp[j] = up;
-              }
-              thr = __shfl_sync(kFull, ld[j], kp - 1);
-            }
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < kPW; ++j) {
-    if (lane < kp) {
-      const int pr = ((j / kP) * kWarps + warp) * kP + j % kP;
-      const size_t o = static_cast<size_t>(pbase + pr) * kp + lane;
-      out_d[o] = ld[j];
-      out_p[o] = ld[j] == kInf ? -1 : lp[j];
-    }
-  }
+// 128 registers a thread on its own, so two CTAs fit an SM. (With an
+// explicit minimum of one CTA per SM ptxas took 148 registers and K3 ran
+// 1.56x slower on the H100; with a minimum of two it spilled 4 bytes.)
+__global__ void __launch_bounds__(ivf_scan::kThreads)
+ivf_scan_fused_kernel(IVF_SCAN_TILE_PARAMS) {
+  ivf_scan::scan_tile<false>(IVF_SCAN_TILE_ARGS);
 }
 
 }  // namespace
@@ -335,7 +28,7 @@ ivf_scan_fused_kernel(
 extern "C" {
 
 // pairs per tile the kernel is written for (the wrapper checks it)
-int ivf_scan_fused_tile_pairs() { return kPT; }
+int ivf_scan_fused_tile_pairs() { return ivf_scan::kPT; }
 
 // Launches one CTA per tile on `stream`; allocates nothing. Returns
 // cudaGetLastError() (0 on success).
@@ -344,24 +37,10 @@ int ivf_scan_fused(const void* xq, const void* qn, const void* pair_q,
                    const void* tile_nb, const void* data, const void* ids,
                    const void* norms, int ntiles, int d, int B, int kp,
                    int similarity, void* out_d, void* out_p, void* stream) {
-  if (d <= 0 || d % 8 != 0 || B <= 0 || kp < 1 || kp > kKPMax || ntiles < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(
-      ivf_scan_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (ntiles > 0) {
-    ivf_scan_fused_kernel<<<ntiles, kThreads, kSmemBytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint16_t*>(xq), static_cast<const float*>(qn),
-        static_cast<const int*>(pair_q), static_cast<const int*>(pstart),
-        static_cast<const int*>(pend), static_cast<const int*>(tile_bs),
-        static_cast<const int*>(tile_nb), static_cast<const uint16_t*>(data),
-        static_cast<const int*>(ids), static_cast<const float*>(norms), d, B,
-        kp, similarity, static_cast<float*>(out_d),
-        static_cast<int*>(out_p));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return ivf_scan::launch_scan_tiles(
+      ivf_scan_fused_kernel, xq, qn, pair_q, pstart, pend, tile_bs, tile_nb,
+      data, ids, norms, /*wrow0=*/0, /*wrow1=*/INT_MAX, /*tile0=*/0, ntiles,
+      d, B, kp, similarity, out_d, out_p, stream);
 }
 
 }  // extern "C"

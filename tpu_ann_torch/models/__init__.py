@@ -20,6 +20,7 @@ from .ivf import (  # noqa: F401
     SearchParametersIVF,
     make_ivf_flat,
 )
+from .ivf_paged import IndexIVFFlatPaged  # noqa: F401
 from .selectors import (  # noqa: F401
     IDSelector,
     IDSelectorAll,

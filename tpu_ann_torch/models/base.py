@@ -47,7 +47,9 @@ class QueryLatencyStats:
 class SearchStats:
     """Per-search timing and counters (fork's QueryLatencyStats +
     IndexIVFStats). Times are wall-clock microseconds for the whole batch,
-    fenced by device synchronisation (see `Timer`)."""
+    fenced by device synchronisation (see `Timer`). ``extra`` holds an
+    index's own counters (the paged scan's windows and times); like
+    ``per_query`` it is not summed, listed or reset with the rest."""
 
     nq: int = 0
     total_us: float = 0.0
@@ -56,23 +58,26 @@ class SearchStats:
     ndis: int = 0           # number of distances evaluated
     nlist_visited: int = 0  # number of invlists scanned
     per_query: Optional[QueryLatencyStats] = None
+    extra: Optional[dict] = None
+
+    _NOT_SUMMED = ("per_query", "extra")
 
     def as_dict(self):
-        d = dataclasses.asdict(self)
-        d.pop("per_query", None)
-        return d
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)
+                if f.name not in self._NOT_SUMMED}
 
     def accumulate(self, other: "SearchStats") -> None:
         for f in dataclasses.fields(self):
-            if f.name == "per_query":
+            if f.name in self._NOT_SUMMED:
                 continue
             setattr(self, f.name,
                     getattr(self, f.name) + getattr(other, f.name))
 
     def reset(self) -> None:
         for f in dataclasses.fields(self):
-            if f.name == "per_query":
-                self.per_query = None
+            if f.name in self._NOT_SUMMED:
+                setattr(self, f.name, None)
                 continue
             setattr(self, f.name, type(getattr(self, f.name))(0))
 

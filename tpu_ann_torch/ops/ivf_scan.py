@@ -48,6 +48,15 @@ class PackedInvLists:
     def nblocks(self) -> int:
         return self.data.shape[0] - 1  # excluding the dummy block
 
+    def rows_at(self, pos: torch.Tensor):
+        """The f32 rows and norms at stream positions ``pos`` (>= 0)."""
+        return (self.data.view(-1, self.data.shape[-1])[pos],
+                self.norms.view(-1)[pos])
+
+    def ids_at(self, pos: torch.Tensor) -> torch.Tensor:
+        """The stored ids (int64) at stream positions ``pos`` (>= 0)."""
+        return self.ids.view(-1)[pos].long()
+
     @classmethod
     def from_arrays(cls, data, ids, norms, list_block_start, list_nblocks,
                     *, device) -> "PackedInvLists":

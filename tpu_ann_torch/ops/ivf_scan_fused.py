@@ -69,12 +69,15 @@ class PairPlan:
         return self.tile_bs.shape[0]
 
 
-def plan_pairs(probes: torch.Tensor, invlists: PackedInvLists,
-               pt: int = PT) -> PairPlan:
-    """Step 1: sort pairs by list id and compute pair and tile ranges."""
+def plan_pairs(probes: torch.Tensor, invlists, pt: int = PT) -> PairPlan:
+    """Step 1: sort pairs by list id and compute pair and tile ranges.
+
+    ``invlists`` is a PackedInvLists or any layout with the same
+    ``list_nblocks`` (a tensor or a numpy array), ``nblocks`` and
+    ``block_size`` (the out-of-core PagedInvLists)."""
     nq, nprobe = probes.shape
     npairs = nq * nprobe
-    nblk = invlists.list_nblocks.long()
+    nblk = torch.as_tensor(invlists.list_nblocks, device=probes.device).long()
     # contiguous stream starts (empty lists get zero-width ranges)
     sstart = torch.cumsum(nblk, 0) - nblk
     l_flat = probes.reshape(npairs).long()
@@ -275,12 +278,15 @@ def default_kp(k: int) -> int:
 
 
 def merge_pairs(xq: torch.Tensor, pair_dist: torch.Tensor,
-                pair_pos: torch.Tensor, plan: PairPlan,
-                invlists: PackedInvLists, k: int, nprobe: int,
-                similarity: bool, refine: int):
+                pair_pos: torch.Tensor, plan: PairPlan, k: int, nprobe: int,
+                similarity: bool, refine: int, rows_at, ids_at):
     """Step 3: un-sort, merge per query, exact f32 re-rank, map positions
-    to row ids. Returns (D (nq, k) f32, I (nq, k) int64)."""
-    nq, d = xq.shape
+    to row ids. The stored rows come from ``rows_at(pos) -> (rows f32,
+    norms f32)`` and ``ids_at(pos) -> int64 ids`` (positions >= 0, results
+    on xq's device): `PackedInvLists.rows_at` / ``ids_at`` for the device
+    layout, a host gather for the out-of-core one.
+    Returns (D (nq, k) f32, I (nq, k) int64)."""
+    nq = xq.shape[0]
     kp = pair_dist.shape[1]
     npairs = nq * nprobe
     pd = torch.empty((npairs, kp), dtype=pair_dist.dtype,
@@ -297,12 +303,11 @@ def merge_pairs(xq: torch.Tensor, pair_dist: torch.Tensor,
         sel = torch.sort(pd, dim=1, stable=True)[1][:, :R]
         cand = torch.gather(pp, 1, sel)                        # (nq, R)
         safe = cand.clamp(min=0)
-        rows = invlists.data.view(-1, d)[safe]                 # (nq, R, d)
+        rows, rn = rows_at(safe)                               # (nq, R, d)
         ipx = torch.bmm(rows, xq[:, :, None])[:, :, 0]
         if similarity:
             dis = -ipx
         else:
-            rn = invlists.norms.view(-1)[safe]
             qn2 = (xq * xq).sum(1, keepdim=True)
             dis = torch.clamp(qn2 + rn - 2.0 * ipx, min=0.0)
         dis = torch.where(cand >= 0, dis, float("inf"))
@@ -317,8 +322,7 @@ def merge_pairs(xq: torch.Tensor, pair_dist: torch.Tensor,
         out_d = torch.cat([out_d, out_d.new_full((nq, k - kk),
                                                  float("inf"))], 1)
         out_p = torch.cat([out_p, out_p.new_full((nq, k - kk), -1)], 1)
-    ids_flat = invlists.ids.view(-1)
-    out_i = torch.where(out_p >= 0, ids_flat[out_p.clamp(min=0)].long(), -1)
+    out_i = torch.where(out_p >= 0, ids_at(out_p.clamp(min=0)), -1)
     out_d = torch.where(out_p >= 0, out_d, float("inf"))
     if similarity:
         out_d = -out_d                 # back to user-facing (descending)
@@ -334,8 +338,8 @@ def _scan(xq, probes, invlists, k, metric, refine, kp, pair_fn, pt):
         else D.l2_norms(xq)
     pd, pp = pair_fn(xq.to(torch.bfloat16).contiguous(), qn.contiguous(),
                      plan, invlists, kp, similarity)
-    Dv, Iv = merge_pairs(xq, pd, pp, plan, invlists, k, probes.shape[1],
-                         similarity, refine)
+    Dv, Iv = merge_pairs(xq, pd, pp, plan, k, probes.shape[1], similarity,
+                         refine, invlists.rows_at, invlists.ids_at)
     return Dv, Iv, plan.ndis
 
 

@@ -7,9 +7,9 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
 
 Phases, one line each; any failure raises and exits non-zero:
   1. device  — a CUDA device is required; nvidia-smi's name and power limit.
-  2. build   — compile the three CUDA kernels from tpu_ann_torch/csrc (one
-     nvcc each, in parallel): K3 ivf_scan_fused, K1 flat_knn_fused, K2
-     reservoir_topk.
+  2. build   — compile the five CUDA kernels from tpu_ann_torch/csrc (one
+     nvcc each, in parallel): K3 ivf_scan_fused, K3-SQ8 ivf_scan_sq8, K1
+     flat_knn_fused, K2 reservoir_topk, K4 ivf_scan_paged.
   3. IVF path at the benchmark's size: calibrated SIFT1M surrogate (1M
      base, 100k train, 10k queries, seed 123); the exact IndexFlat's
      ground truth (no K1 launch); make_ivf_flat(128, 4096) -> train
@@ -19,6 +19,31 @@ Phases, one line each; any failure raises and exits non-zero:
   4. K3 vs its plain torch version at the IVF path's shapes (1024 queries,
      nprobe 32): per-pair outputs and final (D, I) equal on the integer
      data; IP on float data with id overlap >= 0.999; times.
+  4a. IVF-SQ8 path on the same data and centroids:
+     IndexIVFScalarQuantizer(phase 3's quantizer, 128, 4096, QT_8BIT),
+     quantizer_trains_alone=1 (no k-means) -> train (the codec, on the
+     train slice) -> add -> search and search_stats at nprobe 16 / 32 / 64.
+     Recall@10 must reach the fixed SQ8_FLOORS and lose at most
+     SQ8_MAX_LOSS against phase 3's at the same nprobe (the reference's
+     8-bit codec decodes at (code + 0.5) / 256 of the range after encoding
+     at code / 255, which loses more than the IVF floors allow at nprobe
+     64; see ROADMAP.md, queue 3); the codec's own recall@10 (exact f32
+     search over the whole base encoded and decoded) is printed beside
+     them. Every search is exactly one K3-SQ8 launch and nothing else; the
+     device holds the uint8 codes and no f32 / bf16 copy of the stream.
+     Then the same with QT_8BIT_DIRECT, lossless on this integer data: its
+     (D, I) must equal phase 3's bit for bit at every nprobe.
+  4b. K3-SQ8 vs its plain version (run on the card), on both indexes, at
+     1024 queries x nprobe 32 and at the main path's 10k queries x nprobe
+     16 / 32 / 64: per-pair outputs bit for bit for QT_8BIT_DIRECT, within
+     rtol 1e-5 (positions equal outside near-ties) for QT_8BIT; at 1024
+     queries final (D, I) equal, and K3-SQ8, plain and K3 times on the
+     same plan, in turns; at 10k queries K3-SQ8, plain and K3 times.
+  4c. K3g (scan_invlists_fused_grid) at 1024 queries x nprobe 32 on phase
+     3's bf16 index: with grid2d_maxc's bound it equals K3 bit for bit;
+     with half of it (ranges cut) the kernels' per-pair outputs and the
+     route's (D, I) equal the plain version over the same cut plan, on the
+     bf16 stream and on the QT_8BIT codes; times.
   5. flat path on the same data: IndexFlat(128) opted into bf16 search
      (compute_dtype="bfloat16", approx_topk=True, scan_mode "auto") takes
      the fused scan. The exact route (integer data detected: W=2048,
@@ -53,6 +78,7 @@ torch call computes the same function, that call's time) and
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -69,18 +95,28 @@ from tpu_ann_torch.ops import distances as TD
 from tpu_ann_torch.ops import flat_knn_fused as FK
 from tpu_ann_torch.ops import ivf_scan_fused as F
 from tpu_ann_torch.ops import ivf_scan_paged as P
+from tpu_ann_torch.ops import sq as SQ
 
 # recall@10 floors at nprobe 16 / 32 / 64: the JAX package's benchmark
 # recalls on this workload (0.8831 / 0.9718 / 0.9978) less 0.01 for
 # k-means differences
 RECALL_FLOORS = {16: 0.8731, 32: 0.9618, 64: 0.9878}
+# IVF4096,SQ8 (QT_8BIT) on IVF-Flat's centroids: recall@10 floors at
+# nprobe 16 / 32 / 64, and the most recall@10 it may lose against IVF-Flat
+# in the same run. The IVF floors and 0.01 hold at nprobe 16 / 32. At
+# nprobe 64 the reference's codec (encode at code / 255 of the range,
+# decode at (code + 0.5) / 256) loses more than they allow: the floor is
+# the 0.98565 measured there on an H100 less 0.005, and the loss limit its
+# measured 0.0122 plus 0.003. Neither is derived from the run.
+SQ8_FLOORS = {16: 0.8731, 32: 0.9618, 64: 0.9807}
+SQ8_MAX_LOSS = {16: 0.01, 32: 0.01, 64: 0.015}
 # flat path recall@10 floors: the exact route, the JAX package's 0.9979 at
 # W=2048 (BENCH_r05.json) less 0.001 for the order of ground-truth ties;
 # the refine route, its 0.99516 at W=1024 (benchs/logs/r5_queue1.jsonl)
 # less about 0.001; IP on float data has no reference value
 FLAT_FLOORS = {"exact": 0.9969, "refine": 0.9942, "ip_float": 0.98}
-KERNELS = ("ivf_scan_fused", "flat_knn_fused", "reservoir_topk",
-           "ivf_scan_paged")
+KERNELS = ("ivf_scan_fused", "ivf_scan_sq8", "flat_knn_fused",
+           "reservoir_topk", "ivf_scan_paged")
 D, NLIST, K = 128, 4096, 10
 NB, NT, NQ = 1_000_000, 100_000, 10_000
 TIMED_REPS = 3
@@ -123,14 +159,15 @@ def host_ms(fn, reps: int) -> float:
 
 def reset_counts() -> None:
     F.LAUNCHES = 0
+    F.LAUNCHES_SQ8 = 0
     P.LAUNCHES = 0
     for name in FK.LAUNCHES:
         FK.LAUNCHES[name] = 0
 
 
 def counts() -> dict:
-    return {"ivf_scan_fused": F.LAUNCHES, **FK.LAUNCHES,
-            "ivf_scan_paged": P.LAUNCHES}
+    return {"ivf_scan_fused": F.LAUNCHES, "ivf_scan_sq8": F.LAUNCHES_SQ8,
+            **FK.LAUNCHES, "ivf_scan_paged": P.LAUNCHES}
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -142,13 +179,14 @@ def bound(nbytes: float, flops: float) -> dict:
 
 
 def pair_scan_work(plan, ids, B, d, kp, lo, hi, ta=0, tb=None,
-                   running=False):
+                   running=False, elem_bytes=2):
     """Bytes and bf16 products the per-pair scan of tiles [ta, tb) needs
     over stream blocks [lo, hi): every valid row of a pair's clamped range
-    scored against its query, each needed block read once, the queries,
-    the plan and the (pairs, kp) result written once (and, ``running``,
-    read once). ``ids`` (nblocks, B) are the blocks [lo, hi) of the
-    stream."""
+    scored against its query, each needed block read once (``elem_bytes``
+    a stream element: 2 for bf16, 1 for SQ8 codes, plus 8 B of id and norm
+    a row), the queries, the plan and the (pairs, kp) result written once
+    (and, ``running``, read once). ``ids`` (nblocks, B) are the blocks
+    [lo, hi) of the stream."""
     tb = plan.ntiles if tb is None else tb
     sl = slice(ta * F.PT, tb * F.PT)
     ps = plan.pstart[sl].long().clamp(lo, hi) - lo
@@ -162,7 +200,8 @@ def pair_scan_work(plan, ids, B, d, kp, lo, hi, ta=0, tb=None,
     blocks = int((torch.cumsum(mark, 0) > 0).sum())
     npairs = ps.numel()
     nq = int(plan.pair_q.max()) + 1
-    nbytes = (blocks * B * (2 * d + 8) + nq * (2 * d + 4) + npairs * 12
+    nbytes = (blocks * B * (elem_bytes * d + 8) + nq * (2 * d + 4)
+              + npairs * 12
               + npairs * kp * 8 * (2 if running else 1))
     return nbytes, 2.0 * rows * d
 
@@ -254,7 +293,7 @@ def main() -> None:
           imbalance=index.imbalance_factor(),
           kmeans_final_obj=index.clustering_stats[-1].obj)
 
-    results = {}
+    results, flat_out = {}, {}
     for nprobe in (16, 32, 64):
         p = T.SearchParametersIVF(nprobe=nprobe)
         before = F.LAUNCHES
@@ -278,6 +317,7 @@ def main() -> None:
         rec = T.recall_k_at_k(Iv, gt, K)
         med = float(np.median(times))
         results[nprobe] = rec
+        flat_out[nprobe] = (Dv, Iv)
         phase("search", nprobe=nprobe, recall_at_10=rec,
               floor=RECALL_FLOORS[nprobe], qps=NQ / med,
               search_ms=[t * 1e3 for t in times],
@@ -367,15 +407,311 @@ def main() -> None:
                                 il.nblocks)),
         "library_ms": None,
     }
-    del index, il, il_f, data_f
+    del il_f, data_f
+    sq_records = sq_phases(index, xt, xb, xq, gt, results, flat_out,
+                           xq_s, probes, dev)
+    del index, il
     torch.cuda.empty_cache()
 
     flat_records = flat_phases(xb, xq, gt, dev)
     k4 = paged_phases(xb, xt, xq, gt, dev)
-    print(json.dumps({"kernels": [k3, *flat_records, k4]}), flush=True)
+    print(json.dumps({"kernels": [k3, *sq_records, *flat_records, k4]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def assert_close_pairs(name, d0, p0, d1, p1, rtol=1e-5) -> float:
+    """Per-pair top-kp outputs agree: the same empty slots, distances within
+    rtol of the largest finite one, and positions equal except inside a
+    group of near-equal distances (a tie within the tolerance). Returns the
+    largest absolute difference."""
+    d0, p0, d1, p1 = (t.cpu().numpy() for t in (d0, p0, d1, p1))
+    fin = np.isfinite(d0)
+    if not np.array_equal(fin, np.isfinite(d1)):
+        raise AssertionError(f"{name}: empty slots differ")
+    tol = rtol * float(np.abs(d0[fin]).max()) if fin.any() else 0.0
+    err = float(np.abs(d1[fin] - d0[fin]).max()) if fin.any() else 0.0
+    if err > tol:
+        raise AssertionError(f"{name}: distances differ by {err} > {tol}")
+    for r in np.nonzero((p0 != p1).any(1))[0]:
+        for j in np.nonzero(p0[r] != p1[r])[0]:
+            near = np.abs(d0[r] - d0[r, j]) <= tol
+            tie_ok = near.sum() > 1 and (
+                near[-1] or sorted(p0[r][near]) == sorted(p1[r][near]))
+            if not tie_ok:
+                raise AssertionError(f"{name}: pair {r} positions differ: "
+                                     f"{p0[r]} {p1[r]}")
+    return err
+
+
+def sq_search(idx, xq, gt, name, nprobe, flat_rec, flat_dv_iv,
+              lossy) -> dict:
+    """Phase 4a for one index and nprobe: a warm-up, TIMED_REPS timed
+    searches and one search_stats, each exactly one K3-SQ8 launch. A
+    ``lossy`` codec is held to SQ8_FLOORS and SQ8_MAX_LOSS; a lossless one
+    must return IVF-Flat's (D, I) instead."""
+    p = T.SearchParametersIVF(nprobe=nprobe)
+    before = counts()
+    Dv, Iv = idx.search(xq, K, params=p)                  # warm-up
+    times = []
+    for _ in range(TIMED_REPS):
+        t1 = time.perf_counter()
+        Dv, Iv = idx.search(xq, K, params=p)
+        times.append(time.perf_counter() - t1)
+    Ds, Is, st = idx.search_stats(xq, K, params=p)
+    now = counts()
+    launches = {k: now[k] - before[k] for k in now}
+    n_calls = 2 + TIMED_REPS
+    if launches["ivf_scan_sq8"] != n_calls or \
+            sum(launches.values()) != n_calls:
+        raise AssertionError(f"{name} nprobe={nprobe}: launches {launches} "
+                             f"for {n_calls} searches")
+    if not (Dv.shape == Iv.shape == (NQ, K) and np.isfinite(Dv).all()
+            and (Iv >= 0).all() and (Iv < NB).all()):
+        raise AssertionError(f"{name} nprobe={nprobe}: malformed results")
+    if not (np.array_equal(Ds, Dv) and np.array_equal(Is, Iv)):
+        raise AssertionError(f"{name}: search and search_stats disagree")
+    rec = T.recall_k_at_k(Iv, gt, K)
+    med = float(np.median(times))
+    equal_flat = bool(np.array_equal(Dv, flat_dv_iv[0])
+                      and np.array_equal(Iv, flat_dv_iv[1]))
+    floor = SQ8_FLOORS[nprobe] if lossy else None
+    max_loss = SQ8_MAX_LOSS[nprobe] if lossy else 0.0
+    phase("ivf_sq_search", qtype=name, nprobe=nprobe, recall_at_10=rec,
+          ivf_flat_recall=flat_rec, floor=floor, max_loss=max_loss,
+          qps=NQ / med, search_ms=[t * 1e3 for t in times],
+          quantization_ms=st.quantization_us / 1e3,
+          list_scan_ms=st.list_scan_us / 1e3, ndis=st.ndis,
+          equal_to_ivf_flat=equal_flat, launches=launches)
+    if not lossy:
+        if not equal_flat:
+            raise AssertionError(f"{name} nprobe={nprobe}: (D, I) differ "
+                                 f"from IVF-Flat's")
+    elif rec < floor or flat_rec - rec > max_loss:
+        raise AssertionError(f"{name} nprobe={nprobe}: recall@10 {rec} "
+                             f"below {floor} or more than {max_loss} under "
+                             f"IVF-Flat's {flat_rec}")
+    return launches
+
+
+def codec_recall(codec, xb, xq, gt, dev) -> float:
+    """recall@10 of exact f32 search over the whole base encoded and
+    decoded by ``codec``: the codec's own loss, apart from IVF and from
+    K3-SQ8 (the plain blocked k-NN, no kernel)."""
+    dec = SQ.sq_decode(SQ.sq_encode(torch.from_numpy(xb).to(dev), codec),
+                       codec)
+    _, I = TD.knn(torch.from_numpy(xq).to(dev), dec, K)
+    return T.recall_k_at_k(I.cpu().numpy(), gt, K)
+
+
+def device_stream_bytes(idx) -> dict:
+    """The IVF-SQ8 index's device tensors: uint8 codes shared by its
+    invlists and its SQ8 view, and no f32 / bf16 tensor as large as the
+    stream."""
+    il, view = idx.invlists, idx._sq8_view()
+    if il.codes.dtype != torch.uint8 or \
+            view.codes.data_ptr() != il.codes.data_ptr():
+        raise AssertionError("the SQ8 view does not scan the packed codes")
+    held = {}
+    for obj in (il, view):
+        for f in dataclasses.fields(obj):
+            t = getattr(obj, f.name)
+            if t.is_floating_point() and t.numel() >= il.codes.numel():
+                raise AssertionError(f"a {t.dtype} copy of the stream "
+                                     f"({f.name}) lives on the device")
+            held[t.data_ptr()] = t.numel() * t.element_size()
+    return {"code_bytes": il.codes.numel(), "device_bytes": sum(held.values())}
+
+
+def sq_phases(index, xt, xb, xq, gt, flat_rec, flat_out, xq_s, probes,
+              dev) -> list:
+    """Phases 4a-4c: the IVF-SQ8 path, K3-SQ8 and K3g; returns their
+    records of the kernels line."""
+    # -- 4a. IVF-SQ8 path at real size -------------------------------------
+    reset_counts()
+    sq_idx = {}
+    for name, qtype in (("QT_8BIT", T.QT_8BIT),
+                        ("QT_8BIT_DIRECT", T.QT_8BIT_DIRECT)):
+        before = counts()
+        t0 = time.perf_counter()
+        idx = T.IndexIVFScalarQuantizer(index.quantizer, D, NLIST, qtype,
+                                        device="cuda")
+        idx.quantizer_trains_alone = 1
+        idx.train(xt)
+        t_train = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        idx.add(xb)
+        torch.cuda.synchronize()
+        t_add = time.perf_counter() - t0
+        if counts() != before:
+            raise AssertionError(f"{name}: train/add launched kernels")
+        codec_rec = codec_recall(idx.sq, xb, xq, gt, dev)
+        for nprobe in (16, 32, 64):
+            sq_search(idx, xq, gt, name, nprobe, flat_rec[nprobe],
+                      flat_out[nprobe], qtype != T.QT_8BIT_DIRECT)
+        phase("ivf_sq", qtype=name, train_s=t_train, add_s=t_add,
+              codec_recall_at_10=codec_rec,
+              ivf_flat_stream_bytes=index.invlists.data_bf16.numel() * 2,
+              **device_stream_bytes(idx))
+        sq_idx[name] = idx
+    sq_launches = counts()
+    if sq_launches["ivf_scan_sq8"] == 0:
+        raise AssertionError("the IVF-SQ8 path did not run K3-SQ8")
+
+    # -- 4b. K3-SQ8 vs its plain version ------------------------------------
+    il = index.invlists
+    kp = F.default_kp(K)
+    q16, qn = F.fold_queries(xq_s, il, False)
+    plan3 = F.plan_pairs(probes, il)
+    sq8_err, sq8_ms = 0.0, {}
+    for name, idx in sq_idx.items():
+        view = idx._sq8_view()
+        plan = F.plan_pairs(probes, view)
+        q, qn8 = F.fold_queries(xq_s, view, False)
+        d1, p1 = F.scan_pairs(q, qn8, plan, view, kp, False)
+        d0, p0 = F.scan_pairs_reference(q, qn8, plan, view, kp, False)
+        if name == "QT_8BIT_DIRECT":
+            assert_equal("K3-SQ8 direct distances", d0, d1)
+            assert_equal("K3-SQ8 direct positions", p0, p1)
+        sq8_err = max(sq8_err, assert_close_pairs(f"K3-SQ8 {name}", d0, p0,
+                                                  d1, p1))
+        D1, I1, _ = F.scan_invlists_fused(xq_s, probes, view, K)
+        D0, I0, _ = F.scan_invlists_fused_reference(xq_s, probes, view, K)
+        assert_same_topk(D0.cpu().numpy(), I0.cpu().numpy(),
+                         D1.cpu().numpy(), I1.cpu().numpy())
+
+        def sq8():
+            F.scan_pairs(q, qn8, plan, view, kp, False)
+
+        def k3():
+            F.scan_pairs(q16, qn, plan3, il, kp, False)
+
+        a, b, c, e = (cuda_ms(sq8, 20), cuda_ms(k3, 20), cuda_ms(k3, 20),
+                      cuda_ms(sq8, 20))
+        sq8_ms[name] = {
+            "ms": [a, e], "k3_ms": [b, c],
+            "plain_ms": host_ms(lambda: F.scan_pairs_reference(
+                q, qn8, plan, view, kp, False), 3),
+            **bound(*pair_scan_work(plan, view.ids, view.block_size, D, kp,
+                                    0, view.nblocks, elem_bytes=1))}
+    # the main path's batch, 10k queries: K3-SQ8 against its plain
+    # version on both indexes, and K3 on the same plan, alone
+    xq_dev = torch.from_numpy(xq).to(dev)
+    q3, qn3 = F.fold_queries(xq_dev, il, False)
+    ms_10k = {}
+    for nprobe in (16, 32, 64):
+        _, pr = index._coarse_search_device(xq_dev, nprobe)
+        p3 = F.plan_pairs(pr, il)
+        row = {"ntiles": p3.ntiles}
+        for name, idx in sq_idx.items():
+            view = idx._sq8_view()
+            p8 = F.plan_pairs(pr, view)
+            q, qn8 = F.fold_queries(xq_dev, view, False)
+            d1, p1 = F.scan_pairs(q, qn8, p8, view, kp, False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            d0, p0 = F.scan_pairs_reference(q, qn8, p8, view, kp, False)
+            torch.cuda.synchronize()
+            plain = (time.perf_counter() - t1) * 1e3
+            where = f"K3-SQ8 {name} nq={NQ} nprobe={nprobe}"
+            if name == "QT_8BIT_DIRECT":
+                assert_equal(f"{where} distances", d0, d1)
+                assert_equal(f"{where} positions", p0, p1)
+            sq8_err = max(sq8_err, assert_close_pairs(where, d0, p0, d1, p1))
+            del d0, p0, d1, p1
+            row[name] = {
+                "ms": cuda_ms(lambda: F.scan_pairs(q, qn8, p8, view, kp,
+                                                   False), 5),
+                "plain_ms": plain}
+        row["k3_ms"] = cuda_ms(
+            lambda: F.scan_pairs(q3, qn3, p3, il, kp, False), 5)
+        ms_10k[nprobe] = row
+    phase("sq8_kernel_check", nq=[len(xq_s), NQ], nprobe=probes.shape[1],
+          kp=kp, ntiles=plan3.ntiles, direct_equal=True, pairs_equal_10k=True,
+          max_abs_err=sq8_err, calls=sq8_ms, calls_10k=ms_10k)
+
+    # -- 4c. K3g: the grid route on a cut plan -------------------------------
+    view = sq_idx["QT_8BIT"]._sq8_view()
+    full = F.grid2d_maxc(il, probes)
+    cut = full // 2
+    while cut > 1 and torch.equal(F.truncate_plan(plan3, cut).tile_nb,
+                                  plan3.tile_nb):
+        cut //= 2
+    reset_counts()
+    Dg, Ig, _ = F.scan_invlists_fused_grid(xq_s, probes, il, K, maxc=full)
+    Dc, Ic, _ = F.scan_invlists_fused_grid(xq_s, probes, il, K, maxc=cut)
+    Dcs, Ics, _ = F.scan_invlists_fused_grid(xq_s, probes, view, K,
+                                             maxc=cut)
+    torch.cuda.synchronize()
+    grid_launches = counts()
+    if grid_launches["ivf_scan_fused"] != 2 or \
+            grid_launches["ivf_scan_sq8"] != 1 or \
+            sum(grid_launches.values()) != 3:
+        raise AssertionError(f"the K3g route launched {grid_launches}")
+    D3, I3, _ = F.scan_invlists_fused(xq_s, probes, il, K)
+    assert_equal("K3g uncut distances vs K3", D3, Dg)
+    assert_equal("K3g uncut ids vs K3", I3, Ig)
+    g_err = 0.0
+    for name, lists, q, n, Dk, Ik in (("bf16", il, q16, qn, Dc, Ic),
+                                       ("sq8", view,
+                                        *F.fold_queries(xq_s, view, False),
+                                        Dcs, Ics)):
+        cplan = F.truncate_plan(F.plan_pairs(probes, lists), cut)
+        d1, p1 = F.scan_pairs(q, n, cplan, lists, kp, False)
+        d0, p0 = F.scan_pairs_reference(q, n, cplan, lists, kp, False)
+        if name == "bf16":
+            assert_equal("K3g cut distances", d0, d1)
+            assert_equal("K3g cut positions", p0, p1)
+        g_err = max(g_err, assert_close_pairs(f"K3g {name}", d0, p0, d1,
+                                              p1))
+        D0, I0, _ = F.scan_invlists_fused_reference(xq_s, probes, lists, K,
+                                                    maxc=cut)
+        assert_same_topk(D0.cpu().numpy(), I0.cpu().numpy(),
+                         Dk.cpu().numpy(), Ik.cpu().numpy())
+    cplan = F.truncate_plan(plan3, cut)
+    g_ms = cuda_ms(lambda: F.scan_pairs(q16, qn, cplan, il, kp, False), 20)
+    g_plain = host_ms(lambda: F.scan_pairs_reference(q16, qn, cplan, il, kp,
+                                                     False), 3)
+    g_route = host_ms(lambda: F.scan_invlists_fused_grid(
+        xq_s, probes, il, K, maxc=cut), 5)
+    g_bound = bound(*pair_scan_work(cplan, il.ids, il.block_size, D, kp, 0,
+                                    il.nblocks))
+    phase("k3g_check", nq=len(xq_s), nprobe=probes.shape[1], maxc_full=full,
+          maxc_cut=cut, tiles_cut=int((cplan.tile_nb < plan3.tile_nb).sum()),
+          uncut_equal_k3=True, max_abs_err=g_err, kernel_ms=g_ms,
+          plain_ms=g_plain, route_ms=g_route, launches=grid_launches,
+          **g_bound)
+    del sq_idx
+    torch.cuda.empty_cache()
+
+    rec = sq8_ms["QT_8BIT"]
+    return [{
+        "name": "ivf_scan_sq8",
+        "route": "cuda",
+        "source": "tpu_ann_torch/csrc/ivf_scan_sq8.cu",
+        "replaces": "tpu_ann/ops/ivf_scan_pallas.py:172",
+        "launches": sq_launches["ivf_scan_sq8"],
+        "max_abs_err": sq8_err,
+        "ms": min(rec["ms"]),
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "ivf_scan_fused_grid",
+        "route": "cuda",
+        "source": "tpu_ann_torch/csrc/ivf_scan_fused.cu, "
+                  "tpu_ann_torch/csrc/ivf_scan_sq8.cu",
+        "replaces": "tpu_ann/ops/ivf_scan_pallas.py:542",
+        "launches": sum(grid_launches.values()),
+        "max_abs_err": g_err,
+        "ms": g_ms,
+        "plain_ms": g_plain,
+        **g_bound,
+        "library_ms": None,
+    }]
 
 
 def flat_search(index, xq, gt, name, floor) -> float:

@@ -43,7 +43,8 @@ def test_sources_found():
             "csrc/reservoir_topk.cu", "models/selectors.py",
             "ops/ivf_scan_paged.py", "csrc/ivf_scan_paged.cu",
             "csrc/ivf_scan_core.cuh", "models/ivf_paged.py",
-            "ops/topk.py"} <= names
+            "ops/topk.py", "ops/sq.py", "csrc/ivf_scan_sq8.cu",
+            "models/pq.py", "models/ivf_pq.py", "utils/convert.py"} <= names
 
 
 @pytest.mark.parametrize("needle", ["import jax", "tpu_ann.", "ml_dtypes"])
@@ -59,6 +60,7 @@ def test_no_reference_imports(needle):
 def test_default_device_is_cuda_without_fallback(tmp_path):
     """Indexes default to the GPU; without one they fail instead of
     quietly running on the CPU."""
+    import numpy as np
     import torch
 
     import tpu_ann_torch as T
@@ -68,6 +70,7 @@ def test_default_device_is_cuda_without_fallback(tmp_path):
         assert T.IndexFlat(8).device.type == "cuda"
         assert T.make_ivf_flat(8, 4).device.type == "cuda"
         assert T.IndexIVFFlatPaged(8, 4, path).device.type == "cuda"
+        assert T.IndexScalarQuantizer(8).device.type == "cuda"
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             T.IndexFlat(8)
@@ -75,5 +78,9 @@ def test_default_device_is_cuda_without_fallback(tmp_path):
             T.make_ivf_flat(8, 4)
         with pytest.raises((AssertionError, RuntimeError)):
             T.IndexIVFFlatPaged(8, 4, path)
+        sq = T.IndexScalarQuantizer(8, T.QT_8BIT_DIRECT)
+        assert sq.device.type == "cuda"
+        with pytest.raises((AssertionError, RuntimeError)):
+            sq.add(np.zeros((2, 8), np.float32))
     assert T.IndexFlat(8, device="cpu").device.type == "cpu"
     assert T.IndexIVFFlatPaged(8, 4, path, device="cpu").device.type == "cpu"

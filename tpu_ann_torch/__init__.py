@@ -17,7 +17,11 @@ Covered today:
 - the out-of-core IVF search — IndexIVFFlatPaged: train -> streaming add
   into an on-disk directory (the JAX package's format) -> load (mmap) ->
   search, through a pinned, double-buffered host-to-device window pipeline
-  and the hand-written window scan (K4).
+  and the hand-written window scan (K4);
+- the scalar-quantizer slice — the SQ codecs (ops.sq), IndexScalarQuantizer,
+  and IndexIVFScalarQuantizer, whose 8-bit qtypes search the uint8 codes
+  through the hand-written SQ8 scan (K3-SQ8); and K3g
+  (scan_invlists_fused_grid), served by K3 and K3-SQ8 on a cut plan.
 """
 
 from .models import (  # noqa: F401
@@ -39,6 +43,8 @@ from .models import (  # noqa: F401
     IndexIVF,
     IndexIVFFlat,
     IndexIVFFlatPaged,
+    IndexIVFScalarQuantizer,
+    IndexScalarQuantizer,
     QueryLatencyStats,
     SearchParameters,
     SearchParametersIVF,
@@ -57,9 +63,19 @@ from .ops.flat_knn_fused import (  # noqa: F401
     pack_flat_db,
     reservoir_topk,
 )
-from .ops.ivf_scan import PackedInvLists, pack_invlists  # noqa: F401
+from .ops.ivf_scan import (  # noqa: F401
+    PackedCodeInvLists,
+    PackedInvLists,
+    PackedInvListsSQ8,
+    pack_code_invlists,
+    pack_invlists,
+    sq8_requantize_invlists,
+    sq8_view_from_codes,
+)
 from .ops.ivf_scan_fused import (  # noqa: F401
+    grid2d_maxc,
     scan_invlists_fused,
+    scan_invlists_fused_grid,
     scan_invlists_fused_reference,
 )
 from .ops.ivf_scan_paged import (  # noqa: F401
@@ -69,10 +85,25 @@ from .ops.ivf_scan_paged import (  # noqa: F401
     scan_invlists_paged,
 )
 from .ops.kmeans import ClusteringParameters, kmeans  # noqa: F401
+from .ops.sq import (  # noqa: F401
+    QT_4BIT,
+    QT_4BIT_UNIFORM,
+    QT_6BIT,
+    QT_8BIT,
+    QT_8BIT_DIRECT,
+    QT_8BIT_DIRECT_SIGNED,
+    QT_8BIT_UNIFORM,
+    QT_BF16,
+    QT_FP16,
+    SQCodec,
+    train_sq,
+)
 from .ops.topk import merge_topk, topk_with_ids  # noqa: F401
 from .utils.convert import (  # noqa: F401
     flat_from_reference,
     ivf_flat_from_reference,
+    ivf_sq_from_reference,
+    sq_from_reference,
 )
 from .utils.datasets import (  # noqa: F401
     SIFT1M_CALIBRATED,

@@ -1,12 +1,13 @@
 // Device code shared by the list-major fused IVF scan (K3,
-// ivf_scan_fused.cu) and the out-of-core window scan (K4,
-// ivf_scan_paged.cu): per (query, probe) pair, the exact top-kp stream rows
-// of the pair's inverted list, for NVIDIA Hopper (sm_90a).
+// ivf_scan_fused.cu), its SQ8 variant (K3-SQ8, ivf_scan_sq8.cu) and the
+// out-of-core window scan (K4, ivf_scan_paged.cu): per (query, probe) pair,
+// the exact top-kp stream rows of the pair's inverted list, for NVIDIA
+// Hopper (sm_90a).
 //
 // Replaces the body of the TPU kernels, tpu_ann/ops/ivf_scan_pallas.py::
 // _grouped_kernel, which K3 (scan_invlists_fused) launches over the whole
-// stream and K4 (tpu_ann/ops/ivf_scan_paged.py::_make_window_kernel) over
-// one uploaded window.
+// bf16 or uint8 stream and K4 (tpu_ann/ops/ivf_scan_paged.py::
+// _make_window_kernel) over one uploaded window.
 //
 // Work: the wrapper sorts the pairs by list id and cuts them into tiles of
 // kPT pairs. Lists are packed contiguously in id order, so a tile's pairs
@@ -18,7 +19,14 @@
 // of one list run on different warps; a lane scores two rows of the chunk
 // against its group's pairs with bf16 x bf16 -> f32 products (f32
 // accumulation).
-//   L2: max(|q|^2 + |x|^2 - 2 q.x, 0)          IP: -q.x - qn (qn = 0)
+//   L2: max(qn + |x|^2 - 2 q.x, 0)             IP: -q.x - qn
+// qn is the wrapper's per-query offset: |q|^2 for L2 and 0 for IP on a
+// bf16 stream. On the SQ8 stream (Elem = uint8_t) x is the code row, q the
+// query times the dequant scale (rounded to bf16 once), and qn folds in
+// the bias: |q|^2 - 2 q.bias for L2, q.bias for IP. Each code is widened
+// to bf16 in registers as its chunk is staged (exact: every integer up to
+// 256 is a bf16), so the shared-memory chunk and the inner loop are the
+// bf16 stream's; only the HBM read halves.
 // A row counts for a pair if it lies in the pair's list block range and
 // holds a real entry (id >= 0). Each pair keeps an exact sorted top-kp
 // spread over the warp's lanes (lane i holds entry i), ordered by
@@ -36,16 +44,17 @@
 // from empty lists; its instantiation has none of the window code.
 //
 // What bounds it on the H100: at d = 128 a streamed row is 256 B of bf16
-// plus 8 B of id and norm, and it feeds (pairs of the tile on its list) x d
-// fused multiply-adds. At the IVF4096 main path (1M rows, 10k queries,
-// nprobe 16-64) a list is probed by 40-160 pairs, so a row read feeds
-// thousands of FMAs: the kernel is bound by CUDA-core FMA issue and
-// shared-memory operand traffic, not by HBM. The design keeps the operand
-// reads low (queries converted to f32 once per tile and read as warp
-// broadcasts, rows read with bank-conflict-free 16-byte loads, 16
-// accumulators per lane) and skips a register group's work on chunks that
-// hold none of its pairs' lists. Tensor cores (mma.sync / wgmma), cp.async
-// or TMA double buffering and persistent CTAs are later steps.
+// (128 B of codes on the SQ8 stream) plus 8 B of id and norm, and it feeds
+// (pairs of the tile on its list) x d fused multiply-adds. At the IVF4096
+// main path (1M rows, 10k queries, nprobe 16-64) a list is probed by
+// 40-160 pairs, so a row read feeds thousands of FMAs: the kernel is
+// bound by CUDA-core FMA issue and shared-memory operand traffic, not by
+// HBM. The design keeps the operand reads low (queries converted to f32
+// once per tile and read as warp broadcasts, rows read with
+// bank-conflict-free 16-byte loads, 16 accumulators per lane) and skips a
+// register group's work on chunks that hold none of its pairs' lists.
+// Tensor cores (mma.sync / wgmma), cp.async or TMA double buffering and
+// persistent CTAs are later steps.
 
 #pragma once
 
@@ -88,6 +97,30 @@ __device__ __forceinline__ void unpack8(const uint4 v, float (&f)[8]) {
   f[5] = __uint_as_float(v.z & 0xffff0000u);
   f[6] = __uint_as_float(v.w << 16);
   f[7] = __uint_as_float(v.w & 0xffff0000u);
+}
+
+// Two codes -> two bf16 in one word, exactly: 2^23 + c is exact in f32,
+// so (2^23 + c) - 2^23 = c, whose f32 bits end in 16 zero bits (c < 256)
+__device__ __forceinline__ uint32_t codes2_bf16(uint32_t c0, uint32_t c1) {
+  const float f0 = __uint_as_float(0x4b000000u | c0) - 8388608.0f;
+  const float f1 = __uint_as_float(0x4b000000u | c1) - 8388608.0f;
+  // the top halves of f0 (low word) and f1 (high word)
+  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+}
+
+// 8 stream elements at p as 8 bf16 (one 16-byte vector): a 16-byte load
+// of a bf16 stream, or an 8-byte load of uint8 codes widened in registers
+template <typename Elem>
+__device__ __forceinline__ uint4 load8_bf16(const Elem* p) {
+  if constexpr (sizeof(Elem) == 1) {
+    const uint2 c = *reinterpret_cast<const uint2*>(p);
+    return make_uint4(codes2_bf16(c.x & 0xffu, (c.x >> 8) & 0xffu),
+                      codes2_bf16((c.x >> 16) & 0xffu, c.x >> 24),
+                      codes2_bf16(c.y & 0xffu, (c.y >> 8) & 0xffu),
+                      codes2_bf16((c.y >> 16) & 0xffu, c.y >> 24));
+  } else {
+    return *reinterpret_cast<const uint4*>(p);
+  }
 }
 
 __device__ __forceinline__ float dot8(const float4 a, const float4 b,
@@ -153,17 +186,18 @@ __device__ __forceinline__ void merge32(float& d, int& p, float cd, int cp,
 }
 
 // The body of one CTA, for tile tile0 + blockIdx.x (see the header
-// comment).
-template <bool kWindow>
+// comment). Elem is the stream's element: uint16_t (bf16 bits) or uint8_t
+// (SQ8 codes).
+template <bool kWindow, typename Elem = uint16_t>
 __device__ __forceinline__ void scan_tile(
     const uint16_t* __restrict__ xq,      // (nq, d) bf16 queries
-    const float* __restrict__ qn,         // (nq,) f32 |q|^2 (0 for IP)
+    const float* __restrict__ qn,         // (nq,) f32 per-query offset
     const int* __restrict__ pair_q,       // (ntiles*kPT,) query row
     const int* __restrict__ pstart,       // (ntiles*kPT,) first block
     const int* __restrict__ pend,         // (ntiles*kPT,) end block
     const int* __restrict__ tile_bs,      // (ntiles,) first block of tile
     const int* __restrict__ tile_nb,      // (ntiles,) blocks of tile
-    const uint16_t* __restrict__ data,    // window rows, (rows, d) bf16
+    const Elem* __restrict__ data,        // window rows, (rows, d)
     const int* __restrict__ ids,          // window rows' ids, -1 = pad
     const float* __restrict__ norms,      // window rows' |x|^2
     int wrow0, int wrow1, int tile0,      // window rows; first tile
@@ -238,15 +272,15 @@ __device__ __forceinline__ void scan_tile(
 
     for (int s = 0; s < nslices; ++s) {
       const int d0 = s * kDS;
-      const int nv = min(kDS, d - d0) / 8;  // 16-byte vectors per row slice
+      const int nv = min(kDS, d - d0) / 8;  // 8-element vectors per slice
       __syncthreads();                      // previous chunk fully consumed
       for (int i = tid; i < kCR * nv; i += kThreads) {
         const int r = i / nv, v = i - r * nv;
         const int row = c0 + r;
         uint4 val = make_uint4(0u, 0u, 0u, 0u);
         if (row < row1)
-          val = *reinterpret_cast<const uint4*>(
-              data + static_cast<size_t>(row - base) * d + d0 + v * 8);
+          val = load8_bf16(data + static_cast<size_t>(row - base) * d + d0 +
+                           v * 8);
         *reinterpret_cast<uint4*>(xs + r * kXS + v * 8) = val;
       }
       if (s == 0) {
@@ -361,14 +395,14 @@ __device__ __forceinline__ void scan_tile(
   }
 }
 
-// The parameters of a kernel that runs scan_tile, and the call: K3
-// (ivf_scan_fused.cu) and K4 (ivf_scan_paged.cu) each define one, with
-// their own launch bounds.
-#define IVF_SCAN_TILE_PARAMS                                                \
+// The parameters of a kernel that runs scan_tile on a stream of Elem, and
+// the call: K3 (ivf_scan_fused.cu), K3-SQ8 (ivf_scan_sq8.cu) and K4
+// (ivf_scan_paged.cu) each define one, with their own launch bounds.
+#define IVF_SCAN_TILE_PARAMS(Elem)                                          \
   const uint16_t *__restrict__ xq, const float *__restrict__ qn,            \
       const int *__restrict__ pair_q, const int *__restrict__ pstart,       \
       const int *__restrict__ pend, const int *__restrict__ tile_bs,        \
-      const int *__restrict__ tile_nb, const uint16_t *__restrict__ data,   \
+      const int *__restrict__ tile_nb, const Elem *__restrict__ data,       \
       const int *__restrict__ ids, const float *__restrict__ norms,         \
       int wrow0, int wrow1, int tile0, int d, int B, int kp, int similarity, \
       float *__restrict__ out_d, int *__restrict__ out_p
@@ -376,10 +410,10 @@ __device__ __forceinline__ void scan_tile(
   xq, qn, pair_q, pstart, pend, tile_bs, tile_nb, data, ids, norms, wrow0,  \
       wrow1, tile0, d, B, kp, similarity, out_d, out_p
 
-// Launches `kernel` (a scan_tile kernel), one CTA per tile of
-// [tile0, tile0 + ntiles), on `stream`; allocates nothing. Returns
+// Launches `kernel` (a scan_tile kernel on a stream of Elem), one CTA per
+// tile of [tile0, tile0 + ntiles), on `stream`; allocates nothing. Returns
 // cudaGetLastError() (0 on success).
-template <typename Kernel>
+template <typename Elem = uint16_t, typename Kernel>
 int launch_scan_tiles(Kernel kernel, const void* xq, const void* qn,
                       const void* pair_q, const void* pstart,
                       const void* pend, const void* tile_bs,
@@ -400,7 +434,7 @@ int launch_scan_tiles(Kernel kernel, const void* xq, const void* qn,
         static_cast<const uint16_t*>(xq), static_cast<const float*>(qn),
         static_cast<const int*>(pair_q), static_cast<const int*>(pstart),
         static_cast<const int*>(pend), static_cast<const int*>(tile_bs),
-        static_cast<const int*>(tile_nb), static_cast<const uint16_t*>(data),
+        static_cast<const int*>(tile_nb), static_cast<const Elem*>(data),
         static_cast<const int*>(ids), static_cast<const float*>(norms), wrow0,
         wrow1, tile0, d, B, kp, similarity, static_cast<float*>(out_d),
         static_cast<int*>(out_p));

@@ -4,9 +4,10 @@
 // Replaces the TPU kernel tpu_ann/ops/ivf_scan_pallas.py::_grouped_kernel
 // (launched by scan_invlists_fused). Python side, plain version and
 // binding: tpu_ann_torch/ops/ivf_scan_fused.py. The kernel itself, its
-// design and what bounds it are in ivf_scan_core.cuh, which the
-// out-of-core window scan (K4, ivf_scan_paged.cu) shares; K3 runs its
-// instantiation without the window code, over the whole stream.
+// design and what bounds it are in ivf_scan_core.cuh, which the SQ8 scan
+// (K3-SQ8, ivf_scan_sq8.cu) and the out-of-core window scan (K4,
+// ivf_scan_paged.cu) share; K3 runs its instantiation without the window
+// code, over the whole bf16 stream.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see tpu_ann_torch/kernels). Plain C interface.
@@ -19,7 +20,7 @@ namespace {
 // explicit minimum of one CTA per SM ptxas took 148 registers and K3 ran
 // 1.56x slower on the H100; with a minimum of two it spilled 4 bytes.)
 __global__ void __launch_bounds__(ivf_scan::kThreads)
-ivf_scan_fused_kernel(IVF_SCAN_TILE_PARAMS) {
+ivf_scan_fused_kernel(IVF_SCAN_TILE_PARAMS(uint16_t)) {
   ivf_scan::scan_tile<false>(IVF_SCAN_TILE_ARGS);
 }
 

@@ -36,7 +36,7 @@ namespace {
 // for two (ptxas then spills 4 bytes): 12% faster on the H100 at the
 // path's shapes.
 __global__ void __launch_bounds__(ivf_scan::kThreads, 2)
-ivf_scan_window_kernel(IVF_SCAN_TILE_PARAMS) {
+ivf_scan_window_kernel(IVF_SCAN_TILE_PARAMS(uint16_t)) {
   ivf_scan::scan_tile<true>(IVF_SCAN_TILE_ARGS);
 }
 

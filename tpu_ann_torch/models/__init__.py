@@ -21,6 +21,8 @@ from .ivf import (  # noqa: F401
     make_ivf_flat,
 )
 from .ivf_paged import IndexIVFFlatPaged  # noqa: F401
+from .ivf_pq import IndexIVFScalarQuantizer  # noqa: F401
+from .pq import IndexScalarQuantizer  # noqa: F401
 from .selectors import (  # noqa: F401
     IDSelector,
     IDSelectorAll,

@@ -76,6 +76,7 @@ class IndexIVF(Index):
     def train(self, x) -> None:
         x = self._check_input(x)
         self.train_q1(x)
+        self.train_encoder(x)
         self.is_trained = True
 
     def train_q1(self, x: np.ndarray) -> None:
@@ -96,6 +97,10 @@ class IndexIVF(Index):
         self.quantizer.reset()
         self.quantizer.train(centroids)
         self.quantizer.add(centroids)
+
+    def train_encoder(self, x: np.ndarray) -> None:
+        """No-op for Flat storage (faiss IndexIVF::train_encoder default);
+        codec subclasses train their codec here."""
 
     # --- add ----------------------------------------------------------------
     def add(self, x) -> None:
@@ -179,10 +184,15 @@ class IndexIVF(Index):
             n == 0 or (ids[0] == 0 and ids[-1] == n - 1
                        and np.array_equal(ids, np.arange(n, dtype=np.int64))))
         x = np.concatenate(self._xb_host)
-        self.invlists = ivf_scan.pack_invlists(
-            x, np.arange(n, dtype=np.int64), assign, self.nlist,
-            self.block_size, device=self.device)
+        self.invlists = self._pack(x, np.arange(n, dtype=np.int64), assign)
         self._list_sizes_dev = None
+
+    def _pack(self, x: np.ndarray, ids: np.ndarray, assign: np.ndarray):
+        """The device invlists of rows ``x`` (stored ids ``ids``, lists
+        ``assign``): raw f32 storage and its bf16 stream for Flat; codec
+        subclasses pack their codes."""
+        return ivf_scan.pack_invlists(x, ids, assign, self.nlist,
+                                      self.block_size, device=self.device)
 
     def _map_ids(self, I) -> np.ndarray:
         """Map stored row indices back to user int64 ids (-1 preserved)."""
@@ -212,6 +222,11 @@ class IndexIVF(Index):
         """Coarse quantization + fused invlist scan, all on the device.
         Returns (D, I) tensors; I holds stored row indices."""
         _, probes = self._coarse_search_device(xq_dev, nprobe)
+        return self._scan_probes(xq_dev, probes, k)
+
+    def _scan_probes(self, xq_dev: torch.Tensor, probes: torch.Tensor,
+                     k: int):
+        """The invlist scan of the probed lists: one kernel launch."""
         Dv, Iv, _ = scan_invlists_fused(xq_dev, probes, self.invlists, k,
                                         self.metric_type)
         return Dv, Iv
@@ -250,8 +265,7 @@ class IndexIVF(Index):
         with Timer(self.device) as t_q:
             _, probes = self._coarse_search_device(xq_dev, nprobe)
         with Timer(self.device) as t_s:
-            Dv, Iv, _ = scan_invlists_fused(xq_dev, probes, self.invlists,
-                                            k, self.metric_type)
+            Dv, Iv = self._scan_probes(xq_dev, probes, k)
             Dv = Dv.cpu().numpy()
             Iv = self._map_ids(Iv.cpu().numpy())
         sizes = self._list_sizes_device()

@@ -1,5 +1,6 @@
-"""Operators: distances, k-selection, k-means, packed invlists, the fused
-IVF scan, the out-of-core paged IVF scan and the fused flat scan."""
+"""Operators: distances, k-selection, k-means, scalar quantization, packed
+invlists (raw, coded and SQ8), the fused IVF scan, the out-of-core paged
+IVF scan and the fused flat scan."""
 
 from . import (  # noqa: F401
     distances,
@@ -8,5 +9,6 @@ from . import (  # noqa: F401
     ivf_scan_fused,
     ivf_scan_paged,
     kmeans,
+    sq,
     topk,
 )

@@ -1,6 +1,8 @@
 """List-major fused IVF scan — PyTorch counterpart of
-`scan_invlists_fused` in `tpu_ann/ops/ivf_scan_pallas.py`, with its kernel
-hand-written in CUDA for Hopper (``csrc/ivf_scan_fused.cu``).
+`scan_invlists_fused` and `scan_invlists_fused_grid` in
+`tpu_ann/ops/ivf_scan_pallas.py`, with its kernels hand-written in CUDA for
+Hopper: K3 (``csrc/ivf_scan_fused.cu``) on a bf16 stream and K3-SQ8
+(``csrc/ivf_scan_sq8.cu``) on the uint8 codes of a `PackedInvListsSQ8`.
 
 With nq queries probing nprobe lists each, a query-major scan reads every
 probed list once per (query, probe) pair. Sorting the pairs by list id and
@@ -14,15 +16,24 @@ Steps (the wrapper is plain torch around one kernel launch):
   2. the kernel (or, for CPU tensors, its plain version
      `scan_pairs_reference`) computes each pair's exact top-kp over its
      list with bf16 x bf16 -> f32 scores:
-       L2: max(||q||^2 + ||x||^2 - 2 q.x, 0)      IP: -q.x
-     ties go to the lower stream position, empty slots are (+inf, -1);
+       L2: max(qn + ||x||^2 - 2 q.x, 0)      IP: -q.x - qn
+     where qn is a per-query offset: ||q||^2 for L2 and 0 for IP on a bf16
+     stream. On the SQ8 stream (x = bias + code * scale) the affine folds
+     into the queries: q' = bf16(q * scale), rounded once, is multiplied by
+     the codes, and qn = ||q||^2 - 2 q.bias for L2, q.bias for IP. Ties go
+     to the lower stream position, empty slots are (+inf, -1);
   3. un-sort the pairs, merge per query to the top R candidates, re-rank
-     them exactly in f32 against the f32 packed storage, map stream
-     positions to row ids, and flip the sign back for IP.
+     them exactly in f32 against the stored rows (f32 storage, or the
+     dequantized codes), map stream positions to row ids, and flip the sign
+     back for IP.
 
 Unlike the reference, the per-pair top-kp is always exact: the reference's
 RW=512 lane-min reservoir (which can drop candidates) exists only because
 extraction rounds are expensive on the TPU's vector unit.
+
+K3g (`scan_invlists_fused_grid`) computes the same function on a plan cut
+to a static number of chunks per tile; it is served by the same kernels
+(see its docstring).
 """
 
 from __future__ import annotations
@@ -30,17 +41,20 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 
 from . import distances as D
-from .ivf_scan import PackedInvLists
+from .ivf_scan import PackedInvLists, PackedInvListsSQ8
 
 # pairs per tile: the CUDA kernel is written for this tile (kPT in the .cu)
 PT = 128
 # largest per-pair width the CUDA kernel keeps (one list entry per lane)
 KP_MAX = 32
-# kernel launches made by `scan_pairs` (one per call on a CUDA tensor)
+# kernel launches made by `scan_pairs` (one per call on a CUDA tensor):
+# K3 on a bf16 stream, K3-SQ8 on a uint8 one
 LAUNCHES = 0
+LAUNCHES_SQ8 = 0
 # the plain version's batches of tiles stay under this many f32 elements
 _PLAIN_BUDGET = 1 << 27
 
@@ -118,20 +132,29 @@ def plan_pairs(probes: torch.Tensor, invlists, pt: int = PT) -> PairPlan:
 # CUDA tensor and takes the plain version only for a CPU tensor.
 # ---------------------------------------------------------------------------
 
+def stream_of(invlists) -> torch.Tensor:
+    """The (nblocks+1, B, d) stream the kernels read: the uint8 codes of a
+    `PackedInvListsSQ8`, else the bf16 rows."""
+    if isinstance(invlists, PackedInvListsSQ8):
+        return invlists.codes
+    return invlists.data_bf16
+
+
 def scan_pairs_reference(xq_bf16: torch.Tensor, qn: torch.Tensor,
                          plan: PairPlan, invlists: PackedInvLists, kp: int,
                          similarity: bool):
-    """Plain torch version of the kernel: the same per-pair top-kp.
+    """Plain torch version of the kernels: the same per-pair top-kp.
 
     Tiles are processed in batches whose gathered rows and scores stay
     under ``_PLAIN_BUDGET`` float32 elements. Scores are f32 products of the
-    bf16-rounded operands (``q.bfloat16().float() @ x.bfloat16().float().T``);
-    a bf16 product would round the output on the CPU.
+    bf16 queries and the stream's rows widened to f32 (bf16 rows or uint8
+    codes, both exact in f32): ``q.float() @ x.float().T``; a bf16 product
+    would round the output on the CPU.
     Returns (dist (npairs_pad, kp) f32, pos (npairs_pad, kp) int32)."""
     dev = xq_bf16.device
     d = xq_bf16.shape[1]
     B = invlists.block_size
-    data = invlists.data_bf16.view(-1, d)
+    data = stream_of(invlists).view(-1, d)
     ids = invlists.ids.view(-1)
     norms = invlists.norms.view(-1)
     ntiles = plan.ntiles
@@ -185,24 +208,27 @@ def scan_pairs_reference(xq_bf16: torch.Tensor, qn: torch.Tensor,
     return out_d, out_p
 
 
-_LIB = None
+_LIBS: dict = {}
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
+def _lib(name: str):
+    """The bound kernel ``name`` (ivf_scan_fused: K3, ivf_scan_sq8:
+    K3-SQ8); both have the same C signature."""
+    if name not in _LIBS:
         from ..kernels import load_library
 
-        lib = load_library("ivf_scan_fused")
+        lib = load_library(name)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ivf_scan_fused.argtypes = [vp] * 10 + [ci] * 5 + [vp] * 3
-        lib.ivf_scan_fused.restype = ci
-        lib.ivf_scan_fused_tile_pairs.argtypes = []
-        lib.ivf_scan_fused_tile_pairs.restype = ci
-        if lib.ivf_scan_fused_tile_pairs() != PT:
-            raise RuntimeError("ivf_scan_fused: kernel tile size != PT")
-        _LIB = lib
-    return _LIB
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * 10 + [ci] * 5 + [vp] * 3
+        fn.restype = ci
+        tile = getattr(lib, name + "_tile_pairs")
+        tile.argtypes = []
+        tile.restype = ci
+        if tile() != PT:
+            raise RuntimeError(f"{name}: kernel tile size != PT")
+        _LIBS[name] = fn
+    return _LIBS[name]
 
 
 def _check(t: torch.Tensor, dtype, name: str, dev) -> None:
@@ -214,10 +240,11 @@ def _check(t: torch.Tensor, dtype, name: str, dev) -> None:
 
 def scan_pairs(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
                invlists: PackedInvLists, kp: int, similarity: bool):
-    """Per-pair exact top-kp: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns (dist, pos) of shape
+    """Per-pair exact top-kp: for CUDA tensors the CUDA kernel of the
+    stream's type (K3 on bf16 rows, K3-SQ8 on uint8 codes), for CPU
+    tensors the plain version. Returns (dist, pos) of shape
     (npairs_pad, kp)."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_SQ8
     dev = xq_bf16.device
     if dev.type == "cpu":
         return scan_pairs_reference(xq_bf16, qn, plan, invlists, kp,
@@ -240,22 +267,31 @@ def scan_pairs(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
     _check(qn, torch.float32, "qn", dev)
     for name in ("pair_q", "pstart", "pend", "tile_bs", "tile_nb"):
         _check(getattr(plan, name), torch.int32, name, dev)
-    _check(invlists.data_bf16, torch.bfloat16, "data_bf16", dev)
+    stream = stream_of(invlists)
+    sq8 = stream.dtype == torch.uint8
+    _check(stream, torch.uint8 if sq8 else torch.bfloat16, "stream", dev)
+    if stream.shape[-1] != d:
+        raise ValueError(f"ivf_scan_fused: stream rows have "
+                         f"{stream.shape[-1]} dims, queries {d}")
+    if stream.data_ptr() % 16:
+        # 16-byte row loads of bf16, 8-byte ones of codes (d % 8 == 0)
+        raise ValueError("ivf_scan_fused: the stream must be 16-byte "
+                         "aligned")
     _check(invlists.ids, torch.int32, "ids", dev)
     _check(invlists.norms, torch.float32, "norms", dev)
 
-    lib = _lib()
+    fn = _lib("ivf_scan_sq8" if sq8 else "ivf_scan_fused")
     out_d = torch.empty((plan.ntiles * PT, kp), dtype=torch.float32,
                         device=dev)
     out_p = torch.empty((plan.ntiles * PT, kp), dtype=torch.int32,
                         device=dev)
     if plan.ntiles == 0:
         return out_d, out_p
-    err = lib.ivf_scan_fused(
+    err = fn(
         xq_bf16.data_ptr(), qn.data_ptr(), plan.pair_q.data_ptr(),
         plan.pstart.data_ptr(), plan.pend.data_ptr(),
         plan.tile_bs.data_ptr(), plan.tile_nb.data_ptr(),
-        invlists.data_bf16.data_ptr(), invlists.ids.data_ptr(),
+        stream.data_ptr(), invlists.ids.data_ptr(),
         invlists.norms.data_ptr(),
         plan.ntiles, d, B, kp, int(similarity),
         out_d.data_ptr(), out_p.data_ptr(),
@@ -263,7 +299,10 @@ def scan_pairs(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
     if err != 0:
         raise RuntimeError(f"ivf_scan_fused: kernel launch failed with "
                            f"CUDA error {err}")
-    LAUNCHES += 1
+    if sq8:
+        LAUNCHES_SQ8 += 1
+    else:
+        LAUNCHES += 1
     return out_d, out_p
 
 
@@ -329,15 +368,33 @@ def merge_pairs(xq: torch.Tensor, pair_dist: torch.Tensor,
     return out_d, out_i
 
 
-def _scan(xq, probes, invlists, k, metric, refine, kp, pair_fn, pt):
+def fold_queries(xq: torch.Tensor, invlists, similarity: bool):
+    """The bf16 queries the kernel multiplies and the per-query offset qn
+    (f32) for ``invlists``' stream (see the module docstring, step 2). On
+    the SQ8 stream: <q, x> = <q, bias> + <q * scale, code>, with q * scale
+    computed in f32 and rounded to bf16 once."""
+    xq = xq.float()
+    if isinstance(invlists, PackedInvListsSQ8):
+        qconst = xq @ invlists.sq_bias
+        q = (xq * invlists.sq_scale).to(torch.bfloat16)
+        qn = qconst if similarity else D.l2_norms(xq) - 2.0 * qconst
+    else:
+        q = xq.to(torch.bfloat16)
+        qn = torch.zeros(xq.shape[0], device=xq.device) if similarity \
+            else D.l2_norms(xq)
+    return q.contiguous(), qn.contiguous()
+
+
+def _scan(xq, probes, invlists, k, metric, refine, kp, pair_fn, pt,
+          cut=None):
     similarity = D.is_similarity_metric(metric)
     xq = xq.float()
     kp = int(kp) if kp else default_kp(k)
     plan = plan_pairs(probes, invlists, pt)
-    qn = torch.zeros(xq.shape[0], device=xq.device) if similarity \
-        else D.l2_norms(xq)
-    pd, pp = pair_fn(xq.to(torch.bfloat16).contiguous(), qn.contiguous(),
-                     plan, invlists, kp, similarity)
+    if cut is not None:
+        plan = truncate_plan(plan, *cut)
+    q, qn = fold_queries(xq, invlists, similarity)
+    pd, pp = pair_fn(q, qn, plan, invlists, kp, similarity)
     Dv, Iv = merge_pairs(xq, pd, pp, plan, k, probes.shape[1], similarity,
                          refine, invlists.rows_at, invlists.ids_at)
     return Dv, Iv, plan.ndis
@@ -350,7 +407,9 @@ def scan_invlists_fused(xq: torch.Tensor, probes: torch.Tensor,
     """List-major fused IVF scan (see module docstring).
 
     Args:
-      xq: (nq, d) queries on the invlists' device. probes: (nq, nprobe)
+      xq: (nq, d) queries on the invlists' device. invlists: a
+        PackedInvLists (bf16 stream, K3) or a PackedInvListsSQ8 (uint8
+        codes, K3-SQ8). probes: (nq, nprobe)
         list ids, -1 entries skipped. refine: the top refine*k merged
         candidates are re-ranked in exact f32 (refine <= 1 keeps the bf16
         distances). kp: per-pair width (0 = default_kp(k)).
@@ -364,8 +423,94 @@ def scan_invlists_fused_reference(xq: torch.Tensor, probes: torch.Tensor,
                                   invlists: PackedInvLists, k: int,
                                   metric: int = D.METRIC_L2, *,
                                   refine: int = 4, kp: int = 0,
-                                  pt: int = PT):
-    """`scan_invlists_fused` with the plain version in place of the kernel
-    on any device; the result does not depend on the tile size ``pt``."""
+                                  pt: int = PT, maxc: int = 0, CB: int = 8):
+    """`scan_invlists_fused` with the plain version in place of the kernels
+    on any device; the result does not depend on the tile size ``pt``.
+    ``maxc`` > 0 scans K3g's cut plan instead (`truncate_plan`), as
+    `scan_invlists_fused_grid` does."""
     return _scan(xq, probes, invlists, k, metric, refine, kp,
-                 scan_pairs_reference, pt)
+                 scan_pairs_reference, pt, cut=(maxc, CB) if maxc else None)
+
+
+# ---------------------------------------------------------------------------
+# K3g: the 2-D grid schedule's function (reference :629-870)
+# ---------------------------------------------------------------------------
+
+def truncate_plan(plan: PairPlan, maxc: int, CB: int = 8) -> PairPlan:
+    """K3g's cut of a plan: each tile's block range ends with the maxc-th
+    CB-block chunk from the chunk that holds its first block, i.e. becomes
+    [tile_bs, min(tile_bs + tile_nb, (tile_bs // CB + maxc) * CB)) — the
+    reference's truncation "from the far end" (:725-728). Pair ranges are
+    clipped to their tile's."""
+    bs = plan.tile_bs.long()
+    end = torch.minimum(bs + plan.tile_nb.long(), (bs // CB + maxc) * CB)
+    nb = torch.clamp(end - bs, min=0)
+    pt = plan.pair_q.shape[0] // max(plan.ntiles, 1)
+    pend = torch.minimum(plan.pend.long(), (bs + nb).repeat_interleave(pt))
+    pstart = torch.minimum(plan.pstart.long(), pend)
+    i32 = torch.int32
+    return dataclasses.replace(plan, pstart=pstart.to(i32),
+                               pend=pend.to(i32), tile_nb=nb.to(i32))
+
+
+def scan_invlists_fused_grid(xq: torch.Tensor, probes: torch.Tensor,
+                             invlists, k: int, metric: int = D.METRIC_L2,
+                             *, maxc: int, PT: int = PT, CB: int = 8,
+                             refine: int = 4, kp: int = 0, RW: int = 512):
+    """K3g: the reference's 2-D grid scan (tile x chunk), which gives every
+    tile a static ``maxc`` chunk steps of CB blocks from its CB-aligned
+    start; a tile range longer than that is cut from the far end
+    (`truncate_plan`). ``grid2d_maxc`` sizes maxc so that nothing is cut.
+
+    The cut plan goes through the same kernels as `scan_invlists_fused`
+    (K3 on a bf16 stream, K3-SQ8 on uint8 codes) and the same merge, so the
+    result is K3's over the cut ranges. Ignored arguments: ``RW`` (the
+    reference's lane-min reservoir, which can drop candidates; the per-pair
+    top-kp here is exact). The grid, its static step count and Mosaic's
+    automatic pipelining of the chunk fetches are TPU schedule choices:
+    the kernels walk each tile's range with a runtime loop, so ``maxc``
+    only sets the cut. ``PT`` tiles the plan; the CUDA kernels take 128.
+    Same returns as `scan_invlists_fused` (ndis counts the whole probed
+    lists, as the reference's)."""
+    del RW
+    return _scan(xq, probes, invlists, k, metric, refine, kp, scan_pairs,
+                 PT, cut=(maxc, CB))
+
+
+def grid2d_maxc(invlists, probes_np, PT: int = PT, CB: int = 8,
+                slack: int = 1) -> int:
+    """Static per-tile chunk bound for `scan_invlists_fused_grid`: the
+    max CB-chunk span over the pair tiles of THIS probe layout, host-
+    computed, plus ``slack``, bucketed to the next power of two (the
+    reference's ints, :837-871)."""
+    if isinstance(probes_np, torch.Tensor):
+        probes_np = probes_np.cpu().numpy()
+    probes_np = np.asarray(probes_np)
+    nblk = np.asarray(torch.as_tensor(invlists.list_nblocks).cpu())
+    sstart = np.cumsum(nblk) - nblk
+    npairs = probes_np.size
+    l_flat = probes_np.reshape(-1).astype(np.int64)
+    order = np.argsort(l_flat, kind="stable")
+    ls = l_flat[order]
+    valid = ls >= 0
+    lss = np.where(valid, ls, 0)
+    p_start = np.where(valid, sstart[lss], 0)
+    p_end = p_start + np.where(valid, nblk[lss], 0)
+    ntiles = -(-npairs // PT)
+    pad = ntiles * PT - npairs
+    if pad:
+        p_start = np.pad(p_start, (0, pad))
+        p_end = np.pad(p_end, (0, pad))
+    ps = p_start.reshape(ntiles, PT)
+    pe = p_end.reshape(ntiles, PT)
+    w = pe - ps
+    bs = np.where(w > 0, ps, np.iinfo(np.int64).max).min(1)
+    be = np.where(w > 0, pe, 0).max(1)
+    bs = np.minimum(bs, be)
+    c0 = bs // CB
+    spans = np.maximum(be - c0 * CB, 0)
+    mc = int(-(-spans.max(initial=1) // CB)) + slack
+    p2 = 1
+    while p2 < mc:
+        p2 *= 2
+    return p2

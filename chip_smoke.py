@@ -7,9 +7,10 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
 
 Phases, one line each; any failure raises and exits non-zero:
   1. device  — a CUDA device is required; nvidia-smi's name and power limit.
-  2. build   — compile the five CUDA kernels from tpu_ann_torch/csrc (one
-     nvcc each, in parallel): K3 ivf_scan_fused, K3-SQ8 ivf_scan_sq8, K1
-     flat_knn_fused, K2 reservoir_topk, K4 ivf_scan_paged.
+  2. build   — compile the seven CUDA libraries from tpu_ann_torch/csrc
+     (one nvcc each, in parallel): K3 ivf_scan_fused, K3-SQ8 ivf_scan_sq8,
+     K1 flat_knn_fused, K2 reservoir_topk, K4 ivf_scan_paged, K1p and B1
+     flat_knn_variants, B2 row_copy_probe.
   3. IVF path at the benchmark's size: calibrated SIFT1M surrogate (1M
      base, 100k train, 10k queries, seed 123); the exact IndexFlat's
      ground truth (no K1 launch); make_ivf_flat(128, 4096) -> train
@@ -70,6 +71,37 @@ Phases, one line each; any failure raises and exits non-zero:
      nprobe 32, the first call of each of the two default windows, the
      second merging into the first's result), and on the same window
      padded from d=96: bit for bit; kernel and plain times.
+  9. IVFHNSW path on phase 3's data (the JAX package's bench.py config
+     3): IndexIVFHNSW(128, 15625, M=16), efConstruction 40 -> train on the
+     train slice (k-means, then the graph over the centroids) -> add -> search
+     at nprobe 32 / 64. coarse_mode "auto" (the exact product over the
+     centroid table) must reach IVFHNSW_FLOORS, one K3 launch a search;
+     "quantizer" (the graph's fused tiles) must return >= 0.99 of the exact
+     top-nprobe lists and recall@10 within 0.01 of auto's, with 1 +
+     fused_hops K3 launches per 8192-query chunk for the tiles and one for
+     the lists. Build split (k-means, graph, add) and QPS are printed.
+  10. the graph section of the round-4 probe harness (benchs/r4/r4_queue4.py
+     section A): its clustered set (RandomState(11): 1024 centres rand * 10
+     plus N(0, 1), 1M base, 10k queries), exact ground truth on the card;
+     build_graph_knn(xb, 16, 40) twice (cold and warm), build_tiles_fused in
+     the build's coarse order, tile_search_fused at (nprobe0 12, hops 1, F
+     4), (12, 2) and (12, 0), scored on the node ids: recall@10 >= 0.97 at
+     (12, 1) and hops 2 >= hops 1 > hops 0; 1 + hops K3 launches a search.
+     Then IndexHNSWFlat(128, 16) over the same base, searched at efSearch
+     16 and 64.
+  11. K1p on phase 5's data: flat_knn_fused(merge="packed") over the r5
+     harness's grid (W 1024 / R 8192 grid, W 2048 / R 16384 grid, W 1024
+     fori unroll 4; sel "kernel", refine 0: recall printed), and the refine
+     route (W 1024, refine 4) >= phase 5's refine recall less 0.003; one K1p
+     launch a search. K1p against its plain version at 1024 and 10k queries:
+     the packed reservoir bit for bit.
+  12. the B1 ladder at 10k queries x 1M x W 1024 (R 8192): min1, minall,
+     serial (flat_probe_scan) and packed (K1p) on the same inputs, each bit
+     for bit against its plain version; times and each kernel's mma count
+     in the SASS (cuobjdump), which must be the same for the four folds.
+  13. B2, the row-copy issue probe, at NR 4096 / 16384 / 65536 rows of the
+     1M x 128 f32 base, NS 16: the slots equal the plain version; ns and SM
+     cycles per copy; xb.index_select(0, rows) on the same rows.
 The last two lines are the kernels' JSON record (each with its time,
 its plain version's, the card's bound for the same work and, where one
 torch call computes the same function, that call's time) and
@@ -94,7 +126,10 @@ from tpu_ann_torch import kernels
 from tpu_ann_torch.ops import distances as TD
 from tpu_ann_torch.ops import flat_knn_fused as FK
 from tpu_ann_torch.ops import ivf_scan_fused as F
+from tpu_ann_torch.ops import hnsw as HN
+from tpu_ann_torch.ops import hnsw_tiles as HT
 from tpu_ann_torch.ops import ivf_scan_paged as P
+from tpu_ann_torch.ops import row_copy_probe as B2
 from tpu_ann_torch.ops import sq as SQ
 
 # recall@10 floors at nprobe 16 / 32 / 64: the JAX package's benchmark
@@ -116,7 +151,19 @@ SQ8_MAX_LOSS = {16: 0.01, 32: 0.01, 64: 0.015}
 # less about 0.001; IP on float data has no reference value
 FLAT_FLOORS = {"exact": 0.9969, "refine": 0.9942, "ip_float": 0.98}
 KERNELS = ("ivf_scan_fused", "ivf_scan_sq8", "flat_knn_fused",
-           "reservoir_topk", "ivf_scan_paged")
+           "reservoir_topk", "ivf_scan_paged", "flat_knn_variants",
+           "row_copy_probe")
+# IVFHNSW15625 (coarse_mode "auto") recall@10 floors at nprobe 32 / 64: the
+# JAX package's 0.8754 / 0.9602 (BENCH_r05.json) less 0.01 for k-means
+IVFHNSW_FLOORS = {32: 0.8654, 64: 0.9502}
+# the round-4 harness's tile search at (nprobe0 12, hops 1, F 4): the JAX
+# package's 0.9910 (BENCHMARKS.md, round 2's clustered set, whose generator
+# is not recorded) less 0.02
+GRAPH_FLOOR = 0.97
+# K1p's refine route may lose this much recall@10 against phase 5's (the
+# reference lost 0.001: 0.99408 against 0.99508, benchs/logs/r4_queue2 and
+# r4_queue4)
+PACKED_MAX_LOSS = 0.003
 D, NLIST, K = 128, 4096, 10
 NB, NT, NQ = 1_000_000, 100_000, 10_000
 TIMED_REPS = 3
@@ -161,13 +208,15 @@ def reset_counts() -> None:
     F.LAUNCHES = 0
     F.LAUNCHES_SQ8 = 0
     P.LAUNCHES = 0
+    B2.LAUNCHES = 0
     for name in FK.LAUNCHES:
         FK.LAUNCHES[name] = 0
 
 
 def counts() -> dict:
     return {"ivf_scan_fused": F.LAUNCHES, "ivf_scan_sq8": F.LAUNCHES_SQ8,
-            **FK.LAUNCHES, "ivf_scan_paged": P.LAUNCHES}
+            **FK.LAUNCHES, "ivf_scan_paged": P.LAUNCHES,
+            "row_copy_probe": B2.LAUNCHES}
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -413,10 +462,16 @@ def main() -> None:
     del index, il
     torch.cuda.empty_cache()
 
-    flat_records = flat_phases(xb, xq, gt, dev)
+    flat_records, flat_index, refine_rec = flat_phases(xb, xq, gt, dev)
+    variant_records = variant_phases(flat_index, xb, xq, gt, refine_rec, dev)
+    del flat_index
+    torch.cuda.empty_cache()
     k4 = paged_phases(xb, xt, xq, gt, dev)
-    print(json.dumps({"kernels": [k3, *sq_records, *flat_records, k4]}),
-          flush=True)
+    ivf_hnsw_phase(xb, xt, xq, gt, dev)
+    graph_phase(dev)
+    b2 = row_copy_phase(xb, dev)
+    print(json.dumps({"kernels": [k3, *sq_records, *flat_records,
+                                  *variant_records, k4, b2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -745,9 +800,10 @@ def flat_search(index, xq, gt, name, floor) -> float:
     return rec
 
 
-def flat_phases(xb, xq, gt, dev) -> list:
+def flat_phases(xb, xq, gt, dev):
     """Phases 5 and 6: the fused flat path and its kernels; returns the
-    K1 and K2 records of the kernels line."""
+    K1 and K2 records of the kernels line, the opted-in IndexFlat and its
+    refine route's recall@10."""
     # -- 5. flat path at real size ----------------------------------------
     reset_counts()
     t0 = time.perf_counter()
@@ -762,7 +818,7 @@ def flat_phases(xb, xq, gt, dev) -> list:
     if index._db_int_max is None or not index._use_exact_kernel(xq_dev):
         raise AssertionError("the integer-exact route was not chosen")
     index.exact_kernel = False
-    flat_search(index, xq, gt, "refine", FLAT_FLOORS["refine"])
+    refine_rec = flat_search(index, xq, gt, "refine", FLAT_FLOORS["refine"])
     index.exact_kernel = None
     flat_launches = counts()
     t_flat = time.perf_counter() - t0
@@ -873,7 +929,7 @@ def flat_phases(xb, xq, gt, dev) -> list:
         "plain_ms": k2[(2048, 10)]["plain_ms"],
         **k2_bound,
         "library_ms": k2_library_ms,
-    }]
+    }], index, refine_rec
 
 
 def pinned_gbps(dev, nbytes: int = 1 << 28) -> float:
@@ -1096,6 +1152,424 @@ def _paged_phases(xb, xt, xq, gt, dev, tmp) -> dict:
         "bound_ms": first["bound_ms"],
         "bound_by": first["bound_by"],
         "library_ms": None,
+    }
+
+
+# -- phases 9-13: the HNSW graph path, K1p, the B1 ladder and B2 -------------
+
+def sass_mma_counts(name: str) -> dict:
+    """Tensor-core mma instructions (HMMA) per kernel in the SASS of the
+    built library ``name`` (cuobjdump from nvcc's directory)."""
+    tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", kernels.library_path(name)],
+                         capture_output=True, text=True, check=True).stdout
+    found, fn = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            found[fn] = 0
+        elif fn is not None and "HMMA" in ln:
+            found[fn] += 1
+    return found
+
+
+def device_profile(fn, top: int = 4) -> dict:
+    """One call of fn under torch.profiler: its wall time (profiler on),
+    the device time summed over the device's own events (kernels and
+    copies; the host-side operator entries that launched them are left
+    out, so nothing is counted twice), the busy share (busy / wall, one
+    stream) and the device events that took the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    # None where the profiler saw no device event: "not measured"
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 if ev else None
+    ev.sort(key=lambda e: -e.self_device_time_total)
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "busy_share": busy / wall if ev else None,
+            "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
+                    for e in ev[:top]]}
+
+
+def variant_phases(index, xb, xq, gt, refine_rec, dev) -> list:
+    """Phases 11 and 12: K1p through flat_knn_fused(merge="packed") and the
+    B1 probe ladder, on phase 5's IndexFlat and data; returns their records
+    of the kernels line."""
+    # -- 11. K1p on the r5 harness's grid ---------------------------------
+    xb_dev = index.vectors
+    xq_dev = torch.from_numpy(xq).to(dev)
+    packs = {(8192, 1): index._fused_packed}
+    grid = (("grid_W1024", dict(R=8192, W=1024, schedule="grid")),
+            ("grid_W2048", dict(R=16384, W=2048, schedule="grid")),
+            ("fori_U4", dict(R=8192, W=1024, schedule="fori", unroll=4)))
+    reset_counts()
+    n_calls, rows = 0, {}
+    for name, kw in grid + (("refine4", dict(R=8192, W=1024,
+                                             schedule="grid", refine=4)),):
+        key = (kw["R"], kw.get("unroll", 1))
+        if key not in packs:
+            packs[key] = FK.pack_flat_db(xb_dev, TD.METRIC_L2, R=kw["R"],
+                                         unroll=key[1])
+        kw = {"refine": 0, **kw}
+
+        def call():
+            return FK.flat_knn_fused(xq_dev, xb_dev, K, TD.METRIC_L2,
+                                     packed=packs[key], merge="packed",
+                                     sel="kernel", Q=512, **kw)
+        Dv, Iv = call()
+        ms = host_ms(call, TIMED_REPS)
+        n_calls += 2 + TIMED_REPS
+        Iv = Iv.cpu().numpy()
+        if not (Iv.shape == (NQ, K) and (Iv >= 0).all()
+                and torch.isfinite(Dv).all()):
+            raise AssertionError(f"K1p {name}: malformed results")
+        rows[name] = {"recall_at_10": T.recall_k_at_k(Iv, gt, K),
+                      "ms": ms, "qps": NQ / ms * 1e3}
+    packed_launches = counts()
+    if packed_launches["flat_knn_packed"] != n_calls or \
+            packed_launches["flat_knn_fused"]:
+        raise AssertionError(f"the packed searches launched "
+                             f"{packed_launches} for {n_calls} searches")
+    floor = refine_rec - PACKED_MAX_LOSS
+    phase("packed_search", searches=rows, refine_floor=floor,
+          phase5_refine_recall=refine_rec, launches=packed_launches)
+    if rows["refine4"]["recall_at_10"] < floor:
+        raise AssertionError(f"K1p refine route recall@10 "
+                             f"{rows['refine4']['recall_at_10']} < {floor}")
+
+    # K1p against its plain version, 1024 and 10k queries (W 1024, R 8192)
+    data, bias = index._fused_packed
+    C = FK.packed_shift(xq_dev, xb_dev, False)
+    shifted = (bias + C).contiguous()
+    qv = torch.zeros((NQ, data.shape[-1]), device=dev)
+    qv[:, :D] = -2.0 * xq_dev
+    qv = qv.to(torch.bfloat16)
+    W = 1024
+    k1p_err = 0.0
+    for nq in (1024, NQ):
+        a1 = FK.flat_reservoir_packed(qv[:nq], data, shifted, W)
+        a0 = FK.flat_reservoir_packed_reference(qv[:nq], data, shifted, W)
+        assert_equal(f"K1p nq={nq}", a0, a1)
+        v1, _ = FK.decode_packed(a1, W, C)
+        v0, _ = FK.decode_packed(a0, W, C)
+        k1p_err = max(k1p_err, max_abs_err(v0, v1))
+        del a0, a1
+
+    # -- 12. the B1 ladder on the same inputs ------------------------------
+    reset_counts()
+    ladder = {}
+    for fold in FK.PROBE_FOLDS:
+        ladder[fold] = {"ms": cuda_ms(lambda: FK.flat_probe_scan(
+            qv, data, bias, W, fold), 3)}
+    ladder["packed"] = {"ms": cuda_ms(lambda: FK.flat_reservoir_packed(
+        qv, data, shifted, W), 3)}
+    ladder_launches = counts()
+    for fold in FK.PROBE_FOLDS:
+        if ladder_launches["flat_probe_" + fold] != 4:
+            raise AssertionError(f"B1 {fold}: {ladder_launches}")
+    for fold in FK.PROBE_FOLDS:
+        v1, p1 = FK.flat_probe_scan(qv, data, bias, W, fold)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        v0, p0 = FK.flat_probe_scan_reference(qv, data, bias, W, fold)
+        torch.cuda.synchronize()
+        ladder[fold]["plain_ms"] = (time.perf_counter() - t1) * 1e3
+        assert_equal(f"B1 {fold} values", v0, v1)
+        assert_equal(f"B1 {fold} positions", p0, p1)
+        ladder[fold]["max_abs_err"] = max_abs_err(v0, v1)
+        del v0, p0, v1, p1
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    FK.flat_reservoir_packed_reference(qv, data, shifted, W)
+    torch.cuda.synchronize()
+    ladder["packed"]["plain_ms"] = (time.perf_counter() - t1) * 1e3
+    mma = {**sass_mma_counts("flat_knn_variants"),
+           **sass_mma_counts("flat_knn_fused")}
+    names = {"min1": "FoldMinILb0", "minall": "FoldMinILb1",
+             "serial": "FoldSerial", "packed": "flat_knn_packed_kernel",
+             "k1": "flat_knn_fused_kernel"}
+    hmma = {k: [v for f, v in mma.items() if tag in f] for k, tag in
+            names.items()}
+    if any(len(v) != 1 for v in hmma.values()) or \
+            len({v[0] for v in hmma.values()}) != 1 or \
+            hmma["k1"][0] == 0:
+        raise AssertionError(f"the folds' mma counts differ: {mma}")
+    k1_ms = ladder["serial"]["ms"]
+    phase("b1_ladder", nq=NQ, nb=index.ntotal, W=W, R=data.shape[1],
+          folds=ladder, hmma={k: v[0] for k, v in hmma.items()},
+          products_share_of_serial=ladder["min1"]["ms"] / k1_ms,
+          fold_share_of_serial=1.0 - ladder["min1"]["ms"] / k1_ms,
+          launches=ladder_launches)
+    work = bound(data.numel() * 2 + bias.numel() * 4 + qv.numel() * 2
+                 + NQ * W * 8, 2.0 * NQ * index.ntotal * D)
+    records = [{
+        "name": "flat_knn_packed",
+        "route": "cuda",
+        "source": "tpu_ann_torch/csrc/flat_knn_variants.cu",
+        "replaces": "tpu_ann/ops/flat_knn_pallas.py:704",
+        "launches": packed_launches["flat_knn_packed"],
+        "max_abs_err": k1p_err,
+        "ms": ladder["packed"]["ms"],
+        "plain_ms": ladder["packed"]["plain_ms"],
+        **work,
+        "library_ms": None,
+    }]
+    for fold in FK.PROBE_FOLDS:
+        records.append({
+            "name": "flat_probe_scan_" + fold,
+            "route": "cuda",
+            "source": "tpu_ann_torch/csrc/flat_knn_variants.cu",
+            "replaces": "benchs/r4/r4_queue4.py:157",
+            "launches": ladder_launches["flat_probe_" + fold],
+            "max_abs_err": ladder[fold]["max_abs_err"],
+            "ms": ladder[fold]["ms"],
+            "plain_ms": ladder[fold]["plain_ms"],
+            **work,
+            "library_ms": None,
+        })
+    del packs
+    return records
+
+
+def ivf_hnsw_search(idx, xq_dev, xq, gt, nprobe, mode, n_chunks) -> dict:
+    """One nprobe of phase 9: a warm-up and TIMED_REPS timed searches, the
+    launches checked against the mode's count."""
+    idx.coarse_mode = mode
+    p = T.SearchParametersIVF(nprobe=nprobe)
+    hops = idx.quantizer.hnsw.fused_hops
+    per = 1 if mode == "auto" else n_chunks * (1 + hops) + 1
+    before = counts()
+    Dv, Iv = idx.search(xq, K, params=p)
+    times = []
+    for _ in range(TIMED_REPS):
+        t1 = time.perf_counter()
+        Dv, Iv = idx.search(xq, K, params=p)
+        times.append(time.perf_counter() - t1)
+    now = counts()
+    launches = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+    if launches != {"ivf_scan_fused": per * (1 + TIMED_REPS)}:
+        raise AssertionError(f"IVFHNSW {mode} nprobe={nprobe}: launches "
+                             f"{launches}, want {per} a search")
+    if not (Dv.shape == Iv.shape == (NQ, K) and np.isfinite(Dv).all()
+            and (Iv >= 0).all() and (Iv < NB).all()):
+        raise AssertionError(f"IVFHNSW {mode} nprobe={nprobe}: malformed")
+    med = float(np.median(times))
+    return {"recall_at_10": T.recall_k_at_k(Iv, gt, K), "qps": NQ / med,
+            "search_ms": [t * 1e3 for t in times],
+            "launches_per_search": per}
+
+
+def ivf_hnsw_phase(xb, xt, xq, gt, dev) -> None:
+    """Phase 9: the namesake IVFHNSW at the JAX package's bench config 3."""
+    reset_counts()
+    t0 = time.perf_counter()
+    idx = T.IndexIVFHNSW(D, 15625, M=16, device="cuda")
+    idx.set_hnsw_parameters(efConstruction=40)
+    idx.train(xt)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.add(xb)
+    torch.cuda.synchronize()
+    t_add = time.perf_counter() - t0
+    if any(counts().values()):
+        raise AssertionError(f"IVFHNSW train/add launched {counts()}")
+    t_graph = idx.quantizer.build_seconds["graph"]
+    xq_dev = torch.from_numpy(xq).to(dev)
+    n_chunks = -(-NQ // idx.quantizer.search_chunk)
+    out = {}
+    for nprobe in (32, 64):
+        auto = ivf_hnsw_search(idx, xq_dev, xq, gt, nprobe, "auto", n_chunks)
+        quant = ivf_hnsw_search(idx, xq_dev, xq, gt, nprobe, "quantizer",
+                                n_chunks)
+        idx.coarse_mode = "quantizer"
+        _, hp = idx._coarse_search_device(xq_dev, nprobe)
+        idx.coarse_mode = "auto"
+        _, ep = idx._coarse_search_device(xq_dev, nprobe)
+        hp, ep = hp.cpu().numpy(), ep.cpu().numpy()
+        fid = float(np.mean([len(set(a) & set(b)) / nprobe
+                             for a, b in zip(hp, ep)]))
+        out[nprobe] = {"auto": auto, "quantizer": quant, "fidelity": fid}
+        phase("ivf_hnsw_search", nprobe=nprobe, floor=IVFHNSW_FLOORS[nprobe],
+              auto=auto, quantizer=quant, quantizer_fidelity=fid)
+    profiles = {}
+    for mode in ("auto", "quantizer"):
+        idx.coarse_mode = mode
+        profiles[mode] = device_profile(lambda: idx.search(
+            xq, K, params=T.SearchParametersIVF(nprobe=64)))
+    idx.coarse_mode = "auto"
+    phase("ivf_hnsw_profile", nprobe=64, **profiles)
+    phase("ivf_hnsw", nlist=15625, M=16, train_s=t_train,
+          kmeans_s=t_train - t_graph, graph_s=t_graph,
+          tiles_s=idx.quantizer.build_seconds.get("tiles"), add_s=t_add,
+          launches=counts())
+    for nprobe, r in out.items():
+        a, q = r["auto"]["recall_at_10"], r["quantizer"]["recall_at_10"]
+        if a < IVFHNSW_FLOORS[nprobe] or r["fidelity"] < 0.99 or \
+                abs(q - a) > 0.01:
+            raise AssertionError(f"IVFHNSW nprobe={nprobe}: auto {a} (floor "
+                                 f"{IVFHNSW_FLOORS[nprobe]}), quantizer {q}, "
+                                 f"fidelity {r['fidelity']}")
+    del idx
+    torch.cuda.empty_cache()
+
+
+def graph_phase(dev) -> None:
+    """Phase 10: the round-4 harness's graph section on its own data."""
+    rs = np.random.RandomState(11)
+    cents = rs.rand(1024, D).astype(np.float32) * 10
+
+    def draw(n):
+        return cents[rs.randint(1024, size=n)] + \
+            rs.randn(n, D).astype(np.float32)
+
+    xb = draw(NB)
+    xq = draw(NQ)
+    xb_dev = torch.from_numpy(xb).to(dev)
+    xq_dev = torch.from_numpy(xq).to(dev)
+    _, gt = TD.knn(xq_dev, xb_dev, K)
+    gt = gt.cpu().numpy()
+    reset_counts()
+    builds = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph, assign = HN.build_graph_knn(xb_dev, 16, 40)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+    if any(counts().values()):
+        raise AssertionError(f"the graph build launched {counts()}")
+    t0 = time.perf_counter()
+    order = np.argsort(assign, kind="stable")
+    ftg = HT.build_tiles_fused(xb, graph.neighbors0, order=order)
+    t_tiles = time.perf_counter() - t0
+    deg = (graph.neighbors0 >= 0).sum(1).float().mean().item()
+    rows = {}
+    for hops in (1, 2, 0):
+        def call():
+            return HT.tile_search_fused(ftg, xq_dev, K, nprobe0=12, hops=hops,
+                                        F=4)
+        before = counts()
+        ms = host_ms(call, TIMED_REPS)
+        launches = counts()["ivf_scan_fused"] - before["ivf_scan_fused"]
+        if launches != (1 + TIMED_REPS) * (1 + hops):
+            raise AssertionError(f"tile search hops={hops}: {launches} K3 "
+                                 f"launches")
+        _, _, I = call()
+        I = I.cpu().numpy()
+        if not (I.shape == (NQ, K) and (I >= 0).all() and (I < NB).all()):
+            raise AssertionError(f"tile search hops={hops}: malformed")
+        rows[hops] = {"recall_at_10": T.recall_k_at_k(I, gt, K), "ms": ms,
+                      "qps": NQ / ms * 1e3, "k3_launches_per_search": 1 + hops,
+                      "profile": device_profile(call)}
+    phase("graph_build", n=NB, M=16, efConstruction=40, build_s=builds,
+          tiles_s=t_tiles, mean_level0_degree=deg,
+          max_level=graph.max_level)
+    phase("tile_search", nprobe0=12, F=4, floor=GRAPH_FLOOR,
+          hops={str(h): r for h, r in rows.items()})
+    r0, r1, r2 = (rows[h]["recall_at_10"] for h in (0, 1, 2))
+    if r1 < GRAPH_FLOOR or not r2 >= r1 > r0:
+        raise AssertionError(f"tile search recall@10 hops 0/1/2: {r0} / "
+                             f"{r1} / {r2} (floor {GRAPH_FLOOR})")
+    del ftg, graph
+    torch.cuda.empty_cache()
+
+    # IndexHNSWFlat over the same base: build, then search
+    reset_counts()
+    t0 = time.perf_counter()
+    idx = T.IndexHNSWFlat(D, 16, device="cuda")
+    idx.add(xb)
+    torch.cuda.synchronize()
+    t_add = time.perf_counter() - t0
+    hrows = {}
+    for ef in (16, 64):
+        p = T.SearchParametersHNSW(efSearch=ef)
+        idx.search(xq, K, params=p)
+        times = []
+        for _ in range(TIMED_REPS):
+            t1 = time.perf_counter()
+            Dv, Iv = idx.search(xq, K, params=p)
+            times.append(time.perf_counter() - t1)
+        if not (Iv.shape == (NQ, K) and (Iv >= 0).all()
+                and np.isfinite(Dv).all()):
+            raise AssertionError(f"IndexHNSWFlat ef={ef}: malformed")
+        med = float(np.median(times))
+        hrows[ef] = {"recall_at_10": T.recall_k_at_k(Iv, gt, K),
+                     "qps": NQ / med, "search_ms": [t * 1e3 for t in times]}
+    launches = counts()
+    want = 2 * (1 + TIMED_REPS) * -(-NQ // idx.search_chunk) * \
+        (1 + idx.hnsw.fused_hops)
+    if launches["ivf_scan_fused"] != want or \
+            sum(launches.values()) != want:
+        raise AssertionError(f"IndexHNSWFlat: launches {launches}, want "
+                             f"{want} K3")
+    phase("hnsw_flat", add_s=t_add, build_seconds=idx.build_seconds,
+          searches={str(ef): r for ef, r in hrows.items()},
+          launches=launches)
+    if hrows[64]["recall_at_10"] < hrows[16]["recall_at_10"]:
+        raise AssertionError("IndexHNSWFlat: efSearch 64 below 16")
+    del idx, xb_dev
+    torch.cuda.empty_cache()
+
+
+def row_copy_phase(xb, dev) -> dict:
+    """Phase 13: B2 on the 1M x 128 f32 base; returns its record."""
+    xb_dev = torch.from_numpy(xb).to(dev)
+    khz = B2.sm_clock_khz()
+    rows_out, b2_err = {}, 0.0
+    reset_counts()
+    inputs = {}
+    for nr in (4096, 16384, 65536):
+        rows = torch.from_numpy(np.random.RandomState(0).randint(
+            0, NB, size=nr).astype(np.int32)).to(dev)
+        inputs[nr] = rows
+        ms = cuda_ms(lambda: B2.row_copy_probe(xb_dev, rows, 16,
+                                               validate=False), 5)
+        out, cyc = B2.row_copy_probe(xb_dev, rows, 16)
+        rows_out[nr] = {"ms": ms, "ns_per_copy": ms * 1e6 / nr,
+                        "cycles_per_copy": int(cyc.item()) / nr,
+                        "cycles_per_copy_from_ms": ms * 1e-3 * khz * 1e3 / nr,
+                        "index_select_ms": cuda_ms(
+                            lambda: xb_dev.index_select(0, rows.long()), 5),
+                        **bound(nr * D * 4 + nr * 4 + 16 * D * 4, 0.0)}
+        rows_out[nr]["out"] = out
+    launches = counts()
+    for nr, r in rows_out.items():
+        out = r.pop("out")
+        ref = B2.row_copy_probe_reference(xb_dev, inputs[nr], 16)
+        assert_equal(f"B2 nr={nr}", ref, out)
+        b2_err = max(b2_err, max_abs_err(ref, out))
+        r["plain_ms"] = host_ms(lambda: B2.row_copy_probe_reference(
+            xb_dev, inputs[nr], 16), 3)
+    if launches["row_copy_probe"] != 3 * 7:
+        raise AssertionError(f"B2 launches {launches}")
+    phase("row_copy_probe", ns=16, dp=D, nb=NB, sm_clock_khz=khz,
+          calls={str(nr): r for nr, r in rows_out.items()},
+          launches=launches)
+    last = rows_out[65536]
+    del xb_dev
+    return {
+        "name": "row_copy_probe",
+        "route": "cuda",
+        "source": "tpu_ann_torch/csrc/row_copy_probe.cu",
+        "replaces": "benchs/r5/r5_queue7.py:88",
+        "launches": launches["row_copy_probe"],
+        "max_abs_err": b2_err,
+        "ms": last["ms"],
+        "plain_ms": last["plain_ms"],
+        "bound_ms": last["bound_ms"],
+        "bound_by": last["bound_by"],
+        "library_ms": last["index_select_ms"],
     }
 
 

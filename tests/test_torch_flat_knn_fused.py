@@ -173,8 +173,9 @@ def test_loop_strategies_equal_the_reference(ints, strategy):
 
 def test_argument_checks():
     x = torch.zeros((8, 16))
-    with pytest.raises(NotImplementedError, match="packed"):
-        F.flat_knn_fused(x, x, 2, R=256, W=128, merge="packed")
+    with pytest.raises(ValueError, match="packed"):
+        F.flat_knn_fused(x, x, 2, R=256, W=128, merge="packed",
+                         schedule="pipe")
     for kw in (dict(R=384, W=256), dict(R=512, W=192), dict(W=128, R=256,
                                                             k=129)):
         k = kw.pop("k", 2)

@@ -21,7 +21,13 @@ Covered today:
 - the scalar-quantizer slice — the SQ codecs (ops.sq), IndexScalarQuantizer,
   and IndexIVFScalarQuantizer, whose 8-bit qtypes search the uint8 codes
   through the hand-written SQ8 scan (K3-SQ8); and K3g
-  (scan_invlists_fused_grid), served by K3 and K3-SQ8 on a cut plan.
+  (scan_invlists_fused_grid), served by K3 and K3-SQ8 on a cut plan;
+- the HNSW graph path — IndexHNSWFlat (batch kNN-graph build, per-node
+  beam below tile_threshold, fused tiles searched through K3 above it) and
+  IndexIVFHNSW, the IVF-Flat index with an HNSW coarse quantizer;
+- the flat-scan variants and probes — flat_knn_fused(merge="packed")
+  through the packed reservoir kernel (K1p), the ceiling-probe folds
+  (flat_probe_scan, B1) and the row-copy issue probe (row_copy_probe, B2).
 """
 
 from .models import (  # noqa: F401
@@ -40,13 +46,17 @@ from .models import (  # noqa: F401
     IndexFlat1D,
     IndexFlatIP,
     IndexFlatL2,
+    IndexHNSW,
+    IndexHNSWFlat,
     IndexIVF,
     IndexIVFFlat,
     IndexIVFFlatPaged,
+    IndexIVFHNSW,
     IndexIVFScalarQuantizer,
     IndexScalarQuantizer,
     QueryLatencyStats,
     SearchParameters,
+    SearchParametersHNSW,
     SearchParametersIVF,
     SearchStats,
     Timer,
@@ -60,8 +70,15 @@ from .ops.distances import (  # noqa: F401
 )
 from .ops.flat_knn_fused import (  # noqa: F401
     flat_knn_fused,
+    flat_probe_scan,
     pack_flat_db,
     reservoir_topk,
+)
+from .ops.hnsw import HNSWGraph, build_graph_knn, hnsw_search  # noqa: F401
+from .ops.hnsw_tiles import (  # noqa: F401
+    FusedTileGraph,
+    build_tiles_fused,
+    tile_search_fused,
 )
 from .ops.ivf_scan import (  # noqa: F401
     PackedCodeInvLists,
@@ -69,6 +86,8 @@ from .ops.ivf_scan import (  # noqa: F401
     PackedInvListsSQ8,
     pack_code_invlists,
     pack_invlists,
+    pack_invlists_device,
+    scan_invlists,
     sq8_requantize_invlists,
     sq8_view_from_codes,
 )
@@ -85,6 +104,7 @@ from .ops.ivf_scan_paged import (  # noqa: F401
     scan_invlists_paged,
 )
 from .ops.kmeans import ClusteringParameters, kmeans  # noqa: F401
+from .ops.row_copy_probe import row_copy_probe  # noqa: F401
 from .ops.sq import (  # noqa: F401
     QT_4BIT,
     QT_4BIT_UNIFORM,
@@ -101,7 +121,9 @@ from .ops.sq import (  # noqa: F401
 from .ops.topk import merge_topk, topk_with_ids  # noqa: F401
 from .utils.convert import (  # noqa: F401
     flat_from_reference,
+    hnsw_from_reference,
     ivf_flat_from_reference,
+    ivf_hnsw_from_reference,
     ivf_sq_from_reference,
     sq_from_reference,
 )

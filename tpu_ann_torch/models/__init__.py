@@ -14,12 +14,19 @@ from .flat import (  # noqa: F401
     IndexFlatIP,
     IndexFlatL2,
 )
+from .hnsw import (  # noqa: F401
+    HNSWParams,
+    IndexHNSW,
+    IndexHNSWFlat,
+    SearchParametersHNSW,
+)
 from .ivf import (  # noqa: F401
     IndexIVF,
     IndexIVFFlat,
     SearchParametersIVF,
     make_ivf_flat,
 )
+from .ivf_hnsw import IndexIVFHNSW  # noqa: F401
 from .ivf_paged import IndexIVFFlatPaged  # noqa: F401
 from .ivf_pq import IndexIVFScalarQuantizer  # noqa: F401
 from .pq import IndexScalarQuantizer  # noqa: F401

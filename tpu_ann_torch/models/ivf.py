@@ -137,29 +137,61 @@ class IndexIVF(Index):
             self._repack()
 
     # --- coarse quantization ----------------------------------------------
-    # 'auto' and 'flat' use the exact product over the centroid table;
-    # 'quantizer' (the quantizer's own search, e.g. an HNSW beam) waits
-    # for the HNSW port.
+    # 'auto' and 'flat' use the exact product over the centroid table (an
+    # IndexFlat's rows, or an HNSW quantizer's storage); 'quantizer'
+    # searches an HNSW quantizer's graph (reference :195-256). The graph
+    # search of other quantizers is not ported.
     coarse_mode = "auto"
+    # a beam of ef candidates ranks at most ~ef lists: ask the HNSW
+    # quantizer for ef = max(efSearch, coarse_ef_factor * nprobe)
+    coarse_ef_factor = 2
 
     def _centroid_table(self) -> torch.Tensor:
-        vecs = getattr(self.quantizer, "vectors", None)
+        q = self.quantizer
+        vecs = getattr(q, "vectors", None)
+        if vecs is None and hasattr(q, "storage"):
+            vecs = q.storage.vectors
         if vecs is None:
             raise NotImplementedError(
                 "coarse quantization needs a quantizer with a centroid "
-                "table (IndexFlat); other quantizers are not ported yet")
+                "table (IndexFlat, IndexHNSWFlat); other quantizers are not "
+                "ported yet")
         return vecs
 
-    def _coarse_search_device(self, xq_dev: torch.Tensor, nprobe: int):
+    def _use_exact_coarse(self) -> bool:
+        """'auto' takes the exact product up to this many lists, where one
+        product over the table is cheaper than a graph traversal."""
         if self.coarse_mode == "quantizer":
+            return False
+        return self.coarse_mode == "flat" or \
+            self.nlist <= self._COARSE_EXACT_MAX_NLIST or \
+            not hasattr(self.quantizer, "hnsw")
+
+    _COARSE_EXACT_MAX_NLIST = 262144
+
+    def _coarse_search_device(self, xq_dev: torch.Tensor, nprobe: int):
+        if self._use_exact_coarse():
+            return D.knn(xq_dev, self._centroid_table(), nprobe,
+                         self.metric_type)
+        q = self.quantizer
+        if not hasattr(q, "hnsw"):
             raise NotImplementedError(
-                "coarse_mode='quantizer' waits for the HNSW port")
-        return D.knn(xq_dev, self._centroid_table(), nprobe,
-                     self.metric_type)
+                "coarse_mode='quantizer' is ported for HNSW quantizers only")
+        from .hnsw import SearchParametersHNSW
+
+        ef = max(q.hnsw.efSearch, self.coarse_ef_factor * nprobe)
+        return q.search_device(xq_dev, nprobe,
+                               params=SearchParametersHNSW(efSearch=ef))
 
     def _assign(self, x: np.ndarray) -> np.ndarray:
-        _, a = self._coarse_search_device(self._to_device(x), 1)
-        return a[:, 0].cpu().numpy()
+        if self._use_exact_coarse():
+            _, a = self._coarse_search_device(self._to_device(x), 1)
+            return a[:, 0].cpu().numpy()
+        if not hasattr(self.quantizer, "hnsw"):
+            raise NotImplementedError(
+                "coarse_mode='quantizer' is ported for HNSW quantizers only")
+        _, a = self.quantizer.search(x, 1)
+        return np.asarray(a)[:, 0]
 
     def _repack(self) -> None:
         """Rebuild the packed device invlists from the host store; only

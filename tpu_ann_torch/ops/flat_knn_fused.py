@@ -28,8 +28,16 @@ The wrappers take the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises. The reference's schedules (grid / fori /
 pipe, unroll) and merges (serial / tree) are loop strategies of the TPU
 kernel that compute the same reservoir; here the one K1 kernel serves all
-of them. ``merge="packed"`` computes a different reservoir (16-bit
-truncated scores with a group index) and is not ported yet.
+of them. ``merge="packed"`` computes a different reservoir: K1p
+(`flat_reservoir_packed`, ``csrc/flat_knn_variants.cu``) keeps one int32 a
+lane, the top 16 bits of a shifted score and its group index, folded with
+one integer min (grid and fori at any unroll: a min over the reference's U
+accumulators is the min over one).
+
+`flat_probe_scan` (B1, the same library) runs the flat-kernel ceiling
+ladder of the round-4 harness: K1's products with the fold cut to the
+first group of every chunk ("min1"), a plain lane-min of every group
+("minall") or K1's own fold ("serial").
 """
 
 from __future__ import annotations
@@ -41,8 +49,12 @@ import torch
 
 from . import distances as D
 
-# kernel launches made by `flat_reservoir` (K1) and `reservoir_topk` (K2)
-LAUNCHES = {"flat_knn_fused": 0, "reservoir_topk": 0}
+# kernel launches made by `flat_reservoir` (K1), `reservoir_topk` (K2),
+# `flat_reservoir_packed` (K1p) and `flat_probe_scan` (B1, one count per
+# fold)
+LAUNCHES = {"flat_knn_fused": 0, "reservoir_topk": 0, "flat_knn_packed": 0,
+            "flat_probe_min1": 0, "flat_probe_minall": 0,
+            "flat_probe_serial": 0}
 # widest reservoir and largest k the K2 kernel takes
 TOPK_W_MAX = 4096
 TOPK_K_MAX = 128
@@ -52,6 +64,14 @@ DP_MAX = 1024
 _CTA_Q, _CTA_LANES = 64, 128
 # the plain reservoir's score blocks: queries x rows per block
 _PLAIN_Q, _PLAIN_ROWS = 1024, 8192
+
+# K1p's reservoir: the empty lane, the mask of a score's top 16 bits, and
+# the most groups its low 16 bits can name
+PACKED_INIT = 0x7FFFFFFF
+HI_MASK = -65536                        # 0xFFFF0000 as int32
+PACKED_GROUPS_MAX = 65536
+# B1's folds, in the C entry point's numbering
+PROBE_FOLDS = ("min1", "minall", "serial")
 
 SCHEDULES = ("grid", "fori", "pipe")
 MERGES = ("serial", "tree", "packed")
@@ -135,21 +155,106 @@ def flat_reservoir_reference(qv: torch.Tensor, data: torch.Tensor,
     return resv, resp
 
 
+def _plain_blocks(qv: torch.Tensor, data: torch.Tensor, bias: torch.Tensor,
+                  W: int):
+    """The plain versions' score blocks: yields (q0, g0, s) with s the
+    (queries, groups, W) f32 scores ``bias + qv.float() @ x.float().T`` of
+    _PLAIN_Q queries from q0 and whole groups from group g0."""
+    nq = qv.shape[0]
+    dp = data.shape[-1]
+    x = data.reshape(-1, dp)
+    b = bias.reshape(-1)
+    rows = max(_PLAIN_ROWS // W, 1) * W
+    for q0 in range(0, nq, _PLAIN_Q):
+        q = qv[q0:q0 + _PLAIN_Q].float()
+        for r0 in range(0, x.shape[0], rows):
+            s = b[r0:r0 + rows][None, :] + q @ x[r0:r0 + rows].float().T
+            yield q0, r0 // W, s.view(len(q), -1, W)
+
+
+def flat_reservoir_packed_reference(qv: torch.Tensor, data: torch.Tensor,
+                                    bias: torch.Tensor, W: int):
+    """Plain torch version of K1p: the (nq, W) int32 packed reservoir,
+    min over groups g of (bits(score) & 0xFFFF0000) + g from PACKED_INIT,
+    with K1's f32 scores (the bias already shifted by the caller)."""
+    acc = torch.full((qv.shape[0], W), PACKED_INIT, dtype=torch.int32,
+                     device=qv.device)
+    for q0, g0, s in _plain_blocks(qv, data, bias, W):
+        g = torch.arange(g0, g0 + s.shape[1], dtype=torch.int32,
+                         device=s.device)
+        bits = s.contiguous().view(torch.int32)
+        packed = (bits & HI_MASK) + g[None, :, None]
+        a = acc[q0:q0 + s.shape[0]]
+        a.copy_(torch.minimum(a, packed.amin(dim=1)))
+    return acc
+
+
+def packed_shift(xq: torch.Tensor, xb: torch.Tensor,
+                 similarity: bool) -> torch.Tensor:
+    """K1p's shift C, added to every score so it is non-negative and its
+    f32 bits order like the value as int32 (reference :619-644): max||q||^2
+    + 1 for L2, sqrt(max||q||^2) sqrt(max||x||^2) + 1 for IP. A constant
+    over the batch changes no query's order."""
+    xq = xq.float()
+    qn_max = (xq * xq).sum(1).max()
+    if not similarity:
+        return qn_max + 1.0
+    return torch.sqrt(qn_max) * torch.sqrt((xb.float() ** 2).sum(1).max()) \
+        + 1.0
+
+
+def decode_packed(acc: torch.Tensor, W: int, C):
+    """K1p's reservoir as K1's (values f32, positions int32): value =
+    bits(acc & 0xFFFF0000) - C, position = (acc & 0xFFFF) * W + lane;
+    (+inf, -1) for lanes no finite score reached (reference :755-761)."""
+    val = (acc & HI_MASK).view(torch.float32)
+    lane = torch.arange(W, dtype=torch.int32, device=acc.device)
+    pos = (acc & 0xFFFF) * W + lane
+    alive = torch.isfinite(val) & (acc != PACKED_INIT)
+    return (torch.where(alive, val - C, float("inf")),
+            torch.where(alive, pos, -1))
+
+
+def flat_probe_scan_reference(qv: torch.Tensor, data: torch.Tensor,
+                              bias: torch.Tensor, W: int,
+                              fold: str = "min1"):
+    """Plain torch version of B1 (see `flat_probe_scan`)."""
+    if fold == "serial":
+        return flat_reservoir_reference(qv, data, bias, W)
+    gpc = data.shape[1] // W
+    resv = torch.full((qv.shape[0], W), float("inf"), device=qv.device)
+    for q0, g0, s in _plain_blocks(qv, data, bias, W):
+        if fold == "min1":
+            g = torch.arange(g0, g0 + s.shape[1], device=s.device)
+            s = s[:, g % gpc == 0]
+        if s.shape[1]:
+            a = resv[q0:q0 + s.shape[0]]
+            a.copy_(torch.minimum(a, s.amin(dim=1)))
+    return resv, torch.full(resv.shape, -1, dtype=torch.int32,
+                            device=qv.device)
+
+
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # each C entry point's arguments: pointers and the stream as void*, ints
 _ARGTYPES = {
     "flat_knn_fused": [_VP] * 3 + [_CI] * 4 + [_VP] * 3,
     "reservoir_topk": [_VP] * 2 + [_CI] * 3 + [_VP] * 3,
+    "flat_knn_packed": [_VP] * 3 + [_CI] * 4 + [_VP] * 2,
+    "flat_probe_scan": [_VP] * 3 + [_CI] * 6 + [_VP] * 3,
 }
+# the library (csrc/<library>.cu) of each entry point not in its own
+_LIBRARY = {"flat_knn_packed": "flat_knn_variants",
+            "flat_probe_scan": "flat_knn_variants"}
 _FNS: dict = {}
 
 
 def _fn(name: str):
-    """Build csrc/<name>.cu and bind its entry point (once per process)."""
+    """Build the library of entry point ``name`` and bind it (once per
+    process)."""
     if name not in _FNS:
         from ..kernels import load_library
 
-        fn = getattr(load_library(name), name)
+        fn = getattr(load_library(_LIBRARY.get(name, name)), name)
         fn.argtypes = _ARGTYPES[name]
         fn.restype = _CI
         _FNS[name] = fn
@@ -162,6 +267,38 @@ def _check(t: torch.Tensor, dtype, name: str, dev, kernel: str) -> None:
                          f"tensor on {dev} (got {t.dtype} on {t.device})")
 
 
+def _check_scan(qv: torch.Tensor, data: torch.Tensor, bias: torch.Tensor,
+                W: int, kernel: str):
+    """The CUDA scan's argument checks (K1, K1p, B1); returns (nq, n, dp)
+    with n the packed rows."""
+    dev = qv.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {dev}")
+    nq, dp = qv.shape
+    if data.shape[-1] != dp or dp % 16 or not 0 < dp <= DP_MAX:
+        raise ValueError(f"{kernel}: dp must be a multiple of 16 in "
+                         f"(0, {DP_MAX}], the same for queries and data "
+                         f"(got {dp} and {data.shape[-1]})")
+    n = data.numel() // dp                      # packed rows
+    if W % 128 or n % W or bias.numel() != n:
+        raise ValueError(f"{kernel}: W={W} must be a multiple of 128 "
+                         f"dividing the {n} packed rows, with one bias each")
+    ctas = -(-nq // _CTA_Q) * (W // _CTA_LANES)
+    if max(n, nq + _CTA_Q, ctas) >= 2**31:
+        raise ValueError(f"{kernel}: rows, queries or CTAs exceed int32")
+    _check(qv, torch.bfloat16, "qv", dev, kernel)
+    _check(data, torch.bfloat16, "data", dev, kernel)
+    _check(bias, torch.float32, "bias", dev, kernel)
+    return nq, n, dp
+
+
+def _launched(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed with CUDA "
+                           f"error {err}")
+    LAUNCHES[kernel] += 1
+
+
 def flat_reservoir(qv: torch.Tensor, data: torch.Tensor, bias: torch.Tensor,
                    W: int):
     """K1: the (nq, W) lane-min reservoir of pre-scaled bf16 queries ``qv``
@@ -171,35 +308,79 @@ def flat_reservoir(qv: torch.Tensor, data: torch.Tensor, bias: torch.Tensor,
     dev = qv.device
     if dev.type == "cpu":
         return flat_reservoir_reference(qv, data, bias, W)
-    if dev.type != "cuda":
-        raise ValueError(f"flat_knn_fused: unsupported device {dev}")
-    nq, dp = qv.shape
-    if data.shape[-1] != dp or dp % 16 or not 0 < dp <= DP_MAX:
-        raise ValueError(f"flat_knn_fused: dp must be a multiple of 16 in "
-                         f"(0, {DP_MAX}], the same for queries and data "
-                         f"(got {dp} and {data.shape[-1]})")
-    n = data.numel() // dp                      # packed rows
-    if W % 128 or n % W or bias.numel() != n:
-        raise ValueError(f"flat_knn_fused: W={W} must be a multiple of 128 "
-                         f"dividing the {n} packed rows, with one bias each")
-    ctas = -(-nq // _CTA_Q) * (W // _CTA_LANES)
-    if max(n, nq + _CTA_Q, ctas) >= 2**31:
-        raise ValueError("flat_knn_fused: rows, queries or CTAs exceed int32")
-    _check(qv, torch.bfloat16, "qv", dev, "flat_knn_fused")
-    _check(data, torch.bfloat16, "data", dev, "flat_knn_fused")
-    _check(bias, torch.float32, "bias", dev, "flat_knn_fused")
+    nq, n, dp = _check_scan(qv, data, bias, W, "flat_knn_fused")
     fn = _fn("flat_knn_fused")
     resv = torch.empty((nq, W), dtype=torch.float32, device=dev)
     resp = torch.empty((nq, W), dtype=torch.int32, device=dev)
     if nq == 0:
         return resv, resp
-    err = fn(qv.data_ptr(), data.data_ptr(), bias.data_ptr(), nq, n, dp, W,
-             resv.data_ptr(), resp.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flat_knn_fused: kernel launch failed with CUDA "
-                           f"error {err}")
-    LAUNCHES["flat_knn_fused"] += 1
+    _launched(fn(qv.data_ptr(), data.data_ptr(), bias.data_ptr(), nq, n, dp,
+                 W, resv.data_ptr(), resp.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream),
+              "flat_knn_fused")
+    return resv, resp
+
+
+def _check_groups(n: int, W: int) -> None:
+    if n // W > PACKED_GROUPS_MAX:
+        raise ValueError(f"merge='packed' holds the group index in 16 bits: "
+                         f"nb must be <= {PACKED_GROUPS_MAX}*W rows "
+                         f"({n // W} groups at W={W})")
+
+
+def flat_reservoir_packed(qv: torch.Tensor, data: torch.Tensor,
+                          bias: torch.Tensor, W: int) -> torch.Tensor:
+    """K1p: the (nq, W) int32 packed reservoir (see the module docstring;
+    ``bias`` already shifted so every score is non-negative, at most
+    65536 groups of W rows). The CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors; `decode_packed` turns it into values and
+    positions."""
+    dev = qv.device
+    _check_groups(data.numel() // data.shape[-1], W)
+    if dev.type == "cpu":
+        return flat_reservoir_packed_reference(qv, data, bias, W)
+    nq, n, dp = _check_scan(qv, data, bias, W, "flat_knn_packed")
+    fn = _fn("flat_knn_packed")
+    out = torch.empty((nq, W), dtype=torch.int32, device=dev)
+    if nq == 0:
+        return out
+    _launched(fn(qv.data_ptr(), data.data_ptr(), bias.data_ptr(), nq, n, dp,
+                 W, out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream),
+              "flat_knn_packed")
+    return out
+
+
+def flat_probe_scan(qv: torch.Tensor, data: torch.Tensor, bias: torch.Tensor,
+                    W: int, fold: str = "min1"):
+    """B1, the flat-kernel ceiling probes (benchs/r4/r4_queue4.py:133-141):
+    K1's products over the packed ``data`` (nchunks, R, dp) with the fold
+    ``fold``:
+      "min1":   the f32 lane-min of the first W-wide group of every R-row
+                chunk only (groups g % (R / W) == 0), positions -1;
+      "minall": the f32 lane-min of every group, positions -1;
+      "serial": K1's reservoir (values and positions).
+    The CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    Returns (values f32, positions int32), each (nq, W)."""
+    if fold not in PROBE_FOLDS:
+        raise ValueError(f"flat_probe_scan: unknown fold {fold!r}")
+    if data.dim() != 3 or data.shape[1] % W:
+        raise ValueError(f"flat_probe_scan: data must be (nchunks, R, dp) "
+                         f"with R % W == 0 (got {tuple(data.shape)}, W={W})")
+    dev = qv.device
+    if dev.type == "cpu":
+        return flat_probe_scan_reference(qv, data, bias, W, fold)
+    nq, n, dp = _check_scan(qv, data, bias, W, "flat_probe_scan")
+    fn = _fn("flat_probe_scan")
+    resv = torch.empty((nq, W), dtype=torch.float32, device=dev)
+    resp = torch.empty((nq, W), dtype=torch.int32, device=dev)
+    if nq == 0:
+        return resv, resp
+    _launched(fn(qv.data_ptr(), data.data_ptr(), bias.data_ptr(), nq, n, dp,
+                 W, data.shape[1] // W, PROBE_FOLDS.index(fold),
+                 resv.data_ptr(), resp.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream),
+              "flat_probe_" + fold)
     return resv, resp
 
 
@@ -242,12 +423,9 @@ def reservoir_topk(resv: torch.Tensor, resp: torch.Tensor, k: int):
     outp = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return outv, outp
-    err = fn(resv.data_ptr(), resp.data_ptr(), nq, W, k, outv.data_ptr(),
-             outp.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"reservoir_topk: kernel launch failed with CUDA "
-                           f"error {err}")
-    LAUNCHES["reservoir_topk"] += 1
+    _launched(fn(resv.data_ptr(), resp.data_ptr(), nq, W, k, outv.data_ptr(),
+                 outp.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+              "reservoir_topk")
     return outv, outp
 
 
@@ -298,7 +476,11 @@ def flat_knn_fused(
         0 / 1 returns the reservoir's bf16 scores.
       schedule, unroll, merge ('serial' / 'tree'): the reference's loop
         strategies, all served by the one K1 kernel (same reservoir);
-        merge='packed' raises NotImplementedError.
+        merge='packed' runs K1p instead (schedule 'grid' or 'fori', any
+        unroll; at most 65536 groups of W rows): the bias is shifted by
+        C (max||q||^2 + 1 for L2, sqrt(max||q||^2) sqrt(max||x||^2) + 1
+        for IP) so every score is non-negative, and the decoded values
+        keep the top 16 bits of each score.
       sel: 'kernel' selects with K2 when the width is <= 128; 'exact' and
         'approx' (no approximate select in torch; sel_recall is unused)
         take a stable sort.
@@ -312,11 +494,9 @@ def flat_knn_fused(
     if schedule not in SCHEDULES or merge not in MERGES or sel not in SELECTS:
         raise ValueError(f"flat_knn_fused: unknown schedule / merge / sel "
                          f"{schedule!r} / {merge!r} / {sel!r}")
-    if merge == "packed":
-        raise NotImplementedError(
-            "flat_knn_fused: merge='packed' (K1p, one int32 reservoir of "
-            "truncated scores and group indices) is not ported yet; see "
-            "ROADMAP.md section 2")
+    if merge == "packed" and schedule not in ("grid", "fori"):
+        raise ValueError("flat_knn_fused: merge='packed' takes schedule "
+                         "'grid' or 'fori'")
     nq, d = xq.shape
     nb = xb.shape[0]
     dp = padded_dim(d)
@@ -344,8 +524,13 @@ def flat_knn_fused(
     # only when the reservoir values are returned un-refined
     qv = torch.zeros((nq, dp), dtype=torch.float32, device=xq.device)
     qv[:, :d] = (-1.0 if similarity else -2.0) * xq
-    resv, resp = flat_reservoir(qv.to(torch.bfloat16), data,
-                                bias_p.contiguous(), W)
+    qv = qv.to(torch.bfloat16)
+    if merge == "packed":
+        C = packed_shift(xq, xb, similarity)
+        acc = flat_reservoir_packed(qv, data, (bias_p + C).contiguous(), W)
+        resv, resp = decode_packed(acc, W, C)
+    else:
+        resv, resp = flat_reservoir(qv, data, bias_p.contiguous(), W)
 
     bad = D.worst_value(metric)
     if refine and refine > 1:

@@ -21,6 +21,14 @@ rows in place of the vectors. `PackedInvListsSQ8` is the 8-bit scalar-
 quantized stream of the fused scan: uint8 codes (half the bytes of bf16)
 with a per-dim affine x = bias + code * scale that the scan folds into the
 queries, and the exact norms of the dequantized rows.
+
+`pack_invlists_device` builds the layout from rows already on the device
+(the reference's bucketed block count included), and `scan_invlists` is
+the query-major scan over it (`search_preassigned` phase 2,
+faiss/IndexIVF.cpp:399-723): a per-query compacted block table, queries
+sorted by scan length, exact f32 scores and a running top-k. The HNSW
+graph build uses it for its kNN candidates; IDSelectors and max_codes on
+it are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +37,9 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from . import distances as D
+from . import topk as TK
 
 
 @dataclasses.dataclass
@@ -53,6 +64,11 @@ class PackedInvLists:
     @property
     def nblocks(self) -> int:
         return self.data.shape[0] - 1  # excluding the dummy block
+
+    @property
+    def max_nblocks_per_list(self) -> int:
+        """The longest list's block count (at least 1); one host sync."""
+        return max(int(self.list_nblocks.max()), 1) if self.nlist else 1
 
     def rows_at(self, pos: torch.Tensor):
         """The f32 rows and norms at stream positions ``pos`` (>= 0)."""
@@ -128,6 +144,136 @@ def pack_invlists(
     norms = (data.astype(np.float64) ** 2).sum(-1).astype(np.float32)
     return PackedInvLists.from_arrays(data, ids, norms, starts_blocks,
                                       nblocks_per_list, device=device)
+
+
+def pack_invlists_device(rows_dev: torch.Tensor, xids: np.ndarray,
+                         assign: np.ndarray, nlist: int,
+                         block_size: int = 128) -> PackedInvLists:
+    """The packed layout realized on the device from the (n, d) rows
+    ``rows_dev`` already there, in ``xids`` order (reference :215-298):
+    only the integer counting sort runs on the host, the rows are gathered
+    once into their slots.
+
+    The block count is bucketed as the reference's (+1 dummy, then a power
+    of two up to 8192 blocks, 8192-block steps above), and empty lists
+    point at the last, all-padding block, so the layout equals the
+    reference's array for array."""
+    if not rows_dev.shape[0]:
+        raise ValueError("pack_invlists_device: no rows")
+    dev, d = rows_dev.device, rows_dev.shape[1]
+    B = block_size
+    order, slot, starts_blocks, nblocks_per_list, nb_total = _block_slots(
+        np.asarray(assign, np.int64), nlist, B, "pack_invlists_device")
+    need = nb_total + 1
+    nb_pad = 1 << max(need - 1, 0).bit_length() if need <= 8192 else \
+        -(-need // 8192) * 8192
+    ids = np.full(nb_pad * B, -1, np.int32)
+    ids[slot] = np.asarray(xids, np.int32)[order]
+    data = torch.zeros((nb_pad, B, d), dtype=torch.float32, device=dev)
+    data.view(-1, d)[torch.from_numpy(slot).to(dev)] = \
+        rows_dev[torch.from_numpy(order).to(dev)].float()
+    starts_blocks[nblocks_per_list == 0] = nb_pad - 1
+    return PackedInvLists(
+        data=data, data_bf16=data.to(torch.bfloat16),
+        ids=torch.from_numpy(ids.reshape(nb_pad, B)).to(dev),
+        norms=(data * data).sum(-1),
+        list_block_start=torch.tensor(starts_blocks, dtype=torch.int32,
+                                      device=dev),
+        list_nblocks=torch.tensor(nblocks_per_list, dtype=torch.int32,
+                                  device=dev))
+
+
+def _compact_block_table(probes, list_block_start, list_nblocks,
+                         max_nblocks: int, NB: int):
+    """Per-query compacted block table (reference :299): each probe's real
+    blocks side by side, buffer[q, offs[q, p] + i] = start[q, p] + i, the
+    rest NB (the dummy block). Returns (buffer (nq, nprobe * max_nblocks)
+    int64, total (nq,) blocks per query)."""
+    nq, nprobe = probes.shape
+    probes = probes.long()
+    starts = list_block_start.long()[probes]
+    nblk = torch.clamp(list_nblocks.long()[probes], max=max_nblocks)
+    offs = torch.cumsum(nblk, 1) - nblk                   # exclusive
+    total = offs[:, -1] + nblk[:, -1]
+    W = nprobe * max_nblocks
+    local = torch.arange(max_nblocks, device=probes.device)
+    valid = local < nblk[:, :, None]
+    pos = torch.where(valid, offs[:, :, None] + local, W)   # invalid -> W
+    bid = starts[:, :, None] + local
+    buffer = torch.full((nq, W + 1), NB, dtype=torch.long,
+                        device=probes.device)
+    buffer.scatter_(1, pos.reshape(nq, -1), torch.where(
+        valid, bid, NB).reshape(nq, -1))
+    return buffer[:, :W], total
+
+
+# f32 elements of gathered rows per chunk of the query-major scan (bounds
+# its query-tile height)
+SCAN_BUDGET = 1 << 26
+
+
+def scan_invlists(xq: torch.Tensor, probes: torch.Tensor,
+                  invlists: PackedInvLists, k: int,
+                  metric: int = D.METRIC_L2, *, max_nblocks: int,
+                  chunk_blocks: int = 8):
+    """Query-major scan of the probed lists (reference :331-490).
+
+    Queries are sorted by their number of probed blocks; each tile of
+    queries walks its compacted table in chunks of ``chunk_blocks`` blocks
+    (as many chunks as its longest query needs), scores them in f32
+    (L2: max(||q||^2 + ||x||^2 - 2 q.x, 0); IP: q.x) and merges them into
+    a running top-k (first operand wins ties, so the earlier chunk's entry
+    does). The tile height only bounds the gathered rows (SCAN_BUDGET f32
+    elements): it does not change the result. ``max_nblocks`` caps the
+    blocks read per list, as the reference's static cap does. The
+    per-chunk top-k is always exact (the reference's ``approx`` switch is
+    not taken).
+    Returns (D (nq, k) f32, I (nq, k) int32 stored ids, ndis 0-d tensor:
+    the real rows scored)."""
+    nq, d = xq.shape
+    similarity = D.is_similarity_metric(metric)
+    bad = D.worst_value(metric)
+    dev = xq.device
+    xq = xq.float()
+    NB = invlists.nblocks
+    B = invlists.block_size
+    buffer, total = _compact_block_table(
+        probes, invlists.list_block_start, invlists.list_nblocks,
+        max_nblocks, NB)
+    perm = torch.argsort(total, stable=True)
+    cb = min(chunk_blocks, buffer.shape[1])
+    qt = max(1, min(nq, SCAN_BUDGET // max(cb * B * d, 1)))
+    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    ndis = torch.zeros((), dtype=torch.long, device=dev)
+    nch_all = ((total[perm] + cb - 1) // cb).cpu()        # one host sync
+    for t0 in range(0, nq, qt):
+        rows = perm[t0:t0 + qt]
+        q = xq[rows]
+        blk = buffer[rows]
+        qn = (q * q).sum(1)[:, None, None]
+        bd = torch.full((len(rows), k), bad, device=dev)
+        bi = torch.full((len(rows), k), -1, dtype=torch.int32, device=dev)
+        for c in range(int(nch_all[t0:t0 + qt].max()) if len(rows) else 0):
+            bids = blk[:, c * cb:(c + 1) * cb]
+            if bids.shape[1] < cb:                    # ragged last chunk
+                bids = torch.cat([bids, bids.new_full(
+                    (len(rows), cb - bids.shape[1]), NB)], 1)
+            vecs = invlists.data[bids]                # (qt, cb, B, d)
+            vids = invlists.ids[bids]
+            ip = torch.bmm(vecs.view(len(rows), -1, d), q[:, :, None])
+            ip = ip.view(len(rows), cb, B)
+            dis = ip if similarity else torch.clamp(
+                qn + invlists.norms[bids] - 2.0 * ip, min=0.0)
+            valid = vids >= 0
+            dis = torch.where(valid, dis, bad)
+            ndis += valid.sum()
+            bd, bi = TK.merge_topk(bd, bi, dis.view(len(rows), -1),
+                                   vids.view(len(rows), -1), k,
+                                   similarity=similarity)
+        out_d[rows] = bd
+        out_i[rows] = bi
+    return out_d, out_i, ndis
 
 
 # ---------------------------------------------------------------------------

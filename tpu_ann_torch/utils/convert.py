@@ -11,11 +11,14 @@ import numpy as np
 import torch
 
 from ..models.flat import IndexFlat
+from ..models.hnsw import IndexHNSWFlat
 from ..models.ivf import IndexIVFFlat
+from ..models.ivf_hnsw import IndexIVFHNSW
 from ..models.ivf_pq import IndexIVFScalarQuantizer
 from ..models.pq import IndexScalarQuantizer
 from ..ops import sq as SQ
 from ..ops.distances import METRIC_L2
+from ..ops.hnsw import HNSWGraph
 from ..ops.ivf_scan import PackedCodeInvLists, PackedInvLists
 
 
@@ -45,19 +48,71 @@ def ivf_flat_from_reference(state: dict, device="cuda") -> IndexIVFFlat:
     return index
 
 
-def _ivf_shell(cls, state: dict, stored: np.ndarray, device, **kw):
+def hnsw_from_reference(state: dict, device="cuda") -> IndexHNSWFlat:
+    """A port `IndexHNSWFlat` that searches the graph of a `tpu_ann` one,
+    from its arrays as numpy:
+
+      d, metric, M, efSearch, efConstruction   ints
+      xb                     (ntotal, d) storage vectors
+      neighbors0, upper_ids, upper_neighbors, levels, entry, max_level
+                             the HNSWGraph's arrays and scalars
+      coarse_assign          optional: the build's coarse assignment (the
+                             spatial order of the fused tiles)"""
+    d, M = int(state["d"]), int(state["M"])
+    index = IndexHNSWFlat(d, M, int(state["metric"]), device=device)
+    for key in ("efSearch", "efConstruction"):
+        if key in state:
+            setattr(index.hnsw, key, int(state[key]))
+    index.storage.add(np.asarray(state["xb"], np.float32))
+    index.ntotal = index._built_n = index.storage.ntotal
+
+    def up(name):
+        return torch.tensor(np.asarray(state[name], np.int32), device=device)
+
+    index.graph = HNSWGraph(
+        neighbors0=up("neighbors0"), upper_ids=up("upper_ids"),
+        upper_neighbors=up("upper_neighbors"), levels=up("levels"),
+        entry=int(state["entry"]), max_level=int(state["max_level"]))
+    ca = state.get("coarse_assign")
+    index._coarse_assign = None if ca is None else np.asarray(ca, np.int64)
+    return index
+
+
+def ivf_hnsw_from_reference(state: dict, device="cuda") -> IndexIVFHNSW:
+    """A search-only port `IndexIVFHNSW` from a `tpu_ann` one: the keys of
+    `ivf_flat_from_reference` without ``vectors``, plus ``quantizer``, the
+    `hnsw_from_reference` state of its HNSW quantizer (whose storage holds
+    the centroids)."""
+    quant = hnsw_from_reference(state["quantizer"], device=device)
+    index = _ivf_shell(IndexIVFHNSW, state, np.asarray(state["data"]),
+                       device, quantizer=quant)
+    index.invlists = PackedInvLists.from_arrays(
+        state["data"], state["ids"], state["norms"],
+        state["list_block_start"], state["list_nblocks"], device=device)
+    return index
+
+
+def _ivf_shell(cls, state: dict, stored: np.ndarray, device, *,
+               quantizer=None, **kw):
     """A search-only IVF index of class ``cls`` with the reference's
-    quantizer centroids and id map; the caller sets its invlists."""
+    quantizer centroids (an IndexFlat over ``state["vectors"]``, or the
+    given quantizer) and id map; the caller sets its invlists."""
     d, nlist = int(state["d"]), int(state["nlist"])
     metric = int(state["metric"])
-    vectors = np.asarray(state["vectors"], np.float32)
-    if vectors.shape != (nlist, d):
-        raise ValueError(f"vectors must be ({nlist}, {d}), "
-                         f"got {vectors.shape}")
-    quant = IndexFlat(d, metric, device=device)
-    quant.add(vectors)
-    index = cls(quant, d, nlist, metric=metric, block_size=stored.shape[1],
-                device=device, **kw)
+    if quantizer is None:
+        vectors = np.asarray(state["vectors"], np.float32)
+        if vectors.shape != (nlist, d):
+            raise ValueError(f"vectors must be ({nlist}, {d}), "
+                             f"got {vectors.shape}")
+        quantizer = IndexFlat(d, metric, device=device)
+        quantizer.add(vectors)
+    if cls is IndexIVFHNSW:
+        index = cls(d, nlist, metric, M=quantizer.hnsw.M,
+                    block_size=stored.shape[1], device=device)
+        index.quantizer = quantizer
+    else:
+        index = cls(quantizer, d, nlist, metric=metric,
+                    block_size=stored.shape[1], device=device, **kw)
     index.is_trained = True
     ids_flat = np.asarray(state["ids_flat"], np.int64)
     index.ntotal = int(state["ntotal"])

@@ -10,7 +10,8 @@ Phases, one line each; any failure raises and exits non-zero:
   2. build   — compile the seven CUDA libraries from tpu_ann_torch/csrc
      (one nvcc each, in parallel): K3 ivf_scan_fused, K3-SQ8 ivf_scan_sq8,
      K1 flat_knn_fused, K2 reservoir_topk, K4 ivf_scan_paged, K1p and B1
-     flat_knn_variants, B2 row_copy_probe.
+     flat_knn_variants, B2 row_copy_probe; each library's registers and
+     spill bytes from its ptxas log. K3, K3-SQ8 and K4 must not spill.
   3. IVF path at the benchmark's size: calibrated SIFT1M surrogate (1M
      base, 100k train, 10k queries, seed 123); the exact IndexFlat's
      ground truth (no K1 launch); make_ivf_flat(128, 4096) -> train
@@ -39,7 +40,8 @@ Phases, one line each; any failure raises and exits non-zero:
      16 / 32 / 64: per-pair outputs bit for bit for QT_8BIT_DIRECT, within
      rtol 1e-5 (positions equal outside near-ties) for QT_8BIT; at 1024
      queries final (D, I) equal, and K3-SQ8, plain and K3 times on the
-     same plan, in turns; at 10k queries K3-SQ8, plain and K3 times.
+     same plan, in turns; at 10k queries K3-SQ8, plain and K3 times, each
+     beside its bound.
   4c. K3g (scan_invlists_fused_grid) at 1024 queries x nprobe 32 on phase
      3's bf16 index: with grid2d_maxc's bound it equals K3 bit for bit;
      with half of it (ranges cut) the kernels' per-pair outputs and the
@@ -86,7 +88,9 @@ Phases, one line each; any failure raises and exits non-zero:
      build_graph_knn(xb, 16, 40) twice (cold and warm), build_tiles_fused in
      the build's coarse order, tile_search_fused at (nprobe0 12, hops 1, F
      4), (12, 2) and (12, 0), scored on the node ids: recall@10 >= 0.97 at
-     (12, 1) and hops 2 >= hops 1 > hops 0; 1 + hops K3 launches a search.
+     (12, 1) and hops 2 >= hops 1 > hops 0; 1 + hops K3 launches a search,
+     each launch's device time (hop 0, 1, 2) from the search's profile and
+     its bound from the plan it scans.
      Then IndexHNSWFlat(128, 16) over the same base, searched at efSearch
      16 and 64.
   11. K1p on phase 5's data: flat_knn_fused(merge="packed") over the r5
@@ -98,13 +102,16 @@ Phases, one line each; any failure raises and exits non-zero:
   12. the B1 ladder at 10k queries x 1M x W 1024 (R 8192): min1, minall,
      serial (flat_probe_scan) and packed (K1p) on the same inputs, each bit
      for bit against its plain version; times and each kernel's mma count
-     in the SASS (cuobjdump), which must be the same for the four folds.
+     in the SASS (cuobjdump), which must be the same for the four folds;
+     K3, K3-SQ8 and K4 must hold HMMA too (their products on the tensor
+     cores).
   13. B2, the row-copy issue probe, at NR 4096 / 16384 / 65536 rows of the
      1M x 128 f32 base, NS 16: the slots equal the plain version; ns and SM
      cycles per copy; xb.index_select(0, rows) on the same rows.
 The last two lines are the kernels' JSON record (each with its time,
 its plain version's, the card's bound for the same work and, where one
-torch call computes the same function, that call's time) and
+torch call computes the same function, that call's time; K3, K3-SQ8 and
+K4 add their time and bound at the main path's 10k queries) and
 {"ok": true, ...}.
 """
 
@@ -153,6 +160,9 @@ FLAT_FLOORS = {"exact": 0.9969, "refine": 0.9942, "ip_float": 0.98}
 KERNELS = ("ivf_scan_fused", "ivf_scan_sq8", "flat_knn_fused",
            "reservoir_topk", "ivf_scan_paged", "flat_knn_variants",
            "row_copy_probe")
+# the libraries of the IVF list scans (K3, K3-SQ8, K4): no spill, and
+# their products on the tensor cores (HMMA in the SASS)
+IVF_SCANS = ("ivf_scan_fused", "ivf_scan_sq8", "ivf_scan_paged")
 # IVFHNSW15625 (coarse_mode "auto") recall@10 floors at nprobe 32 / 64: the
 # JAX package's 0.8754 / 0.9602 (BENCH_r05.json) less 0.01 for k-means
 IVFHNSW_FLOORS = {32: 0.8654, 64: 0.9502}
@@ -202,6 +212,20 @@ def host_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         ts.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(ts))
+
+
+def ptxas_resources(log: str):
+    """(registers of each kernel, spill bytes of all) from a -Xptxas -v
+    log."""
+    regs, spill = [], 0
+    for ln in log.splitlines():
+        words = ln.replace(",", " ").split()
+        if "Used" in words and "registers" in words:
+            regs.append(int(words[words.index("registers") - 1]))
+        for i, w in enumerate(words[2:], 2):
+            if w == "spill" and words[i - 1] == "bytes":
+                spill += int(words[i - 2])
+    return regs, spill
 
 
 def reset_counts() -> None:
@@ -300,10 +324,14 @@ def main() -> None:
     kernels.load_libraries(KERNELS)
     t_build = time.perf_counter() - t0
     for name in KERNELS:
-        ptxas = [ln.strip() for ln in kernels.build_log(name).splitlines()
-                 if "registers" in ln or "spill" in ln]
+        log = kernels.build_log(name)
+        regs, spill = ptxas_resources(log)
         phase("build", kernel=name, seconds=kernels.BUILD_SECONDS[name],
-              ptxas=ptxas)
+              registers=regs, spill_bytes=spill,
+              ptxas=[ln.strip() for ln in log.splitlines()
+                     if "registers" in ln or "spill" in ln])
+        if name in IVF_SCANS and spill:
+            raise AssertionError(f"{name} spills {spill} bytes")
     phase("build_all", seconds=t_build)
 
     # -- 3. main path at real size ----------------------------------------
@@ -457,8 +485,9 @@ def main() -> None:
         "library_ms": None,
     }
     del il_f, data_f
-    sq_records = sq_phases(index, xt, xb, xq, gt, results, flat_out,
-                           xq_s, probes, dev)
+    k3_10k, sq_records = sq_phases(index, xt, xb, xq, gt, results,
+                                   flat_out, xq_s, probes, dev)
+    k3.update(k3_10k)
     del index, il
     torch.cuda.empty_cache()
 
@@ -480,8 +509,9 @@ def main() -> None:
 def assert_close_pairs(name, d0, p0, d1, p1, rtol=1e-5) -> float:
     """Per-pair top-kp outputs agree: the same empty slots, distances within
     rtol of the largest finite one, and positions equal except inside a
-    group of near-equal distances (a tie within the tolerance). Returns the
-    largest absolute difference."""
+    group of near-equal distances (a tie within the tolerance) or in the
+    group at the cut (the last slot's), where either version may keep any
+    of the tied rows. Returns the largest absolute difference."""
     d0, p0, d1, p1 = (t.cpu().numpy() for t in (d0, p0, d1, p1))
     fin = np.isfinite(d0)
     if not np.array_equal(fin, np.isfinite(d1)):
@@ -493,8 +523,8 @@ def assert_close_pairs(name, d0, p0, d1, p1, rtol=1e-5) -> float:
     for r in np.nonzero((p0 != p1).any(1))[0]:
         for j in np.nonzero(p0[r] != p1[r])[0]:
             near = np.abs(d0[r] - d0[r, j]) <= tol
-            tie_ok = near.sum() > 1 and (
-                near[-1] or sorted(p0[r][near]) == sorted(p1[r][near]))
+            tie_ok = near[-1] or (
+                near.sum() > 1 and sorted(p0[r][near]) == sorted(p1[r][near]))
             if not tie_ok:
                 raise AssertionError(f"{name}: pair {r} positions differ: "
                                      f"{p0[r]} {p1[r]}")
@@ -582,8 +612,9 @@ def device_stream_bytes(idx) -> dict:
 
 def sq_phases(index, xt, xb, xq, gt, flat_rec, flat_out, xq_s, probes,
               dev) -> list:
-    """Phases 4a-4c: the IVF-SQ8 path, K3-SQ8 and K3g; returns their
-    records of the kernels line."""
+    """Phases 4a-4c: the IVF-SQ8 path, K3-SQ8 and K3g; returns K3's time
+    and bound at the main path's 10k queries (nprobe 32) and the K3-SQ8
+    and K3g records of the kernels line."""
     # -- 4a. IVF-SQ8 path at real size -------------------------------------
     reset_counts()
     sq_idx = {}
@@ -679,9 +710,13 @@ def sq_phases(index, xt, xb, xq, gt, flat_rec, flat_out, xq_s, probes,
             row[name] = {
                 "ms": cuda_ms(lambda: F.scan_pairs(q, qn8, p8, view, kp,
                                                    False), 5),
-                "plain_ms": plain}
+                "plain_ms": plain,
+                **bound(*pair_scan_work(p8, view.ids, view.block_size, D,
+                                        kp, 0, view.nblocks, elem_bytes=1))}
         row["k3_ms"] = cuda_ms(
             lambda: F.scan_pairs(q3, qn3, p3, il, kp, False), 5)
+        row["k3_bound"] = bound(*pair_scan_work(p3, il.ids, il.block_size, D,
+                                                kp, 0, il.nblocks))
         ms_10k[nprobe] = row
     phase("sq8_kernel_check", nq=[len(xq_s), NQ], nprobe=probes.shape[1],
           kp=kp, ntiles=plan3.ntiles, direct_equal=True, pairs_equal_10k=True,
@@ -742,7 +777,10 @@ def sq_phases(index, xt, xb, xq, gt, flat_rec, flat_out, xq_s, probes,
     torch.cuda.empty_cache()
 
     rec = sq8_ms["QT_8BIT"]
-    return [{
+    at32 = ms_10k[32]
+    k3_10k = {"ms_10k": at32["k3_ms"],
+              "bound_ms_10k": at32["k3_bound"]["bound_ms"]}
+    return k3_10k, [{
         "name": "ivf_scan_sq8",
         "route": "cuda",
         "source": "tpu_ann_torch/csrc/ivf_scan_sq8.cu",
@@ -754,6 +792,8 @@ def sq_phases(index, xt, xb, xq, gt, flat_rec, flat_out, xq_s, probes,
         "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"],
         "library_ms": None,
+        "ms_10k": at32["QT_8BIT"]["ms"],
+        "bound_ms_10k": at32["QT_8BIT"]["bound_ms"],
     }, {
         "name": "ivf_scan_fused_grid",
         "route": "cuda",
@@ -1152,6 +1192,8 @@ def _paged_phases(xb, xt, xq, gt, dev, tmp) -> dict:
         "bound_ms": first["bound_ms"],
         "bound_by": first["bound_by"],
         "library_ms": None,
+        "ms_10k": [c["ms"] for c in checks],
+        "bound_ms_10k": [c["bound_ms"] for c in checks],
     }
 
 
@@ -1173,12 +1215,14 @@ def sass_mma_counts(name: str) -> dict:
     return found
 
 
-def device_profile(fn, top: int = 4) -> dict:
+def device_profile(fn, top: int = 4, kernel: str = "") -> dict:
     """One call of fn under torch.profiler: its wall time (profiler on),
     the device time summed over the device's own events (kernels and
     copies; the host-side operator entries that launched them are left
     out, so nothing is counted twice), the busy share (busy / wall, one
-    stream) and the device events that took the most time."""
+    stream), the device events that took the most time and, with
+    ``kernel``, the device time of each launch of the kernels whose name
+    holds it, in launch order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1195,10 +1239,16 @@ def device_profile(fn, top: int = 4) -> dict:
     # None where the profiler saw no device event: "not measured"
     busy = sum(e.self_device_time_total for e in ev) / 1e3 if ev else None
     ev.sort(key=lambda e: -e.self_device_time_total)
-    return {"wall_ms": wall, "device_busy_ms": busy,
-            "busy_share": busy / wall if ev else None,
-            "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
-                    for e in ev[:top]]}
+    out = {"wall_ms": wall, "device_busy_ms": busy,
+           "busy_share": busy / wall if ev else None,
+           "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
+                   for e in ev[:top]]}
+    if kernel:
+        runs = sorted((e.time_range.start, e.self_device_time_total / 1e3)
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA and kernel in e.name)
+        out["launches_ms"] = [ms for _, ms in runs]
+    return out
 
 
 def variant_phases(index, xb, xq, gt, refine_rec, dev) -> list:
@@ -1304,9 +1354,15 @@ def variant_phases(index, xb, xq, gt, refine_rec, dev) -> list:
             len({v[0] for v in hmma.values()}) != 1 or \
             hmma["k1"][0] == 0:
         raise AssertionError(f"the folds' mma counts differ: {mma}")
+    # K3, K3-SQ8 and K4 multiply on the tensor cores
+    ivf_hmma = {name: {f: n for f, n in sass_mma_counts(name).items()
+                       if "_kernel" in f} for name in IVF_SCANS}
+    if any(not v or not min(v.values()) for v in ivf_hmma.values()):
+        raise AssertionError(f"an IVF scan kernel has no HMMA: {ivf_hmma}")
     k1_ms = ladder["serial"]["ms"]
     phase("b1_ladder", nq=NQ, nb=index.ntotal, W=W, R=data.shape[1],
           folds=ladder, hmma={k: v[0] for k, v in hmma.items()},
+          ivf_scan_hmma={k: sum(v.values()) for k, v in ivf_hmma.items()},
           products_share_of_serial=ladder["min1"]["ms"] / k1_ms,
           fold_share_of_serial=1.0 - ladder["min1"]["ms"] / k1_ms,
           launches=ladder_launches)
@@ -1424,6 +1480,27 @@ def ivf_hnsw_phase(xb, xt, xq, gt, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def launch_bounds(call, kp: int) -> list:
+    """The bound of each K3 launch of call(): the plans its scans build
+    (recorded from plan_pairs, in launch order), each scan's bytes and
+    products as pair_scan_work counts them."""
+    plans, plan_pairs = [], F.plan_pairs
+
+    def record(probes, invlists, pt=F.PT):
+        plan = plan_pairs(probes, invlists, pt)
+        plans.append((plan, invlists))
+        return plan
+
+    F.plan_pairs = record
+    try:
+        call()
+    finally:
+        F.plan_pairs = plan_pairs
+    return [bound(*pair_scan_work(plan, il.ids, il.block_size, D, kp, 0,
+                                  il.nblocks))["bound_ms"]
+            for plan, il in plans]
+
+
 def graph_phase(dev) -> None:
     """Phase 10: the round-4 harness's graph section on its own data."""
     rs = np.random.RandomState(11)
@@ -1469,9 +1546,16 @@ def graph_phase(dev) -> None:
         I = I.cpu().numpy()
         if not (I.shape == (NQ, K) and (I >= 0).all() and (I < NB).all()):
             raise AssertionError(f"tile search hops={hops}: malformed")
+        prof = device_profile(call, kernel="ivf_scan_fused_kernel")
+        if len(prof["launches_ms"]) != 1 + hops:
+            raise AssertionError(f"tile search hops={hops}: profiled K3 "
+                                 f"launches {prof['launches_ms']}")
         rows[hops] = {"recall_at_10": T.recall_k_at_k(I, gt, K), "ms": ms,
                       "qps": NQ / ms * 1e3, "k3_launches_per_search": 1 + hops,
-                      "profile": device_profile(call)}
+                      "k3_launch_ms": prof.pop("launches_ms"),
+                      # the tile search's per-(query, tile) width is kp 8
+                      "k3_launch_bound_ms": launch_bounds(call, 8),
+                      "profile": prof}
     phase("graph_build", n=NB, M=16, efConstruction=40, build_s=builds,
           tiles_s=t_tiles, mean_level0_degree=deg,
           max_level=graph.max_level)

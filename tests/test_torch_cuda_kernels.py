@@ -6,7 +6,9 @@ Run on a GPU machine (no jax needed, hence --noconftest):
 
 Integer-valued data makes bf16 x bf16 -> f32 scores exact in both, so the
 per-pair outputs must be equal: distances bit for bit, positions up to
-ties."""
+ties. `plan_case` builds the plan shapes the kernel's segment walk must
+handle (torch_parity.PLAN_CASES: sparse hulls, one-pair segments, one-list
+tiles, several lists a chunk)."""
 
 import numpy as np
 import pytest
@@ -15,7 +17,8 @@ import torch
 from tpu_ann_torch.ops import distances as TD
 from tpu_ann_torch.ops import ivf_scan_fused as F
 from tpu_ann_torch.ops.ivf_scan import pack_invlists
-from torch_parity import assert_topk_equal
+from torch_parity import (PLAN_CASES, assert_topk_equal, case_probes,
+                          check_plan_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +70,28 @@ def test_kernel_pairs_equal_plain(d, B, kp, metric):
     d1, p1 = _pairs(F.scan_pairs, xq, probes, il, kp, metric)
     assert F.LAUNCHES == before + 1
     d0, p0 = _pairs(F.scan_pairs_reference, xq, probes, il, kp, metric)
+    assert_topk_equal(d0, p0, d1, p1)
+
+
+def plan_case(dev, case, d=128):
+    """Queries, probes and lists of one of torch_parity.PLAN_CASES."""
+    nlist, B, n = PLAN_CASES[case]
+    xq, probes, il = _setup(dev, d, B, nlist=nlist, n=n)
+    probes = torch.from_numpy(case_probes(case, probes.cpu().numpy(),
+                                          nlist)).to(dev)
+    check_plan_case(case, F.plan_pairs(probes, il), B)
+    return xq, probes, il
+
+
+@pytest.mark.parametrize("case", ["sparse", "one_pair", "one_list", "b16"])
+@pytest.mark.parametrize("d,kp,metric", [(128, 10, 1), (96, 32, 0),
+                                         (264, 16, 1)])
+def test_kernel_plan_shapes_equal_plain(case, d, kp, metric):
+    dev = _cuda()
+    xq, probes, il = plan_case(dev, case, d)
+    d1, p1 = _pairs(F.scan_pairs, xq, probes, il, kp, metric)
+    d0, p0 = _pairs(F.scan_pairs_reference, xq, probes, il, kp, metric)
+    np.testing.assert_array_equal(d1, d0)
     assert_topk_equal(d0, p0, d1, p1)
 
 

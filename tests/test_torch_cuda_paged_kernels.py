@@ -48,8 +48,30 @@ def _paged(path, d, B=128, nlist=40, n=4000, nq=300, nprobe=6, seed=0):
 @pytest.mark.parametrize("kp", [1, 10, 16, 32])
 @pytest.mark.parametrize("d", [32, 96, 128])
 def test_k4_equals_plain_every_call(tmp_path, d, kp, W, metric):
+    _k4_every_call(str(tmp_path / "p"), d, kp, W, metric)
+
+
+@pytest.mark.parametrize("metric", [TD.METRIC_L2, TD.METRIC_INNER_PRODUCT])
+@pytest.mark.parametrize("W", [2, 5])
+def test_k4_window_splits_lists(tmp_path, W, metric):
+    """Block size 16, lists of about 7 blocks, windows of 2 or 5 blocks:
+    window boundaries fall inside probed lists, so one list's segment is
+    scanned by two launches."""
+    plan, entries = _k4_every_call(str(tmp_path / "p"), 96, 10, W, metric,
+                                   B=16)
+    ps, pe = plan.pstart.cpu().numpy(), plan.pend.cpu().numpy()
+    real = pe > ps
+    # some probed list has a window start strictly inside it
+    assert any(((ps[real] < w0) & (w0 < pe[real])).any()
+               for w0, _, _ in entries)
+
+
+def _k4_every_call(path, d, kp, W, metric, B=128):
+    """K4 over every planned call of windows of W blocks equals its plain
+    version after every call, and K3's plain version over the whole
+    stream at the end; returns the plan and the planned calls."""
     dev = _cuda()
-    pil, xq, probes = _paged(str(tmp_path / "p"), d)
+    pil, xq, probes = _paged(path, d, B=B)
     sim = TD.is_similarity_metric(metric)
     xq_t = torch.from_numpy(xq).to(dev)
     plan = F.plan_pairs(torch.from_numpy(probes).long().to(dev), pil)
@@ -78,6 +100,7 @@ def test_k4_equals_plain_every_call(tmp_path, d, kp, W, metric):
     # the same per-pair result as K3's plain version over the whole stream
     d3, p3 = F.scan_pairs_reference(q16, qn, plan, whole, kp, sim)
     assert torch.equal(rd, d3) and torch.equal(rp, p3)
+    return plan, entries
 
 
 @pytest.mark.parametrize("metric", [TD.METRIC_L2, TD.METRIC_INNER_PRODUCT])

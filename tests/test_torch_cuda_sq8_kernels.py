@@ -10,7 +10,10 @@ kernel and the plain version: per-pair outputs equal bit for bit. With
 trained QT_8BIT ranges the folded query q * scale is a bf16 and the sums
 of its products with the codes run in another order: distances within
 rtol 1e-5 (against the largest distance of the call), positions equal
-outside groups of near-equal distances."""
+outside groups of near-equal distances. The plan shapes of
+torch_parity.PLAN_CASES (sparse hulls, one-pair segments, one-list tiles,
+several lists a chunk) run on QT_8BIT_DIRECT codes, and cut by K3g on
+both streams."""
 
 import numpy as np
 import pytest
@@ -23,7 +26,8 @@ from tpu_ann_torch.ops import distances as TD
 from tpu_ann_torch.ops import ivf_scan as TS
 from tpu_ann_torch.ops import ivf_scan_fused as F
 from tpu_ann_torch.ops import sq as SQ
-from torch_parity import assert_topk_equal
+from torch_parity import (PLAN_CASES, assert_topk_equal, case_probes,
+                          check_plan_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -99,6 +103,58 @@ def test_sq8_pairs_equal_plain(d, kp, metric, qtype):
     _assert_pairs(qtype, d0, p0, d1, p1)
 
 
+def plan_case(dev, case, d=128, qtype=SQ.QT_8BIT_DIRECT):
+    """Queries, probes and an SQ8 view of one of torch_parity.PLAN_CASES."""
+    nlist, B, n = PLAN_CASES[case]
+    xq, probes, il = _setup(dev, d, qtype, B=B, nlist=nlist, n=n)
+    probes = torch.from_numpy(case_probes(case, probes.cpu().numpy(),
+                                          nlist)).to(dev)
+    check_plan_case(case, F.plan_pairs(probes, il), B)
+    return xq, probes, il
+
+
+def _bf16_lists(il):
+    """The bf16 stream of the same (integer) rows as an SQ8 view's codes."""
+    rows = il.codes.view(-1, il.codes.shape[-1]).float()
+    return TS.PackedInvLists(
+        data=rows.view(il.codes.shape),
+        data_bf16=rows.view(il.codes.shape).bfloat16(), ids=il.ids,
+        norms=il.norms, list_block_start=il.list_block_start,
+        list_nblocks=il.list_nblocks)
+
+
+@pytest.mark.parametrize("case", ["sparse", "one_pair", "one_list", "b16"])
+@pytest.mark.parametrize("d,kp,metric", [(128, 10, 1), (96, 32, 0),
+                                         (264, 16, 1)])
+def test_sq8_plan_shapes_equal_plain(case, d, kp, metric):
+    dev = _cuda()
+    xq, probes, il = plan_case(dev, case, d)
+    d1, p1 = _pairs(F.scan_pairs, xq, probes, il, kp, metric)
+    d0, p0 = _pairs(F.scan_pairs_reference, xq, probes, il, kp, metric)
+    _assert_pairs(SQ.QT_8BIT_DIRECT, d0, p0, d1, p1)
+
+
+@pytest.mark.parametrize("case", ["sparse", "one_pair", "one_list", "b16"])
+@pytest.mark.parametrize("stream", ["bf16", "sq8"])
+def test_grid_cut_plan_shapes_equal_plain(stream, case):
+    """K3g's cut of each plan shape, on both streams: per-pair outputs
+    equal the plain version's over the same cut plan."""
+    dev = _cuda()
+    xq, probes, il = plan_case(dev, case)
+    if stream == "bf16":
+        il = _bf16_lists(il)
+    plan = cut = F.plan_pairs(probes, il)
+    mc = F.grid2d_maxc(il, probes)          # cuts nothing: halve it
+    while mc > 1 and torch.equal(cut.tile_nb, plan.tile_nb):
+        mc //= 2
+        cut = F.truncate_plan(plan, mc)
+    assert (cut.tile_nb < plan.tile_nb).any()
+    d1, p1 = _pairs(F.scan_pairs, xq, probes, il, 16, 1, cut)
+    d0, p0 = _pairs(F.scan_pairs_reference, xq, probes, il, 16, 1, cut)
+    np.testing.assert_array_equal(d1, d0)
+    np.testing.assert_array_equal(p1, p0)
+
+
 @pytest.mark.parametrize("B", [128, 16])
 @pytest.mark.parametrize("metric", [1, 0])
 def test_sq8_search_equal_plain(metric, B):
@@ -128,13 +184,7 @@ def test_grid_cut_plan_equal_plain(stream):
     dev = _cuda()
     xq, probes, il = _setup(dev, 128, SQ.QT_8BIT_DIRECT, B=16)
     if stream == "bf16":
-        pcl = il
-        rows = pcl.codes.view(-1, 128).float()
-        il = TS.PackedInvLists(
-            data=rows.view(pcl.codes.shape), data_bf16=rows.view(
-                pcl.codes.shape).bfloat16(), ids=pcl.ids,
-            norms=pcl.norms, list_block_start=pcl.list_block_start,
-            list_nblocks=pcl.list_nblocks)
+        il = _bf16_lists(il)
     full = F.grid2d_maxc(il, probes)
     mc = max(full // 4, 1)
     plan = F.truncate_plan(F.plan_pairs(probes, il), mc)

@@ -203,3 +203,66 @@ def test_index_hnsw_flat_end_to_end(data):
         t.range_search(xq, 1.0)
     with pytest.raises(NotImplementedError):
         t.add(xb[:10])                            # extend_graph waits
+
+
+def test_index_hnsw_ip_route_follows_reference(data):
+    """Above tile_threshold the reference's tile_mode="auto" takes the
+    fused tiles for L2 only (tpu_ann/models/hnsw.py:233-241) and sends IP
+    to its tile beam, which the port has not yet: "auto" raises for IP,
+    "fused" takes the tiles for either metric, and an L2 search in "auto"
+    is the fused route's. IP recall@10 is held against the JAX package's
+    exact inner products."""
+    from tpu_ann_torch.models.hnsw import IndexHNSWFlat as THNSW
+
+    xb, xq = data
+    ip = THNSW(32, 16, IP, device=CPU)
+    ip.add(xb)
+    ip.hnsw.tile_threshold = 1000
+    with pytest.raises(NotImplementedError, match="tile_search"):
+        ip.search(xq, 10)
+    ip.hnsw.tile_mode = "fused"
+    D, I = ip.search(xq, 10)
+    assert (I >= 0).all() and (I < len(xb)).all()
+    assert (np.diff(D, axis=1) <= 0).all()           # descending
+    np.testing.assert_allclose(D, np.einsum("qd,qkd->qk", xq, xb[I]),
+                               rtol=1e-5, atol=1e-3)
+    _, gt = JD.knn(jnp.asarray(xq), jnp.asarray(xb), 10, IP)
+    assert _overlap(I, np.asarray(gt)) >= 0.9
+    l2 = THNSW(32, 16, device=CPU)
+    l2.add(xb)
+    l2.hnsw.tile_threshold = 1000
+    D1, I1 = l2.search(xq, 10)
+    l2.hnsw.tile_mode = "fused"
+    D2, I2 = l2.search(xq, 10)
+    np.testing.assert_array_equal(D1, D2)
+    np.testing.assert_array_equal(I1, I2)
+
+
+def test_index_hnsw_large_add_rebuilds(data):
+    """A second add of more than incremental_frac (0.5) of the built rows
+    rebuilds the graph over all rows with build_graph_knn, in both
+    packages: level-0 link sets equal on >= 99% of rows, recall@10 within
+    0.01. An add of at most that share (extend_graph in the reference)
+    raises and leaves the index as it was."""
+    from tpu_ann.models.hnsw import IndexHNSWFlat as JHNSW
+    from tpu_ann_torch.models.hnsw import IndexHNSWFlat as THNSW
+
+    xb, xq = data
+    j, t = JHNSW(32, 16), THNSW(32, 16, device=CPU)
+    for idx in (j, t):
+        idx.add(xb[:1800])
+        idx.add(xb[1800:])                  # 1200 > 0.5 * 1800: rebuild
+    assert t.ntotal == t._built_n == len(xb) == j._built_n
+    assert t.graph.neighbors0.shape[0] == len(xb)
+    assert _row_sets_equal(t.graph.neighbors0.numpy(),
+                           np.asarray(j.graph.neighbors0)) >= 0.99
+    np.testing.assert_array_equal(t.graph.levels.numpy(),
+                                  np.asarray(j.graph.levels))
+    _, gt = JD.knn(jnp.asarray(xq), jnp.asarray(xb), 10)
+    gt = np.asarray(gt)
+    _, I0 = j.search(xq, 10)
+    _, I1 = t.search(xq, 10)
+    assert abs(_overlap(I1, gt) - _overlap(np.asarray(I0), gt)) <= 0.01
+    with pytest.raises(NotImplementedError, match="extend_graph"):
+        t.add(xb[:100])                     # 100 <= 0.5 * 3000
+    assert t.ntotal == t.storage.ntotal == len(xb)

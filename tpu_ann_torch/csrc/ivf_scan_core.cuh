@@ -9,52 +9,76 @@
 // bf16 or uint8 stream and K4 (tpu_ann/ops/ivf_scan_paged.py::
 // _make_window_kernel) over one uploaded window.
 //
-// Work: the wrapper sorts the pairs by list id and cuts them into tiles of
-// kPT pairs. Lists are packed contiguously in id order, so a tile's pairs
-// cover one contiguous range of stream rows. One CTA owns one tile and
-// walks that range in chunks of kCR rows with a runtime loop: each chunk
-// is staged once in shared memory and feeds every pair of the tile whose
-// list it belongs to (list-major reuse). The tile's pairs form register
-// groups of kP consecutive pairs, dealt to the warps in turn, so the groups
-// of one list run on different warps; a lane scores two rows of the chunk
-// against its group's pairs with bf16 x bf16 -> f32 products (f32
-// accumulation).
+// The function: the wrapper sorts the pairs by list id and cuts them into
+// tiles of kPT pairs, one CTA each. A row counts for a pair if it lies in
+// the pair's block range [pstart, pend) and holds a real entry (id >= 0);
+// its score, with bf16 x bf16 -> f32 products, is
 //   L2: max(qn + |x|^2 - 2 q.x, 0)             IP: -q.x - qn
 // qn is the wrapper's per-query offset: |q|^2 for L2 and 0 for IP on a
 // bf16 stream. On the SQ8 stream (Elem = uint8_t) x is the code row, q the
 // query times the dequant scale (rounded to bf16 once), and qn folds in
-// the bias: |q|^2 - 2 q.bias for L2, q.bias for IP. Each code is widened
-// to bf16 in registers as its chunk is staged (exact: every integer up to
-// 256 is a bf16), so the shared-memory chunk and the inner loop are the
-// bf16 stream's; only the HBM read halves.
-// A row counts for a pair if it lies in the pair's list block range and
-// holds a real entry (id >= 0). Each pair keeps an exact sorted top-kp
-// spread over the warp's lanes (lane i holds entry i), ordered by
-// (distance, stream position): ties go to the lower position, empty slots
-// are (+inf, -1). A few new candidates are inserted one by one; many (the
-// first chunks of a list) are merged in at once with a warp bitonic sort.
+// the bias: |q|^2 - 2 q.bias for L2, q.bias for IP. Each pair keeps an
+// exact sorted top-kp spread over the lanes of the warp that owns it (lane
+// i holds entry i), ordered by (distance, stream position): ties go to the
+// lower position, empty slots are (+inf, -1).
+//
+// What bounds it on the H100: a streamed row is 2d bytes of bf16 (d of
+// codes on the SQ8 stream) plus 8 B of id and norm, read once for every
+// pair of the tile on its list. With the products on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 accumulate) a 128-pair x 64-row x
+// 128-d chunk is 1M multiply-adds, about 0.3 us of one SM's share of the
+// tensor-core peak against about 0.7 us of its share of HBM for the
+// chunk's 16.5 KB: the card's bound is the rows' bytes. Measured, the
+// per-pair top-kp epilogue (its warp sorting networks) takes more of a
+// launch than the bytes and the products at the main path's 10k-query
+// batch (PERF.md): it is the next step. The design:
+// 1. Segments. The pairs of a tile fall into segments, runs of
+//    consecutive pairs with the same row range (the same list; for K4 the
+//    same range clamped to the window, for K3g the same cut range). The
+//    CTA finds them in shared memory from the ranges it loads and streams
+//    each segment's rows once, in chunks of kCR rows that start at the
+//    segment's first row, and no row that no pair needs: a sparse plan
+//    (a graph hop, a -1-heavy probe set) costs its own rows, not the span
+//    of its tile. A pair whose range is empty is in no segment.
+// 2. Every warp works on every chunk. A chunk is one score tile, (segment
+//    pairs) x (kCR rows): m16 tiles of pairs by n8 tiles of rows, dealt to
+//    the 8 warps in blocks of 2 m-tiles x 1, 2 or 4 n-tiles, so a segment
+//    of one pair keeps the 8 warps on 8 row tiles, and one of 128 pairs
+//    gives each warp a 32 x 32 block.
+// 3. Tensor-core products: the tile's queries (A) and the chunk's rows (B)
+//    stay in shared memory as bf16, d padded with zeros to a multiple of
+//    16 in both, and reach the mma through ldmatrix. Up to kDS = 128 dims
+//    the queries are loaded once per CTA (kPT x 136 bf16, 34 KB); a wider
+//    d is cut into kDS-dim slices, each staged with its chunk. SQ8 codes
+//    land in shared memory as bytes (HBM reads stay one byte a dimension)
+//    and are widened to bf16 there, exactly (every integer up to 256 is a
+//    bf16), into the operand tile of the chunk.
+// 4. Asynchronous, double-buffered staging: cp.async 16-byte copies (8
+//    bytes for codes; rows past the segment and the padded dims are
+//    zero-filled, so they score 0, never NaN), with the rows' ids and norms
+//    beside them. While a chunk multiplies, the next chunk of the segment,
+//    or the first of the next segment, is in flight.
+// 5. Top-kp epilogue: the accumulators go to a shared-memory score tile
+//    (f32, pairs x kCR rows), then the warp that owns a pair filters its row
+//    of scores against the pair's threshold and merges the chunk's
+//    survivors into its list in one update (update_chunk): one by one, in
+//    stream order, when they are few; when there are many (a list's first
+//    chunks) with warp bitonic sorts and merges.
+// Shared memory at d = 128: 34 KB of queries, 2 x 17 KB of chunk, 36 KB of
+// scores and 4 KB of pair and segment tables, 108 KB in all, so that two
+// CTAs share an SM (their registers are capped at 128 a thread by the
+// kernels' launch bounds): one CTA's epilogue overlaps the other's loads
+// and products.
 //
 // The window (kWindow = true, K4): the kernel reads global stream rows
 // [wrow0, wrow1) only; they lie at data / ids / norms + (row - wrow0).
-// Every pair and tile range is clamped to the window, and positions stay
-// global. Each pair's list starts from its top-kp so far (out_d / out_p,
-// from earlier windows, whose positions are all lower), so the new rows
-// merge into it with the same tie rule, and the merged list is written
-// back in place. K3 (kWindow = false) reads the whole stream and starts
-// from empty lists; its instantiation has none of the window code.
-//
-// What bounds it on the H100: at d = 128 a streamed row is 256 B of bf16
-// (128 B of codes on the SQ8 stream) plus 8 B of id and norm, and it feeds
-// (pairs of the tile on its list) x d fused multiply-adds. At the IVF4096
-// main path (1M rows, 10k queries, nprobe 16-64) a list is probed by
-// 40-160 pairs, so a row read feeds thousands of FMAs: the kernel is
-// bound by CUDA-core FMA issue and shared-memory operand traffic, not by
-// HBM. The design keeps the operand reads low (queries converted to f32
-// once per tile and read as warp broadcasts, rows read with
-// bank-conflict-free 16-byte loads, 16 accumulators per lane) and skips a
-// register group's work on chunks that hold none of its pairs' lists.
-// Tensor cores (mma.sync / wgmma), cp.async or TMA double buffering and
-// persistent CTAs are later steps.
+// Every pair range is clamped to the window, and positions stay global. A
+// pair whose clamped range is not empty starts from its top-kp so far
+// (out_d / out_p, from earlier windows, whose positions are all lower), so
+// the new rows merge into it with the same tie rule, and the merged list is
+// written back in place; the running list of a pair with nothing in the
+// window is neither read nor written. K3 (kWindow = false) reads the whole
+// stream, starts from empty lists and writes every pair.
 
 #pragma once
 
@@ -67,36 +91,126 @@ namespace ivf_scan {
 constexpr int kPT = 128;             // pairs per tile (one CTA)
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kPW = kPT / kWarps;    // pairs per warp
-constexpr int kP = 8;                // pairs per register group
-constexpr int kNG = kPW / kP;        // register groups per warp
-constexpr int kCR = 64;              // stream rows per chunk (2 per lane)
-constexpr int kDS = 128;             // dims per shared-memory slice
-constexpr int kXS = kDS + 8;         // padded row stride of the chunk (bf16)
+constexpr int kPW = kPT / kWarps;    // pairs per warp: pair p is warp p % 8's
+constexpr int kCR = 64;              // stream rows per chunk (8 n8 tiles)
+constexpr int kDS = 128;             // dims per slice
+constexpr int kStages = 2;           // chunks in the cp.async ring
+constexpr int kSS = kCR + 8;         // row stride of the score tile (f32)
 constexpr int kKPMax = 32;           // one top-kp entry per lane
 constexpr int kSerialMax = 6;        // more candidates: bitonic merge
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kInf = __builtin_huge_valf();
 
-constexpr size_t kSmemBytes =
-    sizeof(float) * kPT * kDS            // qs: tile queries, f32
-    + sizeof(uint16_t) * kCR * kXS       // xs: chunk rows, bf16
-    + sizeof(int) * kCR                  // sid: chunk row ids
-    + sizeof(float) * kCR                // snorm: chunk row norms
-    + sizeof(int) * kPT * 3              // plo, phi, pq
-    + sizeof(float) * kPT                // pqn
-    + sizeof(int) * kWarps * kNG * 2;    // glo, ghi
+__host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 
-// 8 bf16 (one 16-byte vector) -> 8 f32; bf16 is the top half of an f32
-__device__ __forceinline__ void unpack8(const uint4 v, float (&f)[8]) {
-  f[0] = __uint_as_float(v.x << 16);
-  f[1] = __uint_as_float(v.x & 0xffff0000u);
-  f[2] = __uint_as_float(v.y << 16);
-  f[3] = __uint_as_float(v.y & 0xffff0000u);
-  f[4] = __uint_as_float(v.z << 16);
-  f[5] = __uint_as_float(v.z & 0xffff0000u);
-  f[6] = __uint_as_float(v.w << 16);
-  f[7] = __uint_as_float(v.w & 0xffff0000u);
+// Shared-memory layout for width d (byte offsets). Rows of the query and
+// chunk tiles are (slice width rounded to 16) + 8 bf16 long: a multiple of
+// 16 bytes whose 16-byte count is odd, or an odd multiple of 2 or 4, so the
+// 8 rows of an ldmatrix hit 8 distinct 16-byte bank groups.
+struct Layout {
+  int stride;      // bf16 elements per query / chunk row
+  int rstride;     // bytes per staged code row (SQ8)
+  int nslices;     // kDS-dim slices of d
+  size_t qs, xs, raw, sid, snorm, sc, plo, phi, pq, pqn, sfirst, send, nseg;
+  size_t total;
+};
+
+template <typename Elem>
+__host__ __device__ inline Layout layout(int d) {
+  constexpr bool kU8 = sizeof(Elem) == 1;
+  Layout L;
+  const int wmax = round16(d) < kDS ? round16(d) : kDS;
+  L.stride = wmax + 8;
+  L.rstride = wmax;
+  L.nslices = (d + kDS - 1) / kDS;
+  const size_t row = sizeof(uint16_t) * L.stride;
+  size_t o = 0;
+  // the tile's queries once (one slice), or each stage's slice of them
+  L.qs = o;
+  o += (L.nslices > 1 ? kStages : 1) * kPT * row;
+  // bf16 chunks: one per stage; SQ8: one widened tile, the codes per stage
+  L.xs = o;
+  o += (kU8 ? 1 : kStages) * kCR * row;
+  L.raw = o;
+  o += kU8 ? static_cast<size_t>(kStages) * kCR * L.rstride : 0;
+  L.sid = o;
+  o += sizeof(int) * kStages * kCR;
+  L.snorm = o;
+  o += sizeof(float) * kStages * kCR;
+  L.sc = o;
+  o += sizeof(float) * kPT * kSS;
+  L.plo = o;
+  o += sizeof(int) * kPT;
+  L.phi = o;
+  o += sizeof(int) * kPT;
+  L.pq = o;
+  o += sizeof(int) * kPT;
+  L.pqn = o;
+  o += sizeof(float) * kPT;
+  L.sfirst = o;
+  o += sizeof(int) * kPT;
+  L.send = o;
+  o += sizeof(int) * kPT;
+  L.nseg = o;
+  o += 16;
+  L.total = o;
+  return L;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of N bytes; the bytes past `src_bytes` (all of them at 0) are
+// written as zeros and not read
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool read) {
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(read ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"(N), "r"(read ? N : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two codes -> two bf16 in one word, exactly: 2^23 + c is exact in f32,
@@ -108,32 +222,12 @@ __device__ __forceinline__ uint32_t codes2_bf16(uint32_t c0, uint32_t c1) {
   return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
 }
 
-// 8 stream elements at p as 8 bf16 (one 16-byte vector): a 16-byte load
-// of a bf16 stream, or an 8-byte load of uint8 codes widened in registers
-template <typename Elem>
-__device__ __forceinline__ uint4 load8_bf16(const Elem* p) {
-  if constexpr (sizeof(Elem) == 1) {
-    const uint2 c = *reinterpret_cast<const uint2*>(p);
-    return make_uint4(codes2_bf16(c.x & 0xffu, (c.x >> 8) & 0xffu),
-                      codes2_bf16((c.x >> 16) & 0xffu, c.x >> 24),
-                      codes2_bf16(c.y & 0xffu, (c.y >> 8) & 0xffu),
-                      codes2_bf16((c.y >> 16) & 0xffu, c.y >> 24));
-  } else {
-    return *reinterpret_cast<const uint4*>(p);
-  }
-}
-
-__device__ __forceinline__ float dot8(const float4 a, const float4 b,
-                                      const float (&x)[8], float acc) {
-  acc = fmaf(a.x, x[0], acc);
-  acc = fmaf(a.y, x[1], acc);
-  acc = fmaf(a.z, x[2], acc);
-  acc = fmaf(a.w, x[3], acc);
-  acc = fmaf(b.x, x[4], acc);
-  acc = fmaf(b.y, x[5], acc);
-  acc = fmaf(b.z, x[6], acc);
-  acc = fmaf(b.w, x[7], acc);
-  return acc;
+// 8 codes -> 8 bf16 (one 16-byte vector)
+__device__ __forceinline__ uint4 widen8(const uint2 c) {
+  return make_uint4(codes2_bf16(c.x & 0xffu, (c.x >> 8) & 0xffu),
+                    codes2_bf16((c.x >> 16) & 0xffu, c.x >> 24),
+                    codes2_bf16(c.y & 0xffu, (c.y >> 8) & 0xffu),
+                    codes2_bf16((c.y >> 16) & 0xffu, c.y >> 24));
 }
 
 // (d1, p1) before (d2, p2): by distance, then by stream position
@@ -148,26 +242,53 @@ __device__ __forceinline__ int in_window(int row, int wrow0, int wrow1) {
   return row;
 }
 
-// Warp-wide: (d, p) holds a list sorted ascending over the 32 lanes; the
-// candidates (cd, cp), one per lane, in any order. Leaves in (d, p) the 32
-// smallest of both, sorted: bitonic sort of the candidates, then the
-// elementwise min with the reversed list (a bitonic sequence), then a
-// bitonic merge.
-__device__ __forceinline__ void merge32(float& d, int& p, float cd, int cp,
-                                        int lane) {
+// Warp-wide bitonic sort, ascending over the 32 lanes, of one (distance,
+// position) a lane.
+__device__ __forceinline__ void sort32(float& d, int& p, int lane) {
 #pragma unroll
   for (int k = 2; k <= 32; k <<= 1) {
 #pragma unroll
     for (int j = k >> 1; j > 0; j >>= 1) {
-      const float od = __shfl_xor_sync(kFull, cd, j);
-      const int op = __shfl_xor_sync(kFull, cp, j);
+      const float od = __shfl_xor_sync(kFull, d, j);
+      const int op = __shfl_xor_sync(kFull, p, j);
       const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
-      if (before(od, op, cd, cp) == keep_min) {
-        cd = od;
-        cp = op;
+      if (before(od, op, d, p) == keep_min) {
+        d = od;
+        p = op;
       }
     }
   }
+}
+
+// sort32 of two independent sets a lane; their steps interleave.
+__device__ __forceinline__ void sort32x2(float& da, int& pa, float& db,
+                                         int& pb, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const float oda = __shfl_xor_sync(kFull, da, j);
+      const int opa = __shfl_xor_sync(kFull, pa, j);
+      const float odb = __shfl_xor_sync(kFull, db, j);
+      const int opb = __shfl_xor_sync(kFull, pb, j);
+      const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+      if (before(oda, opa, da, pa) == keep_min) {
+        da = oda;
+        pa = opa;
+      }
+      if (before(odb, opb, db, pb) == keep_min) {
+        db = odb;
+        pb = opb;
+      }
+    }
+  }
+}
+
+// Warp-wide: (d, p) and (cd, cp) each sorted ascending over the 32 lanes.
+// Leaves in (d, p) the 32 smallest of both, sorted: the elementwise min
+// with the reversed second list (a bitonic sequence), then a bitonic merge.
+__device__ __forceinline__ void merge_sorted(float& d, int& p, float cd,
+                                             int cp, int lane) {
   const float rd = __shfl_sync(kFull, cd, 31 - lane);
   const int rp = __shfl_sync(kFull, cp, 31 - lane);
   if (before(rd, rp, d, p)) {
@@ -184,6 +305,129 @@ __device__ __forceinline__ void merge32(float& d, int& p, float cd, int cp,
     }
   }
 }
+
+// Warp-wide: inserts the candidates of mask m (lane l: distance dis, stream
+// position row0 + l, in increasing position, each after every kept entry
+// with a distance <= its own, which has a lower position) into the sorted
+// top-kp list (d, p), entry i in lane i.
+__device__ __forceinline__ void insert_each(float& d, int& p, float dis,
+                                            unsigned m, int row0, int kp,
+                                            int lane) {
+  float thr = __shfl_sync(kFull, d, kp - 1);
+  while (m) {
+    const int src = __ffs(m) - 1;
+    m &= m - 1;
+    const float dv = __shfl_sync(kFull, dis, src);
+    if (dv < thr) {
+      const int idx = __popc(__ballot_sync(kFull, lane < kp && d <= dv));
+      const float ud = __shfl_up_sync(kFull, d, 1);
+      const int up = __shfl_up_sync(kFull, p, 1);
+      if (lane == idx) {
+        d = dv;
+        p = row0 + src;
+      } else if (lane > idx) {
+        d = ud;
+        p = up;
+      }
+      thr = __shfl_sync(kFull, d, kp - 1);
+    }
+  }
+}
+
+// One lane's entry of a pair's top-kp list: lane i holds entry i
+struct Entry {
+  float d;
+  int p;
+};
+
+// Warp-wide: merges one chunk's candidates of a pair, rows row0 + lane
+// (c0: below the list's threshold, distance dis0) and row0 + 32 + lane (c1,
+// dis1), into its sorted top-kp list e; returns the lane's entry. A few are
+// inserted one by one, in increasing position. Up to 32 are packed into
+// one set through `row` (the pair's row of the score tile, read already:
+// 32 distances, then 32 positions), sorted and merged into the list; more
+// are sorted as two sets, cut to their 32 smallest and merged. Sorted
+// candidates become the list if it is empty (a list's first chunk). The tie
+// order is (distance, position) throughout.
+// A call, not inlined: the epilogue visits up to kPW pairs, each warp a
+// different one at a time, and a copy per pair would outgrow the
+// instruction cache. The entry travels in registers, by value, so the
+// lists stay in the caller's registers.
+__device__ __noinline__ Entry update_chunk(Entry e, float dis0, bool c0,
+                                           float dis1, bool c1, int row0,
+                                           int kp, float* row, int lane) {
+  const unsigned m0 = __ballot_sync(kFull, c0);
+  const unsigned m1 = __ballot_sync(kFull, c1);
+  const int n0 = __popc(m0), n = n0 + __popc(m1);
+  if (n <= kSerialMax) {
+    insert_each(e.d, e.p, dis0, m0, row0, kp, lane);
+    insert_each(e.d, e.p, dis1, m1, row0 + 32, kp, lane);
+    return e;
+  }
+  float da, db;
+  int pa, pb;
+  if (n <= 32) {
+    const unsigned below = (1u << lane) - 1u;
+    int* rowp = reinterpret_cast<int*>(row) + 32;
+    __syncwarp();
+    if (c0) {
+      const int i = __popc(m0 & below);
+      row[i] = dis0;
+      rowp[i] = row0 + lane;
+    }
+    if (c1) {
+      const int i = n0 + __popc(m1 & below);
+      row[i] = dis1;
+      rowp[i] = row0 + 32 + lane;
+    }
+    __syncwarp();
+    da = lane < n ? row[lane] : kInf;
+    pa = lane < n ? rowp[lane] : INT_MAX;
+    sort32(da, pa, lane);
+  } else {
+    da = c0 ? dis0 : kInf;
+    db = c1 ? dis1 : kInf;
+    pa = c0 ? row0 + lane : INT_MAX;
+    pb = c1 ? row0 + 32 + lane : INT_MAX;
+    sort32x2(da, pa, db, pb, lane);
+    merge_sorted(da, pa, db, pb, lane);
+  }
+  if (__shfl_sync(kFull, e.d, 0) == kInf) return {da, pa};
+  merge_sorted(e.d, e.p, da, pa, lane);
+  return e;
+}
+
+// Warp 0: the tile's segments, runs of consecutive pairs with the same
+// non-empty row range [lo[p], hi[p]): sfirst[i], send[i] bound segment i's
+// pairs, *nseg counts them.
+__device__ __forceinline__ void find_segments(const int* lo, const int* hi,
+                                              int* sfirst, int* send,
+                                              int* nseg, int lane) {
+  int ns = 0, ne = 0;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int b = 0; b < kPT; b += 32) {
+    const int p = b + lane;
+    const bool real = hi[p] > lo[p];
+    const bool same_prev =
+        p > 0 && lo[p - 1] == lo[p] && hi[p - 1] == hi[p];
+    const bool same_next =
+        p + 1 < kPT && lo[p + 1] == lo[p] && hi[p + 1] == hi[p];
+    const unsigned ms = __ballot_sync(kFull, real && !same_prev);
+    const unsigned me = __ballot_sync(kFull, real && !same_next);
+    if (real && !same_prev) sfirst[ns + __popc(ms & below)] = p;
+    if (real && !same_next) send[ne + __popc(me & below)] = p + 1;
+    ns += __popc(ms);
+    ne += __popc(me);
+  }
+  if (lane == 0) *nseg = ns;
+}
+
+// One step of the walk: slice s of the chunk at stream row c0 of segment
+// seg (seg == nseg: past the end)
+struct Step {
+  int seg, c0, s;
+};
 
 // The body of one CTA, for tile tile0 + blockIdx.x (see the header
 // comment). Elem is the stream's element: uint16_t (bf16 bits) or uint8_t
@@ -204,17 +448,26 @@ __device__ __forceinline__ void scan_tile(
     int d, int B, int kp, int similarity,
     float* __restrict__ out_d,            // (ntiles*kPT, kp)
     int* __restrict__ out_p) {            // (ntiles*kPT, kp) positions
+  constexpr bool kU8 = sizeof(Elem) == 1;
+  (void)tile_bs;  // the segments replace the tile's block hull
+  (void)tile_nb;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  uint16_t* xs = reinterpret_cast<uint16_t*>(qs + kPT * kDS);
-  int* sid = reinterpret_cast<int*>(xs + kCR * kXS);
-  float* snorm = reinterpret_cast<float*>(sid + kCR);
-  int* plo = reinterpret_cast<int*>(snorm + kCR);
-  int* phi = plo + kPT;
-  int* pq = phi + kPT;
-  float* pqn = reinterpret_cast<float*>(pq + kPT);
-  int* glo = reinterpret_cast<int*>(pqn + kPT);
-  int* ghi = glo + kWarps * kNG;
+  const Layout L = layout<Elem>(d);
+  uint16_t* qs = reinterpret_cast<uint16_t*>(smem + L.qs);
+  uint16_t* xs = reinterpret_cast<uint16_t*>(smem + L.xs);
+  unsigned char* raw = smem + L.raw;
+  int* sid = reinterpret_cast<int*>(smem + L.sid);
+  float* snorm = reinterpret_cast<float*>(smem + L.snorm);
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  int* plo = reinterpret_cast<int*>(smem + L.plo);
+  int* phi = reinterpret_cast<int*>(smem + L.phi);
+  int* pq = reinterpret_cast<int*>(smem + L.pq);
+  float* pqn = reinterpret_cast<float*>(smem + L.pqn);
+  int* sfirst = reinterpret_cast<int*>(smem + L.sfirst);
+  int* send = reinterpret_cast<int*>(smem + L.send);
+  int* snseg = reinterpret_cast<int*>(smem + L.nseg);
+  const int stride = L.stride;
+  const int nslices = L.nslices;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -223,172 +476,246 @@ __device__ __forceinline__ void scan_tile(
                            : static_cast<int>(blockIdx.x);
   const int base = kWindow ? wrow0 : 0;     // stream row of data[0]
   const long long pbase = static_cast<long long>(tile) * kPT;
-  const int row0 = in_window<kWindow>(tile_bs[tile] * B, wrow0, wrow1);
-  const int row1 = in_window<kWindow>((tile_bs[tile] + tile_nb[tile]) * B,
-                                      wrow0, wrow1);
 
-  for (int p = tid; p < kPT; p += kThreads) {
-    const int q = pair_q[pbase + p];
-    pq[p] = q;
-    plo[p] = in_window<kWindow>(pstart[pbase + p] * B, wrow0, wrow1);
-    phi[p] = in_window<kWindow>(pend[pbase + p] * B, wrow0, wrow1);
-    pqn[p] = qn[q];
+  if (tid < kPT) {
+    const int q = pair_q[pbase + tid];
+    pq[tid] = q;
+    plo[tid] = in_window<kWindow>(pstart[pbase + tid] * B, wrow0, wrow1);
+    phi[tid] = in_window<kWindow>(pend[pbase + tid] * B, wrow0, wrow1);
+    pqn[tid] = qn[q];
   }
   __syncthreads();
-  if (tid < kWarps * kNG) {
-    // row range of one register group's pairs (empty pairs excluded)
-    int lo = INT_MAX, hi = INT_MIN;
-    for (int p = tid * kP; p < tid * kP + kP; ++p) {
-      if (phi[p] > plo[p]) {
-        lo = min(lo, plo[p]);
-        hi = max(hi, phi[p]);
-      }
-    }
-    glo[tid] = lo;
-    ghi[tid] = hi;
-  }
+  if (warp == 0) find_segments(plo, phi, sfirst, send, snseg, lane);
+  __syncthreads();
+  const int nseg = *snseg;
 
+  // the pairs' lists: warp w holds pairs w, w + 8, ..., entry i in lane i
   float ld[kPW];
   int lp[kPW];
 #pragma unroll
   for (int j = 0; j < kPW; ++j) {
+    const int p = j * kWarps + warp;
     ld[j] = kInf;
     lp[j] = -1;
-    if (kWindow && lane < kp) {
-      const int pr = ((j / kP) * kWarps + warp) * kP + j % kP;
-      const size_t o = static_cast<size_t>(pbase + pr) * kp + lane;
+    if (kWindow && lane < kp && phi[p] > plo[p]) {
+      const size_t o = static_cast<size_t>(pbase + p) * kp + lane;
       ld[j] = out_d[o];
       lp[j] = ld[j] == kInf ? -1 : out_p[o];
     }
   }
 
-  const int nslices = (d + kDS - 1) / kDS;
-  for (int c0 = row0; c0 < row1; c0 += kCR) {
-    float acc[kNG][kP][2];
-#pragma unroll
-    for (int g = 0; g < kNG; ++g)
-#pragma unroll
-      for (int p = 0; p < kP; ++p) acc[g][p][0] = acc[g][p][1] = 0.f;
-
-    for (int s = 0; s < nslices; ++s) {
-      const int d0 = s * kDS;
-      const int nv = min(kDS, d - d0) / 8;  // 8-element vectors per slice
-      __syncthreads();                      // previous chunk fully consumed
-      for (int i = tid; i < kCR * nv; i += kThreads) {
-        const int r = i / nv, v = i - r * nv;
-        const int row = c0 + r;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (row < row1)
-          val = load8_bf16(data + static_cast<size_t>(row - base) * d + d0 +
-                           v * 8);
-        *reinterpret_cast<uint4*>(xs + r * kXS + v * 8) = val;
-      }
-      if (s == 0) {
-        for (int r = tid; r < kCR; r += kThreads) {
-          const int row = c0 + r;
-          const bool in = row < row1;
-          sid[r] = in ? ids[row - base] : -1;
-          snorm[r] = in ? norms[row - base] : 0.f;
-        }
-      }
-      if (nslices > 1 || c0 == row0) {
-        for (int i = tid; i < kPT * nv; i += kThreads) {
-          const int p = i / nv, v = i - p * nv;
-          float f[8];
-          unpack8(*reinterpret_cast<const uint4*>(
-                      xq + static_cast<size_t>(pq[p]) * d + d0 + v * 8),
-                  f);
-          float4* dst = reinterpret_cast<float4*>(qs + p * kDS + v * 8);
-          dst[0] = make_float4(f[0], f[1], f[2], f[3]);
-          dst[1] = make_float4(f[4], f[5], f[6], f[7]);
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int g = 0; g < kNG; ++g) {
-        const int gi = g * kWarps + warp;             // register group
-        if (glo[gi] < c0 + kCR && ghi[gi] > c0) {   // warp-uniform
-          const float* qg = qs + gi * kP * kDS;
-          for (int v = 0; v < nv; ++v) {
-            float xa[8], xb[8];
-            unpack8(*reinterpret_cast<const uint4*>(xs + lane * kXS + v * 8),
-                    xa);
-            unpack8(*reinterpret_cast<const uint4*>(
-                        xs + (lane + 32) * kXS + v * 8),
-                    xb);
-#pragma unroll
-            for (int p = 0; p < kP; ++p) {
-              const float4 q0 =
-                  *reinterpret_cast<const float4*>(qg + p * kDS + v * 8);
-              const float4 q1 =
-                  *reinterpret_cast<const float4*>(qg + p * kDS + v * 8 + 4);
-              acc[g][p][0] = dot8(q0, q1, xa, acc[g][p][0]);
-              acc[g][p][1] = dot8(q0, q1, xb, acc[g][p][1]);
-            }
-          }
-        }
+  // the width of slice s of d (a multiple of 8; the mma depth rounds it
+  // to 16)
+  auto slice_w = [&](int s) { return min(kDS, d - s * kDS); };
+  auto advance = [&](Step st) -> Step {
+    if (st.s + 1 < nslices) return {st.seg, st.c0, st.s + 1};
+    if (st.c0 + kCR < phi[sfirst[st.seg]]) return {st.seg, st.c0 + kCR, 0};
+    const int ns = st.seg + 1;
+    return {ns, ns < nseg ? plo[sfirst[ns]] : 0, 0};
+  };
+  // cp.async of one step into ring slot `slot`: the chunk's rows (slice
+  // st.s), at the chunk's last slice its ids and norms, and for a d of
+  // several slices the segment's queries' slice
+  auto issue = [&](Step st, int slot) {
+    const int s0 = sfirst[st.seg];
+    const int hi = phi[s0];
+    const int d0 = st.s * kDS;
+    const int w = slice_w(st.s);
+    const int nv = round16(w) / 8, nreal = w / 8;
+    for (int i = tid; i < kCR * nv; i += kThreads) {
+      const int r = i / nv, v = i - r * nv;
+      const int row = st.c0 + r;
+      const bool ok = row < hi && v < nreal;
+      const Elem* src =
+          ok ? data + static_cast<size_t>(row - base) * d + d0 + v * 8 : data;
+      if constexpr (kU8)
+        cp_async<8>(raw + (slot * kCR + r) * L.rstride + v * 8, src, ok);
+      else
+        cp_async<16>(xs + (slot * kCR + r) * stride + v * 8, src, ok);
+    }
+    if (st.s == nslices - 1 && tid < 2 * kCR) {
+      const int r = tid & (kCR - 1);
+      const int row = st.c0 + r;
+      const bool ok = row < hi;
+      const size_t o = ok ? static_cast<size_t>(row - base) : 0;
+      if (tid < kCR)
+        cp_async<4>(sid + slot * kCR + r, ids + o, ok);
+      else
+        cp_async<4>(snorm + slot * kCR + r, norms + o, ok);
+    }
+    if (nslices > 1) {
+      const int S = send[st.seg] - s0;
+      for (int i = tid; i < S * nv; i += kThreads) {
+        const int pl = i / nv, v = i - pl * nv;
+        const bool ok = v < nreal;
+        const uint16_t* src =
+            ok ? xq + static_cast<size_t>(pq[s0 + pl]) * d + d0 + v * 8 : xq;
+        cp_async<16>(qs + (slot * kPT + pl) * stride + v * 8, src, ok);
       }
     }
+  };
 
-    // scores -> per-pair top-kp, rows in increasing stream position
-#pragma unroll
-    for (int g = 0; g < kNG; ++g) {
-      const int gi = g * kWarps + warp;
-      if (!(glo[gi] < c0 + kCR && ghi[gi] > c0)) continue;
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        const int j = g * kP + p;
-        const int pr = gi * kP + p;
-        const int lo = plo[pr], hi = phi[pr];
-        const float qv = pqn[pr];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int rl = lane + 32 * r;
-          const int row = c0 + rl;
-          const float ip = acc[g][p][r];
-          const float dis = similarity
-                                ? -ip - qv
-                                : fmaxf(qv + snorm[rl] - 2.0f * ip, 0.0f);
-          const bool ok = row >= lo && row < hi && sid[rl] >= 0;
-          float thr = __shfl_sync(kFull, ld[j], kp - 1);
-          const bool cand = ok && dis < thr;
-          unsigned m = __ballot_sync(kFull, cand);
-          if (__popc(m) > kSerialMax) {
-            merge32(ld[j], lp[j], cand ? dis : kInf, cand ? row : INT_MAX,
-                    lane);
-            continue;
-          }
-          while (m) {
-            const int src = __ffs(m) - 1;
-            m &= m - 1;
-            const float dv = __shfl_sync(kFull, dis, src);
-            if (dv < thr) {
-              // insert after every kept entry <= dv (they have lower
-              // positions), shift the rest one lane up
-              const int idx =
-                  __popc(__ballot_sync(kFull, lane < kp && ld[j] <= dv));
-              const float ud = __shfl_up_sync(kFull, ld[j], 1);
-              const int up = __shfl_up_sync(kFull, lp[j], 1);
-              if (lane == idx) {
-                ld[j] = dv;
-                lp[j] = c0 + src + 32 * r;
-              } else if (lane > idx) {
-                ld[j] = ud;
-                lp[j] = up;
-              }
-              thr = __shfl_sync(kFull, ld[j], kp - 1);
-            }
-          }
-        }
+  if (nslices == 1) {
+    // the tile's queries, once: rows of the pairs in some segment
+    const int nv = round16(d) / 8, nreal = d / 8;
+    for (int i = tid; i < kPT * nv; i += kThreads) {
+      const int p = i / nv, v = i - p * nv;
+      if (phi[p] > plo[p]) {
+        const bool ok = v < nreal;
+        const uint16_t* src =
+            ok ? xq + static_cast<size_t>(pq[p]) * d + v * 8 : xq;
+        cp_async<16>(qs + p * stride + v * 8, src, ok);
       }
     }
   }
+  Step cur{0, nseg > 0 ? plo[sfirst[0]] : 0, 0};
+  Step nxt = cur;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (nxt.seg < nseg) {
+      issue(nxt, i);
+      nxt = advance(nxt);
+    }
+    cp_async_commit();
+  }
+
+  float acc[2][4][4];
+  int slot = 0;
+  while (cur.seg < nseg) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();    // step cur landed; every warp is done with the last
+    if (nxt.seg < nseg) {
+      issue(nxt, (slot + kStages - 1) % kStages);
+      nxt = advance(nxt);
+    }
+    cp_async_commit();
+
+    const int s0 = sfirst[cur.seg];
+    const int S = send[cur.seg] - s0;
+    const int wp = round16(slice_w(cur.s));
+    const uint16_t* xt = xs + (kU8 ? 0 : slot * kCR * stride);
+    if constexpr (kU8) {
+      // widen the codes to the bf16 operand tile
+      const int nv = wp / 8;
+      for (int i = tid; i < kCR * nv; i += kThreads) {
+        const int r = i / nv, v = i - r * nv;
+        const uint2 c = *reinterpret_cast<const uint2*>(
+            raw + (slot * kCR + r) * L.rstride + v * 8);
+        *reinterpret_cast<uint4*>(xs + r * stride + v * 8) = widen8(c);
+      }
+      __syncthreads();
+    }
+    // the warp's block of the (S x kCR) score tile: m-tiles 2 mg, 2 mg + 1
+    // (of Mt), n-tiles ng * nw .. + nw - 1 (of 8)
+    const int Mt = (S + 15) >> 4;
+    const int MG = (Mt + 1) >> 1;
+    const int NG = MG == 1 ? 8 : (MG == 2 ? 4 : 2);
+    const int nw = kWarps / NG;
+    const int mg = warp / NG, ng = warp - (warp / NG) * NG;
+    const bool mine = mg < MG;
+    const bool two = 2 * mg + 1 < Mt;
+    if (cur.s == 0) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
+    }
+    if (mine) {
+      // A rows: the segment's pairs (past the tile: any row, unused)
+      const uint16_t* qt = nslices > 1 ? qs + slot * kPT * stride : qs;
+      const int q0 = nslices > 1 ? 0 : s0;
+      const int ra = min(q0 + 32 * mg + (lane & 15), kPT - 1);
+      const int rb = min(q0 + 32 * mg + 16 + (lane & 15), kPT - 1);
+      const uint16_t* pa = qt + ra * stride + (lane >> 4) * 8;
+      const uint16_t* pb = qt + rb * stride + (lane >> 4) * 8;
+      // B rows: lanes 8i .. 8i + 7 address matrix i = (n-tile, k half)
+      const uint16_t* px =
+          xt + (8 * ng * nw + (nw > 1 ? 8 * (lane >> 4) : 0) + (lane & 7)) *
+                   stride +
+          ((lane >> 3) & 1) * 8;
+      for (int k0 = 0; k0 < wp; k0 += 16) {
+        uint32_t a0[4], a1[4];
+        ldmatrix_x4(a0, pa + k0);
+        if (two) ldmatrix_x4(a1, pb + k0);
+#pragma unroll
+        for (int n = 0; n < 4; n += 2) {
+          if (n < nw) {
+            uint32_t b[4];
+            if (nw == 1)
+              ldmatrix_x2(b, px + k0);
+            else
+              ldmatrix_x4(b, px + n * 8 * stride + k0);
+            mma_bf16(acc[0][n], a0, b[0], b[1]);
+            if (nw > 1) mma_bf16(acc[0][n + 1], a0, b[2], b[3]);
+            if (two) {
+              mma_bf16(acc[1][n], a1, b[0], b[1]);
+              if (nw > 1) mma_bf16(acc[1][n + 1], a1, b[2], b[3]);
+            }
+          }
+        }
+      }
+    }
+    if (cur.s == nslices - 1) {
+      if (mine) {
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          if (a == 0 || two) {
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              if (n < nw) {
+                float* o = sc + (32 * mg + 16 * a + (lane >> 2)) * kSS +
+                           8 * (ng * nw + n) + 2 * (lane & 3);
+                *reinterpret_cast<float2*>(o) =
+                    make_float2(acc[a][n][0], acc[a][n][1]);
+                *reinterpret_cast<float2*>(o + 8 * kSS) =
+                    make_float2(acc[a][n][2], acc[a][n][3]);
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();
+
+      // scores -> per-pair top-kp, rows in increasing stream position
+      const int c0 = cur.c0;
+      const int hi = phi[s0];
+      const int* cid = sid + slot * kCR;
+      const float* cn = snorm + slot * kCR;
+      const bool ok0 = c0 + lane < hi && cid[lane] >= 0;
+      const bool ok1 = c0 + lane + 32 < hi && cid[lane + 32] >= 0;
+      const float n0 = cn[lane], n1 = cn[lane + 32];
+#pragma unroll
+      for (int j = 0; j < kPW; ++j) {
+        const int p = j * kWarps + warp;
+        if (p < s0 || p >= s0 + S) continue;            // warp-uniform
+        float* srow = sc + (p - s0) * kSS;
+        const float qv = pqn[p];
+        const float ip0 = srow[lane], ip1 = srow[lane + 32];
+        const float dis0 = similarity ? -ip0 - qv
+                                      : fmaxf(qv + n0 - 2.0f * ip0, 0.0f);
+        const float dis1 = similarity ? -ip1 - qv
+                                      : fmaxf(qv + n1 - 2.0f * ip1, 0.0f);
+        const float thr = __shfl_sync(kFull, ld[j], kp - 1);
+        const bool cand0 = ok0 && dis0 < thr, cand1 = ok1 && dis1 < thr;
+        if (!__any_sync(kFull, cand0 || cand1)) continue;
+        const Entry e = update_chunk({ld[j], lp[j]}, dis0, cand0, dis1, cand1,
+                                     c0, kp, srow, lane);
+        ld[j] = e.d;
+        lp[j] = e.p;
+      }
+    }
+    cur = advance(cur);
+    slot = (slot + 1) % kStages;
+  }
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int j = 0; j < kPW; ++j) {
-    if (lane < kp) {
-      const int pr = ((j / kP) * kWarps + warp) * kP + j % kP;
-      const size_t o = static_cast<size_t>(pbase + pr) * kp + lane;
+    const int p = j * kWarps + warp;
+    if (lane < kp && (!kWindow || phi[p] > plo[p])) {
+      const size_t o = static_cast<size_t>(pbase + p) * kp + lane;
       out_d[o] = ld[j];
       out_p[o] = ld[j] == kInf ? -1 : lp[j];
     }
@@ -424,13 +751,17 @@ int launch_scan_tiles(Kernel kernel, const void* xq, const void* qn,
   if (d <= 0 || d % 8 != 0 || B <= 0 || kp < 1 || kp > kKPMax ||
       ntiles < 0 || tile0 < 0 || wrow0 < 0 || wrow1 < wrow0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = layout<Elem>(d).total;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (ntiles > 0) {
-    kernel<<<ntiles, kThreads, kSmemBytes,
-             static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<ntiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint16_t*>(xq), static_cast<const float*>(qn),
         static_cast<const int*>(pair_q), static_cast<const int*>(pstart),
         static_cast<const int*>(pend), static_cast<const int*>(tile_bs),

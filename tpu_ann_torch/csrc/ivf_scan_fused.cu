@@ -16,10 +16,9 @@
 
 namespace {
 
-// 128 registers a thread on its own, so two CTAs fit an SM. (With an
-// explicit minimum of one CTA per SM ptxas took 148 registers and K3 ran
-// 1.56x slower on the H100; with a minimum of two it spilled 4 bytes.)
-__global__ void __launch_bounds__(ivf_scan::kThreads)
+// Two CTAs an SM: at most 128 registers a thread (the body's shared
+// memory, 108 KB at d = 128, fits twice).
+__global__ void __launch_bounds__(ivf_scan::kThreads, 2)
 ivf_scan_fused_kernel(IVF_SCAN_TILE_PARAMS(uint16_t)) {
   ivf_scan::scan_tile<false>(IVF_SCAN_TILE_ARGS);
 }

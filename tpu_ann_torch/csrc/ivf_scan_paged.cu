@@ -14,15 +14,18 @@
 //   window-local arrays per call.
 // - It returns global positions and merges into the running per-pair top-kp
 //   in place (the kernel starts each pair's list from it), so no separate
-//   merge pass reads and writes (tiles, kp, PT) per call. An earlier window
+//   merge pass reads and writes (tiles, kp, PT) per call; a pair with
+//   nothing in the window keeps its list untouched. An earlier window
 //   holds lower positions, so on equal distances the running entry wins,
 //   the tie rule of the reference's merge_topk.
 // - The window buffer holds only real blocks: no CB-block over-read
 //   padding, since no clamped range reaches past the stream's last block.
 // The kernel body, its design and what bounds it are in ivf_scan_core.cuh
-// (shared with K3). On the out-of-core path the scan of a window overlaps
-// the host-to-device copy of the next one; the pipeline is bound by that
-// copy's bytes over the host link when the window's FMAs take less time.
+// (shared with K3): a tile streams only its segments' rows clamped to the
+// window, so a list the window cuts is finished by the next launch. On the
+// out-of-core path the scan of a window overlaps the host-to-device copy of
+// the next one; the pipeline is bound by that copy's bytes over the host
+// link when the window's scan takes less time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see tpu_ann_torch/kernels). Plain C interface.
@@ -31,10 +34,7 @@
 
 namespace {
 
-// The window code takes the body past 128 registers, and with one CTA per
-// SM a launch of a few hundred tiles runs in twice the waves, so K4 asks
-// for two (ptxas then spills 4 bytes): 12% faster on the H100 at the
-// path's shapes.
+// K3's launch bounds: two CTAs an SM.
 __global__ void __launch_bounds__(ivf_scan::kThreads, 2)
 ivf_scan_window_kernel(IVF_SCAN_TILE_PARAMS(uint16_t)) {
   ivf_scan::scan_tile<true>(IVF_SCAN_TILE_ARGS);

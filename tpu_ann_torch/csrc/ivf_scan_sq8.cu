@@ -10,12 +10,11 @@
 // L2, q.bias for IP) and re-ranks on the dequantized rows.
 //
 // The kernel is K3's body (ivf_scan_core.cuh) instantiated on a uint8
-// stream: each chunk's codes are read with 8-byte loads and widened to bf16
-// in registers as they are staged into shared memory, so the stream's HBM
-// bytes halve while the shared-memory chunk and the FMA loop are K3's. Like
-// K3 it is bound by CUDA-core FMA issue at the IVF4096 main path, not by
-// HBM. It is a library of its own so that K3's instantiation, and its
-// register count, stay as they are.
+// stream: each chunk's codes land in shared memory as bytes (8-byte
+// cp.async copies) and are widened there to the bf16 operand tile, so the
+// stream's HBM bytes halve while the tensor-core products and the top-kp
+// epilogue are K3's. It is a library of its own so that K3's
+// instantiation, and its register count, stay as they are.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see tpu_ann_torch/kernels). Plain C interface.
@@ -24,9 +23,8 @@
 
 namespace {
 
-// K3's launch bounds (no minimum CTA count): ptxas gives it 128 registers
-// and a 4-byte spill, so two CTAs fit an SM.
-__global__ void __launch_bounds__(ivf_scan::kThreads)
+// K3's launch bounds: two CTAs an SM.
+__global__ void __launch_bounds__(ivf_scan::kThreads, 2)
 ivf_scan_sq8_kernel(IVF_SCAN_TILE_PARAMS(uint8_t)) {
   ivf_scan::scan_tile<false>(IVF_SCAN_TILE_ARGS);
 }

@@ -2,20 +2,26 @@
 (faiss/IndexHNSW.{h,cpp}): a graph index over an owned flat storage.
 
 Adding builds the graph over every stored vector with the batch kNN-graph
-build (`ops.hnsw.build_graph_knn`). Search takes one of two routes:
+build (`ops.hnsw.build_graph_knn`); a later add of more than
+``incremental_frac`` of the built rows rebuilds it over all of them, as the
+reference does. Search takes one of two routes:
 
 * below ``hnsw.tile_threshold`` vectors, the per-node route: greedy
   descent through the upper levels and the lockstep level-0 beam
   (`ops.hnsw.hnsw_search`);
-* at or above it, the fused-tile route on every device
-  (`ops.hnsw_tiles.tile_search_fused`): hop-0 centroid routing plus graph
-  hops, each scan one launch of the fused IVF scan kernel (K3) on a CUDA
-  device. There is no fallback to another route.
+* at or above it, the fused-tile route (`ops.hnsw_tiles.tile_search_fused`):
+  hop-0 centroid routing plus graph hops, each scan one launch of the fused
+  IVF scan kernel (K3) on a CUDA device. ``tile_mode="fused"`` takes it for
+  either metric; ``"auto"`` for L2 only, as the reference's does off the
+  CPU (the reference's CPU route is its tile beam; the port's CPU route is
+  the fused tiles, its plain version). There is no fallback to another
+  route.
 
 Not ported yet (they raise NotImplementedError): wave insertion
-(``build_mode="insert"``) and incremental adds (`extend_graph`), the XLA
-beam over tiles (``tile_mode="beam"``), the SQ / PQ / 2-level storages and
-range_search.
+(``build_mode="insert"``) and the incremental add of at most
+``incremental_frac`` of the built rows (`extend_graph`), the XLA beam over
+tiles (`tile_search`: ``tile_mode="beam"``, and an IP search in
+``"auto"``), the SQ / PQ / 2-level storages and range_search.
 """
 
 from __future__ import annotations
@@ -72,6 +78,9 @@ class IndexHNSW(Index):
     # queries per search call of the graph routes (the per-node beam's
     # visited table is (chunk, ntotal) booleans)
     search_chunk = 8192
+    # an add of at most this share of the built rows extends the graph
+    # (extend_graph, not ported yet); a larger one rebuilds it
+    incremental_frac = 0.5
 
     def __init__(self, d: int, M: int = 32, metric: int = D.METRIC_L2,
                  storage: Optional[IndexFlat] = None, *, device="cuda"):
@@ -91,6 +100,16 @@ class IndexHNSW(Index):
     # --- add / build ------------------------------------------------------
     def add(self, x) -> None:
         x = self._check_input(x)
+        n, built = self.ntotal + len(x), self._built_n
+        if self.graph is not None and 0 < built < n and \
+                n - built <= self.incremental_frac * built:
+            # the reference's incremental branch; raised before the rows
+            # are stored, so the index stays as it was
+            raise NotImplementedError(
+                "adding at most incremental_frac of the built rows extends "
+                "the graph by wave insertion (extend_graph), which is not "
+                "ported yet; add more rows at once, or reset() and add all "
+                "rows")
         self.storage.add(x)
         self.ntotal = self.storage.ntotal
         self._build_pending()
@@ -99,14 +118,12 @@ class IndexHNSW(Index):
         return self.storage.vectors[:self.ntotal]
 
     def _build_pending(self) -> None:
-        """Build the graph over all stored vectors (batch kNN graph)."""
+        """Build the graph over all stored vectors (batch kNN graph): the
+        first build, or the rebuild after an add of more than
+        incremental_frac of the built rows (reference :137-175)."""
         n = self.storage.ntotal
         if n == self._built_n:
             return
-        if self.graph is not None and self._built_n > 0:
-            raise NotImplementedError(
-                "adding to a built HNSW graph (extend_graph, wave "
-                "insertion) is not ported yet; reset() and add all rows")
         if self.hnsw.build_mode not in ("auto", "knn"):
             raise NotImplementedError(
                 f"build_mode={self.hnsw.build_mode!r} (wave insertion) is "
@@ -179,13 +196,21 @@ class IndexHNSW(Index):
                         "ndis": xq_dev.shape[0] * ndis}
 
     def _search_device_stats(self, xq_dev, k: int, ef: int, expand: int):
-        """(D, I, {nhops, ndis}) on the device: the fused tiles at or above
-        tile_threshold, else the per-node beam."""
+        """(D, I, {nhops, ndis}) on the device: at or above tile_threshold
+        the fused tiles (tile_mode "fused", or "auto" for L2: the
+        reference's choice, :233-241), else the per-node beam."""
         if self._use_tiles():
-            if self.hnsw.tile_mode not in ("auto", "fused"):
+            mode = self.hnsw.tile_mode
+            if mode not in ("auto", "fused"):
                 raise NotImplementedError(
-                    f"tile_mode={self.hnsw.tile_mode!r} (the XLA beam over "
-                    "tiles) is not ported yet")
+                    f"tile_mode={mode!r} (the XLA beam over tiles, "
+                    "tile_search) is not ported yet")
+            if mode == "auto" and self.is_similarity:
+                raise NotImplementedError(
+                    "an inner-product search at or above tile_threshold "
+                    "takes the XLA beam over tiles (tile_search) in "
+                    "tile_mode='auto', which is not ported yet; "
+                    "tile_mode='fused' takes the fused tiles")
             return self._fused_search_chunk(xq_dev, k, ef)
         Dv, Iv, st = H.hnsw_search(self._vectors(), self.graph, xq_dev,
                                    ef=ef, k=k, expand=expand,

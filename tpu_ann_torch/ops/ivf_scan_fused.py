@@ -273,10 +273,10 @@ def scan_pairs(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
     if stream.shape[-1] != d:
         raise ValueError(f"ivf_scan_fused: stream rows have "
                          f"{stream.shape[-1]} dims, queries {d}")
-    if stream.data_ptr() % 16:
-        # 16-byte row loads of bf16, 8-byte ones of codes (d % 8 == 0)
-        raise ValueError("ivf_scan_fused: the stream must be 16-byte "
-                         "aligned")
+    if stream.data_ptr() % 16 or xq_bf16.data_ptr() % 16:
+        # 16-byte row copies of bf16, 8-byte ones of codes (d % 8 == 0)
+        raise ValueError("ivf_scan_fused: the stream and the queries must "
+                         "be 16-byte aligned")
     _check(invlists.ids, torch.int32, "ids", dev)
     _check(invlists.norms, torch.float32, "norms", dev)
 

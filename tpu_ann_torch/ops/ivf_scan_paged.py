@@ -451,6 +451,9 @@ def scan_window(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
     _check(window.norms, torch.float32, "window norms", dev)
     _check(run_d, torch.float32, "run_d", dev)
     _check(run_p, torch.int32, "run_p", dev)
+    if window.data_bf16.data_ptr() % 16 or xq_bf16.data_ptr() % 16:
+        raise ValueError("ivf_scan_paged: the window and the queries must "
+                         "be 16-byte aligned (16-byte row copies)")
     if run_d.shape != (plan.ntiles * PT, kp) or run_p.shape != run_d.shape:
         raise ValueError("ivf_scan_paged: running results must be "
                          "(ntiles * PT, kp)")

@@ -5,13 +5,17 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --k1-batches   # only K1 / K1p times at 1 to 10k
+                                         # queries on random integer data
+
 Phases, one line each; any failure raises and exits non-zero:
   1. device  — a CUDA device is required; nvidia-smi's name and power limit.
   2. build   — compile the seven CUDA libraries from tpu_ann_torch/csrc
      (one nvcc each, in parallel): K3 ivf_scan_fused, K3-SQ8 ivf_scan_sq8,
      K1 flat_knn_fused, K2 reservoir_topk, K4 ivf_scan_paged, K1p and B1
      flat_knn_variants, B2 row_copy_probe; each library's registers and
-     spill bytes from its ptxas log. K3, K3-SQ8 and K4 must not spill.
+     spill bytes from its ptxas log. K3, K3-SQ8, K4, K1 and the K1p / B1
+     library must not spill.
   3. IVF path at the benchmark's size: calibrated SIFT1M surrogate (1M
      base, 100k train, 10k queries, seed 123); the exact IndexFlat's
      ground truth (no K1 launch); make_ivf_flat(128, 4096) -> train
@@ -58,7 +62,9 @@ Phases, one line each; any failure raises and exits non-zero:
   6. K1 and K2 vs their plain torch versions at the flat path's shapes
      (1024 and 10k queries x 1M rows, W=2048 and 1024; k=10 and 40): bit
      for bit on the integer data; kernel and plain times at both batch
-     sizes; torch.topk on K2's input as its one-call yardstick.
+     sizes; torch.topk on K2's input as its one-call yardstick. Then K1 (W
+     2048, 1024) and K1p (W 1024) at 1, 64 and 65 queries, bit for bit and
+     timed.
   7. out-of-core path on the same data: the base written to an np.memmap
      in a temporary directory (removed at the end), the pinned
      host-to-device bandwidth measured alone, IndexIVFFlatPaged(128, 4096,
@@ -101,10 +107,10 @@ Phases, one line each; any failure raises and exits non-zero:
      the packed reservoir bit for bit.
   12. the B1 ladder at 10k queries x 1M x W 1024 (R 8192): min1, minall,
      serial (flat_probe_scan) and packed (K1p) on the same inputs, each bit
-     for bit against its plain version; times and each kernel's mma count
-     in the SASS (cuobjdump), which must be the same for the four folds;
-     K3, K3-SQ8 and K4 must hold HMMA too (their products on the tensor
-     cores).
+     for bit against its plain version; times and each kernel's tensor-core
+     instructions in the SASS (cuobjdump): K1, K1p and every B1 fold must
+     hold wgmma (HGMMA), the same count in the three folds; K3, K3-SQ8 and
+     K4 must hold mma.sync (HMMA).
   13. B2, the row-copy issue probe, at NR 4096 / 16384 / 65536 rows of the
      1M x 128 f32 base, NS 16: the slots equal the plain version; ns and SM
      cycles per copy; xb.index_select(0, rows) on the same rows.
@@ -122,6 +128,7 @@ import json
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -163,6 +170,9 @@ KERNELS = ("ivf_scan_fused", "ivf_scan_sq8", "flat_knn_fused",
 # the libraries of the IVF list scans (K3, K3-SQ8, K4): no spill, and
 # their products on the tensor cores (HMMA in the SASS)
 IVF_SCANS = ("ivf_scan_fused", "ivf_scan_sq8", "ivf_scan_paged")
+# the libraries that must build without a spill: the IVF scans and the
+# flat scan's two (K1; K1p and B1)
+NO_SPILL = IVF_SCANS + ("flat_knn_fused", "flat_knn_variants")
 # IVFHNSW15625 (coarse_mode "auto") recall@10 floors at nprobe 32 / 64: the
 # JAX package's 0.8754 / 0.9602 (BENCH_r05.json) less 0.01 for k-means
 IVFHNSW_FLOORS = {32: 0.8654, 64: 0.9502}
@@ -330,7 +340,7 @@ def main() -> None:
               registers=regs, spill_bytes=spill,
               ptxas=[ln.strip() for ln in log.splitlines()
                      if "registers" in ln or "spill" in ln])
-        if name in IVF_SCANS and spill:
+        if name in NO_SPILL and spill:
             raise AssertionError(f"{name} spills {spill} bytes")
     phase("build_all", seconds=t_build)
 
@@ -945,7 +955,8 @@ def flat_phases(xb, xq, gt, dev):
           k1_equal=True, k2_equal=True,
           k1={str(W): t for W, t in k1.items()},
           k2={f"W{W}_k{k}": t for (W, k), t in k2.items()},
-          k2_torch_topk_ms=k2_library_ms)
+          k2_torch_topk_ms=k2_library_ms,
+          small_batches=k1_batch_times(qv_10k, data, bias, (1, 64, 65)))
 
     return [{
         "name": "flat_knn_fused",
@@ -970,6 +981,57 @@ def flat_phases(xb, xq, gt, dev):
         **k2_bound,
         "library_ms": k2_library_ms,
     }], index, refine_rec
+
+
+def k1_batch_times(qv, data, bias, batches) -> dict:
+    """K1 at W 2048 and 1024 and K1p at W 1024 on the first nq rows of qv
+    for each nq in batches: device times (CUDA events), each output below
+    NQ queries bit for bit against its plain version first. Uses only the
+    wrappers' public calls, so it times an older tree's kernels as well."""
+    # K1p's bias shifted by max ||q||^2 + 1 (qv = -2q, L2), every score
+    # non-negative
+    shifted = (bias + (qv.float() ** 2).sum(1).max() / 4 + 1).contiguous()
+    out = {}
+    for nq in batches:
+        q = qv[:nq]
+        runs = {f"k1_w{W}": (lambda W=W: FK.flat_reservoir(q, data, bias, W),
+                             lambda W=W: FK.flat_reservoir_reference(
+                                 q, data, bias, W))
+                for W in (2048, 1024)}
+        runs["k1p_w1024"] = (
+            lambda: FK.flat_reservoir_packed(q, data, shifted, 1024),
+            lambda: FK.flat_reservoir_packed_reference(q, data, shifted,
+                                                       1024))
+        for name, (kernel, plain) in runs.items():
+            if nq < NQ:
+                a, b = kernel(), plain()
+                for x, y in zip(a, b) if isinstance(a, tuple) else [(a, b)]:
+                    assert_equal(f"{name} nq={nq}", y, x)
+            out[f"{name}_nq{nq}_ms"] = cuda_ms(kernel, 3 if nq >= NQ else 10)
+    return out
+
+
+def k1_batches() -> None:
+    """--k1-batches: K1 and K1p times at batch sizes 1 to 10k over a 1M x
+    128 base of random integers in [0, 64) (seed 0), built from this
+    checkout's sources. Run it from another tree's root (a copy of this
+    script there) to time that tree's kernels on the same inputs."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xb = torch.randint(0, 64, (NB, D), generator=gen, device=dev).float()
+    xq = torch.randint(0, 64, (NQ, D), generator=gen, device=dev).float()
+    data, bias = FK.pack_flat_db(xb, TD.METRIC_L2)
+    del xb
+    qv = (-2.0 * xq).to(torch.bfloat16)
+    phase("k1_batches", device=torch.cuda.get_device_name(0), nb=NB, d=D,
+          **k1_batch_times(qv, data, bias, (1, 64, 65, 128, 1024, NQ)))
 
 
 def pinned_gbps(dev, nbytes: int = 1 << 28) -> float:
@@ -1199,20 +1261,29 @@ def _paged_phases(xb, xt, xq, gt, dev, tmp) -> dict:
 
 # -- phases 9-13: the HNSW graph path, K1p, the B1 ladder and B2 -------------
 
+def parse_sass_mma(listing: str) -> dict:
+    """Tensor-core instructions per kernel in a ``cuobjdump -sass``
+    listing: {function: {"HMMA": warp-level mma.sync, "HGMMA": warpgroup
+    wgmma}}."""
+    found, fn = {}, None
+    for ln in listing.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            found[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            for op in ("HMMA", "HGMMA"):
+                if op + "." in ln:
+                    found[fn][op] += 1
+    return found
+
+
 def sass_mma_counts(name: str) -> dict:
-    """Tensor-core mma instructions (HMMA) per kernel in the SASS of the
-    built library ``name`` (cuobjdump from nvcc's directory)."""
+    """`parse_sass_mma` of the built library ``name`` (cuobjdump from
+    nvcc's directory)."""
     tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", kernels.library_path(name)],
                          capture_output=True, text=True, check=True).stdout
-    found, fn = {}, None
-    for ln in out.splitlines():
-        if "Function :" in ln:
-            fn = ln.split("Function :")[1].strip()
-            found[fn] = 0
-        elif fn is not None and "HMMA" in ln:
-            found[fn] += 1
-    return found
+    return parse_sass_mma(out)
 
 
 def device_profile(fn, top: int = 4, kernel: str = "") -> dict:
@@ -1348,20 +1419,25 @@ def variant_phases(index, xb, xq, gt, refine_rec, dev) -> list:
     names = {"min1": "FoldMinILb0", "minall": "FoldMinILb1",
              "serial": "FoldSerial", "packed": "flat_knn_packed_kernel",
              "k1": "flat_knn_fused_kernel"}
-    hmma = {k: [v for f, v in mma.items() if tag in f] for k, tag in
-            names.items()}
-    if any(len(v) != 1 for v in hmma.values()) or \
-            len({v[0] for v in hmma.values()}) != 1 or \
-            hmma["k1"][0] == 0:
-        raise AssertionError(f"the folds' mma counts differ: {mma}")
-    # K3, K3-SQ8 and K4 multiply on the tensor cores
-    ivf_hmma = {name: {f: n for f, n in sass_mma_counts(name).items()
+    flat_mma = {k: [v for f, v in mma.items() if tag in f] for k, tag in
+                names.items()}
+    if any(len(v) != 1 for v in flat_mma.values()):
+        raise AssertionError(f"a flat kernel is missing from the SASS: {mma}")
+    flat_mma = {k: v[0] for k, v in flat_mma.items()}
+    # K1, K1p and every B1 fold multiply with wgmma; the folds' products
+    # are the same code
+    if any(v["HGMMA"] == 0 for v in flat_mma.values()) or \
+            len({str(flat_mma[f]) for f in FK.PROBE_FOLDS}) != 1:
+        raise AssertionError(f"the flat kernels' wgmma counts: {flat_mma}")
+    # K3, K3-SQ8 and K4 multiply on the tensor cores (mma.sync)
+    ivf_hmma = {name: {f: n["HMMA"] for f, n in sass_mma_counts(name).items()
                        if "_kernel" in f} for name in IVF_SCANS}
     if any(not v or not min(v.values()) for v in ivf_hmma.values()):
         raise AssertionError(f"an IVF scan kernel has no HMMA: {ivf_hmma}")
     k1_ms = ladder["serial"]["ms"]
     phase("b1_ladder", nq=NQ, nb=index.ntotal, W=W, R=data.shape[1],
-          folds=ladder, hmma={k: v[0] for k, v in hmma.items()},
+          folds=ladder, hmma={k: v["HMMA"] for k, v in flat_mma.items()},
+          hgmma={k: v["HGMMA"] for k, v in flat_mma.items()},
           ivf_scan_hmma={k: sum(v.values()) for k, v in ivf_hmma.items()},
           products_share_of_serial=ladder["min1"]["ms"] / k1_ms,
           fold_share_of_serial=1.0 - ladder["min1"]["ms"] / k1_ms,
@@ -1658,4 +1734,9 @@ def row_copy_phase(xb, dev) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--k1-batches"]:
+        k1_batches()
+    elif sys.argv[1:]:
+        raise SystemExit("usage: chip_smoke.py [--k1-batches]")
+    else:
+        main()

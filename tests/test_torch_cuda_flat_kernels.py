@@ -48,20 +48,40 @@ def _equal(a, b):
     assert np.array_equal(a, b), int((a != b).sum())
 
 
-@pytest.mark.parametrize("d,W,metric,valid_n,mask", [
-    (16, 128, TD.METRIC_L2, None, False),
-    (128, 1024, TD.METRIC_L2, 9000, False),
-    (128, 2048, TD.METRIC_L2, None, True),
-    (136, 1024, TD.METRIC_INNER_PRODUCT, 7000, True),
-    (136, 2048, TD.METRIC_L2, None, False),
-    (128, 128, TD.METRIC_INNER_PRODUCT, None, False),
-    (16, 2048, TD.METRIC_INNER_PRODUCT, 3000, False),
+@pytest.mark.parametrize("d,W,metric,valid_n,mask,nq", [
+    (16, 128, TD.METRIC_L2, None, False, 300),
+    (128, 1024, TD.METRIC_L2, 9000, False, 300),
+    (128, 2048, TD.METRIC_L2, None, True, 300),
+    (136, 1024, TD.METRIC_INNER_PRODUCT, 7000, True, 300),
+    (136, 2048, TD.METRIC_L2, None, False, 300),
+    (128, 128, TD.METRIC_INNER_PRODUCT, None, False, 300),
+    (16, 2048, TD.METRIC_INNER_PRODUCT, 3000, False, 300),
+    # ragged query tiles of 64-query CTAs (they fill one wave of 132
+    # SMs): one query, a second CTA with one query
+    (128, 1024, TD.METRIC_L2, None, False, 1),
+    (80, 1024, TD.METRIC_L2, 9000, True, 65),
+    (144, 2048, TD.METRIC_INNER_PRODUCT, None, False, 129),
+    # 128-query CTAs of two consumer warpgroups: the last CTA's second
+    # warpgroup with one query, a last CTA of one query (one consumer)
+    (80, 2048, TD.METRIC_L2, 9000, True, 577),
+    (144, 2048, TD.METRIC_INNER_PRODUCT, None, False, 641),
+    # three lane tiles, with one and with two consumers
+    (72, 384, TD.METRIC_L2, 3000, True, 129),
+    (72, 384, TD.METRIC_L2, 3000, True, 2900),
+    # about the widest dp with two consumers (384: the ring holds a whole
+    # group) and past it (one consumer); dp 1008 near DP_MAX
+    (384, 2048, TD.METRIC_L2, None, False, 700),
+    (400, 2048, TD.METRIC_INNER_PRODUCT, 3000, True, 700),
+    (512, 2048, TD.METRIC_L2, None, False, 577),
+    (576, 1024, TD.METRIC_L2, 9000, True, 1100),
+    (1000, 384, TD.METRIC_L2, None, False, 65),
+    (1000, 1024, TD.METRIC_INNER_PRODUCT, 9000, True, 300),
 ])
-def test_k1_reservoir_equals_plain(d, W, metric, valid_n, mask):
+def test_k1_reservoir_equals_plain(d, W, metric, valid_n, mask, nq):
     dev = _cuda()
     nb = 10 * W + 37 if W < 2048 else 4 * W + 999    # not a multiple of W
     R = 2 * W
-    qv, data, bias, _, _ = _inputs(dev, d, nb, 300, metric, W, R,
+    qv, data, bias, _, _ = _inputs(dev, d, nb, nq, metric, W, R,
                                    valid_n=valid_n, mask=mask)
     before = F.LAUNCHES["flat_knn_fused"]
     v1, p1 = F.flat_reservoir(qv, data, bias, W)
@@ -73,11 +93,38 @@ def test_k1_reservoir_equals_plain(d, W, metric, valid_n, mask):
     assert (p1 < (valid_n or nb)).all()
 
 
+@pytest.mark.parametrize("nq", [129, 2900])
+@pytest.mark.parametrize("case", ["one_group", "inf_lane_block",
+                                  "one_group_dp1008"])
+def test_k1_edges_equal_plain(case, nq):
+    """One group of W rows (n == W), and a bias plane that is +inf on every
+    row of one 128-lane block (those lanes stay (+inf, -1)); 129 queries
+    run 64-query CTAs, 2900 two consumers where dp allows."""
+    dev = _cuda()
+    d, W, nb, R = {"one_group": (128, 1024, 1000, 1024),
+                   "inf_lane_block": (128, 384, 5000, 768),
+                   "one_group_dp1008": (1000, 256, 256, 256)}[case]
+    qv, data, bias, _, _ = _inputs(dev, d, nb, nq, TD.METRIC_L2, W, R)
+    if case == "inf_lane_block":
+        lane = torch.arange(bias.numel(), device=dev) % W
+        bias = torch.where((lane >= 128) & (lane < 256), float("inf"),
+                           bias.reshape(-1)).view(bias.shape).contiguous()
+    v1, p1 = F.flat_reservoir(qv, data, bias, W)
+    v0, p0 = F.flat_reservoir_reference(qv, data, bias, W)
+    _equal(v0, v1)
+    _equal(p0, p1)
+    if case == "inf_lane_block":
+        assert torch.isinf(v1[:, 128:256]).all()
+        assert (p1[:, 128:256] == -1).all()
+    else:
+        assert data.shape[0] * data.shape[1] == W
+
+
 def test_k1_more_query_blocks_than_a_grid_dimension_holds():
-    """65536 blocks of 64 queries and a partial one: past the 65535 that
+    """65536 blocks of 128 queries and a partial one: past the 65535 that
     a grid's y or z dimension takes."""
     dev = _cuda()
-    nq = 65536 * 64 + 5
+    nq = 65536 * 128 + 5
     qv, data, bias, _, _ = _inputs(dev, 16, 300, nq, TD.METRIC_L2, 128, 128,
                                    valid_n=290)
     v1, p1 = F.flat_reservoir(qv, data, bias, 128)

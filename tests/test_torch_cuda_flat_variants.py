@@ -43,15 +43,26 @@ def _equal(a, b):
     assert np.array_equal(a, b), int((a != b).sum())
 
 
-@pytest.mark.parametrize("d,W,metric,valid_n", [
-    (16, 128, TD.METRIC_L2, None),
-    (128, 1024, TD.METRIC_L2, 9000),
-    (136, 2048, TD.METRIC_INNER_PRODUCT, None),
+@pytest.mark.parametrize("d,W,metric,valid_n,nq", [
+    (16, 128, TD.METRIC_L2, None, 300),
+    (128, 1024, TD.METRIC_L2, 9000, 300),
+    (136, 2048, TD.METRIC_INNER_PRODUCT, None, 300),
+    # ragged query tiles (64-query CTAs, then two consumers), three lane
+    # tiles, dp about the two-consumer cut (384), dp 1008
+    (128, 1024, TD.METRIC_L2, None, 1),
+    (80, 384, TD.METRIC_L2, 3000, 65),
+    (144, 1024, TD.METRIC_INNER_PRODUCT, None, 129),
+    (128, 2048, TD.METRIC_L2, None, 577),
+    (384, 2048, TD.METRIC_L2, 9000, 700),
+    (400, 1024, TD.METRIC_INNER_PRODUCT, None, 1100),
+    (512, 384, TD.METRIC_L2, 3000, 129),
+    (576, 2048, TD.METRIC_L2, None, 641),
+    (1000, 384, TD.METRIC_L2, None, 129),
 ])
-def test_k1p_reservoir_equals_plain(d, W, metric, valid_n):
+def test_k1p_reservoir_equals_plain(d, W, metric, valid_n, nq):
     dev = _cuda()
     nb = 10 * W + 37
-    qv, data, bias = _inputs(dev, d, nb, 300, metric, 2 * W,
+    qv, data, bias = _inputs(dev, d, nb, nq, metric, 2 * W,
                              valid_n=valid_n)
     shifted = (bias + 6.0e5).contiguous()       # every score non-negative
     before = F.LAUNCHES["flat_knn_packed"]
@@ -62,15 +73,48 @@ def test_k1p_reservoir_equals_plain(d, W, metric, valid_n):
 
 
 @pytest.mark.parametrize("fold", F.PROBE_FOLDS)
-@pytest.mark.parametrize("d,W,R", [(128, 1024, 8192), (16, 256, 1024)])
-def test_b1_folds_equal_plain(fold, d, W, R):
+@pytest.mark.parametrize("d,W,R,nq", [(128, 1024, 8192, 200),
+                                      (16, 256, 1024, 200),
+                                      (1000, 384, 768, 65),
+                                      (72, 128, 512, 1),
+                                      (128, 2048, 4096, 600),
+                                      (384, 2048, 4096, 700),
+                                      (400, 1024, 2048, 129),
+                                      (512, 384, 768, 65),
+                                      (576, 128, 512, 200)])
+def test_b1_folds_equal_plain(fold, d, W, R, nq):
     dev = _cuda()
-    qv, data, bias = _inputs(dev, d, 6 * R + 5, 200, TD.METRIC_L2, R)
+    qv, data, bias = _inputs(dev, d, 6 * R + 5, nq, TD.METRIC_L2, R)
     before = F.LAUNCHES["flat_probe_" + fold]
     v1, p1 = F.flat_probe_scan(qv, data, bias, W, fold)
     torch.cuda.synchronize()
     assert F.LAUNCHES["flat_probe_" + fold] == before + 1
     v0, p0 = F.flat_probe_scan_reference(qv, data, bias, W, fold)
+    _equal(v0, v1)
+    _equal(p0, p1)
+
+
+@pytest.mark.parametrize("nq", [129, 2900])
+@pytest.mark.parametrize("kernel", ["packed", *F.PROBE_FOLDS])
+@pytest.mark.parametrize("case", ["one_group", "inf_lane_block"])
+def test_variant_edges_equal_plain(kernel, case, nq):
+    """One group of W rows (n == W), and a bias plane that is +inf on every
+    row of one 128-lane block; 129 queries run 64-query CTAs, 2900 two
+    consumers."""
+    dev = _cuda()
+    W, nb, R = (1024, 1000, 1024) if case == "one_group" else (384, 5000, 768)
+    qv, data, bias = _inputs(dev, 128, nb, nq, TD.METRIC_L2, R)
+    if case == "inf_lane_block":
+        lane = torch.arange(bias.numel(), device=dev) % W
+        bias = torch.where((lane >= 128) & (lane < 256), float("inf"),
+                           bias.reshape(-1)).view(bias.shape).contiguous()
+    if kernel == "packed":
+        shifted = (bias + 6.0e5).contiguous()
+        _equal(F.flat_reservoir_packed_reference(qv, data, shifted, W),
+               F.flat_reservoir_packed(qv, data, shifted, W))
+        return
+    v1, p1 = F.flat_probe_scan(qv, data, bias, W, kernel)
+    v0, p0 = F.flat_probe_scan_reference(qv, data, bias, W, kernel)
     _equal(v0, v1)
     _equal(p0, p1)
 

@@ -14,6 +14,12 @@
 //   g = 0, 1, ...; strict < keeps the earlier row on a tie.
 // Out: (nq, W) f32 values and int32 row positions; (+inf, -1) where no
 // finite score reached the lane.
+// A CTA is 384 threads: a producer warpgroup whose one thread feeds a TMA
+// ring, and two consumer warpgroups of 64 queries that multiply with wgmma
+// in turns and fold beside the accumulator (one consumer of 64 queries
+// above dp 384, where 64-query CTAs fill at most one wave, or where a CTA
+// holds no more than 64 real queries).
+// One CTA an SM; the tensor maps are encoded at each launch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see tpu_ann_torch/kernels). Plain C interface.
@@ -24,38 +30,39 @@ namespace {
 
 using namespace flat_knn;
 
-__global__ void __launch_bounds__(kThreads, 2)  // two CTAs per SM
+__global__ void __launch_bounds__(kThreads, 1)
 flat_knn_fused_kernel(
-    const uint16_t* __restrict__ qv,    // (nq, dp) bf16, pre-scaled
-    const uint16_t* __restrict__ data,  // (n, dp) bf16 packed rows
-    const float* __restrict__ bias,     // (n,) f32
-    int nq, int n, int dp, int W,
-    float* __restrict__ resv,           // (nq, W) f32
-    int* __restrict__ resp) {           // (nq, W) int32 row positions
-  scan_body<FoldSerial>(qv, data, bias, nq, n, dp, W, 1, resv, resp);
+    const __grid_constant__ CUtensorMap qmap,  // (nq, dp) bf16, pre-scaled
+    const __grid_constant__ CUtensorMap dmap,  // (n, dp) bf16 packed rows
+    const float* __restrict__ bias,            // (n,) f32
+    int nq, int n, int dp, int W, int qtile,
+    float* __restrict__ resv,                  // (nq, W) f32
+    int* __restrict__ resp) {                  // (nq, W) int32 row positions
+  scan_body<FoldSerial>(qmap, dmap, bias, nq, n, dp, W, qtile, 1, resv,
+                        resp);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches (W / kLB) * ceil(nq / kQB) CTAs (at most 2^31 - 1) on
-// `stream`; allocates nothing. n (packed rows) must be a multiple of W, W of kLB, dp of 16.
-// Returns cudaGetLastError() (0 on success).
+// Launches (W / 128) * ceil(nq / qtile) CTAs (qtile 128 or 64, see
+// prepare_launch; at most 2^31 - 1) on `stream`; allocates nothing. n
+// (packed rows) must be a multiple of W, W of 128, dp of 16; the pointers
+// 16-byte aligned. Returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for sizes outside these rules.
 int flat_knn_fused(const void* qv, const void* data, const void* bias,
                    int nq, int n, int dp, int W, void* resv, void* resp,
                    void* stream) {
-  unsigned nblocks = 0;
-  size_t smem = 0;
-  const int e = prepare_launch(flat_knn_fused_kernel, nq, n, dp, W, &nblocks,
-                               &smem);
+  Launch l;
+  const int e = prepare_launch(flat_knn_fused_kernel, qv, data, bias, nq, n,
+                               dp, W, &l);
   if (e != 0) return e;
   if (nq > 0) {
-    flat_knn_fused_kernel<<<nblocks, kThreads, smem,
+    flat_knn_fused_kernel<<<l.nblocks, kThreads, l.smem,
                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint16_t*>(qv), static_cast<const uint16_t*>(data),
-        static_cast<const float*>(bias), nq, n, dp, W,
-        static_cast<float*>(resv), static_cast<int*>(resp));
+        l.qmap, l.dmap, static_cast<const float*>(bias), nq, n, dp, W,
+        l.qtile, static_cast<float*>(resv), static_cast<int*>(resp));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,10 +24,12 @@
 //   fold 1, minall: the f32 lane-min over every group, no provenance;
 //   fold 2, serial: K1's own fold (values and rows), for the same ladder.
 //   min1 / minall write rows -1, as the harness's untouched position plane.
-//   Every group's products are computed for every fold (asm volatile mma),
-//   so the ladder's times split K1's into products and fold.
+//   Every group's products are computed for every fold (asm volatile
+//   wgmma), so the ladder's times split K1's into products and fold.
 //
-// The body is flat_knn_core.cuh's; see there for the design and the bound.
+// The body is flat_knn_core.cuh's (TMA ring, wgmma in two consumer
+// warpgroups that take turns, one CTA an SM); see there for the design and
+// the bound.
 // Python side, plain versions and binding: tpu_ann_torch/ops/
 // flat_knn_fused.py. Plain C interface.
 
@@ -37,39 +39,38 @@ namespace {
 
 using namespace flat_knn;
 
-__global__ void __launch_bounds__(kThreads, 2)
-flat_knn_packed_kernel(const uint16_t* __restrict__ qv,
-                       const uint16_t* __restrict__ data,
+__global__ void __launch_bounds__(kThreads, 1)
+flat_knn_packed_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap dmap,
                        const float* __restrict__ bias, int nq, int n, int dp,
-                       int W, int* __restrict__ out) {
-  scan_body<FoldPacked>(qv, data, bias, nq, n, dp, W, 1, nullptr, out);
+                       int W, int qtile, int* __restrict__ out) {
+  scan_body<FoldPacked>(qmap, dmap, bias, nq, n, dp, W, qtile, 1, nullptr,
+                        out);
 }
 
 template <class Fold>
-__global__ void __launch_bounds__(kThreads, 2)
-flat_probe_kernel(const uint16_t* __restrict__ qv,
-                  const uint16_t* __restrict__ data,
+__global__ void __launch_bounds__(kThreads, 1)
+flat_probe_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap dmap,
                   const float* __restrict__ bias, int nq, int n, int dp,
-                  int W, int gpc, float* __restrict__ resv,
+                  int W, int qtile, int gpc, float* __restrict__ resv,
                   int* __restrict__ resp) {
-  scan_body<Fold>(qv, data, bias, nq, n, dp, W, gpc, resv, resp);
+  scan_body<Fold>(qmap, dmap, bias, nq, n, dp, W, qtile, gpc, resv, resp);
 }
 
 template <class Fold>
 int launch_probe(const void* qv, const void* data, const void* bias, int nq,
                  int n, int dp, int W, int gpc, void* resv, void* resp,
                  void* stream) {
-  unsigned nblocks = 0;
-  size_t smem = 0;
-  const int e = prepare_launch(flat_probe_kernel<Fold>, nq, n, dp, W,
-                               &nblocks, &smem);
+  Launch l;
+  const int e = prepare_launch(flat_probe_kernel<Fold>, qv, data, bias, nq,
+                               n, dp, W, &l);
   if (e != 0) return e;
   if (nq > 0) {
-    flat_probe_kernel<Fold><<<nblocks, kThreads, smem,
+    flat_probe_kernel<Fold><<<l.nblocks, kThreads, l.smem,
                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint16_t*>(qv), static_cast<const uint16_t*>(data),
-        static_cast<const float*>(bias), nq, n, dp, W, gpc,
-        static_cast<float*>(resv), static_cast<int*>(resp));
+        l.qmap, l.dmap, static_cast<const float*>(bias), nq, n, dp, W,
+        l.qtile, gpc, static_cast<float*>(resv), static_cast<int*>(resp));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -79,26 +80,24 @@ int launch_probe(const void* qv, const void* data, const void* bias, int nq,
 extern "C" {
 
 // K1p: (nq, W) int32 packed reservoir on `stream`; allocates nothing. n
-// (packed rows) must be a multiple of W and at most 65536 * W, W of kLB,
-// dp of 16. Returns cudaGetLastError() (0 on success).
+// (packed rows) must be a multiple of W and at most 65536 * W, W of 128,
+// dp of 16; the pointers 16-byte aligned. Returns cudaGetLastError() (0 on
+// success).
 int flat_knn_packed(const void* qv, const void* data, const void* bias,
                     int nq, int n, int dp, int W, void* out, void* stream) {
-  unsigned nblocks = 0;
-  size_t smem = 0;
   if (W > 0 && n / W > 65536) return static_cast<int>(cudaErrorInvalidValue);
-  const int e = prepare_launch(flat_knn_packed_kernel, nq, n, dp, W,
-                               &nblocks, &smem);
+  Launch l;
+  const int e = prepare_launch(flat_knn_packed_kernel, qv, data, bias, nq, n,
+                               dp, W, &l);
   if (e != 0) return e;
   if (nq > 0) {
-    flat_knn_packed_kernel<<<nblocks, kThreads, smem,
+    flat_knn_packed_kernel<<<l.nblocks, kThreads, l.smem,
                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint16_t*>(qv), static_cast<const uint16_t*>(data),
-        static_cast<const float*>(bias), nq, n, dp, W,
-        static_cast<int*>(out));
+        l.qmap, l.dmap, static_cast<const float*>(bias), nq, n, dp, W,
+        l.qtile, static_cast<int*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }
-
 // B1: the probe fold `fold` (0 min1, 1 minall, 2 serial) into (nq, W) f32
 // values and int32 rows; gpc (R / W) >= 1 is min1's group stride. Returns
 // cudaGetLastError() (0 on success).

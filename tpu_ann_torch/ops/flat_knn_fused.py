@@ -58,10 +58,10 @@ LAUNCHES = {"flat_knn_fused": 0, "reservoir_topk": 0, "flat_knn_packed": 0,
 # widest reservoir and largest k the K2 kernel takes
 TOPK_W_MAX = 4096
 TOPK_K_MAX = 128
-# widest padded dimension the K1 kernel keeps in shared memory, and its
-# CTA tile: queries x reservoir lanes
+# widest padded dimension the K1 kernel keeps in shared memory (its CTA
+# tile and grid are chosen by prepare_launch, csrc/flat_knn_core.cuh, which
+# rejects a grid past 2^31 - 1 CTAs)
 DP_MAX = 1024
-_CTA_Q, _CTA_LANES = 64, 128
 # the plain reservoir's score blocks: queries x rows per block
 _PLAIN_Q, _PLAIN_ROWS = 1024, 8192
 
@@ -283,16 +283,21 @@ def _check_scan(qv: torch.Tensor, data: torch.Tensor, bias: torch.Tensor,
     if W % 128 or n % W or bias.numel() != n:
         raise ValueError(f"{kernel}: W={W} must be a multiple of 128 "
                          f"dividing the {n} packed rows, with one bias each")
-    ctas = -(-nq // _CTA_Q) * (W // _CTA_LANES)
-    if max(n, nq + _CTA_Q, ctas) >= 2**31:
-        raise ValueError(f"{kernel}: rows, queries or CTAs exceed int32")
+    if max(n, nq + 128) >= 2**31:
+        raise ValueError(f"{kernel}: rows or queries exceed int32")
     _check(qv, torch.bfloat16, "qv", dev, kernel)
     _check(data, torch.bfloat16, "data", dev, kernel)
     _check(bias, torch.float32, "bias", dev, kernel)
+    if any(t.data_ptr() % 16 for t in (qv, data, bias)):
+        raise ValueError(f"{kernel}: qv, data and bias must start on a "
+                         f"16-byte boundary (the kernel reads them by TMA)")
     return nq, n, dp
 
 
 def _launched(err: int, kernel: str) -> None:
+    if err == 1:                                # cudaErrorInvalidValue
+        raise ValueError(f"{kernel}: the kernel rejected the launch's sizes "
+                         f"(CUDA error 1; e.g. more than 2^31 - 1 CTAs)")
     if err != 0:
         raise RuntimeError(f"{kernel}: kernel launch failed with CUDA "
                            f"error {err}")

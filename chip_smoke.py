@@ -7,6 +7,8 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
 
     python3 chip_smoke.py --k1-batches   # only K1 / K1p times at 1 to 10k
                                          # queries on random integer data
+    python3 chip_smoke.py --k2-batches   # only K2's device times at 1 to
+                                         # 10k rows of a random reservoir
 
 Phases, one line each; any failure raises and exits non-zero:
   1. device  — a CUDA device is required; nvidia-smi's name and power limit.
@@ -14,8 +16,7 @@ Phases, one line each; any failure raises and exits non-zero:
      (one nvcc each, in parallel): K3 ivf_scan_fused, K3-SQ8 ivf_scan_sq8,
      K1 flat_knn_fused, K2 reservoir_topk, K4 ivf_scan_paged, K1p and B1
      flat_knn_variants, B2 row_copy_probe; each library's registers and
-     spill bytes from its ptxas log. K3, K3-SQ8, K4, K1 and the K1p / B1
-     library must not spill.
+     spill bytes from its ptxas log. No library may spill.
   3. IVF path at the benchmark's size: calibrated SIFT1M surrogate (1M
      base, 100k train, 10k queries, seed 123); the exact IndexFlat's
      ground truth (no K1 launch); make_ivf_flat(128, 4096) -> train
@@ -61,10 +62,14 @@ Phases, one line each; any failure raises and exits non-zero:
      against the exact f32 IndexFlatIP.
   6. K1 and K2 vs their plain torch versions at the flat path's shapes
      (1024 and 10k queries x 1M rows, W=2048 and 1024; k=10 and 40): bit
-     for bit on the integer data; kernel and plain times at both batch
-     sizes; torch.topk on K2's input as its one-call yardstick. Then K1 (W
-     2048, 1024) and K1p (W 1024) at 1, 64 and 65 queries, bit for bit and
-     timed.
+     for bit on the integer data; K1's kernel and plain times at both batch
+     sizes. K2 at the path's two shapes (W 2048 k 10, W 1024 k 40) on the
+     first 1, 64, 1024 and all 10k rows of K1's reservoir: bit for bit,
+     kernel, plain and torch.topk(resv, k, largest=False) times, and the
+     bound by the bytes the function must move (the values, and the k
+     winners' positions and outputs) beside the older count (values and
+     positions read in full). Then K1 (W 2048, 1024) and K1p (W 1024) at 1,
+     64 and 65 queries, bit for bit and timed.
   7. out-of-core path on the same data: the base written to an np.memmap
      in a temporary directory (removed at the end), the pinned
      host-to-device bandwidth measured alone, IndexIVFFlatPaged(128, 4096,
@@ -111,9 +116,12 @@ Phases, one line each; any failure raises and exits non-zero:
      instructions in the SASS (cuobjdump): K1, K1p and every B1 fold must
      hold wgmma (HGMMA), the same count in the three folds; K3, K3-SQ8 and
      K4 must hold mma.sync (HMMA).
-  13. B2, the row-copy issue probe, at NR 4096 / 16384 / 65536 rows of the
-     1M x 128 f32 base, NS 16: the slots equal the plain version; ns and SM
-     cycles per copy; xb.index_select(0, rows) on the same rows.
+  13. B2, the row-copy issue probe, at NR 0 / 1 / 15 / 4096 / 16384 /
+     65536 rows of the 1M x 128 f32 base, NS 16: the slots and the XOR of
+     all copied rows equal the plain version bit for bit; ms, ns a copy
+     over the card, the largest and the mean CTA's SM cycles a copy,
+     xb.index_select(0, rows) on the same rows, and the bound; at 65536
+     also both on 65536 consecutive rows.
 The last two lines are the kernels' JSON record (each with its time,
 its plain version's, the card's bound for the same work and, where one
 torch call computes the same function, that call's time; K3, K3-SQ8 and
@@ -170,9 +178,6 @@ KERNELS = ("ivf_scan_fused", "ivf_scan_sq8", "flat_knn_fused",
 # the libraries of the IVF list scans (K3, K3-SQ8, K4): no spill, and
 # their products on the tensor cores (HMMA in the SASS)
 IVF_SCANS = ("ivf_scan_fused", "ivf_scan_sq8", "ivf_scan_paged")
-# the libraries that must build without a spill: the IVF scans and the
-# flat scan's two (K1; K1p and B1)
-NO_SPILL = IVF_SCANS + ("flat_knn_fused", "flat_knn_variants")
 # IVFHNSW15625 (coarse_mode "auto") recall@10 floors at nprobe 32 / 64: the
 # JAX package's 0.8754 / 0.9602 (BENCH_r05.json) less 0.01 for k-means
 IVFHNSW_FLOORS = {32: 0.8654, 64: 0.9502}
@@ -340,7 +345,7 @@ def main() -> None:
               registers=regs, spill_bytes=spill,
               ptxas=[ln.strip() for ln in log.splitlines()
                      if "registers" in ln or "spill" in ln])
-        if name in NO_SPILL and spill:
+        if spill:
             raise AssertionError(f"{name} spills {spill} bytes")
     phase("build_all", seconds=t_build)
 
@@ -900,7 +905,6 @@ def flat_phases(xb, xq, gt, dev):
     qv_10k = qv_10k.to(torch.bfloat16)
     k1_err = k2_err = 0.0
     k1, k2 = {}, {}
-    k2_library_ms = None
     for W in (2048, 1024):
         v1, p1 = FK.flat_reservoir(qv, data, bias, W)
         v0, p0 = FK.flat_reservoir_reference(qv, data, bias, W)
@@ -924,39 +928,51 @@ def flat_phases(xb, xq, gt, dev):
             "ms_10k": cuda_ms(
                 lambda: FK.flat_reservoir(qv_10k, data, bias, W), 3),
             "plain_ms_10k": plain_10k}
-        for k in (10, 40):
-            for name, (rv, rp) in (("1024", (v1, p1)),
-                                   (str(NQ), (rv10, rp10))):
-                o1 = FK.reservoir_topk(rv, rp, k)
-                o0 = FK.reservoir_topk_reference(rv, rp, k)
-                assert_equal(f"K2 values W={W} k={k} nq={name}", o0[0], o1[0])
-                assert_equal(f"K2 positions W={W} k={k} nq={name}", o0[1],
-                             o1[1])
-                k2_err = max(k2_err, max_abs_err(o0[0], o1[0]))
-            k2[(W, k)] = {
-                "ms": cuda_ms(lambda: FK.reservoir_topk(v1, p1, k), 20),
-                "plain_ms": host_ms(
-                    lambda: FK.reservoir_topk_reference(v1, p1, k), 5),
-                "ms_10k": cuda_ms(lambda: FK.reservoir_topk(rv10, rp10, k),
-                                  20),
-                "plain_ms_10k": host_ms(
-                    lambda: FK.reservoir_topk_reference(rv10, rp10, k), 5)}
-            if (W, k) == (2048, 10):
-                # one torch call selecting the same k smallest of the row
-                k2_library_ms = cuda_ms(
-                    lambda: torch.topk(v1, k, dim=1, largest=False), 20)
         if W == 2048:
             k1_bound = bound(data.numel() * 2 + bias.numel() * 4
                              + qv.numel() * 2 + v1.numel() * 8,
                              2.0 * len(q) * index.ntotal * D)
-            k2_bound = bound(v1.numel() * 8 + len(q) * 10 * 8, 0.0)
+        # K2 on the first nq rows of the reservoir, at the path's k for
+        # this W (the exact route's 10 at 2048, the refine route's 40 at
+        # 1024) and, for the check alone, the other
+        path_k = 10 if W == 2048 else 40
+        batches = {1: (v1[:1], p1[:1]), 64: (v1[:64], p1[:64]),
+                   len(q): (v1, p1), NQ: (rv10, rp10)}
+        for k in (10, 40):
+            for nq, (rv, rp) in batches.items():
+                o1 = FK.reservoir_topk(rv, rp, k)
+                o0 = FK.reservoir_topk_reference(rv, rp, k)
+                assert_equal(f"K2 values W={W} k={k} nq={nq}",
+                             o0[0].view(torch.int32), o1[0].view(torch.int32))
+                assert_equal(f"K2 positions W={W} k={k} nq={nq}", o0[1],
+                             o1[1])
+                k2_err = max(k2_err, max_abs_err(o0[0], o1[0]))
+                if k != path_k:
+                    continue
+                # device times (the kernels' own, under the profiler):
+                # at small batches a CUDA-event loop times the host
+                def topk():
+                    return torch.topk(rv, k, dim=1, largest=False)
+                k2[(W, k, nq)] = {
+                    "ms": device_ms(lambda: FK.reservoir_topk(rv, rp, k),
+                                    kernel="reservoir_topk"),
+                    "events_ms": cuda_ms(
+                        lambda: FK.reservoir_topk(rv, rp, k), 20),
+                    "plain_ms": host_ms(
+                        lambda: FK.reservoir_topk_reference(rv, rp, k), 5),
+                    # one torch call selecting the same k smallest of a row
+                    "library_ms": device_ms(topk),
+                    "library_events_ms": cuda_ms(topk, 20),
+                    **bound(nq * W * 4 + nq * k * 12, 0.0),
+                    "bound_ms_read_all": bound(nq * W * 8 + nq * k * 8,
+                                               0.0)["bound_ms"]}
         del rv10, rp10
     phase("flat_kernel_check", nq=[len(q), NQ], nb=index.ntotal,
           k1_equal=True, k2_equal=True,
           k1={str(W): t for W, t in k1.items()},
-          k2={f"W{W}_k{k}": t for (W, k), t in k2.items()},
-          k2_torch_topk_ms=k2_library_ms,
+          k2={f"W{W}_k{k}_nq{nq}": t for (W, k, nq), t in k2.items()},
           small_batches=k1_batch_times(qv_10k, data, bias, (1, 64, 65)))
+    k2_main, k2_10k = k2[(2048, 10, len(q))], k2[(2048, 10, NQ)]
 
     return [{
         "name": "flat_knn_fused",
@@ -976,10 +992,14 @@ def flat_phases(xb, xq, gt, dev):
         "replaces": "tpu_ann/ops/flat_knn_pallas.py:283",
         "launches": flat_launches["reservoir_topk"],
         "max_abs_err": k2_err,
-        "ms": k2[(2048, 10)]["ms"],
-        "plain_ms": k2[(2048, 10)]["plain_ms"],
-        **k2_bound,
-        "library_ms": k2_library_ms,
+        "ms": k2_main["ms"],
+        "plain_ms": k2_main["plain_ms"],
+        "bound_ms": k2_main["bound_ms"],
+        "bound_by": k2_main["bound_by"],
+        "library_ms": k2_main["library_ms"],
+        "ms_10k": k2_10k["ms"],
+        "bound_ms_10k": k2_10k["bound_ms"],
+        "library_ms_10k": k2_10k["library_ms"],
     }], index, refine_rec
 
 
@@ -1032,6 +1052,45 @@ def k1_batches() -> None:
     qv = (-2.0 * xq).to(torch.bfloat16)
     phase("k1_batches", device=torch.cuda.get_device_name(0), nb=NB, d=D,
           **k1_batch_times(qv, data, bias, (1, 64, 65, 128, 1024, NQ)))
+
+
+def k2_batches() -> None:
+    """--k2-batches: K2 at the flat path's two shapes (W 2048 k 10, W 1024
+    k 40) on the first 1, 64, 1024 and 10k rows of a random reservoir
+    (integer values in [-50000, 50000), positions in [0, 10^6), seed 0):
+    each output bit for bit against its plain version, then the kernel's
+    and torch.topk's device times (profiler). Uses only the wrappers'
+    public calls, so from a copy in another tree's root it times that
+    tree's K2 on the same inputs."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for W, k in ((2048, 10), (1024, 40)):
+        v = torch.randint(-50000, 50000, (NQ, W), generator=gen,
+                          device=dev).float()
+        p = torch.randint(0, 10**6, (NQ, W), generator=gen, device=dev,
+                          dtype=torch.int32)
+        for nq in (1, 64, 1024, NQ):
+            rv, rp = v[:nq], p[:nq]
+            o1, o0 = FK.reservoir_topk(rv, rp, k), \
+                FK.reservoir_topk_reference(rv, rp, k)
+            assert_equal(f"K2 values W={W} k={k} nq={nq}",
+                         o0[0].view(torch.int32), o1[0].view(torch.int32))
+            assert_equal(f"K2 positions W={W} k={k} nq={nq}", o0[1], o1[1])
+            out[f"W{W}_k{k}_nq{nq}"] = {
+                "ms": device_ms(lambda: FK.reservoir_topk(rv, rp, k),
+                                kernel="reservoir_topk"),
+                "library_ms": device_ms(
+                    lambda: torch.topk(rv, k, dim=1, largest=False)),
+                **bound(nq * W * 4 + nq * k * 12, 0.0)}
+    phase("k2_batches", device=torch.cuda.get_device_name(0), **out)
 
 
 def pinned_gbps(dev, nbytes: int = 1 << 28) -> float:
@@ -1320,6 +1379,21 @@ def device_profile(fn, top: int = 4, kernel: str = "") -> dict:
                       if e.device_type == DeviceType.CUDA and kernel in e.name)
         out["launches_ms"] = [ms for _, ms in runs]
     return out
+
+
+def device_ms(fn, reps: int = 20, kernel: str = "") -> float:
+    """Mean device time of a call of fn over reps calls under
+    torch.profiler: the launches of the kernels whose name holds
+    ``kernel`` (it raises if the profiler saw none), or without it every
+    device event (None where the profiler saw none: not measured)."""
+    prof = device_profile(lambda: [fn() for _ in range(reps)],
+                          kernel=kernel)
+    if kernel:
+        if not prof["launches_ms"]:
+            raise AssertionError(f"the profiler saw no {kernel} launch")
+        return sum(prof["launches_ms"]) / reps
+    busy = prof["device_busy_ms"]
+    return None if busy is None else busy / reps
 
 
 def variant_phases(index, xb, xq, gt, refine_rec, dev) -> list:
@@ -1682,6 +1756,9 @@ def graph_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
+B2_ROWS = (0, 1, 15, 4096, 16384, 65536)
+
+
 def row_copy_phase(xb, dev) -> dict:
     """Phase 13: B2 on the 1M x 128 f32 base; returns its record."""
     xb_dev = torch.from_numpy(xb).to(dev)
@@ -1689,31 +1766,51 @@ def row_copy_phase(xb, dev) -> dict:
     rows_out, b2_err = {}, 0.0
     reset_counts()
     inputs = {}
-    for nr in (4096, 16384, 65536):
+    for nr in B2_ROWS:
         rows = torch.from_numpy(np.random.RandomState(0).randint(
             0, NB, size=nr).astype(np.int32)).to(dev)
         inputs[nr] = rows
-        ms = cuda_ms(lambda: B2.row_copy_probe(xb_dev, rows, 16,
-                                               validate=False), 5)
-        out, cyc = B2.row_copy_probe(xb_dev, rows, 16)
-        rows_out[nr] = {"ms": ms, "ns_per_copy": ms * 1e6 / nr,
-                        "cycles_per_copy": int(cyc.item()) / nr,
-                        "cycles_per_copy_from_ms": ms * 1e-3 * khz * 1e3 / nr,
-                        "index_select_ms": cuda_ms(
-                            lambda: xb_dev.index_select(0, rows.long()), 5),
-                        **bound(nr * D * 4 + nr * 4 + 16 * D * 4, 0.0)}
-        rows_out[nr]["out"] = out
+        def probe():
+            return B2.row_copy_probe(xb_dev, rows, 16, validate=False)
+        # the kernel's device time under the profiler (a CUDA-event loop
+        # times the wrapper's host work at these sizes), then the events
+        ms = device_ms(probe, 5, kernel="row_copy_probe")
+        events_ms = cuda_ms(probe, 5)
+        out, xor, cyc = B2.row_copy_probe(xb_dev, rows, 16)
+        copies = B2.cta_copies(nr, cyc.numel())
+        per = [c / n for c, n in zip(cyc.tolist(), copies) if n]
+        rows_out[nr] = {
+            "ms": ms, "events_ms": events_ms, "ctas": cyc.numel(),
+            "ns_per_copy": ms * 1e6 / nr if nr else None,
+            "cycles_per_copy_max": max(per) if per else None,
+            "cycles_per_copy_mean": float(np.mean(per)) if per else None,
+            "index_select_ms": device_ms(
+                lambda: xb_dev.index_select(0, rows.long()), 5),
+            **bound(nr * D * 4 + nr * 4 + 16 * D * 4 + D * 4, 0.0)}
+        rows_out[nr]["out"] = (out, xor)
     launches = counts()
+    # the same count of rows, consecutive: what random rows cost the copies
+    seq = torch.arange(B2_ROWS[-1], dtype=torch.int32, device=dev)
+    rows_out[B2_ROWS[-1]]["consecutive_rows"] = {
+        "ms": device_ms(lambda: B2.row_copy_probe(xb_dev, seq, 16,
+                                                  validate=False), 5,
+                        kernel="row_copy_probe"),
+        "index_select_ms": device_ms(
+            lambda: xb_dev.index_select(0, seq.long()), 5)}
     for nr, r in rows_out.items():
-        out = r.pop("out")
-        ref = B2.row_copy_probe_reference(xb_dev, inputs[nr], 16)
-        assert_equal(f"B2 nr={nr}", ref, out)
+        out, xor = r.pop("out")
+        ref, ref_xor = B2.row_copy_probe_reference(xb_dev, inputs[nr], 16)
+        assert_equal(f"B2 slots nr={nr}", ref.view(torch.int32),
+                     out.view(torch.int32))
+        assert_equal(f"B2 xor nr={nr}", ref_xor, xor)
         b2_err = max(b2_err, max_abs_err(ref, out))
         r["plain_ms"] = host_ms(lambda: B2.row_copy_probe_reference(
             xb_dev, inputs[nr], 16), 3)
-    if launches["row_copy_probe"] != 3 * 7:
+    # per NR: 5 warm-up and 5 profiled calls, 6 event-timed, 1 checked
+    if launches["row_copy_probe"] != len(B2_ROWS) * 17:
         raise AssertionError(f"B2 launches {launches}")
     phase("row_copy_probe", ns=16, dp=D, nb=NB, sm_clock_khz=khz,
+          slots_equal=True, xor_equal=True,
           calls={str(nr): r for nr, r in rows_out.items()},
           launches=launches)
     last = rows_out[65536]
@@ -1736,7 +1833,10 @@ def row_copy_phase(xb, dev) -> dict:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--k1-batches"]:
         k1_batches()
+    elif sys.argv[1:] == ["--k2-batches"]:
+        k2_batches()
     elif sys.argv[1:]:
-        raise SystemExit("usage: chip_smoke.py [--k1-batches]")
+        raise SystemExit("usage: chip_smoke.py [--k1-batches | "
+                         "--k2-batches]")
     else:
         main()

@@ -132,26 +132,49 @@ def test_k1_more_query_blocks_than_a_grid_dimension_holds():
     assert torch.equal(v0, v1) and torch.equal(p0, p1)
 
 
-@pytest.mark.parametrize("W", [128, 384, 1024, 2048, 4096])
-@pytest.mark.parametrize("k", [1, 10, 128])
-def test_k2_topk_equals_plain_on_ties(W, k):
-    dev = _cuda()
-    rs = np.random.RandomState(W + k)
-    nq = 1000
+def _k2_rows(nq, W, k, seed):
+    """Integer values with many ties and +inf lanes; from row 1 on, rows
+    r % 8 == 1..7 are all tied, +-0.0 ties, one NaN, dead, fewer than k
+    finite, -inf lanes, and descending."""
+    rs = np.random.RandomState(seed)
     v = rs.randint(0, 20, size=(nq, W)).astype(np.float32)
     v[rs.rand(nq, W) < 0.2] = np.inf
-    v[5] = np.inf                                   # a dead row
-    v[6, : W - 3] = np.inf                          # fewer than k finite
+    r = np.arange(nq)
+    v[r % 8 == 1] = 3.0
+    z = r % 8 == 2
+    v[z] = np.where(rs.rand(int(z.sum()), W) < 0.5, np.float32(-0.0),
+                    np.float32(0.0))
+    v[z, ::7] = 1.0
+    v[r % 8 == 3, rs.randint(W)] = np.nan
+    v[r % 8 == 4] = np.inf
+    few = r % 8 == 5
+    v[few] = np.inf
+    v[few, :max(k - 3, 0)] = 2.0
+    v[(r % 8 == 6)[:, None] & (rs.rand(nq, W) < 0.1)] = -np.inf
+    v[r % 8 == 7] = np.arange(W, 0, -1, dtype=np.float32)
     p = rs.randint(0, 10**6, size=(nq, W)).astype(np.int32)
+    return v, p
+
+
+@pytest.mark.parametrize("nq", [1, 7, 64, 1024, 10000])
+@pytest.mark.parametrize("W,k", [(W, k) for W in (100, 1000, 1024, 2048, 4096)
+                                 for k in (1, 10, 40, 128) if k <= W]
+                         + [(128, 128)])
+def test_k2_topk_equals_plain_on_ties(W, k, nq):
+    dev = _cuda()
+    v, p = _k2_rows(nq, W, k, W + k + nq)
     resv, resp = torch.from_numpy(v).to(dev), torch.from_numpy(p).to(dev)
     before = F.LAUNCHES["reservoir_topk"]
     v1, p1 = F.reservoir_topk(resv, resp, k)
     torch.cuda.synchronize()
     assert F.LAUNCHES["reservoir_topk"] == before + 1
     v0, p0 = F.reservoir_topk_reference(resv, resp, k)
-    _equal(v0, v1)
+    # bit for bit: -0.0 must come back as -0.0
+    _equal(v0.view(torch.int32), v1.view(torch.int32))
     _equal(p0, p1)
-    assert (p1[5] == -1).all()
+    if nq > 4:
+        assert (p1[3] == -1).all() and (v1[3] == np.inf).all()  # NaN row
+        assert (p1[4] == -1).all()                              # dead row
 
 
 @pytest.mark.parametrize("metric", [TD.METRIC_L2, TD.METRIC_INNER_PRODUCT])

@@ -104,6 +104,42 @@ def test_reservoir_topk_on_ties_equal(k):
     np.testing.assert_array_equal(p1.numpy(), np.asarray(p0))
 
 
+@pytest.mark.parametrize("k", [1, 12, 40])
+@pytest.mark.parametrize("case", ["nan", "signed_zeros"])
+def test_reservoir_topk_nan_and_signed_zeros_equal(case, k):
+    """A row with a NaN gives (+inf, -1) in every slot, as the JAX kernel's
+    NaN row minimum does; -0.0 and +0.0 tie by lane. JAX's min returns
+    -0.0 where the port returns the element, so values compare with
+    -0.0 == +0.0 (numpy's ==)."""
+    rs = np.random.RandomState(k + 100)
+    resv = rs.randint(0, 6, size=(40, 256)).astype(np.float32)
+    if case == "nan":
+        resv[rs.rand(40, 256) < 0.3] = np.inf
+        rows = rs.rand(40) < 0.5
+        resv[rows, rs.randint(0, 256, size=int(rows.sum()))] = np.nan
+        resv[7, :] = np.nan
+        resv[8, 0] = np.nan                       # the NaN in lane 0
+        resv[9, 255] = np.nan                     # and in the last lane
+    else:
+        zero = rs.rand(40, 256) < 0.6
+        resv[zero] = np.where(rs.rand(int(zero.sum())) < 0.5,
+                              np.float32(-0.0), np.float32(0.0))
+        resv[5, :] = -0.0
+        resv[6, ::2] = np.inf
+    resp = rs.randint(0, 10**6, size=(40, 256)).astype(np.int32)
+    v0, p0 = JF.reservoir_topk(jnp.asarray(resv), jnp.asarray(resp), k,
+                               interpret=True)
+    v1, p1 = F.reservoir_topk(torch.from_numpy(resv), torch.from_numpy(resp),
+                              k)
+    np.testing.assert_array_equal(v1.numpy(), np.asarray(v0))
+    np.testing.assert_array_equal(p1.numpy(), np.asarray(p0))
+    if case == "nan":
+        nan_rows = np.isnan(resv).any(1)
+        assert nan_rows.sum() >= 3
+        assert (p1.numpy()[nan_rows] == -1).all()
+        assert np.isinf(v1.numpy()[nan_rows]).all()
+
+
 def test_plain_reservoir_is_the_lane_min():
     """flat_reservoir_reference against the definition, row by row: lane
     j keeps the first of its rows (r = j mod W) with the smallest score."""

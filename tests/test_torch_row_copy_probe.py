@@ -7,7 +7,8 @@ The harness defines kern2 inside a function and writes only out[0, 0], so
 this test keeps its own copy of it that writes all NS slots; the copies,
 the slot rule (copy i to slot i % NS, wait before reuse, drain at the end)
 are kern2's. Tolerance: the slots are copied rows, so they must be equal
-bit for bit."""
+bit for bit. The XOR of all copied rows (an output the port adds, to show
+every row was moved) is held against numpy."""
 
 import jax
 import jax.numpy as jnp
@@ -70,8 +71,8 @@ def test_slots_equal_the_reference_kernel(NR, NS):
     xb = rs.randn(1000, 128).astype(np.float32)
     rows = rs.randint(0, 1000, size=NR).astype(np.int32)
     ref = np.asarray(_kern2(jnp.asarray(rows[None]), jnp.asarray(xb), NS))
-    out, cycles = B2.row_copy_probe(torch.from_numpy(xb),
-                                    torch.from_numpy(rows), NS)
+    out, _, cycles = B2.row_copy_probe(torch.from_numpy(xb),
+                                       torch.from_numpy(rows), NS)
     assert cycles is None
     np.testing.assert_array_equal(out.numpy(), ref)
 
@@ -80,9 +81,26 @@ def test_fewer_rows_than_slots_leave_zeros():
     rs = np.random.RandomState(3)
     xb = torch.from_numpy(rs.randn(50, 8).astype(np.float32))
     rows = torch.tensor([7, 3, 9], dtype=torch.int32)
-    out, _ = B2.row_copy_probe(xb, rows, 16)
+    out, _, _ = B2.row_copy_probe(xb, rows, 16)
     np.testing.assert_array_equal(out[:3].numpy(), xb[[7, 3, 9]].numpy())
     assert (out[3:] == 0).all()
+
+
+@pytest.mark.parametrize("NR,dp", [(0, 8), (1, 8), (15, 4), (16, 128),
+                                   (1001, 96)])
+def test_xor_is_every_row_folded(NR, dp):
+    """The plain version's XOR against numpy's bitwise_xor.reduce over the
+    copied rows' bit patterns."""
+    rs = np.random.RandomState(NR + dp)
+    xb = rs.randn(500, dp).astype(np.float32)
+    rows = rs.randint(0, 500, size=NR).astype(np.int32)
+    _, xor, _ = B2.row_copy_probe(torch.from_numpy(xb),
+                                  torch.from_numpy(rows), 16)
+    want = np.bitwise_xor.reduce(xb[rows].view(np.int32), axis=0)
+    if NR == 0:
+        want = np.zeros(dp, np.int32)
+    assert xor.dtype == torch.int32 and xor.shape == (dp,)
+    np.testing.assert_array_equal(xor.numpy(), want)
 
 
 def test_argument_checks():

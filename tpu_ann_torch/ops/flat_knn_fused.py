@@ -34,6 +34,16 @@ lane, the top 16 bits of a shifted score and its group index, folded with
 one integer min (grid and fori at any unroll: a min over the reference's U
 accumulators is the min over one).
 
+K2 replaces `tpu_ann/ops/flat_knn_pallas.py::reservoir_topk` (k rounds of
+a row minimum). Its result: each row's k smallest (value, lane) keys,
+ascending, the lower lane winning a tie and -0.0 tying +0.0; a slot whose
+value is not finite is (+inf, -1), and a row that holds a NaN is (+inf,
+-1) in every slot, as in the JAX kernel, whose row minimum is then NaN.
+On the card it is bound by the bytes of the values (positions are read
+for the k winners only); the kernel keeps each lane's few smallest keys,
+sorts them into a warp queue whose k-th key prunes a second look at the
+row, and splits a row over several warps below four rows an SM.
+
 `flat_probe_scan` (B1, the same library) runs the flat-kernel ceiling
 ladder of the round-4 harness: K1's products with the fold cut to the
 first group of every chunk ("min1"), a plain lane-min of every group
@@ -395,19 +405,20 @@ def flat_probe_scan(qv: torch.Tensor, data: torch.Tensor, bias: torch.Tensor,
 
 def reservoir_topk_reference(resv: torch.Tensor, resp: torch.Tensor, k: int):
     """Plain torch version of K2: each row's k smallest (value, position),
-    ascending; a stable sort lets the lowest lane win a tie. Non-finite
-    values give (+inf, -1)."""
+    ascending; a stable sort lets the lowest lane win a tie (-0.0 ties
+    +0.0). Non-finite values give (+inf, -1), and so does every slot of a
+    row that holds a NaN (the JAX kernel's row minimum is then NaN)."""
     vals, sel = torch.sort(resv, dim=1, stable=True)
     vals, pos = vals[:, :k], torch.gather(resp, 1, sel[:, :k])
-    ok = torch.isfinite(vals)
+    ok = torch.isfinite(vals) & ~torch.isnan(resv).any(1, keepdim=True)
     return (torch.where(ok, vals, float("inf")),
             torch.where(ok, pos, -1))
 
 
 def reservoir_topk(resv: torch.Tensor, resp: torch.Tensor, k: int):
     """K2: (nq, W) reservoir -> (nq, k) smallest (values f32, positions
-    int32). The CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    int32), with the rules of `reservoir_topk_reference`. The CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
     dev = resv.device
     if dev.type == "cpu":
         return reservoir_topk_reference(resv, resp, k)

@@ -122,11 +122,27 @@ Phases, one line each; any failure raises and exits non-zero:
      over the card, the largest and the mean CTA's SM cycles a copy,
      xb.index_select(0, rows) on the same rows, and the bound; at 65536
      also both on 65536 consecutive rows.
+  14. the fork's workflow, on phase 9's IVFHNSW15625, phase 7's paged
+     index and phase 3's quantizer, every file in the run's temporary
+     directory: (a) save_to_disk, reopen with IndexIVFHNSW.load and
+     read_index(mmap=True): auto (D, I) bit for bit at nprobe 32 / 64,
+     quantizer mode at phase 9's floors and fidelity; file bytes, write,
+     read and repack seconds; (b) search_stats_per_query over 1000 queries
+     at nprobe 32 / 64 (auto) and 64 (quantizer): each row equal to the
+     batch search's, ndis equal to the file's list sizes over the query's
+     batch-1 probes, one K3 launch a query (plus the tile launches),
+     P50 / P99 / P99.9 of each phase; (c) K3 at batch 1 vs its plain
+     version (device ms, bound); (d) the paged index through write_index /
+     read_index(mmap=True), (D, I) bit for bit (K4); (e) two 500k-row
+     shards over phase 3's quantizer merged by merge_ondisk and reopened
+     with mmap, equal to one index over all rows bit for bit; (f)
+     IVF4096,SQ8 through a file, bit for bit, and per query (K3-SQ8); (g)
+     the fused IndexFlat through a file, bit for bit (K1, K2).
 The last two lines are the kernels' JSON record (each with its time,
 its plain version's, the card's bound for the same work and, where one
 torch call computes the same function, that call's time; K3, K3-SQ8 and
-K4 add their time and bound at the main path's 10k queries) and
-{"ok": true, ...}.
+K4 add their time and bound at the main path's 10k queries, and K3 has a
+second record at batch 1) and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -134,7 +150,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -153,6 +168,7 @@ from tpu_ann_torch.ops import hnsw_tiles as HT
 from tpu_ann_torch.ops import ivf_scan_paged as P
 from tpu_ann_torch.ops import row_copy_probe as B2
 from tpu_ann_torch.ops import sq as SQ
+from tpu_ann_torch.utils.benchmark import per_query_report
 
 # recall@10 floors at nprobe 16 / 32 / 64: the JAX package's benchmark
 # recalls on this workload (0.8831 / 0.9718 / 0.9978) less 0.01 for
@@ -503,6 +519,7 @@ def main() -> None:
     k3_10k, sq_records = sq_phases(index, xt, xb, xq, gt, results,
                                    flat_out, xq_s, probes, dev)
     k3.update(k3_10k)
+    quant3 = index.quantizer
     del index, il
     torch.cuda.empty_cache()
 
@@ -510,12 +527,17 @@ def main() -> None:
     variant_records = variant_phases(flat_index, xb, xq, gt, refine_rec, dev)
     del flat_index
     torch.cuda.empty_cache()
-    k4 = paged_phases(xb, xt, xq, gt, dev)
-    ivf_hnsw_phase(xb, xt, xq, gt, dev)
-    graph_phase(dev)
-    b2 = row_copy_phase(xb, dev)
+    # every file of phases 7-14 lives here; removed at the end
+    with tempfile.TemporaryDirectory(prefix="tpu_ann_smoke_") as tmp:
+        paged, k4 = paged_phases(xb, xt, xq, gt, dev, tmp)
+        hidx = ivf_hnsw_phase(xb, xt, xq, gt, dev)
+        graph_phase(dev)
+        b2 = row_copy_phase(xb, dev)
+        k3_b1 = workflow_phase(hidx, quant3, paged, xb, xt, xq, gt, dev, tmp)
+        del hidx, paged
     print(json.dumps({"kernels": [k3, *sq_records, *flat_records,
-                                  *variant_records, k4, b2]}), flush=True)
+                                  *variant_records, k4, b2, k3_b1]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1158,18 +1180,10 @@ def paged_search(idx, xq, gt, setting, nprobe):
     return Dv, Iv, ex
 
 
-def paged_phases(xb, xt, xq, gt, dev) -> dict:
-    """Phases 7 and 8: the out-of-core path and K4; returns K4's record
-    of the kernels line. The index lives in a temporary directory that is
-    removed at the end."""
-    tmp = tempfile.mkdtemp(prefix="tpu_ann_paged_")
-    try:
-        return _paged_phases(xb, xt, xq, gt, dev, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-
-
-def _paged_phases(xb, xt, xq, gt, dev, tmp) -> dict:
+def paged_phases(xb, xt, xq, gt, dev, tmp):
+    """Phases 7 and 8: the out-of-core path and K4, the index's directory
+    and the base's memmap under ``tmp``; returns K4's record of the
+    kernels line and the loaded index."""
     # -- 7. out-of-core path at real size ---------------------------------
     link_gbps = pinned_gbps(dev)
     t0 = time.perf_counter()
@@ -1300,8 +1314,9 @@ def _paged_phases(xb, xt, xq, gt, dev, tmp) -> dict:
         del win, d96
     phase("paged_kernel_check", nq=NQ, nprobe=32, kp=kp, ntiles=plan.ntiles,
           equal=True, d96_equal=True, max_abs_err=k4_err, calls=checks)
+    os.remove(os.path.join(tmp, "xb.f32"))
     first = checks[0]
-    return {
+    return idx, {
         "name": "ivf_scan_paged",
         "route": "cuda",
         "source": "tpu_ann_torch/csrc/ivf_scan_paged.cu",
@@ -1575,8 +1590,9 @@ def ivf_hnsw_search(idx, xq_dev, xq, gt, nprobe, mode, n_chunks) -> dict:
             "launches_per_search": per}
 
 
-def ivf_hnsw_phase(xb, xt, xq, gt, dev) -> None:
-    """Phase 9: the namesake IVFHNSW at the JAX package's bench config 3."""
+def ivf_hnsw_phase(xb, xt, xq, gt, dev):
+    """Phase 9: the namesake IVFHNSW at the JAX package's bench config 3;
+    returns the index (phase 14 saves and reopens it)."""
     reset_counts()
     t0 = time.perf_counter()
     idx = T.IndexIVFHNSW(D, 15625, M=16, device="cuda")
@@ -1626,8 +1642,8 @@ def ivf_hnsw_phase(xb, xt, xq, gt, dev) -> None:
             raise AssertionError(f"IVFHNSW nprobe={nprobe}: auto {a} (floor "
                                  f"{IVFHNSW_FLOORS[nprobe]}), quantizer {q}, "
                                  f"fidelity {r['fidelity']}")
-    del idx
-    torch.cuda.empty_cache()
+    idx.coarse_mode = "auto"
+    return idx
 
 
 def launch_bounds(call, kp: int) -> list:
@@ -1828,6 +1844,362 @@ def row_copy_phase(xb, dev) -> dict:
         "bound_by": last["bound_by"],
         "library_ms": last["index_select_ms"],
     }
+
+
+# -- phase 14: the fork's workflow --------------------------------------------
+
+# queries of each per-query run (each query a batch-1 round trip)
+PER_QUERY_NQ = 1000
+
+
+def launched(before: dict = None) -> dict:
+    """The launches since ``before`` (a counts() snapshot; None: since the
+    last reset_counts()), kernels that launched only."""
+    now = counts()
+    before = before or {}
+    return {k: now[k] - before.get(k, 0) for k in now
+            if now[k] != before.get(k, 0)}
+
+
+def file_assign(path: str) -> np.ndarray:
+    """The int32 list assignments an il_from_host IVF file holds."""
+    _, arrays = T.utils.index_io._read_container(path, mmap=True)
+    return np.asarray(arrays["assign_host"], np.int64)
+
+
+def same_lists(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """(nq,) bool: rows of a and b that probe the same lists."""
+    return (np.sort(a, 1) == np.sort(b, 1)).all(1)
+
+
+def per_query_check(idx, xq, dev, nprobe, mode, batch, sizes) -> dict:
+    """Phase 14b for one setting: search_stats_per_query over the first
+    PER_QUERY_NQ queries. One scan launch a query (and one for the
+    warm-up), plus the quantizer's 1 + fused_hops tile launches in
+    "quantizer" mode. ndis equals sizes (a list-size count independent of
+    the index) summed over each query's batch-1 probes. A query's (D, I)
+    equal its row of the batch search (assert_same_topk) where its batch-1
+    probes are the batch's lists; a query whose batch-1 coarse search
+    picks other lists (the f32 products of a batch-1 and a batch matmul
+    round apart) must equal search_preassigned on its own probes, and in
+    "auto" mode each list it swaps must lie within 1e-5 of the nprobe-th
+    exact distance. Returns the setting's report (`per_query_report`:
+    P50 / P99 / P99.9 of each phase)."""
+    idx.coarse_mode = mode
+    p = T.SearchParametersIVF(nprobe=nprobe)
+    x = xq[:PER_QUERY_NQ]
+    before = counts()
+    Dq, Iq, st = idx.search_stats_per_query(x, K, params=p)
+    got = launched(before)
+    per = 1 if mode == "auto" else 2 + idx.quantizer.hnsw.fused_hops
+    want = {"ivf_scan_fused": per * (len(x) + 1)}
+    if got != want:
+        raise AssertionError(f"per-query {mode} nprobe={nprobe}: launches "
+                             f"{got}, want {want}")
+    pq = st.per_query
+    if not (pq.total_us.shape == (len(x),) and np.allclose(
+            pq.total_us, pq.quantization_us + pq.list_scan_us)):
+        raise AssertionError("per-query stats malformed")
+    xq_dev = torch.from_numpy(xq).to(dev)
+    pb = np.concatenate([idx._coarse_search_device(xq_dev[i:i + 1],
+                                                   nprobe)[1].cpu().numpy()
+                         for i in range(len(x))])
+    pa = idx._coarse_search_device(xq_dev, nprobe)[1].cpu().numpy()[:len(x)]
+    want_ndis = sizes[pb].sum(1)
+    if not np.array_equal(pq.ndis, want_ndis):
+        raise AssertionError(f"per-query {mode} nprobe={nprobe}: ndis "
+                             f"differs in {int((pq.ndis != want_ndis).sum())}"
+                             f" queries")
+    Db, Ib = batch[0][:len(x)], batch[1][:len(x)]
+    same = same_lists(pa, pb)
+    assert_same_topk(Db[same], Ib[same], Dq[same], Iq[same])
+    moved = np.nonzero(~same)[0]
+    if len(moved):
+        Dp, Ip = idx.search_preassigned(x[moved], K, pb[moved])
+        assert_same_topk(Dp, Ip, Dq[moved], Iq[moved])
+        if mode == "auto":
+            cents = idx._centroid_table().cpu().numpy().astype(np.float64)
+            for r in moved:
+                dis = ((cents - x[r].astype(np.float64)) ** 2).sum(1)
+                edge = np.sort(dis)[nprobe - 1]
+                swapped = np.setxor1d(pa[r], pb[r])
+                if not np.all(np.abs(dis[swapped] - edge) <= 1e-5 * edge):
+                    raise AssertionError(f"query {r}: batch-1 probes differ "
+                                         f"beyond a tie")
+        elif len(moved) > 0.01 * len(x):
+            raise AssertionError(f"per-query quantizer nprobe={nprobe}: "
+                                 f"{len(moved)} queries probe other lists")
+    rep = per_query_report(pq)
+    return {"nprobe": nprobe, "mode": mode, "nq": len(x),
+            "bit_equal_rows": int(((Dq == Db) & (Iq == Ib)).all(1).sum()),
+            "other_probes": len(moved), "launches": want["ivf_scan_fused"],
+            **{f: rep[f] for f in ("total_us", "quantization_us",
+                                   "list_scan_us", "ndis")}}
+
+
+def k3_batch1(idx, xq, dev, launches: int) -> dict:
+    """Phase 14c: one K3 launch at batch 1 (the first query, its exact
+    top-nprobe lists) at nprobe 32 and 64: per-pair output bit for bit and
+    the final (D, I) against the plain version; device time under the
+    profiler (a batch-1 launch is too short for an event loop), the plain
+    version's and the whole batch-1 scan's (plan, K3, merge) host time,
+    and the bound from the plan."""
+    il = idx.invlists
+    x1 = torch.from_numpy(xq[:1]).to(dev)
+    qn, q16 = TD.l2_norms(x1), x1.to(torch.bfloat16)
+    kp = F.default_kp(K)
+    out = {}
+    for nprobe in (32, 64):
+        _, probes = TD.knn(x1, idx._centroid_table(), nprobe)
+        plan = F.plan_pairs(probes, il)
+        d1, p1 = F.scan_pairs(q16, qn, plan, il, kp, False)
+        d0, p0 = F.scan_pairs_reference(q16, qn, plan, il, kp, False)
+        assert_equal(f"K3 batch 1 nprobe={nprobe} distances", d0, d1)
+        assert_equal(f"K3 batch 1 nprobe={nprobe} positions", p0, p1)
+        D1, I1, _ = F.scan_invlists_fused(x1, probes, il, K)
+        D0, I0, _ = F.scan_invlists_fused_reference(x1, probes, il, K)
+        assert_same_topk(D0.cpu().numpy(), I0.cpu().numpy(),
+                         D1.cpu().numpy(), I1.cpu().numpy())
+        out[nprobe] = {
+            "ms": device_ms(lambda: F.scan_pairs(q16, qn, plan, il, kp,
+                                                 False), 50,
+                            kernel="ivf_scan_fused_kernel"),
+            "plain_ms": host_ms(lambda: F.scan_pairs_reference(
+                q16, qn, plan, il, kp, False), 5),
+            "scan_ms": host_ms(lambda: F.scan_invlists_fused(
+                x1, probes, il, K), 20),
+            "max_abs_err": max_abs_err(d0, d1), "ntiles": plan.ntiles,
+            **bound(*pair_scan_work(plan, il.ids, il.block_size, D, kp, 0,
+                                    il.nblocks))}
+    phase("workflow_k3_batch1", **{f"nprobe{n}": r for n, r in out.items()})
+    r32, r64 = out[32], out[64]
+    return {
+        "name": "ivf_scan_fused_batch1",
+        "route": "cuda",
+        "source": "tpu_ann_torch/csrc/ivf_scan_fused.cu",
+        "replaces": "tpu_ann/ops/ivf_scan_pallas.py:466",
+        "launches": launches,
+        "max_abs_err": max(r32["max_abs_err"], r64["max_abs_err"]),
+        "ms": r32["ms"],
+        "plain_ms": r32["plain_ms"],
+        "bound_ms": r32["bound_ms"],
+        "bound_by": r32["bound_by"],
+        "library_ms": None,
+        "ms_nprobe64": r64["ms"],
+        "plain_ms_nprobe64": r64["plain_ms"],
+        "bound_ms_nprobe64": r64["bound_ms"],
+    }
+
+
+def reopen_check(hidx, xq, gt, dev, tmp):
+    """Phase 14a: save the namesake index, reopen it with load and with
+    read_index(mmap=True), and hold both to the original (auto: bit for
+    bit; quantizer: phase 9's floors). Returns the mmap reopen, the list
+    sizes its file's assignments give, and its batch (D, I) by (mode,
+    nprobe)."""
+    path = os.path.join(tmp, "ivfhnsw15625.tann")
+    t0 = time.perf_counter()
+    hidx.save_to_disk(path)
+    write_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    loaded = T.IndexIVFHNSW.load(path, device=dev)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mapped = T.read_index(path, mmap=True, device=dev)
+    read_mmap_s = time.perf_counter() - t0
+    sizes = np.bincount(file_assign(path), minlength=hidx.nlist)
+    repack_s = {}
+    for name, idx in (("load", loaded), ("mmap", mapped)):
+        if not (isinstance(idx, T.IndexIVFHNSW) and idx.invlists is None):
+            raise AssertionError(f"{name}: not an il_from_host reopen")
+        t0 = time.perf_counter()
+        idx._ready()                      # the first search's repack
+        torch.cuda.synchronize()
+        repack_s[name] = time.perf_counter() - t0
+    xq_dev = torch.from_numpy(xq).to(dev)
+    before = counts()
+    batch, rows = {}, {}
+    for nprobe in (32, 64):
+        p = T.SearchParametersIVF(nprobe=nprobe)
+        hidx.coarse_mode = "auto"
+        D0, I0 = hidx.search(xq, K, params=p)
+        for name, idx in (("load", loaded), ("mmap", mapped)):
+            idx.coarse_mode = "auto"
+            D1, I1 = idx.search(xq, K, params=p)
+            if not (np.array_equal(D0, D1) and np.array_equal(I0, I1)):
+                raise AssertionError(f"{name} nprobe={nprobe}: the reopened "
+                                     f"index's (D, I) differ")
+            if name == "mmap":
+                batch["auto", nprobe] = (D1, I1)
+            idx.coarse_mode = "quantizer"
+            Dq, Iq = idx.search(xq, K, params=p)
+            _, hp = idx._coarse_search_device(xq_dev, nprobe)
+            idx.coarse_mode = "auto"
+            _, ep = idx._coarse_search_device(xq_dev, nprobe)
+            hp, ep = hp.cpu().numpy(), ep.cpu().numpy()
+            fid = float(np.mean([len(set(a) & set(b)) / nprobe
+                                 for a, b in zip(hp, ep)]))
+            ra, rq = T.recall_k_at_k(I1, gt, K), T.recall_k_at_k(Iq, gt, K)
+            if ra < IVFHNSW_FLOORS[nprobe] or fid < 0.99 or \
+                    abs(rq - ra) > 0.01:
+                raise AssertionError(f"{name} nprobe={nprobe}: auto {ra}, "
+                                     f"quantizer {rq}, fidelity {fid}")
+            rows[f"{name}_{nprobe}"] = {"auto_recall": ra,
+                                        "quantizer_recall": rq,
+                                        "fidelity": fid}
+            if name == "mmap":
+                batch["quantizer", nprobe] = (Dq, Iq)
+    phase("workflow_reopen", file_bytes=nbytes, write_s=write_s,
+          read_s=read_s, read_mmap_s=read_mmap_s, repack_s=repack_s,
+          auto_bit_equal=True, quantizer=rows, launches=launched(before))
+    del loaded
+    os.remove(path)
+    return mapped, sizes, batch
+
+
+def ivf_file_check(name, idx, xq, path, dev, nprobe=32):
+    """Write idx, reopen it with mmap, and hold the reopened index's (D, I)
+    at nprobe to idx's bit for bit; returns the reopened index and the
+    seconds of the write, the read and the first search."""
+    p = T.SearchParametersIVF(nprobe=nprobe)
+    D0, I0 = idx.search(xq, K, params=p)
+    t0 = time.perf_counter()
+    T.write_index(idx, path)
+    t_w = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = T.read_index(path, mmap=True, device=dev)
+    t_r = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    D1, I1 = back.search(xq, K, params=p)
+    t_s = time.perf_counter() - t0
+    if not (np.array_equal(D0, D1) and np.array_equal(I0, I1)):
+        raise AssertionError(f"{name}: the reopened index's (D, I) differ in "
+                             f"{int((D0 != D1).sum())} / "
+                             f"{int((I0 != I1).sum())} entries")
+    return back, {"file_bytes": os.path.getsize(path), "write_s": t_w,
+                  "read_s": t_r, "first_search_s": t_s}
+
+
+def workflow_phase(hidx, quant3, paged, xb, xt, xq, gt, dev, tmp) -> dict:
+    """Phase 14: the fork's workflow on the earlier phases' indexes, every
+    file under tmp; returns the batch-1 K3 record of the kernels line."""
+    t_phase = time.perf_counter()
+    # -- 14a. the namesake index, saved and reopened -------------------------
+    reset_counts()
+    mapped, sizes, batch = reopen_check(hidx, xq, gt, dev, tmp)
+
+    # -- 14b. per-query latency over K3 at batch 1 ---------------------------
+    reset_counts()
+    runs = [per_query_check(mapped, xq, dev, nprobe, mode,
+                            batch[mode, nprobe], sizes)
+            for mode, nprobe in (("auto", 32), ("auto", 64),
+                                 ("quantizer", 64))]
+    per_query_launches = sum(r["launches"] for r in runs)
+    mapped.coarse_mode = "auto"
+    for r in runs:
+        phase("workflow_per_query", **r)
+
+    # -- 14c. K3 at batch 1 against its plain version ------------------------
+    k3_b1 = k3_batch1(mapped, xq, dev, per_query_launches)
+    del mapped
+    torch.cuda.empty_cache()
+
+    # -- 14d. the out-of-core index through an index file --------------------
+    reset_counts()
+    path = os.path.join(tmp, "paged.tann")
+    _, st_d = ivf_file_check("paged", paged, xq, path, dev)
+    got = launched()
+    if set(got) != {"ivf_scan_paged"}:
+        raise AssertionError(f"the paged reopen launched {got}")
+    phase("workflow_paged", **st_d, launches=got)
+    os.remove(path)
+
+    # -- 14e. two shards merged on disk --------------------------------------
+    reset_counts()
+    half = len(xb) // 2
+    paths, t0 = [], time.perf_counter()
+    for j, (lo, hi) in enumerate(((0, half), (half, len(xb)))):
+        shard = T.IndexIVFFlat(quant3, D, NLIST, device=dev)
+        shard.is_trained = True
+        shard.add_with_ids(xb[lo:hi], np.arange(lo, hi, dtype=np.int64))
+        paths.append(os.path.join(tmp, f"shard{j}.tann"))
+        T.write_index(shard, paths[-1])
+        del shard
+    t_shards = time.perf_counter() - t0
+    empty = T.IndexIVFFlat(quant3, D, NLIST, device=dev)
+    empty.is_trained = True
+    dst = os.path.join(tmp, "merged.tann")
+    t0 = time.perf_counter()
+    n = T.merge_ondisk(empty, [T.FileInvlistSource(p) for p in paths], dst)
+    t_merge = time.perf_counter() - t0
+    for p in paths:
+        os.remove(p)
+    merged = T.read_index(dst, mmap=True, device=dev)
+    single = T.IndexIVFFlat(quant3, D, NLIST, device=dev)
+    single.is_trained = True
+    single.add(xb)
+    p32 = T.SearchParametersIVF(nprobe=32)
+    D0, I0 = single.search(xq, K, params=p32)
+    D1, I1 = merged.search(xq, K, params=p32)
+    if n != len(xb) or not (np.array_equal(D0, D1) and
+                            np.array_equal(I0, I1)):
+        raise AssertionError("the merged file's (D, I) differ from a single "
+                             "index over all rows")
+    got = launched()
+    if got != {"ivf_scan_fused": 2}:
+        raise AssertionError(f"the merge check launched {got}")
+    phase("workflow_merge", ntotal=n, shards_s=t_shards, merge_s=t_merge,
+          file_bytes=os.path.getsize(dst), bit_equal=True, launches=got)
+    del merged, single
+    os.remove(dst)
+
+    # -- 14f. IVF-SQ8 through an index file, per query through K3-SQ8 ----------
+    reset_counts()
+    sq = T.IndexIVFScalarQuantizer(quant3, D, NLIST, T.QT_8BIT, device=dev)
+    sq.quantizer_trains_alone = 1
+    sq.train(xt)
+    sq.add(xb)
+    path = os.path.join(tmp, "ivfsq8.tann")
+    back, st_f = ivf_file_check("ivf_sq8", sq, xq, path, dev)
+    p32 = T.SearchParametersIVF(nprobe=32)
+    Db, Ib = back.search(xq[:100], K, params=p32)
+    Dq, Iq, _ = back.search_stats_per_query(xq[:100], K, params=p32)
+    # the dequantized rows are not integers: a batch-1 re-rank product
+    # rounds apart from the batch's
+    err = assert_close_pairs("IVF-SQ8 per query", *(torch.from_numpy(a) for a
+                                                    in (Db, Ib, Dq, Iq)))
+    got = launched()
+    if got != {"ivf_scan_sq8": 3 + 101}:
+        raise AssertionError(f"the IVF-SQ8 reopen launched {got}")
+    phase("workflow_ivf_sq8", **st_f, per_query_max_abs_err=err,
+          launches=got)
+    del sq, back
+    os.remove(path)
+
+    # -- 14g. the opted-in IndexFlat through an index file (K1, K2) ---------
+    reset_counts()
+    flat = T.IndexFlat(D, device=dev)
+    flat.add(xb)
+    path = os.path.join(tmp, "flat.tann")
+    T.write_index(flat, path)
+    back = T.read_index(path, mmap=True, device=dev)
+    for idx in (flat, back):
+        idx.compute_dtype, idx.approx_topk = "bfloat16", True
+    D0, I0 = flat.search(xq, K)
+    D1, I1 = back.search(xq, K)
+    if not (np.array_equal(D0, D1) and np.array_equal(I0, I1)):
+        raise AssertionError("the reopened IndexFlat's (D, I) differ")
+    got = launched()
+    if got != {"flat_knn_fused": 2, "reservoir_topk": 2}:
+        raise AssertionError(f"the flat reopen launched {got}")
+    phase("workflow_flat", file_bytes=os.path.getsize(path), bit_equal=True,
+          launches=got)
+    del flat, back
+    os.remove(path)
+    torch.cuda.empty_cache()
+    phase("workflow", seconds=time.perf_counter() - t_phase)
+    return k3_b1
 
 
 if __name__ == "__main__":

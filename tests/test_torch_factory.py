@@ -1,0 +1,99 @@
+"""Port parity: tpu_ann_torch.utils.factory against the JAX package's
+factory, for the index classes the port has: the same class and
+parameters per spec, reverse_index_factory round trips, get_code_size and
+get_hnsw_M agree, and every other token of the reference's grammar raises
+NotImplementedError naming its ROADMAP item (a token neither package knows
+raises ValueError)."""
+
+import pytest
+
+import tpu_ann_torch as T
+from tpu_ann.utils import factory as JF
+from tpu_ann_torch.utils import factory as TF
+
+D = 32
+PORTED = ["Flat", "SQ8", "SQ6", "SQ4", "SQfp16", "SQbf16", "HNSW32",
+          "HNSW16,Flat", "HNSW", "IVF64,Flat", "IVF64", "IVF64_HNSW16,Flat",
+          "IVF64,SQ8", "IVF64_HNSW8,SQ8"]
+
+
+def _params(idx) -> dict:
+    out = {"class": type(idx).__name__, "d": idx.d,
+           "metric": idx.metric_type}
+    for name in ("nlist", "qtype", "block_size"):
+        if hasattr(idx, name):
+            out[name] = getattr(idx, name)
+    if hasattr(idx, "hnsw"):
+        out["M"] = idx.hnsw.M
+    q = getattr(idx, "quantizer", None)
+    if q is not None:
+        out["quantizer"] = _params(q)
+    return out
+
+
+@pytest.mark.parametrize("metric", [T.METRIC_L2, T.METRIC_INNER_PRODUCT])
+@pytest.mark.parametrize("spec", PORTED)
+def test_same_class_and_parameters(spec, metric):
+    t = TF.index_factory(D, spec, metric, device="cpu")
+    j = JF.index_factory(D, spec, metric)
+    assert _params(t) == _params(j)
+    assert t.device.type == "cpu"
+    assert TF.get_code_size(D, spec) == JF.get_code_size(D, spec)
+    if hasattr(t, "hnsw"):
+        assert TF.get_hnsw_M(t) == JF.get_hnsw_M(j)
+
+
+@pytest.mark.parametrize("spec", PORTED)
+def test_reverse_round_trip(spec):
+    t = TF.index_factory(D, spec, device="cpu")
+    rev = TF.reverse_index_factory(t)
+    assert rev == JF.reverse_index_factory(JF.index_factory(D, spec))
+    again = TF.index_factory(D, rev, device="cpu")
+    assert _params(again) == _params(t)
+
+
+def test_built_index_trains_and_searches():
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    x = rs.rand(2000, D).astype(np.float32)
+    idx = TF.index_factory(D, "IVF16_HNSW8,Flat", device="cpu")
+    idx.cp.niter = 3
+    idx.train(x)
+    idx.add(x)
+    idx.nprobe = 16
+    _, I = idx.search(x[:5], 1)
+    assert (I[:, 0] == np.arange(5)).all()
+
+
+@pytest.mark.parametrize("spec,item", [
+    ("PQ8", "item 5"), ("IVF64,PQ8", "item 5"), ("IVF64,PQ8+16", "item 5"),
+    ("IVF64,Flat,RFlat", "item 6"), ("Flat,RFlat", "item 6"),
+    ("HNSW32,SQ8", "item 7"), ("HNSW32,PQ8", "item 7"),
+    ("IDMap,Flat", "item 8"), ("PCA16,IVF64,Flat", "item 8"),
+    ("OPQ8_16,IVF64,PQ8", "item 8"), ("L2norm,Flat", "item 8"),
+    ("IVF64,SQ4", "item 4"), ("IVF64,FlatDedup", "item 4"),
+    ("RQ4x8", "item 9"), ("NSG32", "item 9"), ("LSH", "item 9"),
+    ("IVF64(RCQ2x3),Flat", "item 9"), ("ZnLattice4x10_4", "item 9")])
+def test_unported_specs_raise(spec, item):
+    JF.index_factory(D, spec)         # a spec of the reference's grammar
+    with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
+        TF.index_factory(D, spec, device="cpu")
+
+
+@pytest.mark.parametrize("spec", ["", "Foo", "IVF64,Bar", "HNSW32,Baz"])
+def test_unknown_specs_raise_value_error(spec):
+    with pytest.raises(ValueError):
+        JF.index_factory(D, spec)
+    with pytest.raises(ValueError):
+        TF.index_factory(D, spec, device="cpu")
+
+
+def test_default_device_is_cuda():
+    import torch
+
+    if torch.cuda.is_available():
+        assert TF.index_factory(D, "IVF64,Flat").device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            TF.index_factory(D, "IVF64,Flat")

@@ -98,7 +98,7 @@ def test_carried_index_quantizer_mode_recall(data, jax_index, nprobe):
     assert abs(recall_k_at_k(I2, gt, K) - r1) <= 0.01
 
 
-def test_own_training_recall(data, jax_index):
+def test_own_training_recall(data, jax_index, tmp_path):
     xb, xt, xq, gt = data
     tidx = TIVFHNSW(D, NLIST, M=M, device="cpu")
     tidx.cp.niter = 6
@@ -112,5 +112,12 @@ def test_own_training_recall(data, jax_index):
     assert abs(recall_k_at_k(I1, gt, K) - recall_k_at_k(I0, gt, K)) <= 0.02
     tidx.set_hnsw_parameters(efSearch=48)
     assert tidx.efSearch == 48
-    with pytest.raises(NotImplementedError):
-        tidx.save_to_disk("unused")
+    # the disk lifecycle: a reopened index searches the same lists
+    path = str(tmp_path / "ivfhnsw.tann")
+    tidx.save_to_disk(path)
+    back = TIVFHNSW.load(path, device="cpu")
+    assert back.efSearch == 48
+    D2, I2 = back.search(xq, K, params=TParams(nprobe=8))
+    D1, I1r = tidx.search(xq, K, params=TParams(nprobe=8))
+    np.testing.assert_array_equal(I2, I1r)
+    np.testing.assert_array_equal(D2, D1)

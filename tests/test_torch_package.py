@@ -44,7 +44,10 @@ def test_sources_found():
             "ops/ivf_scan_paged.py", "csrc/ivf_scan_paged.cu",
             "csrc/ivf_scan_core.cuh", "models/ivf_paged.py",
             "ops/topk.py", "ops/sq.py", "csrc/ivf_scan_sq8.cu",
-            "models/pq.py", "models/ivf_pq.py", "utils/convert.py"} <= names
+            "models/pq.py", "models/ivf_pq.py", "utils/convert.py",
+            "utils/index_io.py", "utils/invlists_io.py", "utils/factory.py",
+            "utils/benchmark.py", "models/ivf_hnsw.py", "models/base.py",
+            "models/ivf.py"} <= names
 
 
 @pytest.mark.parametrize("needle", ["import jax", "tpu_ann.", "ml_dtypes"])

@@ -27,7 +27,13 @@ Covered today:
   IndexIVFHNSW, the IVF-Flat index with an HNSW coarse quantizer;
 - the flat-scan variants and probes — flat_knn_fused(merge="packed")
   through the packed reservoir kernel (K1p), the ceiling-probe folds
-  (flat_probe_scan, B1) and the row-copy issue probe (row_copy_probe, B2).
+  (flat_probe_scan, B1) and the row-copy issue probe (row_copy_probe, B2);
+- the fork's workflow around them — index files in the JAX package's
+  format (utils.index_io: write_index, read_index with mmap, clone,
+  serialize; IndexIVFHNSW.save_to_disk / load), on-disk inverted lists and
+  merge_ondisk (utils.invlists_io), index_factory (utils.factory), the
+  per-query latency stats (search_stats_per_query, search_preassigned)
+  and the benchmark grid with its P50 / P99 / P99.9 (utils.benchmark).
 """
 
 from .models import (  # noqa: F401
@@ -127,6 +133,7 @@ from .utils.convert import (  # noqa: F401
     ivf_sq_from_reference,
     sq_from_reference,
 )
+from .utils.benchmark import per_query_latency  # noqa: F401
 from .utils.datasets import (  # noqa: F401
     SIFT1M_CALIBRATED,
     SyntheticDataset,
@@ -136,4 +143,21 @@ from .utils.evaluation import (  # noqa: F401
     knn_intersection_measure,
     recall_at_r,
     recall_k_at_k,
+)
+from .utils.factory import (  # noqa: F401
+    get_code_size,
+    index_factory,
+    reverse_index_factory,
+)
+from .utils.index_io import (  # noqa: F401
+    clone_index,
+    deserialize_index,
+    read_index,
+    serialize_index,
+    write_index,
+)
+from .utils.invlists_io import (  # noqa: F401
+    FileInvlistSource,
+    OnDiskInvertedLists,
+    merge_ondisk,
 )

@@ -157,6 +157,31 @@ class Index:
         indexIVF_stats.accumulate(stats)
         return D, I, stats
 
+    def search_stats_per_query(self, x, k: int, *,
+                               params: Optional[Any] = None):
+        """search + per-query QueryLatencyStats (the fork's per-query stats
+        array, faiss/IndexIVF.h:28-32). This generic version times batch-1
+        searches, each fenced by device syncs, and fills total_us only;
+        IndexIVF overrides it with the quantization / list-scan split."""
+        x = self._check_input(x)
+        nq = len(x)
+        tot = np.zeros(nq, np.float64)
+        outs = []
+        self.search(x[:1], k, params=params)    # warm the batch-1 shapes
+        for q in range(nq):
+            with Timer(self.device) as t:
+                outs.append(self.search(x[q:q + 1], k, params=params))
+            tot[q] = t.us
+        Dv = np.concatenate([o[0] for o in outs])
+        Iv = np.concatenate([o[1] for o in outs])
+        pq = QueryLatencyStats(
+            total_us=tot, quantization_us=np.zeros(nq),
+            list_scan_us=tot.copy(), ndis=np.zeros(nq, np.int64))
+        stats = SearchStats(nq=nq, total_us=float(tot.sum()),
+                            list_scan_us=float(tot.sum()), per_query=pq)
+        indexIVF_stats.accumulate(stats)
+        return Dv, Iv, stats
+
     def assign(self, x, k: int = 1) -> np.ndarray:
         """Labels only (faiss Index::assign)."""
         _, labels = self.search(x, k)

@@ -312,8 +312,92 @@ class IndexIVF(Index):
     def _list_sizes_device(self) -> torch.Tensor:
         if self._list_sizes_dev is None:
             self._list_sizes_dev = torch.as_tensor(
-                self.list_sizes, device=self.device)
+                self._list_sizes_host(), device=self.device)
         return self._list_sizes_dev
+
+    _lsizes = None
+    _lsizes_for = None
+
+    def _list_sizes_host(self) -> np.ndarray:
+        """(nlist,) int64 per-list entry counts (the reference's
+        InvertedLists::list_size), cached against the invlists object."""
+        if self._lsizes is None or self._lsizes_for is not self.invlists:
+            self._lsizes = self.list_sizes
+            self._lsizes_for = self.invlists
+        return self._lsizes
+
+    def search_stats_per_query(self, x, k: int, *,
+                               params: Optional[SearchParametersIVF] = None):
+        """search + per-query QueryLatencyStats, the fork's central
+        addition (faiss/IndexIVF.h:28-32, filled at IndexIVF.cpp:1064-1105;
+        reference tpu_ann/models/ivf.py:696-754).
+
+        Each query runs at batch 1: the coarse search, a sync (the probes'
+        copy to the host), then the scan of its probes (one kernel launch
+        on a CUDA device), each phase fenced by device syncs, so the arrays
+        are per-query wall-clock times. ``ndis`` is the exact entry count
+        of the probed lists. The batch-1 shapes are warmed up outside the
+        timed loop. Use search() for throughput; this is the tail-latency
+        surface."""
+        self._ready()
+        x = self._check_input(x)
+        nprobe = self._effective_params(params)
+        nq = len(x)
+        xq_dev = self._to_device(x)
+        lsizes = self._list_sizes_host()
+        q_us = np.zeros(nq, np.float64)
+        s_us = np.zeros(nq, np.float64)
+        ndis = np.zeros(nq, np.int64)
+        Ds, Is = [], []
+        _, probes = self._coarse_search_device(xq_dev[:1], nprobe)
+        self._scan_probes(xq_dev[:1], probes, k)[0].cpu()
+        for q in range(nq):
+            xq1 = xq_dev[q:q + 1]
+            with Timer(self.device) as t_q:
+                _, probes = self._coarse_search_device(xq1, nprobe)
+                probes_h = probes.cpu().numpy()
+            with Timer(self.device) as t_s:
+                Dq, Iq = self._scan_probes(xq1, probes, k)
+                Ds.append(Dq.cpu().numpy())
+                Is.append(Iq.cpu().numpy())
+            q_us[q], s_us[q] = t_q.us, t_s.us
+            valid = probes_h[(probes_h >= 0) & (probes_h < self.nlist)]
+            ndis[q] = int(lsizes[valid].sum())
+        Dv = np.concatenate(Ds)
+        Iv = self._map_ids(np.concatenate(Is))
+        pq = base.QueryLatencyStats(total_us=q_us + s_us,
+                                    quantization_us=q_us,
+                                    list_scan_us=s_us, ndis=ndis)
+        stats = SearchStats(
+            nq=nq, total_us=float((q_us + s_us).sum()),
+            quantization_us=float(q_us.sum()),
+            list_scan_us=float(s_us.sum()), ndis=int(ndis.sum()),
+            nlist_visited=nq * nprobe, per_query=pq)
+        base.indexIVF_stats.accumulate(stats)
+        return Dv, Iv, stats
+
+    def search_preassigned(self, x, k: int, probes):
+        """Scan the given coarse assignment, (nq, nprobe) list ids with -1
+        skipped (faiss/IndexIVF.cpp:399, contrib/ivf_tools)."""
+        Dv, Iv, _ = self.search_preassigned_stats(x, k, probes)
+        return Dv, Iv
+
+    def search_preassigned_stats(self, x, k: int, probes):
+        """search_preassigned + SearchStats (the fork's
+        IndexIVF::search_preassigned_stats, faiss/IndexIVF.h:306-317): the
+        quantization is the caller's, so only the scan is timed."""
+        self._ready()
+        x = self._check_input(x)
+        probes_dev = torch.as_tensor(np.asarray(probes, np.int64),
+                                     device=self.device)
+        with Timer(self.device) as t_s:
+            Dv, Iv = self._scan_probes(self._to_device(x), probes_dev, k)
+            Dv = Dv.cpu().numpy()
+            Iv = self._map_ids(Iv.cpu().numpy())
+        stats = SearchStats(nq=len(x), total_us=t_s.us, list_scan_us=t_s.us,
+                            nlist_visited=len(x) * probes_dev.shape[1])
+        base.indexIVF_stats.accumulate(stats)
+        return Dv, Iv, stats
 
     @property
     def list_sizes(self) -> np.ndarray:

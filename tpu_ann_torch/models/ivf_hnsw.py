@@ -7,8 +7,10 @@ final centroids once (the quantizer's add). Adds go in chunks of
 ``add_chunk_size`` rows with one repack at the end. ``coarse_mode``
 "auto" quantizes with the exact product over the centroid table (the
 graph's storage); "quantizer" searches the graph with ef = max(efSearch,
-coarse_ef_factor * nprobe). Saving and loading, with the reference's disk
-knobs (index_file_path, auto_save), wait for the io slice.
+coarse_ef_factor * nprobe). The disk lifecycle is the reference's
+(archive/IndexIVFHNSW.h:32-95): ``index_file_path``, ``auto_save`` (save at
+the end of each add), ``save_to_disk`` / ``load_from_disk`` and the static
+``load``, in the file format of `utils.index_io`.
 """
 
 from __future__ import annotations
@@ -30,7 +32,10 @@ class IndexIVFHNSW(IndexIVF):
         quantizer = IndexHNSWFlat(d, M, metric, device=device)
         super().__init__(quantizer, d, nlist, metric, block_size,
                          device=device)
+        # disk lifecycle (archive/IndexIVFHNSW.h:32-95)
+        self.index_file_path: Optional[str] = None
         self.add_chunk_size = 100000
+        self.auto_save = False
 
     def set_hnsw_parameters(self, M: int = 0, efConstruction: int = 0,
                             efSearch: int = 0) -> None:
@@ -59,15 +64,34 @@ class IndexIVFHNSW(IndexIVF):
             ids = np.arange(n0 + i0, n0 + i0 + len(chunk), dtype=np.int64)
             self.add_with_ids(chunk, ids, repack=False)
         self._maybe_repack()
+        if self.auto_save and self.index_file_path:
+            self.save_to_disk(self.index_file_path)
 
+    # --- persistence -------------------------------------------------------
     def save_to_disk(self, path: Optional[str] = None) -> None:
-        raise NotImplementedError("IndexIVFHNSW.save_to_disk waits for the "
-                                  "io slice")
+        from ..utils import index_io
+
+        path = path or self.index_file_path
+        if not path:
+            raise ValueError("no index_file_path set")
+        index_io.write_index(self, path)
 
     def load_from_disk(self, path: Optional[str] = None) -> None:
-        raise NotImplementedError("IndexIVFHNSW.load_from_disk waits for "
-                                  "the io slice")
+        """Replace this index's state with the file's, on this index's
+        device (the reference's: the file's disk knobs come along too)."""
+        from ..utils import index_io
+
+        path = path or self.index_file_path
+        if not path:
+            raise ValueError("no index_file_path set")
+        loaded = index_io.read_index(path, device=self.device)
+        self.__dict__.update(loaded.__dict__)
 
     @staticmethod
-    def load(path: str) -> "IndexIVFHNSW":
-        raise NotImplementedError("IndexIVFHNSW.load waits for the io slice")
+    def load(path: str, *, device="cuda") -> "IndexIVFHNSW":
+        from ..utils import index_io
+
+        idx = index_io.read_index(path, device=device)
+        if not isinstance(idx, IndexIVFHNSW):
+            raise TypeError(f"{path} is not an IndexIVFHNSW")
+        return idx

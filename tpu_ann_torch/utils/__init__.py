@@ -1,3 +1,12 @@
-"""Datasets, evaluation and state carried over from the JAX package."""
+"""Datasets, evaluation, index files (index_io, invlists_io), the factory,
+the benchmark grid and state carried over from the JAX package."""
 
-from . import convert, datasets, evaluation  # noqa: F401
+from . import (  # noqa: F401
+    benchmark,
+    convert,
+    datasets,
+    evaluation,
+    factory,
+    index_io,
+    invlists_io,
+)

@@ -2,13 +2,15 @@
 
 These functions take plain numpy arrays exported from a `tpu_ann` index, so
 this module needs neither jax nor tpu_ann, and both packages then search
-the very same index whatever their k-means did.
+the very same index whatever their k-means did. Each one lays the arrays
+out as an index file's meta and arrays (`utils.index_io`) and builds the
+index with its loader, so an index carried over and an index read from a
+file are built by the same code.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..models.flat import IndexFlat
 from ..models.hnsw import IndexHNSWFlat
@@ -18,8 +20,7 @@ from ..models.ivf_pq import IndexIVFScalarQuantizer
 from ..models.pq import IndexScalarQuantizer
 from ..ops import sq as SQ
 from ..ops.distances import METRIC_L2
-from ..ops.hnsw import HNSWGraph
-from ..ops.ivf_scan import PackedCodeInvLists, PackedInvLists
+from . import index_io as iio
 
 
 def flat_from_reference(state: dict, device="cuda") -> IndexFlat:
@@ -40,12 +41,14 @@ def ivf_flat_from_reference(state: dict, device="cuda") -> IndexIVFFlat:
 
     The host vector store does not come across, so the index cannot be
     added to."""
-    index = _ivf_shell(IndexIVFFlat, state, np.asarray(state["data"]),
-                       device)
-    index.invlists = PackedInvLists.from_arrays(
-        state["data"], state["ids"], state["norms"],
-        state["list_block_start"], state["list_nblocks"], device=device)
-    return index
+    d, nlist = int(state["d"]), int(state["nlist"])
+    vectors = np.asarray(state["vectors"], np.float32)
+    if vectors.shape != (nlist, d):
+        raise ValueError(f"vectors must be ({nlist}, {d}), "
+                         f"got {vectors.shape}")
+    quantizer = ({"tag": "IxFl", "d": d, "metric": int(state["metric"]),
+                  "ntotal": nlist}, {"xb": vectors})
+    return _load_ivf("IwFl", state, quantizer, _raw_lists(state), device)
 
 
 def hnsw_from_reference(state: dict, device="cuda") -> IndexHNSWFlat:
@@ -58,24 +61,25 @@ def hnsw_from_reference(state: dict, device="cuda") -> IndexHNSWFlat:
                              the HNSWGraph's arrays and scalars
       coarse_assign          optional: the build's coarse assignment (the
                              spatial order of the fused tiles)"""
-    d, M = int(state["d"]), int(state["M"])
-    index = IndexHNSWFlat(d, M, int(state["metric"]), device=device)
-    for key in ("efSearch", "efConstruction"):
-        if key in state:
-            setattr(index.hnsw, key, int(state[key]))
-    index.storage.add(np.asarray(state["xb"], np.float32))
-    index.ntotal = index._built_n = index.storage.ntotal
-
-    def up(name):
-        return torch.tensor(np.asarray(state[name], np.int32), device=device)
-
-    index.graph = HNSWGraph(
-        neighbors0=up("neighbors0"), upper_ids=up("upper_ids"),
-        upper_neighbors=up("upper_neighbors"), levels=up("levels"),
-        entry=int(state["entry"]), max_level=int(state["max_level"]))
+    meta, arrays = _hnsw_file(state)
+    index = iio.load_index(meta, arrays, device=device)
     ca = state.get("coarse_assign")
     index._coarse_assign = None if ca is None else np.asarray(ca, np.int64)
     return index
+
+
+def _hnsw_file(state: dict):
+    meta = {"tag": "IHNf", "d": int(state["d"]),
+            "metric": int(state["metric"]), "M": int(state["M"]),
+            "ntotal": len(state["xb"]), "has_graph": True,
+            "entry": int(state["entry"]),
+            "max_level": int(state["max_level"])}
+    defaults = {"efSearch": 16, "efConstruction": 40}
+    for key, v in defaults.items():
+        meta[key] = int(state.get(key, v))
+    arrays = {name: state[name] for name in (
+        "xb", "neighbors0", "upper_ids", "upper_neighbors", "levels")}
+    return meta, arrays
 
 
 def ivf_hnsw_from_reference(state: dict, device="cuda") -> IndexIVFHNSW:
@@ -83,75 +87,61 @@ def ivf_hnsw_from_reference(state: dict, device="cuda") -> IndexIVFHNSW:
     `ivf_flat_from_reference` without ``vectors``, plus ``quantizer``, the
     `hnsw_from_reference` state of its HNSW quantizer (whose storage holds
     the centroids)."""
-    quant = hnsw_from_reference(state["quantizer"], device=device)
-    index = _ivf_shell(IndexIVFHNSW, state, np.asarray(state["data"]),
-                       device, quantizer=quant)
-    index.invlists = PackedInvLists.from_arrays(
-        state["data"], state["ids"], state["norms"],
-        state["list_block_start"], state["list_nblocks"], device=device)
+    index = _load_ivf("IwHn", state, _hnsw_file(state["quantizer"]),
+                      _raw_lists(state), device)
+    ca = state["quantizer"].get("coarse_assign")
+    if ca is not None:
+        index.quantizer._coarse_assign = np.asarray(ca, np.int64)
     return index
 
 
-def _ivf_shell(cls, state: dict, stored: np.ndarray, device, *,
-               quantizer=None, **kw):
-    """A search-only IVF index of class ``cls`` with the reference's
-    quantizer centroids (an IndexFlat over ``state["vectors"]``, or the
-    given quantizer) and id map; the caller sets its invlists."""
-    d, nlist = int(state["d"]), int(state["nlist"])
-    metric = int(state["metric"])
-    if quantizer is None:
-        vectors = np.asarray(state["vectors"], np.float32)
-        if vectors.shape != (nlist, d):
-            raise ValueError(f"vectors must be ({nlist}, {d}), "
-                             f"got {vectors.shape}")
-        quantizer = IndexFlat(d, metric, device=device)
-        quantizer.add(vectors)
-    if cls is IndexIVFHNSW:
-        index = cls(d, nlist, metric, M=quantizer.hnsw.M,
-                    block_size=stored.shape[1], device=device)
-        index.quantizer = quantizer
-    else:
-        index = cls(quantizer, d, nlist, metric=metric,
-                    block_size=stored.shape[1], device=device, **kw)
-    index.is_trained = True
-    ids_flat = np.asarray(state["ids_flat"], np.int64)
-    index.ntotal = int(state["ntotal"])
-    index._ids_flat = ids_flat
-    index._ids_trivial = bool(
-        np.array_equal(ids_flat, np.arange(len(ids_flat), dtype=np.int64)))
-    return index
+def _raw_lists(state: dict) -> dict:
+    return {"il_data": state["data"], "il_ids": state["ids"],
+            "il_norms": state["norms"]}
 
 
-def _codes_tensor(codes: np.ndarray, qtype: int) -> torch.Tensor:
-    """Reference codes as a tensor of the codec's dtype (bf16 codes come as
-    2-byte words: numpy has no bfloat16 of its own)."""
+def _load_ivf(tag: str, state: dict, quantizer, lists: dict, device,
+              **extra_meta):
+    """A search-only IVF index from its packed lists (``lists``: il_data
+    and il_ids, and il_norms for raw lists), the reference's list ranges and
+    id map, and the (meta, arrays) of its quantizer."""
+    meta = {"tag": tag, "d": int(state["d"]), "metric": int(state["metric"]),
+            "ntotal": int(state["ntotal"]), "nlist": int(state["nlist"]),
+            "nprobe": 1, "block_size": int(np.shape(lists["il_data"])[1]),
+            "has_invlists": True, "il_from_host": False,
+            "il_coded": "il_norms" not in lists, **extra_meta}
+    arrays = {**lists, "il_start": state["list_block_start"],
+              "il_nblocks": state["list_nblocks"],
+              "ids_host": np.asarray(state["ids_flat"], np.int64)}
+    iio._flatten("quantizer", *quantizer, meta, arrays)
+    return iio.load_index(meta, arrays, device=device)
+
+
+def _codes(codes: np.ndarray, qtype: int) -> np.ndarray:
+    """Reference codes as the container hands them over: bf16 codes come
+    as 2-byte words (numpy has no bfloat16 of its own)."""
     codes = np.ascontiguousarray(codes)
     if qtype == SQ.QT_BF16:
-        return torch.tensor(codes.view(np.int16)).view(torch.bfloat16)
-    return torch.tensor(codes)
+        return codes.view(np.uint16).view(iio.Bf16Array)
+    return codes
 
 
-def _codec(state: dict) -> SQ.SQCodec:
-    def opt(name):
-        v = state.get(name)
-        return None if v is None else np.asarray(v, np.float32)
-
-    return SQ.SQCodec(qtype=int(state["qtype"]), d=int(state["d"]),
-                      vmin=opt("vmin"), vdiff=opt("vdiff"))
+def _codec_arrays(state: dict, prefix: str = "") -> dict:
+    return {prefix + name: np.asarray(state[name], np.float32)
+            for name in ("vmin", "vdiff") if state.get(name) is not None}
 
 
 def sq_from_reference(state: dict, device="cuda") -> IndexScalarQuantizer:
     """A port `IndexScalarQuantizer` from a `tpu_ann` one's arrays, as
     numpy: qtype, d, vmin and vdiff (None for untrained qtypes), codes
     (ntotal, code width) in the codec's dtype, and optionally metric."""
-    index = IndexScalarQuantizer(int(state["d"]), int(state["qtype"]),
-                                 int(state.get("metric", METRIC_L2)),
-                                 device=device)
-    index.sq = _codec(state)
-    index.is_trained = True
-    index._codes = _codes_tensor(state["codes"], index.qtype).to(device)
-    index.ntotal = len(index._codes)
-    return index
+    qtype = int(state["qtype"])
+    codes = _codes(state["codes"], qtype)
+    meta = {"tag": "IxSQ", "d": int(state["d"]), "qtype": qtype,
+            "metric": int(state.get("metric", METRIC_L2)),
+            "ntotal": len(codes)}
+    return iio.load_index(meta, {**_codec_arrays(state), "codes": codes},
+                          device=device)
 
 
 def ivf_sq_from_reference(state: dict,
@@ -160,16 +150,11 @@ def ivf_sq_from_reference(state: dict,
     arrays: the keys of `ivf_flat_from_reference` with ``codes``
     ((nblocks+1, B, code width), the packed code lists) in place of data
     and norms, plus qtype, vmin and vdiff."""
-    codes = np.asarray(state["codes"])
     qtype = int(state["qtype"])
-    index = _ivf_shell(IndexIVFScalarQuantizer, state, codes, device,
-                       qtype=qtype)
-    index.sq = _codec(state)
-    index.invlists = PackedCodeInvLists(
-        codes=_codes_tensor(codes, qtype).to(device),
-        ids=torch.tensor(np.asarray(state["ids"], np.int32), device=device),
-        list_block_start=torch.tensor(
-            np.asarray(state["list_block_start"], np.int32), device=device),
-        list_nblocks=torch.tensor(
-            np.asarray(state["list_nblocks"], np.int32), device=device))
-    return index
+    d, nlist = int(state["d"]), int(state["nlist"])
+    quantizer = ({"tag": "IxFl", "d": d, "metric": int(state["metric"]),
+                  "ntotal": nlist},
+                 {"xb": np.asarray(state["vectors"], np.float32)})
+    lists = {"il_data": _codes(state["codes"], qtype),
+             "il_ids": state["ids"], **_codec_arrays(state, "sq_")}
+    return _load_ivf("IwSQ", state, quantizer, lists, device, qtype=qtype)

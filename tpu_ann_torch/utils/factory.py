@@ -1,0 +1,165 @@
+"""index_factory — spec-string index construction (faiss
+`index_factory.cpp:193-901`), the port's copy of `tpu_ann/utils/factory.py`
+for the index classes the port has:
+
+  Flat                          IndexFlat
+  SQ8, SQ6, SQ4, SQfp16, SQbf16 IndexScalarQuantizer
+  HNSW<M>, HNSW<M>,Flat         IndexHNSWFlat (M defaults to 32)
+  IVF<n>,Flat                   IndexIVFFlat over an IndexFlat quantizer
+  IVF<n>_HNSW<M>,Flat           IndexIVFHNSW
+  IVF<n>,SQ8, IVF<n>_HNSW<M>,SQ8
+                                IndexIVFScalarQuantizer (QT_8BIT) over an
+                                IndexFlat / IndexHNSWFlat quantizer
+
+with the same spelling as the reference. Every other token of the
+reference's grammar raises NotImplementedError naming the ROADMAP queue 1
+item that ports its class; a token the reference does not know either
+raises ValueError. `reverse_index_factory`, `get_code_size` and
+`get_hnsw_M` cover the same classes.
+"""
+
+from __future__ import annotations
+
+import re
+
+from ..models.base import Index
+from ..models.flat import IndexFlat
+from ..models.hnsw import IndexHNSW, IndexHNSWFlat
+from ..models.ivf import IndexIVF, IndexIVFFlat
+from ..models.ivf_hnsw import IndexIVFHNSW
+from ..models.ivf_pq import IndexIVFScalarQuantizer
+from ..models.pq import IndexScalarQuantizer
+from ..ops import distances as D
+from ..ops import sq as SQ
+
+_SQ_TYPES = {"SQ8": SQ.QT_8BIT, "SQ6": SQ.QT_6BIT, "SQ4": SQ.QT_4BIT,
+             "SQfp16": SQ.QT_FP16, "SQbf16": SQ.QT_BF16}
+_SQ_NAMES = {v: k for k, v in _SQ_TYPES.items()}
+_SQ_BITS = {"SQ8": 8, "SQ6": 6, "SQ4": 4, "SQfp16": 16, "SQbf16": 16}
+
+# the reference's other tokens (regex), by the ROADMAP queue 1 item that
+# ports their classes
+_UNPORTED = (
+    (r"PQ\d+\+\d+|PQ\d+(x\d+)?(fs(_\d+)?|np)?", "item 5 (PQ)"),
+    (r"RFlat|Refine\(Flat\)|RSQ8t|Refine\(SQ8Tier\)", "item 6 (refine)"),
+    (r"IDMap2?|PCA[RW]?\d+|OPQ\d+(_\d+)?|RR\d+|L2norm|ITQ\d*",
+     "item 8 (index API breadth: idmap, transforms)"),
+    (r"FlatDedup", "item 4 (the IVF API: IndexIVFFlatDedup)"),
+    (r"(P?RQ|P?LSQ)\d+x\d+(x\d+)?(fs(_\d+)?)?|NSG\d*|LSH\d*r?t?"
+     r"|ZnLattice\d+x\d+_\d+|IVF\d+(_HNSW\d+)?\([^)]+\)",
+     "item 9 (the remaining codecs and indexes)"),
+)
+
+
+def _refusal(tok: str) -> Exception:
+    """NotImplementedError for a token of the reference's grammar that the
+    port lacks, ValueError for one the reference does not know either."""
+    for pattern, item in _UNPORTED:
+        if re.fullmatch(pattern, tok):
+            return NotImplementedError(
+                f"index_factory: {tok!r} is not ported yet (ROADMAP queue 1, "
+                f"{item})")
+    return ValueError(f"index_factory: unknown token {tok!r}")
+
+
+def _split(spec: str):
+    """(container token, its code token): a prefix or a suffix token that
+    the port lacks is refused here."""
+    toks = [t for t in spec.split(",") if t]
+    if not toks:
+        raise ValueError("empty factory spec")
+    if not re.fullmatch(r"IVF\d+(_HNSW\d+)?|HNSW\d*|Flat|SQ\w+", toks[0]):
+        raise _refusal(toks[0])
+    if len(toks) > 2:
+        raise _refusal(toks[2])
+    return toks[0], toks[1] if len(toks) > 1 else None
+
+
+def index_factory(d: int, spec: str, metric: int = D.METRIC_L2, *,
+                  device="cuda") -> Index:
+    """Build an index on ``device`` from a faiss-style factory string."""
+    head, code = _split(spec)
+    if m := re.fullmatch(r"IVF(\d+)(?:_HNSW(\d+))?", head):
+        code = code or "Flat"
+        nlist, hnsw_m = int(m.group(1)), int(m.group(2) or 0)
+        if code == "Flat":
+            if hnsw_m:
+                return IndexIVFHNSW(d, nlist, metric, M=hnsw_m,
+                                    device=device)
+            return IndexIVFFlat(IndexFlat(d, metric, device=device), d,
+                                nlist, metric, device=device)
+        if code == "SQ8":
+            quant = IndexHNSWFlat(d, hnsw_m, metric, device=device) \
+                if hnsw_m else IndexFlat(d, metric, device=device)
+            return IndexIVFScalarQuantizer(quant, d, nlist, SQ.QT_8BIT,
+                                           metric, device=device)
+        if code in _SQ_TYPES:
+            raise NotImplementedError(
+                f"index_factory: IVF,{code} searches through the "
+                "query-major scan_invlists_sq, which is not ported yet "
+                "(ROADMAP queue 1, item 4)")
+        raise _refusal(code)
+    if m := re.fullmatch(r"HNSW(\d+)?", head):
+        if code in (None, "Flat"):
+            return IndexHNSWFlat(d, int(m.group(1) or 32), metric,
+                                 device=device)
+        if re.fullmatch(r"PQ\d+(x\d+)?|SQfp16|SQbf16|SQ8|\d+\+PQ\d+", code):
+            raise NotImplementedError(
+                f"index_factory: HNSW storage {code!r} is not ported yet "
+                "(ROADMAP queue 1, item 7 (the rest of HNSW))")
+        raise _refusal(code)
+    if code is not None:
+        raise _refusal(code)
+    if head == "Flat":
+        return IndexFlat(d, metric, device=device)
+    if head in _SQ_TYPES:
+        return IndexScalarQuantizer(d, _SQ_TYPES[head], metric,
+                                    device=device)
+    raise _refusal(head)
+
+
+def get_code_size(d: int, spec: str) -> int:
+    """Per-vector storage bytes implied by a factory string
+    (contrib/factory_tools.py:get_code_size role)."""
+    head, code = _split(spec)
+    if re.fullmatch(r"IVF(\d+)(?:_HNSW(\d+))?", head):
+        return _code_bytes(d, code or "Flat")
+    if m := re.fullmatch(r"HNSW(\d+)?", head):
+        links = 4 * 2 * int(m.group(1) or 32)   # ~2M int32 level-0 edges
+        return links + _code_bytes(d, code or "Flat")
+    if code is not None:
+        raise _refusal(code)
+    return _code_bytes(d, head)
+
+
+def _code_bytes(d: int, code: str) -> int:
+    if code == "Flat":
+        return 4 * d
+    if code in _SQ_TYPES:
+        return (d * _SQ_BITS[code] + 7) // 8
+    raise _refusal(code)
+
+
+def get_hnsw_M(index) -> int:
+    """Max level-0 degree parameter of an HNSW index
+    (factory_tools.get_hnsw_M)."""
+    return int(index.hnsw.M)
+
+
+def reverse_index_factory(index) -> str:
+    """A factory string that re-parses to the same index class and layout
+    (contrib/factory_tools.py:reverse_index_factory role)."""
+    if isinstance(index, IndexIVF):
+        prefix = f"IVF{index.nlist}"
+        if isinstance(index.quantizer, IndexHNSW):
+            prefix += f"_HNSW{get_hnsw_M(index.quantizer)}"
+        if isinstance(index, IndexIVFScalarQuantizer):
+            return f"{prefix},{_SQ_NAMES[index.qtype]}"
+        return f"{prefix},Flat"
+    if isinstance(index, IndexHNSW):
+        return f"HNSW{get_hnsw_M(index)}"
+    if isinstance(index, IndexScalarQuantizer):
+        return _SQ_NAMES[index.qtype]
+    if isinstance(index, IndexFlat):
+        return "Flat"
+    raise ValueError(f"cannot reverse {type(index).__name__}")

@@ -138,6 +138,38 @@ Phases, one line each; any failure raises and exits non-zero:
      with mmap, equal to one index over all rows bit for bit; (f)
      IVF4096,SQ8 through a file, bit for bit, and per query (K3-SQ8); (g)
      the fused IndexFlat through a file, bit for bit (K1, K2).
+  15. the IVF API, on an IVF4096,Flat over phase 3's quantizer and data
+     (quantizer_trains_alone=1: phase 3's index list for list), nprobe 32
+     unless named: (a) IDSelectorAll through the query-major scan, D
+     bit-equal to K3's search (ids up to ties); IDSelectorRange(0, NB/2),
+     an IDSelectorBatch of NB/10 random ids and a 1% IDSelectorBitmap:
+     every id passes, D bit-equal to K3 over an index of only the selected
+     rows; QPS of each beside K3's; (b) max_codes 256 / 1024: ndis equal
+     to the probed lists' rows within the cap, recall@10 and QPS beside
+     the uncapped (a cap that truncates no list takes K3, the reference's
+     rule); (c) range_search over 1000 queries at the median exact
+     10th-NN distance: IVF equal (as sets, distances exact) to a brute-
+     force f32 filter of each query's probed lists, IndexFlat to one of the
+     whole base, IndexScalarQuantizer(QT_8BIT_DIRECT) to IndexFlat's;
+     seconds and hits; (d) merge_from of two halves bit-equal to the whole
+     index (K3); IVF-SQ8 (QT_8BIT) after remove_ids of the NB/10 ids: no
+     removed id through K3-SQ8, D bit-equal to an index of the rest; (e)
+     IVF-SQ QT_FP16 / QT_BF16 / QT_4BIT / QT_6BIT through the query-major
+     scan at nprobe 16 / 32 / 64: fp16 / bf16 (D, I) bit-equal (ids up to
+     ties) to IVF-Flat's query-major route; 4 / 6 bit equal (rtol 1e-5,
+     ids up to ties) to an exact f32 top-10 over the decoded rows of each
+     query's probed lists (1000 queries), recall@10 >= the codec's own x
+     IVF-Flat's - 0.01 (the two losses compound); QPS and device bytes;
+     (d) the index
+     itself: remove_ids of the NB/10 ids (IDSelectorBatch, the DirectMap)
+     and of [NB - NB/10, NB) (IDSelectorRange, a host scan), both below the
+     hole threshold, then [0, NB/10) past it (compacted at the next
+     search): after each, K3 returns no removed id, D bit-equal to K3 over
+     an index of the remaining rows; update_vectors of NB/100 ids to rows
+     of other lists with room, in place: each found at distance 0 through
+     K3; the times of remove_ids and update_vectors beside a full _repack.
+     The selector, capped max_codes and range routes launch no kernel; the
+     K3 / K3-SQ8 searches launch exactly theirs.
 The last two lines are the kernels' JSON record (each with its time,
 its plain version's, the card's bound for the same work and, where one
 torch call computes the same function, that call's time; K3, K3-SQ8 and
@@ -535,6 +567,7 @@ def main() -> None:
         b2 = row_copy_phase(xb, dev)
         k3_b1 = workflow_phase(hidx, quant3, paged, xb, xt, xq, gt, dev, tmp)
         del hidx, paged
+    ivf_api_phase(quant3, xb, xt, xq, gt, results, dev)
     print(json.dumps({"kernels": [k3, *sq_records, *flat_records,
                                   *variant_records, k4, b2, k3_b1]}),
           flush=True)
@@ -629,22 +662,28 @@ def codec_recall(codec, xb, xq, gt, dev) -> float:
 
 
 def device_stream_bytes(idx) -> dict:
-    """The IVF-SQ8 index's device tensors: uint8 codes shared by its
-    invlists and its SQ8 view, and no f32 / bf16 tensor as large as the
-    stream."""
-    il, view = idx.invlists, idx._sq8_view()
-    if il.codes.dtype != torch.uint8 or \
-            view.codes.data_ptr() != il.codes.data_ptr():
-        raise AssertionError("the SQ8 view does not scan the packed codes")
+    """An IVF-SQ index's device tensors: its code lists (for an 8-bit
+    qtype, uint8 codes shared with its SQ8 view), and no other f32 / bf16
+    tensor as large as the stream."""
+    il, objs = idx.invlists, [idx.invlists]
+    if idx.qtype in SQ.QT_8BIT_FAMILY:
+        view = idx._sq8_view()
+        if il.codes.dtype != torch.uint8 or \
+                view.codes.data_ptr() != il.codes.data_ptr():
+            raise AssertionError("the SQ8 view does not scan the packed "
+                                 "codes")
+        objs.append(view)
     held = {}
-    for obj in (il, view):
+    for obj in objs:
         for f in dataclasses.fields(obj):
             t = getattr(obj, f.name)
-            if t.is_floating_point() and t.numel() >= il.codes.numel():
+            if t is not il.codes and t.is_floating_point() and \
+                    t.numel() >= il.codes.numel():
                 raise AssertionError(f"a {t.dtype} copy of the stream "
                                      f"({f.name}) lives on the device")
             held[t.data_ptr()] = t.numel() * t.element_size()
-    return {"code_bytes": il.codes.numel(), "device_bytes": sum(held.values())}
+    return {"code_bytes": il.codes.numel() * il.codes.element_size(),
+            "device_bytes": sum(held.values())}
 
 
 def sq_phases(index, xt, xb, xq, gt, flat_rec, flat_out, xq_s, probes,
@@ -2200,6 +2239,429 @@ def workflow_phase(hidx, quant3, paged, xb, xt, xq, gt, dev, tmp) -> dict:
     torch.cuda.empty_cache()
     phase("workflow", seconds=time.perf_counter() - t_phase)
     return k3_b1
+
+
+# -- phase 15: the IVF API ----------------------------------------------------
+
+# queries of the range searches
+RANGE_NQ = 1000
+
+
+def timed(fn, reps: int = 1, warm=None):
+    """(fn()'s last result, median wall seconds of ``reps`` calls, each
+    ending in a device sync) after one warm-up call of ``warm`` (default
+    fn)."""
+    (warm or fn)()
+    torch.cuda.synchronize()
+    ts, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return out, float(np.median(ts))
+
+
+def ivf_over(quant, rows, ids, xt, qtype=None, dev="cuda"):
+    """An IVF-Flat (``qtype`` None) or IVF-SQ index over phase 3's quantizer
+    (quantizer_trains_alone=1: no k-means) holding ``rows`` under ``ids``;
+    over all rows it equals phase 3's index list for list."""
+    if qtype is None:
+        idx = T.IndexIVFFlat(quant, D, NLIST, device=dev)
+    else:
+        idx = T.IndexIVFScalarQuantizer(quant, D, NLIST, qtype, device=dev)
+    idx.quantizer_trains_alone = 1
+    idx.train(xt)
+    idx.add_with_ids(rows, np.asarray(ids, np.int64))
+    return idx
+
+
+def expect_launches(name, before, want) -> dict:
+    got = launched(before)
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+    return got
+
+
+def hits_by_id(lims, Dv, Iv):
+    """A range result as (query, id, distance) rows sorted by query, then
+    id: the same hits in any order compare equal."""
+    q = np.repeat(np.arange(len(lims) - 1), np.diff(lims))
+    order = np.lexsort((Iv, q))
+    return q[order], np.asarray(Iv)[order], np.asarray(Dv)[order]
+
+
+def in_probed_lists(probes, assign_dev, dev):
+    """(nq, rows) bool: row r lies in one of the query's probed lists."""
+    member = torch.zeros((len(probes), NLIST), dtype=torch.bool, device=dev)
+    member.scatter_(1, torch.from_numpy(probes).to(dev), True)
+    return member[:, assign_dev]
+
+
+def brute_range(xb_dev, xr, radius, dev, probes=None, assign_dev=None):
+    """The hits of an exact f32 filter of every row (or, with ``probes``,
+    of the rows of each query's probed lists) within ``radius`` (L2 <)."""
+    qs, ids, ds = [], [], []
+    for q0 in range(0, len(xr), 100):
+        qd = torch.from_numpy(xr[q0:q0 + 100]).to(dev)
+        dis = TD.pairwise_distances(qd, xb_dev)
+        hit = dis < radius
+        if probes is not None:
+            hit &= in_probed_lists(probes[q0:q0 + 100], assign_dev, dev)
+        qi, ri = torch.nonzero(hit, as_tuple=True)
+        qs.append((qi + q0).cpu().numpy())
+        ids.append(ri.cpu().numpy())
+        ds.append(dis[qi, ri].cpu().numpy())
+        del dis, hit
+    q, i, d = np.concatenate(qs), np.concatenate(ids), np.concatenate(ds)
+    order = np.lexsort((i, q))
+    return q[order], i[order], d[order]
+
+
+def brute_knn_probed(xdec, xr, probes, assign_dev, dev):
+    """Exact f32 top-K of each query over the rows ``xdec`` (device) of its
+    probed lists only: what the query-major scan must return."""
+    Ds, Is = [], []
+    for q0 in range(0, len(xr), 100):
+        qd = torch.from_numpy(xr[q0:q0 + 100]).to(dev)
+        dis = TD.pairwise_distances(qd, xdec)
+        dis = torch.where(in_probed_lists(probes[q0:q0 + 100], assign_dev,
+                                          dev), dis, float("inf"))
+        d, i = torch.topk(dis, K, dim=1, largest=False)
+        Ds.append(d)
+        Is.append(i)
+        del dis
+    return torch.cat(Ds), torch.cat(Is)
+
+
+def same_hits(name, a, b) -> None:
+    for x, y, what in zip(a, b, ("queries", "ids", "distances")):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"{name}: range hits differ ({what}; "
+                                 f"{len(a[0])} vs {len(b[0])} hits)")
+
+
+def ivf_api_phase(quant3, xb, xt, xq, gt, flat_rec, dev) -> None:
+    """Phase 15: selectors, max_codes, range_search, the DirectMap
+    mutations, merge_from and the query-major IVF-SQ qtypes, on an
+    IVF4096,Flat over phase 3's quantizer and data (= phase 3's index)."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    ids_all = np.arange(NB, dtype=np.int64)
+    t0 = time.perf_counter()
+    A = ivf_over(quant3, xb, ids_all, xt, dev=dev)
+    t_build = time.perf_counter() - t0
+    p32 = T.SearchParametersIVF(nprobe=32)
+    warm = lambda: A.search(xq[:256], K, params=p32)     # noqa: E731
+    before = counts()
+    (Dk, Ik), t_k3 = timed(lambda: A.search(xq, K, params=p32), TIMED_REPS)
+    expect_launches("K3 search", before, {"ivf_scan_fused": 1 + TIMED_REPS})
+    k3_rec = T.recall_k_at_k(Ik, gt, K)
+
+    # -- 15a. selectors: the query-major scan with an id mask --------------
+    sel_all = T.SearchParametersIVF(nprobe=32, sel=T.IDSelectorAll())
+    before = counts()
+    (Da, Ia), t_all = timed(lambda: A.search(xq, K, params=sel_all),
+                            warm=lambda: A.search(xq[:256], K,
+                                                  params=sel_all))
+    expect_launches("IDSelectorAll", before, {})
+    assert_same_topk(Dk, Ik, Da, Ia)
+    phase("ivf_api_selector", selector="all", selected=NB, nprobe=32,
+          qps=NQ / t_all, k3_qps=NQ / t_k3, recall_at_10=k3_rec,
+          d_bit_equal_to_k3=True)
+    rs = np.random.RandomState(15)
+    batch = np.sort(rs.choice(NB, NB // 10, replace=False))
+    sparse = np.sort(rs.choice(NB, NB // 100, replace=False))
+    bitmap = np.zeros(NB // 8 + 1, np.uint8)
+    np.bitwise_or.at(bitmap, sparse >> 3,
+                     (1 << (sparse & 7)).astype(np.uint8))
+    for name, sel, rows in (
+            ("range", T.IDSelectorRange(0, NB // 2), np.arange(NB // 2)),
+            ("batch", T.IDSelectorBatch(batch), batch),
+            ("bitmap", T.IDSelectorBitmap(bitmap), sparse)):
+        p = T.SearchParametersIVF(nprobe=32, sel=sel)
+        before = counts()
+        (Ds, Is), t_sel = timed(lambda: A.search(xq, K, params=p),
+                                warm=lambda: A.search(xq[:256], K, params=p))
+        expect_launches(f"selector {name}", before, {})
+        got = Is[Is >= 0]
+        if not sel.member_array(got).all():
+            raise AssertionError(f"selector {name}: an id it excludes")
+        sub = ivf_over(quant3, xb[rows], rows, xt, dev=dev)
+        before = counts()
+        (Dr, Ir), t_sub = timed(lambda: sub.search(xq, K, params=p32))
+        expect_launches(f"K3 over the {name} rows", before,
+                        {"ivf_scan_fused": 2})
+        assert_same_topk(Dr, Ir, Ds, Is)
+        phase("ivf_api_selector", selector=name, selected=len(rows),
+              nprobe=32, qps=NQ / t_sel, k3_qps=NQ / t_k3,
+              k3_selected_index_qps=NQ / t_sub, filled=float((Is >= 0)
+                                                             .mean()),
+              d_bit_equal_to_k3_over_selected=True)
+        del sub
+
+    # -- 15b. max_codes: at most ceil(max_codes / B) blocks a list ----------
+    lsizes = A._list_sizes_host()
+    probes32 = A.coarse_assign(xq, 32)
+    for mc in (256, 1024):
+        p = T.SearchParametersIVF(nprobe=32, max_codes=mc)
+        before = counts()
+        (Dc, Ic), t_c = timed(lambda: A.search(xq, K, params=p),
+                              warm=lambda: A.search(xq[:256], K, params=p))
+        _, _, st = A.search_stats(xq, K, params=p)
+        cap = -(-mc // A.block_size) * A.block_size
+        # a cap below the default one takes the query-major scan; one that
+        # truncates no list is no cap, and K3 serves it (the reference's
+        # rule)
+        capped = cap // A.block_size < A._default_capped_mnb()
+        expect_launches(f"max_codes {mc}", before,
+                        {} if capped else {"ivf_scan_fused": 3})
+        want = int(np.minimum(lsizes[probes32], cap).sum())
+        if st.ndis != want:
+            raise AssertionError(f"max_codes {mc}: ndis {st.ndis}, the cap "
+                                 f"allows {want}")
+        phase("ivf_api_max_codes", max_codes=mc, nprobe=32,
+              blocks_a_list=cap // A.block_size, query_major=capped,
+              longest_list_blocks=A.invlists.max_nblocks_per_list,
+              ndis=st.ndis,
+              uncapped_ndis=int(lsizes[probes32].sum()),
+              recall_at_10=T.recall_k_at_k(Ic, gt, K),
+              uncapped_recall_at_10=k3_rec, qps=NQ / t_c, k3_qps=NQ / t_k3)
+
+    # -- 15c. range_search: IVF, IndexFlat, IndexScalarQuantizer ------------
+    xr = xq[:RANGE_NQ]
+    flat = T.IndexFlat(D, device=dev)
+    flat.add(xb)
+    Dex, _ = flat.search(xr, K)
+    radius = float(np.median(Dex[:, K - 1]))
+    A.nprobe = 32
+    before = counts()
+    res_ivf, t_ivf = timed(lambda: A.range_search(xr, radius),
+                           warm=lambda: A.range_search(xr[:50], radius))
+    assign_dev = torch.from_numpy(np.concatenate(A._assign_host)).to(dev)
+    same_hits("IVF range_search",
+              hits_by_id(*res_ivf),
+              brute_range(flat.vectors, xr, radius, dev,
+                          A.coarse_assign(xr, 32), assign_dev))
+    res_flat, t_flat = timed(lambda: flat.range_search(xr, radius),
+                             warm=lambda: flat.range_search(xr[:50], radius))
+    same_hits("IndexFlat range_search", hits_by_id(*res_flat),
+              brute_range(flat.vectors, xr, radius, dev))
+    sqf = T.IndexScalarQuantizer(D, T.QT_8BIT_DIRECT, device=dev)
+    sqf.add(xb)
+    res_sq, t_sq = timed(lambda: sqf.range_search(xr, radius),
+                         warm=lambda: sqf.range_search(xr[:50], radius))
+    for a, b in zip(res_sq, res_flat):
+        if not np.array_equal(a, b):
+            raise AssertionError("IndexScalarQuantizer(QT_8BIT_DIRECT) "
+                                 "range hits differ from IndexFlat's")
+    expect_launches("range_search", before, {})
+    phase("ivf_api_range", nq=RANGE_NQ, radius=radius, nprobe=32,
+          ivf_s=t_ivf, ivf_hits=int(res_ivf[0][-1]), flat_s=t_flat,
+          flat_hits=int(res_flat[0][-1]), sq8_direct_s=t_sq,
+          equal_to_brute_force=True, sq8_direct_equal_to_flat=True)
+    del flat, sqf, assign_dev
+    torch.cuda.empty_cache()
+
+    # -- 15d. merge_from of two halves == the whole index (K3) -------------
+    h = NB // 2
+    t0 = time.perf_counter()
+    a1 = ivf_over(quant3, xb[:h], ids_all[:h], xt, dev=dev)
+    a2 = ivf_over(quant3, xb[h:], ids_all[h:], xt, dev=dev)
+    t_halves = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    a1.merge_from(a2)
+    t_merge = time.perf_counter() - t0
+    before = counts()
+    Dm, Im = a1.search(xq, K, params=p32)
+    expect_launches("merged search", before, {"ivf_scan_fused": 1})
+    if not (np.array_equal(Dm, Dk) and np.array_equal(Im, Ik)
+            and torch.equal(a1.invlists.ids, A.invlists.ids)):
+        raise AssertionError("merge_from of two halves differs from the "
+                             "whole index")
+    phase("ivf_api_merge", halves_s=t_halves, merge_s=t_merge,
+          bit_equal=True, other_ntotal=a2.ntotal)
+    del a1, a2
+
+    # -- 15d. IVF-SQ8 after remove_ids through K3-SQ8 -----------------------
+    sq8 = ivf_over(quant3, xb, ids_all, xt, T.QT_8BIT, dev)
+    t0 = time.perf_counter()
+    sq8.remove_ids(T.IDSelectorBatch(batch))
+    t_rm_sq = time.perf_counter() - t0
+    keep = np.setdiff1d(ids_all, batch)
+    sq8_rest = ivf_over(quant3, xb[keep], keep, xt, T.QT_8BIT, dev)
+    before = counts()
+    Ds8, Is8 = sq8.search(xq, K, params=p32)
+    Dr8, Ir8 = sq8_rest.search(xq, K, params=p32)
+    expect_launches("IVF-SQ8 after remove_ids", before,
+                    {"ivf_scan_sq8": 2})
+    if np.isin(Is8, batch).any():
+        raise AssertionError("K3-SQ8 returned a removed id")
+    assert_same_topk(Dr8, Ir8, Ds8, Is8)
+    phase("ivf_api_sq8_remove", removed=len(batch), remove_s=t_rm_sq,
+          no_removed_id=True, d_bit_equal_to_rebuilt=True,
+          recall_at_10=T.recall_k_at_k(Is8, gt, K))
+    del sq8, sq8_rest
+    torch.cuda.empty_cache()
+
+    # -- 15e. IVF-SQ qtypes through the query-major scan -------------------
+    A.scan_mode = "query"
+    qm, probes_of = {}, {}
+    for nprobe in (16, 32, 64):
+        probes_of[nprobe] = A.coarse_assign(xq[:RANGE_NQ], nprobe)
+        p = T.SearchParametersIVF(nprobe=nprobe)
+        before = counts()
+        qm[nprobe], t_q = timed(lambda: A.search(xq, K, params=p),
+                                warm=lambda: A.search(xq[:256], K, params=p))
+        expect_launches("IVF-Flat query-major", before, {})
+        phase("ivf_api_query_major", nprobe=nprobe, qps=NQ / t_q,
+              recall_at_10=T.recall_k_at_k(qm[nprobe][1], gt, K),
+              k3_recall_at_10=flat_rec[nprobe])
+    A.scan_mode = "auto"
+    for name, qtype in (("QT_FP16", T.QT_FP16), ("QT_BF16", T.QT_BF16),
+                        ("QT_4BIT", T.QT_4BIT), ("QT_6BIT", T.QT_6BIT)):
+        t0 = time.perf_counter()
+        idx = ivf_over(quant3, xb, ids_all, xt, qtype, dev)
+        t_add = time.perf_counter() - t0
+        lossless = qtype in (T.QT_FP16, T.QT_BF16)
+        codec_rec = None if lossless else codec_recall(idx.sq, xb, xq, gt,
+                                                       dev)
+        if not lossless:
+            dec = SQ.sq_decode(SQ.sq_encode(torch.from_numpy(xb).to(dev),
+                                            idx.sq), idx.sq)
+            assign_dev = torch.from_numpy(
+                np.concatenate(idx._assign_host)).to(dev)
+        for nprobe in (16, 32, 64):
+            p = T.SearchParametersIVF(nprobe=nprobe)
+            before = counts()
+            (Dq, Iq), t_q = timed(lambda: idx.search(xq, K, params=p),
+                                  warm=lambda: idx.search(xq[:256], K,
+                                                          params=p))
+            expect_launches(f"IVF-SQ {name}", before, {})
+            rec = T.recall_k_at_k(Iq, gt, K)
+            floor = err = None
+            if lossless:
+                assert_same_topk(*qm[nprobe], Dq, Iq)
+            else:
+                # the scan is exact over the decoded rows of the probed
+                # lists; its recall is the codec's and the probes' losses
+                # compounded (both lose: a floor of min(codec, IVF) - 0.01
+                # fails at nprobe 16 with recall equal to the exact answer)
+                Dp, Ip = brute_knn_probed(dec, xq[:RANGE_NQ],
+                                          probes_of[nprobe][:RANGE_NQ],
+                                          assign_dev, dev)
+                err = assert_close_pairs(
+                    f"IVF-SQ {name} nprobe={nprobe}", Dp, Ip,
+                    torch.from_numpy(Dq[:RANGE_NQ]),
+                    torch.from_numpy(Iq[:RANGE_NQ]))
+                floor = codec_rec * flat_rec[nprobe] - 0.01
+                if rec < floor:
+                    raise AssertionError(f"IVF-SQ {name} nprobe={nprobe}: "
+                                         f"recall@10 {rec} < {floor}")
+            phase("ivf_api_sq_query", qtype=name, nprobe=nprobe,
+                  recall_at_10=rec, floor=floor, codec_recall_at_10=codec_rec,
+                  max_abs_err_vs_exact_over_probed_lists=err,
+                  ivf_flat_recall_at_10=flat_rec[nprobe], qps=NQ / t_q,
+                  d_bit_equal_to_ivf_flat_query_major=lossless or None,
+                  build_s=t_add, **device_stream_bytes(idx))
+        del idx
+        if not lossless:
+            del dec, assign_dev
+        torch.cuda.empty_cache()
+
+    # -- 15d. mutation of the index itself, through K3 ----------------------
+    def check_rest(step, gone_ids):
+        """K3 over A returns no removed id, and D bit-equal (ids up to
+        ties) to K3 over an index of the remaining rows."""
+        keep = np.setdiff1d(ids_all, gone_ids)
+        before = counts()
+        t0 = time.perf_counter()
+        D1, I1 = A.search(xq, K, params=p32)
+        t_search = time.perf_counter() - t0
+        rest = ivf_over(quant3, xb[keep], keep, xt, dev=dev)
+        D0, I0 = rest.search(xq, K, params=p32)
+        expect_launches(step, before, {"ivf_scan_fused": 2})
+        if np.isin(I1, gone_ids).any():
+            raise AssertionError(f"{step}: K3 returned a removed id")
+        assert_same_topk(D0, I0, D1, I1)
+        if A.ntotal != len(keep):
+            raise AssertionError(f"{step}: ntotal {A.ntotal}")
+        return t_search
+
+    gone = batch
+    t0 = time.perf_counter()
+    n1 = A.remove_ids(T.IDSelectorBatch(batch))
+    t_rm_batch = time.perf_counter() - t0
+    if A._dirty:
+        raise AssertionError("a removal below the hole threshold marked "
+                             "the index for a repack")
+    check_rest("remove_ids by IDSelectorBatch", gone)
+    t0 = time.perf_counter()
+    n2 = A.remove_ids(T.IDSelectorRange(NB - NB // 10, NB))
+    t_rm_range = time.perf_counter() - t0
+    gone = np.union1d(gone, np.arange(NB - NB // 10, NB))
+    holes = A._holes
+    if A._dirty:
+        raise AssertionError("a removal below the hole threshold marked "
+                             "the index for a repack")
+    check_rest("remove_ids by IDSelectorRange", gone)
+    n3 = A.remove_ids(T.IDSelectorRange(0, NB // 10))
+    gone = np.union1d(gone, np.arange(NB // 10))
+    if not A._dirty:
+        raise AssertionError("the hole threshold did not mark the index")
+    t_compact_search = check_rest("removal past the hole threshold", gone)
+    phase("ivf_api_remove", removed=[n1, n2, n3],
+          remove_batch_s=t_rm_batch, remove_range_s=t_rm_range,
+          holes_before_threshold=holes, threshold_crossed=True,
+          search_with_compaction_s=t_compact_search, ntotal=A.ntotal)
+    live = np.setdiff1d(ids_all, gone)
+    upd = np.sort(rs.choice(live, NB // 100, replace=False))
+    pool = np.setdiff1d(live, upd)
+    assign = A._row_list[A._rows_of_ids(pool)]
+    cur = A.list_of_ids(upd)
+    # each updated id takes the vector of a row in another list, one whose
+    # block padding has room for it (a move into a full list repacks)
+    room = A.invlists.list_nblocks.cpu().numpy().astype(np.int64) \
+        * A.block_size - A._list_fill
+    src = []
+    for c in rs.permutation(len(pool)):
+        lst = assign[c]
+        if room[lst] > 0 and lst != cur[len(src)]:
+            room[lst] -= 1
+            src.append(c)
+            if len(src) == len(upd):
+                break
+    src = np.asarray(src)
+    holes = A._holes
+    t0 = time.perf_counter()
+    A.update_vectors(upd, xb[pool[src]])
+    t_update = time.perf_counter() - t0
+    if A._holes != holes + len(upd):
+        raise AssertionError("update_vectors repacked instead of moving "
+                             "the rows in place")
+    moved = A.list_of_ids(upd)
+    if not np.array_equal(moved, assign[src]):
+        raise AssertionError("update_vectors left rows in their lists")
+    before = counts()
+    Du, Iu = A.search(xb[pool[src]], K, params=T.SearchParametersIVF(
+        nprobe=1))
+    expect_launches("search after update_vectors", before,
+                    {"ivf_scan_fused": 1})
+    pos = Iu == upd[:, None]
+    if not (pos.any(1).all() and (Du[pos] == 0).all()):
+        raise AssertionError("an updated id is not found at distance 0")
+    t0 = time.perf_counter()
+    A._repack()
+    t_repack = time.perf_counter() - t0
+    phase("ivf_api_update", updated=len(upd), update_s=t_update,
+          in_place=True, moved_all=True, found_at_0=True,
+          full_repack_s=t_repack, build_s=t_build)
+    got = launched()
+    if not got.get("ivf_scan_fused") or not got.get("ivf_scan_sq8"):
+        raise AssertionError(f"phase 15 did not run K3 and K3-SQ8: {got}")
+    phase("ivf_api", seconds=time.perf_counter() - t_phase, launches=got)
+    del A
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -14,7 +14,8 @@ from tpu_ann_torch.utils import factory as TF
 D = 32
 PORTED = ["Flat", "SQ8", "SQ6", "SQ4", "SQfp16", "SQbf16", "HNSW32",
           "HNSW16,Flat", "HNSW", "IVF64,Flat", "IVF64", "IVF64_HNSW16,Flat",
-          "IVF64,SQ8", "IVF64_HNSW8,SQ8"]
+          "IVF64,SQ8", "IVF64_HNSW8,SQ8", "IVF64,SQ4", "IVF64,SQ6",
+          "IVF64,SQfp16", "IVF64,SQbf16", "IVF64_HNSW8,SQ4"]
 
 
 def _params(idx) -> dict:
@@ -72,7 +73,7 @@ def test_built_index_trains_and_searches():
     ("HNSW32,SQ8", "item 7"), ("HNSW32,PQ8", "item 7"),
     ("IDMap,Flat", "item 8"), ("PCA16,IVF64,Flat", "item 8"),
     ("OPQ8_16,IVF64,PQ8", "item 8"), ("L2norm,Flat", "item 8"),
-    ("IVF64,SQ4", "item 4"), ("IVF64,FlatDedup", "item 4"),
+    ("IVF64,PQ4x4fs", "item 5"), ("IDMap2,Flat", "item 8"),
     ("RQ4x8", "item 9"), ("NSG32", "item 9"), ("LSH", "item 9"),
     ("IVF64(RCQ2x3),Flat", "item 9"), ("ZnLattice4x10_4", "item 9")])
 def test_unported_specs_raise(spec, item):
@@ -87,6 +88,22 @@ def test_unknown_specs_raise_value_error(spec):
         JF.index_factory(D, spec)
     with pytest.raises(ValueError):
         TF.index_factory(D, spec, device="cpu")
+
+
+def test_flat_dedup_spec():
+    """IVF<n>,FlatDedup builds the reference's class; its reverse spec
+    names FlatDedup (the reference's says Flat, which builds another
+    class), and neither package gives it a code size."""
+    t = TF.index_factory(D, "IVF64,FlatDedup", device="cpu")
+    j = JF.index_factory(D, "IVF64,FlatDedup")
+    assert isinstance(t, T.IndexIVFFlatDedup)
+    assert _params(t) == {**_params(j), "class": "IndexIVFFlatDedup"}
+    rev = TF.reverse_index_factory(t)
+    assert rev == "IVF64,FlatDedup"
+    assert type(TF.index_factory(D, rev, device="cpu")) is type(t)
+    for f in (TF.get_code_size, JF.get_code_size):
+        with pytest.raises(ValueError):
+            f(D, "IVF64,FlatDedup")
 
 
 def test_default_device_is_cuda():

@@ -241,10 +241,17 @@ def test_index_flat_1d():
 
 
 def test_unported_entry_points_raise(data):
+    # range_search is ported: the reference's CSR triple
+    from tpu_ann.models.flat import IndexFlat as JFlatIndex
+
     t = TFlat.IndexFlat(D, device="cpu")
     t.add(data[0][:10])
-    with pytest.raises(NotImplementedError):
-        t.range_search(data[1], 1.0)
+    j = JFlatIndex(D)
+    j.add(data[0][:10])
+    radius = float(np.median(t.search(data[1], 5)[0][:, 4]))
+    for a, b in zip(t.range_search(data[1], radius),
+                    j.range_search(data[1], radius)):
+        np.testing.assert_array_equal(a, np.asarray(b))
     odd = TFlat.IndexFlat(D, 3, device="cpu")          # faiss METRIC_L1
     odd.add(data[0][:10])
     with pytest.raises(NotImplementedError):

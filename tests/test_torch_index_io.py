@@ -293,6 +293,38 @@ def test_bf16_codes_cross_package(direction, data, tmp_path):
     assert_topk_equal(D0, I0, D1, I1, atol=atol)
 
 
+@pytest.mark.parametrize("tag", ["IwFl", "IwHn", "IwSQ"])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_pending_removals_cross_package(tag, writer, data, tmp_path):
+    """An IVF index written with removals pending stores its device lists
+    (holes included), since its host store still holds the removed rows;
+    the other package reads it and returns the writer's (D, I), with no
+    removed id."""
+    from tpu_ann.models.selectors import IDSelectorRange as JRange
+    from tpu_ann_torch.models.selectors import IDSelectorRange as TRange
+
+    _, _, xq = data
+    if writer == "jax":
+        idx = _jax_index(tag, data, None)
+        idx.remove_ids(JRange(100, 900))
+        path = str(tmp_path / "j.tann")
+        jio.write_index(idx, path)
+        other = T.read_index(path, device="cpu")
+    else:
+        idx = _port_index(tag, data, None)
+        idx.remove_ids(TRange(100, 900))
+        path = str(tmp_path / "t.tann")
+        tio.write_index(idx, path)
+        other = jio.read_index(path)
+    meta, _ = tio._read_container(path)
+    assert meta["il_from_host"] is False and meta["ntotal"] == N - 800
+    assert other.ntotal == N - 800
+    D0, I0 = idx.search(xq, K)
+    D1, I1 = other.search(xq, K)
+    _assert_same(tag, D0, I0, D1, I1)
+    assert not ((I1 >= 100) & (I1 < 900)).any()
+
+
 @pytest.mark.parametrize("tag,item", [("IxPQ", "item 5"), ("IwPQ", "item 5"),
                                       ("IxRF", "item 6"), ("IHNs", "item 7"),
                                       ("IxMp", "item 8"), ("IxNS", "item 9"),

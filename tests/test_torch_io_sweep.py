@@ -39,6 +39,9 @@ def _build(name, xt, xb, path):
         idx = getattr(T, name)(D_, 8, device=dev)
     elif name in ("IndexIVF", "IndexIVFFlat"):
         idx = getattr(T, name)(flat, D_, 8, device=dev)
+    elif name == "IndexIVFFlatDedup":
+        idx = T.IndexIVFFlatDedup(flat, D_, 8, device=dev)
+        xb = np.concatenate([xb, xb[:50]])          # 50 duplicates
     elif name == "IndexIVFHNSW":
         idx = T.IndexIVFHNSW(D_, 8, M=8, device=dev)
     elif name == "IndexIVFFlatPaged":
@@ -88,3 +91,5 @@ def test_roundtrip(name, mmap, data, tmp_path):
     D2, I2 = idx2.search(q, 4)
     np.testing.assert_array_equal(I1, I2)
     np.testing.assert_array_equal(D1, D2)
+    if hasattr(idx, "instances"):
+        assert idx.instances and idx2.instances == idx.instances

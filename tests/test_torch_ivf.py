@@ -154,17 +154,38 @@ def test_search_stats_split_and_global_counters(data):
     assert tbase.indexIVF_stats.nq == len(xq)
 
 
-def test_unported_options_raise(data):
+def test_unported_options_raise(data, jax_index):
+    """The options that raised before the IVF API was ported now answer as
+    the reference's: max_codes and a selector (the query-major scan), and
+    coarse_mode="quantizer" over an IndexFlat quantizer (the same probes as
+    "auto"). A quantizer with no search of its own, and an untrained add,
+    still raise."""
+    from tpu_ann.models.selectors import IDSelectorRange as JRange
+    from tpu_ann_torch.models.base import Index as TIndex
+    from tpu_ann_torch.models.selectors import IDSelectorRange as TRange
+
     xb, xt, xq = data
-    tidx = t_make(D, 8, device="cpu")
-    tidx.cp.niter = 2
+    tidx = t_make(D, NLIST, device="cpu")
+    tidx.quantizer.add(np.asarray(jax_index.quantizer.vectors))
+    tidx.quantizer_trains_alone = 1
     tidx.train(xt)
-    tidx.add(xb[:500])
-    with pytest.raises(NotImplementedError):
-        tidx.search(xq, K, params=TParams(nprobe=2, max_codes=100))
-    with pytest.raises(NotImplementedError):
-        tidx.search(xq, K, params=TParams(nprobe=2, sel=object()))
+    tidx.add_with_ids(xb, 1000 + 3 * np.arange(len(xb), dtype=np.int64))
+    D0, I0 = jax_index.search(xq, K, params=JParams(nprobe=2, max_codes=100))
+    D1, I1 = tidx.search(xq, K, params=TParams(nprobe=2, max_codes=100))
+    np.testing.assert_array_equal(D1, D0)
+    assert_topk_equal(D0, I0, D1, I1)
+    D0, I0 = jax_index.search(xq, K, params=JParams(
+        nprobe=2, sel=JRange(1000, 1000 + 3 * 3000)))
+    D1, I1 = tidx.search(xq, K, params=TParams(
+        nprobe=2, sel=TRange(1000, 1000 + 3 * 3000)))
+    np.testing.assert_array_equal(D1, D0)
+    assert_topk_equal(D0, I0, D1, I1)
+    D2, I2 = tidx.search(xq, K, params=TParams(nprobe=2))
     tidx.coarse_mode = "quantizer"
+    D3, I3 = tidx.search(xq, K, params=TParams(nprobe=2))
+    np.testing.assert_array_equal(D3, D2)
+    np.testing.assert_array_equal(I3, I2)
+    tidx.quantizer = TIndex(D, device="cpu")
     with pytest.raises(NotImplementedError):
         tidx.search(xq, K)
     with pytest.raises(RuntimeError):

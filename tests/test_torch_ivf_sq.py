@@ -147,10 +147,15 @@ def test_other_qtypes_train_add_but_search_raises(data, qtype):
     np.testing.assert_array_equal(
         t.invlists.codes.contiguous().view(torch.uint8).numpy(),
         np.ascontiguousarray(np.asarray(j.invlists.codes)).view(np.uint8))
-    with pytest.raises(NotImplementedError):
-        t.search(xq, K)
-    with pytest.raises(NotImplementedError):
-        t.search_stats(xq, K)
+    # searched through the query-major scan_invlists_sq, as the
+    # reference's: D within rtol 1e-5, ids up to ties, ndis equal
+    D0, I0, s0 = j.search_stats(xq, K, params=JParams(nprobe=4))
+    D1, I1, s1 = t.search_stats(xq, K, params=TParams(nprobe=4))
+    assert_topk_equal(D0, I0, D1, I1, rtol=1e-5)
+    assert s1.ndis == s0.ndis
+    D2, I2 = t.search(xq, K, params=TParams(nprobe=4))
+    np.testing.assert_array_equal(D2, D1)
+    np.testing.assert_array_equal(I2, I1)
 
 
 @pytest.mark.parametrize("qtype,metric", [(TSQ.QT_8BIT_DIRECT, L2),

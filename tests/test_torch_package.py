@@ -47,7 +47,8 @@ def test_sources_found():
             "models/pq.py", "models/ivf_pq.py", "utils/convert.py",
             "utils/index_io.py", "utils/invlists_io.py", "utils/factory.py",
             "utils/benchmark.py", "models/ivf_hnsw.py", "models/base.py",
-            "models/ivf.py"} <= names
+            "models/ivf.py", "ops/range_search.py", "utils/contrib.py",
+            "ops/ivf_scan.py"} <= names
 
 
 @pytest.mark.parametrize("needle", ["import jax", "tpu_ann.", "ml_dtypes"])

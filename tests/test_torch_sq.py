@@ -164,9 +164,14 @@ def test_empty_and_unported():
     t.train(np.random.RandomState(0).rand(50, 8))
     D, I = t.search(np.zeros((3, 8), np.float32), 4)
     assert np.isinf(D).all() and (I == -1).all()
-    t.add(np.random.RandomState(1).rand(10, 8))
-    with pytest.raises(NotImplementedError):
-        t.range_search(np.zeros((1, 8), np.float32), 1.0)
+    xb = np.random.RandomState(1).rand(10, 8)
+    t.add(xb)
+    # range_search is ported: the hits of the decoded rows
+    lims, Dv, Iv = t.range_search(np.zeros((1, 8), np.float32), 1.0)
+    dec = t.sa_decode(t.sa_encode(xb))
+    want = np.nonzero((dec * dec).sum(1) < 1.0)[0]
+    np.testing.assert_array_equal(Iv, want)
+    assert lims.tolist() == [0, len(want)]
     t.reset()
     assert t.ntotal == 0
 

@@ -28,6 +28,11 @@ Covered today:
 - the flat-scan variants and probes — flat_knn_fused(merge="packed")
   through the packed reservoir kernel (K1p), the ceiling-probe folds
   (flat_probe_scan, B1) and the row-copy issue probe (row_copy_probe, B2);
+- the IVF API — IDSelectors and max_codes on IVF search (the query-major
+  scan_invlists), IVF-SQ at every qtype (scan_invlists_sq), range_search
+  of IndexFlat, IndexScalarQuantizer and the IVF indexes (ops.range_search),
+  remove_ids / update_vectors / merge_from / reconstruct / list_of_ids /
+  sa_encode over the DirectMap, and IndexIVFFlatDedup;
 - the fork's workflow around them — index files in the JAX package's
   format (utils.index_io: write_index, read_index with mmap, clone,
   serialize; IndexIVFHNSW.save_to_disk / load), on-disk inverted lists and
@@ -56,6 +61,7 @@ from .models import (  # noqa: F401
     IndexHNSWFlat,
     IndexIVF,
     IndexIVFFlat,
+    IndexIVFFlatDedup,
     IndexIVFFlatPaged,
     IndexIVFHNSW,
     IndexIVFScalarQuantizer,
@@ -90,10 +96,12 @@ from .ops.ivf_scan import (  # noqa: F401
     PackedCodeInvLists,
     PackedInvLists,
     PackedInvListsSQ8,
+    decode_code_invlists_generic,
     pack_code_invlists,
     pack_invlists,
     pack_invlists_device,
     scan_invlists,
+    scan_invlists_sq,
     sq8_requantize_invlists,
     sq8_view_from_codes,
 )
@@ -110,6 +118,14 @@ from .ops.ivf_scan_paged import (  # noqa: F401
     scan_invlists_paged,
 )
 from .ops.kmeans import ClusteringParameters, kmeans  # noqa: F401
+from .ops.range_search import (  # noqa: F401
+    RangeSearchResult,
+    csr_from_hits,
+    range_search_blocked,
+    range_search_decoded,
+    range_search_flatcodes,
+    range_search_ivf,
+)
 from .ops.row_copy_probe import row_copy_probe  # noqa: F401
 from .ops.sq import (  # noqa: F401
     QT_4BIT,
@@ -134,6 +150,7 @@ from .utils.convert import (  # noqa: F401
     sq_from_reference,
 )
 from .utils.benchmark import per_query_latency  # noqa: F401
+from .utils.contrib import merge_indexes  # noqa: F401
 from .utils.datasets import (  # noqa: F401
     SIFT1M_CALIBRATED,
     SyntheticDataset,

@@ -23,6 +23,7 @@ from .hnsw import (  # noqa: F401
 from .ivf import (  # noqa: F401
     IndexIVF,
     IndexIVFFlat,
+    IndexIVFFlatDedup,
     SearchParametersIVF,
     make_ivf_flat,
 )

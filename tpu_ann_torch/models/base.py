@@ -190,6 +190,64 @@ class Index:
     def reset(self) -> None:
         raise NotImplementedError
 
+    def reconstruct(self, key: int) -> np.ndarray:
+        raise NotImplementedError
+
+    def reconstruct_n(self, i0: int, ni: int) -> np.ndarray:
+        return np.stack([self.reconstruct(i) for i in range(i0, i0 + ni)])
+
+    def reconstruct_batch(self, keys) -> np.ndarray:
+        """Reconstruct arbitrary keys (faiss/Index.h:231) by looping
+        reconstruct(), as the reference's fallback does."""
+        keys = np.asarray(keys, np.int64).reshape(-1)
+        if len(keys) == 0:
+            return np.zeros((0, self.d), np.float32)
+        return np.stack([self.reconstruct(int(kk)) for kk in keys])
+
+    def compute_residual(self, x, key: int) -> np.ndarray:
+        """x - reconstruct(key) (faiss Index::compute_residual)."""
+        return np.asarray(x, np.float32) - self.reconstruct(int(key))
+
+    def compute_residual_n(self, x, keys) -> np.ndarray:
+        """Batched residuals (faiss Index::compute_residual_n)."""
+        return np.asarray(x, np.float32) - self.reconstruct_batch(keys)
+
+    def search_and_reconstruct(self, x, k: int):
+        """(D, I, R) with R (nq, k, d) the result vectors; rows of -1
+        labels are zero (faiss/Index.h:244)."""
+        D_, I_ = self.search(x, k)
+        flat = np.asarray(I_, np.int64).reshape(-1)
+        ok = flat >= 0
+        R = np.zeros((len(flat), self.d), np.float32)
+        if ok.any():
+            R[ok] = self.reconstruct_batch(flat[ok])
+        return D_, I_, R.reshape(len(I_), k, self.d)
+
+    def merge_from(self, other, add_id: int = 0) -> None:
+        """Move other's vectors into self (faiss Index::merge_from) by
+        reconstructing them and adding them again; IVF indexes override it
+        with a merge of their lists."""
+        if type(other) is not type(self):
+            raise ValueError("merge_from: index types differ")
+        if other.ntotal:
+            x = other.reconstruct_n(0, other.ntotal)
+            if add_id:
+                self.add_with_ids(
+                    x, np.arange(add_id, add_id + len(x), dtype=np.int64))
+            else:
+                self.add(x)
+        other.reset()
+
+    # --- codec API (faiss/Index.h:217-244) ------------------------------
+    def sa_code_size(self) -> int:
+        raise NotImplementedError
+
+    def sa_encode(self, x) -> np.ndarray:
+        raise NotImplementedError
+
+    def sa_decode(self, codes) -> np.ndarray:
+        raise NotImplementedError
+
     @property
     def is_similarity(self) -> bool:
         return is_similarity_metric(self.metric_type)

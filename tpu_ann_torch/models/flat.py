@@ -155,7 +155,7 @@ class IndexFlat(Index):
         if self.metric_type not in (METRIC_L2, METRIC_INNER_PRODUCT):
             raise NotImplementedError(
                 "IndexFlat: the extra metrics are not ported yet (ROADMAP "
-                "queue 1, item 14)")
+                "queue 1, item 8)")
         x = self._check_input(x)
         if self.ntotal == 0:
             bad = D.worst_value(self.metric_type)
@@ -170,9 +170,17 @@ class IndexFlat(Index):
         return Dv.cpu().numpy(), Iv.cpu().numpy().astype(np.int64)
 
     def range_search(self, x, radius: float):
-        raise NotImplementedError(
-            "IndexFlat.range_search is not ported yet (ROADMAP queue 1, "
-            "item 14)")
+        """faiss Index::range_search -> the (lims, D, I) CSR triple, exact
+        f32 (L2 keeps dis < radius, IP dis > radius)."""
+        from ..ops.range_search import range_search_blocked
+
+        x = self._check_input(x)
+        if self.ntotal == 0:
+            return (np.zeros(len(x) + 1, np.int64), np.zeros(0, np.float32),
+                    np.zeros(0, np.int64))
+        res = range_search_blocked(x, self._xb, radius, self.metric_type,
+                                   valid_n=self.ntotal)
+        return res.lims, res.distances, res.labels
 
     def remove_ids(self, sel) -> int:
         """Remove the vectors an IDSelector matches (faiss

@@ -3,9 +3,10 @@
 
 `IndexScalarQuantizer` keeps its codes as one device tensor; a search
 decodes them with the codec (`ops.sq.sq_decode`) and runs the exact blocked
-k-NN (`ops.distances.knn`) on the decoded rows. The module's other class in
-the reference, `IndexPQ`, waits for the PQ slice (ROADMAP queue 1, item
-10), and `range_search` for `ops/range_search.py` (item 14).
+k-NN (`ops.distances.knn`) on the decoded rows, and a range search the
+blocked radius scan of `ops.range_search` on them. The module's other class
+in the reference, `IndexPQ`, waits for the PQ slice (ROADMAP queue 1, item
+5).
 """
 
 from __future__ import annotations
@@ -58,8 +59,19 @@ class IndexScalarQuantizer(Index):
         return Dv.cpu().numpy(), Iv.cpu().numpy().astype(np.int64)
 
     def range_search(self, x, radius: float):
-        raise NotImplementedError(
-            "range_search waits for the port of ops/range_search.py")
+        """Exact codec-distance range scan (the IndexFlatCodes::range_search
+        role, faiss/IndexFlatCodes.h:65): decode block by block on the
+        device, keep the hits within the radius."""
+        from ..ops.range_search import range_search_decoded
+
+        x = self._check_input(x)
+        if self.ntotal == 0:
+            return (np.zeros(len(x) + 1, np.int64), np.zeros(0, np.float32),
+                    np.zeros(0, np.int64))
+        res = range_search_decoded(
+            x, lambda i0, i1: SQ.sq_decode(self._codes[i0:i1], self.sq),
+            self.ntotal, radius, self.metric_type)
+        return res.lims, res.distances, res.labels
 
     def reset(self) -> None:
         self._codes, self.ntotal = None, 0

@@ -27,8 +27,11 @@ queries, and the exact norms of the dequantized rows.
 the query-major scan over it (`search_preassigned` phase 2,
 faiss/IndexIVF.cpp:399-723): a per-query compacted block table, queries
 sorted by scan length, exact f32 scores and a running top-k. The HNSW
-graph build uses it for its kNN candidates; IDSelectors and max_codes on
-it are not ported yet.
+graph build uses it for its kNN candidates, and IVF searches with an
+IDSelector or a max_codes cap take it. `scan_invlists_sq` is the same scan
+over SQ code lists (dequantized per chunk), and
+`decode_code_invlists_generic` decodes code lists into a raw layout (the
+IVF-SQ range search's, later IVFPQ's decoded cache).
 """
 
 from __future__ import annotations
@@ -212,34 +215,30 @@ def _compact_block_table(probes, list_block_start, list_nblocks,
 SCAN_BUDGET = 1 << 26
 
 
-def scan_invlists(xq: torch.Tensor, probes: torch.Tensor,
-                  invlists: PackedInvLists, k: int,
-                  metric: int = D.METRIC_L2, *, max_nblocks: int,
-                  chunk_blocks: int = 8):
-    """Query-major scan of the probed lists (reference :331-490).
+def _scan_compacted(xq: torch.Tensor, probes: torch.Tensor, lists, score,
+                    k: int, similarity: bool, *, max_nblocks: int,
+                    chunk_blocks: int, id_mask=None):
+    """The query-major loop shared by every codec (reference
+    `_scan_compacted`, :331-425).
 
     Queries are sorted by their number of probed blocks; each tile of
     queries walks its compacted table in chunks of ``chunk_blocks`` blocks
-    (as many chunks as its longest query needs), scores them in f32
-    (L2: max(||q||^2 + ||x||^2 - 2 q.x, 0); IP: q.x) and merges them into
-    a running top-k (first operand wins ties, so the earlier chunk's entry
-    does). The tile height only bounds the gathered rows (SCAN_BUDGET f32
-    elements): it does not change the result. ``max_nblocks`` caps the
-    blocks read per list, as the reference's static cap does. The
-    per-chunk top-k is always exact (the reference's ``approx`` switch is
-    not taken).
-    Returns (D (nq, k) f32, I (nq, k) int32 stored ids, ndis 0-d tensor:
-    the real rows scored)."""
+    (as many chunks as its longest query needs). ``score(q, bids)`` gives
+    one chunk's (dis (qt, cb, B) f32, vids (qt, cb, B) int32); slots with
+    an id < 0, or whose row ``id_mask`` (a uint8 bitmap over stored rows,
+    an IDSelector's) forbids, get the worst value and are not counted in
+    ``ndis``. Each chunk merges into a running top-k (first operand wins
+    ties, so the earlier chunk's entry does). The tile height only bounds
+    the gathered rows (SCAN_BUDGET f32 elements): it does not change the
+    result. Returns (D (nq, k) f32, I (nq, k) int32, ndis 0-d tensor)."""
     nq, d = xq.shape
-    similarity = D.is_similarity_metric(metric)
-    bad = D.worst_value(metric)
+    bad = -float("inf") if similarity else float("inf")
     dev = xq.device
     xq = xq.float()
-    NB = invlists.nblocks
-    B = invlists.block_size
+    NB = lists.nblocks
+    B = lists.block_size
     buffer, total = _compact_block_table(
-        probes, invlists.list_block_start, invlists.list_nblocks,
-        max_nblocks, NB)
+        probes, lists.list_block_start, lists.list_nblocks, max_nblocks, NB)
     perm = torch.argsort(total, stable=True)
     cb = min(chunk_blocks, buffer.shape[1])
     qt = max(1, min(nq, SCAN_BUDGET // max(cb * B * d, 1)))
@@ -251,7 +250,6 @@ def scan_invlists(xq: torch.Tensor, probes: torch.Tensor,
         rows = perm[t0:t0 + qt]
         q = xq[rows]
         blk = buffer[rows]
-        qn = (q * q).sum(1)[:, None, None]
         bd = torch.full((len(rows), k), bad, device=dev)
         bi = torch.full((len(rows), k), -1, dtype=torch.int32, device=dev)
         for c in range(int(nch_all[t0:t0 + qt].max()) if len(rows) else 0):
@@ -259,13 +257,10 @@ def scan_invlists(xq: torch.Tensor, probes: torch.Tensor,
             if bids.shape[1] < cb:                    # ragged last chunk
                 bids = torch.cat([bids, bids.new_full(
                     (len(rows), cb - bids.shape[1]), NB)], 1)
-            vecs = invlists.data[bids]                # (qt, cb, B, d)
-            vids = invlists.ids[bids]
-            ip = torch.bmm(vecs.view(len(rows), -1, d), q[:, :, None])
-            ip = ip.view(len(rows), cb, B)
-            dis = ip if similarity else torch.clamp(
-                qn + invlists.norms[bids] - 2.0 * ip, min=0.0)
+            dis, vids = score(q, bids)
             valid = vids >= 0
+            if id_mask is not None:
+                valid &= id_mask[torch.where(valid, vids, 0).long()] != 0
             dis = torch.where(valid, dis, bad)
             ndis += valid.sum()
             bd, bi = TK.merge_topk(bd, bi, dis.view(len(rows), -1),
@@ -274,6 +269,42 @@ def scan_invlists(xq: torch.Tensor, probes: torch.Tensor,
         out_d[rows] = bd
         out_i[rows] = bi
     return out_d, out_i, ndis
+
+
+def _l2_or_ip(q: torch.Tensor, vecs: torch.Tensor, vnorm, similarity: bool):
+    """One chunk's f32 scores of queries ``q`` (qt, d) against their rows
+    ``vecs`` (qt, cb, B, d): IP q.x, or L2 max(||q||^2 + vnorm - 2 q.x, 0)
+    with ``vnorm`` the rows' norms."""
+    qt, cb, B, d = vecs.shape
+    ip = torch.bmm(vecs.view(qt, -1, d), q[:, :, None]).view(qt, cb, B)
+    if similarity:
+        return ip
+    return torch.clamp((q * q).sum(1)[:, None, None] + vnorm - 2.0 * ip,
+                       min=0.0)
+
+
+def scan_invlists(xq: torch.Tensor, probes: torch.Tensor,
+                  invlists: PackedInvLists, k: int,
+                  metric: int = D.METRIC_L2, *, max_nblocks: int,
+                  chunk_blocks: int = 8, id_mask=None):
+    """Query-major scan of the probed lists (reference :433-490), exact f32
+    scores over the stored rows and norms (L2: max(||q||^2 + ||x||^2 -
+    2 q.x, 0); IP: q.x). ``max_nblocks`` caps the blocks read per list, as
+    the reference's static cap does (the role of max_codes); ``id_mask`` is
+    an IDSelector's uint8 bitmap over stored rows (SearchParameters.sel).
+    The per-chunk top-k is always exact (the reference's ``approx`` switch
+    is not taken). See `_scan_compacted` for the loop.
+    Returns (D (nq, k) f32, I (nq, k) int32 stored ids, ndis 0-d tensor:
+    the real, allowed rows scored)."""
+    similarity = D.is_similarity_metric(metric)
+
+    def score(q, bids):
+        return (_l2_or_ip(q, invlists.data[bids], invlists.norms[bids],
+                          similarity), invlists.ids[bids])
+
+    return _scan_compacted(xq, probes, invlists, score, k, similarity,
+                           max_nblocks=max_nblocks,
+                           chunk_blocks=chunk_blocks, id_mask=id_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +334,8 @@ class PackedCodeInvLists:
     @property
     def nblocks(self) -> int:
         return self.codes.shape[0] - 1
+
+    max_nblocks_per_list = PackedInvLists.max_nblocks_per_list
 
 
 def pack_code_invlists(
@@ -432,3 +465,71 @@ def sq8_requantize_invlists(pil: PackedInvLists,
         codes=codes, ids=pil.ids, norms=norms,
         list_block_start=pil.list_block_start,
         list_nblocks=pil.list_nblocks, sq_bias=vmin, sq_scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# the query-major scan of SQ code lists, and decoded caches
+# ---------------------------------------------------------------------------
+
+def scan_invlists_sq(xq: torch.Tensor, probes: torch.Tensor,
+                     invlists: PackedCodeInvLists, vmin: torch.Tensor,
+                     vdiff: torch.Tensor, k: int, metric: int = D.METRIC_L2,
+                     *, qtype: int, max_nblocks: int, chunk_blocks: int = 8,
+                     id_mask=None):
+    """Query-major scan of SQ-coded lists (reference :1086-1133, the
+    SQDistanceComputer role): each gathered chunk of codes is dequantized
+    with `ops.sq.sq_dequant_codes` (the 4-bit and 6-bit codes unpacked),
+    then scored in f32; L2 takes the norms of the dequantized rows
+    themselves. Same loop, arguments and returns as `scan_invlists`."""
+    from . import sq as SQ
+
+    similarity = D.is_similarity_metric(metric)
+    d = xq.shape[1]
+
+    def score(q, bids):
+        vecs = SQ.sq_dequant_codes(invlists.codes[bids], qtype, d, vmin,
+                                   vdiff)
+        vnorm = None if similarity else (vecs * vecs).sum(3)
+        return _l2_or_ip(q, vecs, vnorm, similarity), invlists.ids[bids]
+
+    return _scan_compacted(xq, probes, invlists, score, k, similarity,
+                           max_nblocks=max_nblocks,
+                           chunk_blocks=chunk_blocks, id_mask=id_mask)
+
+
+def decode_code_invlists_generic(invlists: PackedCodeInvLists, decode_rows,
+                                 d: int, coarse_centroids=None, *,
+                                 chunk_blocks: int = 128) -> PackedInvLists:
+    """Raw f32 invlists decoded from code lists, chunk by chunk on the
+    codes' device (reference :739-804): ``decode_rows((n, code width)
+    codes) -> (n, d) f32``; with ``coarse_centroids`` ((nlist, d), for
+    codecs of residuals) each row adds its list's centroid. The bf16
+    stream is cast from the rows; the id plane and list ranges are shared
+    with ``invlists``."""
+    codes = invlists.codes
+    total, B = codes.shape[:2]
+    dev = codes.device
+    if coarse_centroids is not None:
+        cent = torch.as_tensor(coarse_centroids, dtype=torch.float32,
+                               device=dev)
+        # lists own contiguous block runs in id order; padding blocks
+        # (ids -1) take list 0
+        runs = torch.repeat_interleave(
+            torch.arange(invlists.nlist, device=dev),
+            invlists.list_nblocks.long())
+        block2list = torch.zeros(total, dtype=torch.long, device=dev)
+        block2list[:len(runs)] = runs
+    data = torch.empty((total, B, d), dtype=torch.float32, device=dev)
+    norms = torch.empty((total, B), dtype=torch.float32, device=dev)
+    for s in range(0, total, chunk_blocks):
+        cblk = codes[s:s + chunk_blocks]
+        x = decode_rows(cblk.reshape(-1, cblk.shape[-1])).float()
+        x = x.reshape(cblk.shape[0], B, d)
+        if coarse_centroids is not None:
+            x = x + cent[block2list[s:s + chunk_blocks]][:, None, :]
+        norms[s:s + chunk_blocks] = (x * x).sum(2)
+        data[s:s + chunk_blocks] = x
+    return PackedInvLists(
+        data=data, data_bf16=data.to(torch.bfloat16), ids=invlists.ids,
+        norms=norms, list_block_start=invlists.list_block_start,
+        list_nblocks=invlists.list_nblocks)

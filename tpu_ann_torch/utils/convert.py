@@ -37,10 +37,13 @@ def ivf_flat_from_reference(state: dict, device="cuda") -> IndexIVFFlat:
       vectors                        (nlist, d) quantizer centroids
       data, ids, norms               the packed invlists
       list_block_start, list_nblocks
-      ids_flat                       (ntotal,) int64 user id of each row
+      ids_flat                       (n,) int64 user id of each packed row
 
     The host vector store does not come across, so the index cannot be
-    added to."""
+    added to. An index with removals pending carries its holes (ids -1 in
+    ``ids``) across; ``ntotal`` is then below n. With ``instances`` (the
+    dict of an `IndexIVFFlatDedup`) the result is an `IndexIVFFlatDedup`
+    that expands the duplicates as the reference's does."""
     d, nlist = int(state["d"]), int(state["nlist"])
     vectors = np.asarray(state["vectors"], np.float32)
     if vectors.shape != (nlist, d):
@@ -48,7 +51,15 @@ def ivf_flat_from_reference(state: dict, device="cuda") -> IndexIVFFlat:
                          f"got {vectors.shape}")
     quantizer = ({"tag": "IxFl", "d": d, "metric": int(state["metric"]),
                   "ntotal": nlist}, {"xb": vectors})
-    return _load_ivf("IwFl", state, quantizer, _raw_lists(state), device)
+    lists = _raw_lists(state)
+    instances = state.get("instances")
+    if instances is None:
+        return _load_ivf("IwFl", state, quantizer, lists, device)
+    pairs = [(rep, dup) for rep, dups in instances.items() for dup in dups]
+    if pairs:
+        lists["dedup_reps"] = np.asarray([p[0] for p in pairs], np.int64)
+        lists["dedup_dups"] = np.asarray([p[1] for p in pairs], np.int64)
+    return _load_ivf("IwFD", state, quantizer, lists, device)
 
 
 def hnsw_from_reference(state: dict, device="cuda") -> IndexHNSWFlat:
@@ -103,8 +114,9 @@ def _raw_lists(state: dict) -> dict:
 def _load_ivf(tag: str, state: dict, quantizer, lists: dict, device,
               **extra_meta):
     """A search-only IVF index from its packed lists (``lists``: il_data
-    and il_ids, and il_norms for raw lists), the reference's list ranges and
-    id map, and the (meta, arrays) of its quantizer."""
+    and il_ids, and il_norms for raw lists, with any other arrays of the
+    tag), the reference's list ranges and id map, and the (meta, arrays) of
+    its quantizer."""
     meta = {"tag": tag, "d": int(state["d"]), "metric": int(state["metric"]),
             "ntotal": int(state["ntotal"]), "nlist": int(state["nlist"]),
             "nprobe": 1, "block_size": int(np.shape(lists["il_data"])[1]),

@@ -7,9 +7,10 @@ for the index classes the port has:
   HNSW<M>, HNSW<M>,Flat         IndexHNSWFlat (M defaults to 32)
   IVF<n>,Flat                   IndexIVFFlat over an IndexFlat quantizer
   IVF<n>_HNSW<M>,Flat           IndexIVFHNSW
-  IVF<n>,SQ8, IVF<n>_HNSW<M>,SQ8
-                                IndexIVFScalarQuantizer (QT_8BIT) over an
+  IVF<n>,SQ8|SQ6|SQ4|SQfp16|SQbf16, IVF<n>_HNSW<M>,SQ...
+                                IndexIVFScalarQuantizer over an
                                 IndexFlat / IndexHNSWFlat quantizer
+  IVF<n>,FlatDedup              IndexIVFFlatDedup
 
 with the same spelling as the reference. Every other token of the
 reference's grammar raises NotImplementedError naming the ROADMAP queue 1
@@ -25,7 +26,7 @@ import re
 from ..models.base import Index
 from ..models.flat import IndexFlat
 from ..models.hnsw import IndexHNSW, IndexHNSWFlat
-from ..models.ivf import IndexIVF, IndexIVFFlat
+from ..models.ivf import IndexIVF, IndexIVFFlat, IndexIVFFlatDedup
 from ..models.ivf_hnsw import IndexIVFHNSW
 from ..models.ivf_pq import IndexIVFScalarQuantizer
 from ..models.pq import IndexScalarQuantizer
@@ -44,7 +45,6 @@ _UNPORTED = (
     (r"RFlat|Refine\(Flat\)|RSQ8t|Refine\(SQ8Tier\)", "item 6 (refine)"),
     (r"IDMap2?|PCA[RW]?\d+|OPQ\d+(_\d+)?|RR\d+|L2norm|ITQ\d*",
      "item 8 (index API breadth: idmap, transforms)"),
-    (r"FlatDedup", "item 4 (the IVF API: IndexIVFFlatDedup)"),
     (r"(P?RQ|P?LSQ)\d+x\d+(x\d+)?(fs(_\d+)?)?|NSG\d*|LSH\d*r?t?"
      r"|ZnLattice\d+x\d+_\d+|IVF\d+(_HNSW\d+)?\([^)]+\)",
      "item 9 (the remaining codecs and indexes)"),
@@ -88,16 +88,16 @@ def index_factory(d: int, spec: str, metric: int = D.METRIC_L2, *,
                                     device=device)
             return IndexIVFFlat(IndexFlat(d, metric, device=device), d,
                                 nlist, metric, device=device)
-        if code == "SQ8":
+        if code == "FlatDedup":
+            # over an IndexFlat quantizer whatever the prefix, as the
+            # reference builds it
+            return IndexIVFFlatDedup(IndexFlat(d, metric, device=device), d,
+                                     nlist, metric, device=device)
+        if code in _SQ_TYPES:
             quant = IndexHNSWFlat(d, hnsw_m, metric, device=device) \
                 if hnsw_m else IndexFlat(d, metric, device=device)
-            return IndexIVFScalarQuantizer(quant, d, nlist, SQ.QT_8BIT,
+            return IndexIVFScalarQuantizer(quant, d, nlist, _SQ_TYPES[code],
                                            metric, device=device)
-        if code in _SQ_TYPES:
-            raise NotImplementedError(
-                f"index_factory: IVF,{code} searches through the "
-                "query-major scan_invlists_sq, which is not ported yet "
-                "(ROADMAP queue 1, item 4)")
         raise _refusal(code)
     if m := re.fullmatch(r"HNSW(\d+)?", head):
         if code in (None, "Flat"):
@@ -155,6 +155,10 @@ def reverse_index_factory(index) -> str:
             prefix += f"_HNSW{get_hnsw_M(index.quantizer)}"
         if isinstance(index, IndexIVFScalarQuantizer):
             return f"{prefix},{_SQ_NAMES[index.qtype]}"
+        if isinstance(index, IndexIVFFlatDedup):
+            # the reference returns ",Flat", which re-parses to another
+            # class
+            return f"{prefix},FlatDedup"
         return f"{prefix},Flat"
     if isinstance(index, IndexHNSW):
         return f"HNSW{get_hnsw_M(index)}"

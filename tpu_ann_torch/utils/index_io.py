@@ -262,7 +262,8 @@ def _load_hnsw(meta, arrays, device):
 
 def _dump_ivf_common(index):
     """The reference's `_dump_ivf_common` (:263-312). Raw-float invlists
-    that the host store fully recovers are not written (``il_from_host``):
+    that the host store fully recovers (no removal pending) are not written
+    (``il_from_host``):
     the rows, their user ids and their int32 list assignments are, and the
     first use after a load repacks. Coded invlists write their codes. A
     search-only index (no host store) writes its row -> id map as
@@ -280,7 +281,10 @@ def _dump_ivf_common(index):
     _flatten("quantizer", qm, qa, meta, arrays)
     host_n = sum(len(c) for c in index._xb_host)
     coded = isinstance(il, PackedCodeInvLists)
-    il_from_host = il is not None and not coded and host_n == index.ntotal
+    # pending removals are holes in the device lists only: the host store
+    # still holds those rows, so the lists must be written
+    il_from_host = (il is not None and not coded and host_n == index.ntotal
+                    and not index._pending_removals())
     meta["il_from_host"] = il_from_host
     if il is not None and not il_from_host:
         meta["max_nblocks"] = max(int(il.list_nblocks.max()), 1) \
@@ -369,6 +373,34 @@ def _load_ivfflat(meta, arrays, device):
     idx = IndexIVFFlat(IndexFlat(d, metric, device=device), d,
                        int(meta["nlist"]), metric, int(meta["block_size"]),
                        device=device)
+    return _restore_ivf_common(idx, meta, arrays, device)
+
+
+def _dump_ivfdedup(index):
+    """IwFD (reference :390-417): IwFl's arrays plus ``instances`` as the
+    parallel arrays dedup_reps / dedup_dups."""
+    meta, arrays = _dump_ivf_common(index)
+    meta["tag"] = "IwFD"
+    pairs = [(rep, dup) for rep, dups in index.instances.items()
+             for dup in dups]
+    if pairs:
+        arrays["dedup_reps"] = np.asarray([p[0] for p in pairs], np.int64)
+        arrays["dedup_dups"] = np.asarray([p[1] for p in pairs], np.int64)
+    return meta, arrays
+
+
+def _load_ivfdedup(meta, arrays, device):
+    from ..models.flat import IndexFlat
+    from ..models.ivf import IndexIVFFlatDedup
+
+    d, metric = int(meta["d"]), int(meta["metric"])
+    idx = IndexIVFFlatDedup(IndexFlat(d, metric, device=device), d,
+                            int(meta["nlist"]), metric,
+                            int(meta["block_size"]), device=device)
+    if "dedup_reps" in arrays:
+        for rep, dup in zip(np.asarray(arrays["dedup_reps"]),
+                            np.asarray(arrays["dedup_dups"])):
+            idx.instances.setdefault(int(rep), []).append(int(dup))
     return _restore_ivf_common(idx, meta, arrays, device)
 
 
@@ -493,6 +525,7 @@ _register("IndexHNSW", "IHNf", _dump_hnsw, _load_hnsw)
 _register("IndexHNSWFlat", "IHNf", _dump_hnsw, _load_hnsw)
 _register("IndexIVF", "IwFl", _dump_ivfflat, _load_ivfflat)
 _register("IndexIVFFlat", "IwFl", _dump_ivfflat, _load_ivfflat)
+_register("IndexIVFFlatDedup", "IwFD", _dump_ivfdedup, _load_ivfdedup)
 _register("IndexIVFHNSW", "IwHn", _dump_ivfhnsw, _load_ivfhnsw)
 _register("IndexIVFFlatPaged", "IwPG", _dump_ivf_paged, _load_ivf_paged)
 _register("IndexScalarQuantizer", "IxSQ", _dump_sq, _load_sq)
@@ -501,7 +534,6 @@ _register("IndexIVFScalarQuantizer", "IwSQ", _dump_ivfsq, _load_ivfsq)
 # the reference's other tags, by the ROADMAP queue 1 item that ports their
 # classes
 _ITEMS = {
-    "item 4 (the IVF API: IndexIVFFlatDedup)": ("IwFD",),
     "item 5 (PQ)": ("IxPQ", "IwPQ", "IwPR"),
     "item 6 (refine)": ("IxRF", "IxRT"),
     "item 7 (the rest of HNSW)": ("IHNs", "IHNq", "IHN2"),

@@ -170,11 +170,57 @@ Phases, one line each; any failure raises and exits non-zero:
      K3; the times of remove_ids and update_vectors beside a full _repack.
      The selector, capped max_codes and range routes launch no kernel; the
      K3 / K3-SQ8 searches launch exactly theirs.
+  16. PQ and refine on phase 3's data and quantizer (quantizer_trains_alone
+     =1: no k-means, IVF-Flat's lists), nprobe 16 / 32 / 64 unless named,
+     10k queries. E: the exact f32 top-10 of the first 1000 queries over
+     the decoded rows of their probed lists; C: recall@10 of exact f32
+     search over all 1M decoded rows; the floor R(nprobe) = C x phase 3's
+     IVF-Flat recall - 0.01. (a) IVF4096,PQ32 (8-bit, bf16 decoded cache):
+     exactly one K3 launch a search / search_stats, id overlap with E >=
+     0.99 and the common ids' D within rtol 1e-5 (or 8 f32 ulps of the
+     terms it is the difference of, E in float64), recall@10 >= R; train,
+     add and cache seconds, cache bytes (the port's and the reference's
+     budget count), QPS; (b) the same codes, decoded_cache_dtype "sq8":
+     exactly one K3-SQ8 launch, recall within 0.01 of (a)'s, the device
+     cache a uint8 stream alone; (c) use_decoded_cache=False: the 8-bit
+     table scan (scan_invlists_pq), no launch, D within rtol 1e-4 of E over
+     an f32 cache (ids up to near-ties), QPS beside (a)'s; (d)
+     IVF4096,PQ64x4 (4-bit, 32 B a vector as (a)): the table scan over
+     packed codes, no launch, within rtol 1e-4 of its E, recall >= R with
+     its own C; (e) IVF4096,PQ32+16 (IndexIVFPQR, k_factor 4): one K3
+     launch a search (k 40: default_kp(40) = 46 rows a list, above the
+     kernel's 32, so the launch scans 32-row sub-blocks) plus the
+     re-rank, recall >= (a)'s; search_preassigned over 100 queries at
+     nprobe 32 equal to search, search_stats_per_query within rtol 1e-5;
+     K3 at kp 46 (10k q, nprobe 32, k 40) and kp 106 (1000 q, nprobe 1, k
+     100) against its plain version on the same inputs, per pair and for
+     the whole scan: bit for bit on R's cache rounded to integers, within
+     rtol 1e-5 (positions up to near-ties) on the cache itself, with both
+     times and the kp-32 launch's;
+     (f) IVF4096,PQ32,RFlat (the constructor over a fresh IVFPQ with
+     (a)'s codebook, then add) and the factory's IVF4096,PQ32,RSQ8t
+     (train, add): one K3 launch a search, recall >= (a)'s, each bit for
+     bit equal to a wrapper put together by hand from the same parts,
+     RFlat's D equal to an f32 recomputation from the base rows (rtol
+     1e-6), the re-rank's share of the search time; (g)
+     IndexPQ(128, 32, 8) over the base: ST_PQ through its bf16 cache within
+     0.005 recall of exact ADC over the decoded rows, ST_SDC over 1000
+     queries, no launch; (h) IVF15625_HNSW16,PQ32 over phase 9's graph
+     quantizer at nprobe 32 / 64: "auto" one K3 launch, recall >= C x
+     phase 9's auto recall - 0.01 (C of this codec); "quantizer" 1 +
+     fused_hops tile launches a chunk and one K3, recall within 0.01 of
+     auto's; (i) (a), (e) and (f) through write_index /
+     read_index(mmap=True): (D, I) bit for bit after the cache is rebuilt
+     (seconds); two 500k-row IVFPQ shards merged by merge_ondisk and
+     reopened: equal to (a); (j) remove_ids of NB/10 random ids on (a): no
+     removed id through K3 (bf16 cache) or K3-SQ8 ("sq8"), D bit-equal to
+     an index of the rest with the same codebook.
 The last two lines are the kernels' JSON record (each with its time,
 its plain version's, the card's bound for the same work and, where one
 torch call computes the same function, that call's time; K3, K3-SQ8 and
-K4 add their time and bound at the main path's 10k queries, and K3 has a
-second record at batch 1) and {"ok": true, ...}.
+K4 add their time and bound at the main path's 10k queries, K3 its time
+at IVFPQR's kp 46 (phase 16e), and K3 has a second record at batch 1)
+and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -559,15 +605,25 @@ def main() -> None:
     variant_records = variant_phases(flat_index, xb, xq, gt, refine_rec, dev)
     del flat_index
     torch.cuda.empty_cache()
-    # every file of phases 7-14 lives here; removed at the end
+    # every file of phases 7-14 and 16 lives here; removed at the end
     with tempfile.TemporaryDirectory(prefix="tpu_ann_smoke_") as tmp:
         paged, k4 = paged_phases(xb, xt, xq, gt, dev, tmp)
-        hidx = ivf_hnsw_phase(xb, xt, xq, gt, dev)
+        hidx, hnsw_auto = ivf_hnsw_phase(xb, xt, xq, gt, dev)
         graph_phase(dev)
         b2 = row_copy_phase(xb, dev)
         k3_b1 = workflow_phase(hidx, quant3, paged, xb, xt, xq, gt, dev, tmp)
+        hquant = hidx.quantizer
         del hidx, paged
-    ivf_api_phase(quant3, xb, xt, xq, gt, results, dev)
+        ivf_api_phase(quant3, xb, xt, xq, gt, results, dev)
+        pq_launches, wide = pq_phase(quant3, hquant, hnsw_auto, xb, xt, xq,
+                                     gt, results, dev, tmp)
+    k3["launches_pq"] = pq_launches.get("ivf_scan_fused", 0)
+    # K3 at IVFPQR's kp 46 (10k q, nprobe 32; one launch over 32-row
+    # sub-blocks and the selection), its plain version and the kp-32 launch
+    k3.update(kp46_ms=wide["ms"], kp46_plain_ms=wide["plain_ms"],
+              kp46_ms_kp32=wide["ms_kp32"],
+              kp46_max_abs_err=wide["max_abs_err"])
+    sq_records[0]["launches_pq"] = pq_launches.get("ivf_scan_sq8", 0)
     print(json.dumps({"kernels": [k3, *sq_records, *flat_records,
                                   *variant_records, k4, b2, k3_b1]}),
           flush=True)
@@ -1631,7 +1687,8 @@ def ivf_hnsw_search(idx, xq_dev, xq, gt, nprobe, mode, n_chunks) -> dict:
 
 def ivf_hnsw_phase(xb, xt, xq, gt, dev):
     """Phase 9: the namesake IVFHNSW at the JAX package's bench config 3;
-    returns the index (phase 14 saves and reopens it)."""
+    returns the index (phase 14 saves and reopens it) and its auto recalls
+    at nprobe 32 / 64 (phase 16's floors)."""
     reset_counts()
     t0 = time.perf_counter()
     idx = T.IndexIVFHNSW(D, 15625, M=16, device="cuda")
@@ -1682,7 +1739,7 @@ def ivf_hnsw_phase(xb, xt, xq, gt, dev):
                                  f"{IVFHNSW_FLOORS[nprobe]}), quantizer {q}, "
                                  f"fidelity {r['fidelity']}")
     idx.coarse_mode = "auto"
-    return idx
+    return idx, {n: r["auto"]["recall_at_10"] for n, r in out.items()}
 
 
 def launch_bounds(call, kp: int) -> list:
@@ -2662,6 +2719,524 @@ def ivf_api_phase(quant3, xb, xt, xq, gt, flat_rec, dev) -> None:
     phase("ivf_api", seconds=time.perf_counter() - t_phase, launches=got)
     del A
     torch.cuda.empty_cache()
+
+
+# -- phase 16: PQ and refine ---------------------------------------------
+
+# queries of the exact checks over decoded rows (E) and of the per-query run
+PQ_NQ_E = 1000
+PQ_NQ_PER_QUERY = 100
+
+
+def list_of_rows(lists) -> torch.Tensor:
+    """(stream rows,) the list of each stream position of packed lists (-1
+    for the dummy block and padding past the last list)."""
+    total, B = lists.ids.shape
+    runs = torch.repeat_interleave(
+        torch.arange(lists.nlist, device=lists.ids.device),
+        lists.list_nblocks.long())
+    b2l = torch.full((total,), -1, dtype=torch.long, device=lists.ids.device)
+    b2l[:len(runs)] = runs
+    return b2l.repeat_interleave(B)
+
+
+def exact_over_lists(lists, xr, probes, dev):
+    """E: the exact top-K of each query over the rows of its probed lists of
+    a raw layout (a decoded cache), ||q||^2 + norm - 2 <q, x> with the
+    layout's own rows and norms (what K3's re-rank computes), evaluated in
+    float64: (D, I, S) tensors, I the stored ids, S = ||q||^2 + norm, the
+    size of the terms the distance is the difference of (an f32
+    evaluation is good to a few ulps of S, not of D)."""
+    rows = lists.data.view(-1, D).double()
+    norms = lists.norms.view(-1).double()
+    ids = lists.ids.view(-1).long()
+    r2l = list_of_rows(lists)
+    Ds, Is, Ss = [], [], []
+    for q0 in range(0, len(xr), 100):
+        qd = torch.from_numpy(xr[q0:q0 + 100]).to(dev).double()
+        qn = (qd * qd).sum(1)
+        dis = torch.clamp(qn[:, None] + norms[None] - 2.0 * (qd @ rows.T),
+                          min=0.0)
+        member = torch.zeros((len(qd), lists.nlist + 1), dtype=torch.bool,
+                             device=dev)
+        pq = probes[q0:q0 + 100].long()
+        member.scatter_(1, torch.where(pq >= 0, pq, lists.nlist), True)
+        ok = member[:, r2l] & (ids >= 0)[None]
+        dis = torch.where(ok, dis, float("inf"))
+        d, pos = torch.topk(dis, K, dim=1, largest=False)
+        Ds.append(d)
+        Is.append(ids[pos])
+        Ss.append(qn[:, None] + norms[pos])
+        del dis, ok
+    del rows
+    return torch.cat(Ds), torch.cat(Is), torch.cat(Ss)
+
+
+def rows_by_id(lists, n: int, dev) -> torch.Tensor:
+    """(n, D) the rows of a raw layout in stored-id order."""
+    ids = lists.ids.view(-1).long()
+    ok = ids >= 0
+    out = torch.zeros((n, D), device=dev)
+    out[ids[ok]] = lists.data.view(-1, D)[ok].float()
+    return out
+
+
+def codec_recall_rows(rows, xq, gt, dev) -> float:
+    """C: recall@10 of an exact f32 search over decoded rows."""
+    _, I = TD.knn(torch.from_numpy(xq).to(dev), rows, K)
+    return T.recall_k_at_k(I.cpu().numpy(), gt, K)
+
+
+def overlap_close(name, E, Dv, Iv, rtol) -> float:
+    """(a)'s check against E: ids overlapping >= 0.99, the distances of the
+    ids in common within rtol, or within 8 f32 ulps of E's S where that is
+    more: an f32 distance is the difference of terms of size S, and two
+    summation orders round apart by a few of their ulps (1.5 at S ~1e6
+    against rtol 1e-5 of a distance of 8200, seen on the H100). Returns
+    the overlap."""
+    De, Ie, Se = (t.cpu().numpy() for t in E)
+    ov = float(np.mean([len(set(a) & set(b)) / K for a, b in zip(Ie, Iv)]))
+    if ov < 0.99:
+        raise AssertionError(f"{name}: id overlap with E {ov} < 0.99")
+    for q in range(len(Ie)):
+        m = {i: (dd, sc) for i, dd, sc in zip(Ie[q].tolist(), De[q].tolist(),
+                                               Se[q].tolist())}
+        for i, dd in zip(Iv[q].tolist(), Dv[q].tolist()):
+            if i not in m:
+                continue
+            tol = max(rtol * max(abs(m[i][0]), 1.0),
+                      8 * float(np.spacing(np.float32(m[i][1]))))
+            if abs(dd - m[i][0]) > tol:
+                raise AssertionError(f"{name}: query {q} id {i}: {dd} vs "
+                                     f"E's {m[i][0]} (S {m[i][1]})")
+    return ov
+
+
+def pq_searches(idx, xq, gt, name, want, nprobes=(16, 32, 64), E=None,
+                rtol=1e-5, floors=None):
+    """Searches of one PQ route at each nprobe: a warm-up, TIMED_REPS timed
+    searches and search_stats, each launching exactly ``want`` (a launches
+    dict per search); recall@10 >= floors[nprobe]; the first PQ_NQ_E rows
+    against E (a function of nprobe giving their exact (D, I)): at rtol
+    1e-5 as overlap_close says, at a wider rtol as assert_close_pairs says
+    (the same ids up to near-ties). Returns {nprobe: {recall, qps, ...}}."""
+    out = {}
+    for nprobe in nprobes:
+        p = T.SearchParametersIVF(nprobe=nprobe)
+        before = counts()
+        Dv, Iv = idx.search(xq, K, params=p)
+        times = []
+        for _ in range(TIMED_REPS):
+            t1 = time.perf_counter()
+            Dv, Iv = idx.search(xq, K, params=p)
+            times.append(time.perf_counter() - t1)
+        Ds, Is, st = idx.search_stats(xq, K, params=p)
+        expect_launches(f"{name} nprobe={nprobe}", before,
+                        {k: v * (2 + TIMED_REPS) for k, v in want.items()})
+        if not (np.array_equal(Ds, Dv) and np.array_equal(Is, Iv)):
+            raise AssertionError(f"{name}: search and search_stats differ")
+        if not (Dv.shape == Iv.shape == (len(xq), K) and
+                np.isfinite(Dv).all() and (Iv >= 0).all()):
+            raise AssertionError(f"{name} nprobe={nprobe}: malformed")
+        rec = T.recall_k_at_k(Iv, gt, K)
+        r = {"recall_at_10": rec, "qps": len(xq) / float(np.median(times)),
+             "search_ms": [t * 1e3 for t in times],
+             "list_scan_ms": st.list_scan_us / 1e3}
+        if floors is not None:
+            r["floor"] = floors[nprobe]
+            if rec < floors[nprobe]:
+                raise AssertionError(f"{name} nprobe={nprobe}: recall@10 "
+                                     f"{rec} < {floors[nprobe]}")
+        if E is not None and rtol <= 1e-5:
+            r["overlap_e"] = overlap_close(f"{name} nprobe={nprobe}",
+                                           E(nprobe), Dv[:PQ_NQ_E],
+                                           Iv[:PQ_NQ_E], rtol)
+        elif E is not None:
+            r["max_abs_err_e"] = assert_close_pairs(
+                f"{name} nprobe={nprobe} vs E", *E(nprobe)[:2],
+                *(torch.from_numpy(a[:PQ_NQ_E]) for a in (Dv, Iv)), rtol=rtol)
+        out[nprobe] = r
+    return out
+
+
+def probes_of(idx, xq, nprobe, dev):
+    """The first PQ_NQ_E queries' probes, from the whole batch's coarse
+    search (the very product a search of the batch computes)."""
+    _, probes = idx._coarse_search_device(torch.from_numpy(xq).to(dev),
+                                          nprobe)
+    return probes[:PQ_NQ_E]
+
+
+def ivf_pq_over(quant, M, nbits, xt, rows, ids, dev, codec=None,
+                cls=None, **kw):
+    """An IndexIVFPQ (or ``cls``) over ``quant`` (quantizer_trains_alone=1:
+    no k-means), trained on xt (or given ``codec``, the (base, refine)
+    codebooks), holding ``rows`` under ``ids``; seconds of train and add."""
+    cls = cls or T.IndexIVFPQ
+    idx = cls(quant, D, quant.ntotal, M, nbits, **kw, device=dev)
+    idx.quantizer_trains_alone = 1
+    t0 = time.perf_counter()
+    if codec is None:
+        idx.train(xt)
+    else:
+        idx.is_trained = True
+        idx._set_codec(codec[0])
+        if len(codec) > 1:
+            idx._set_refine_codec(codec[1])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.add_with_ids(rows, np.asarray(ids, np.int64))
+    torch.cuda.synchronize()
+    return idx, t_train, time.perf_counter() - t0
+
+
+def cache_bytes(lists) -> int:
+    """Device bytes of a decoded cache's own tensors (the id plane and list
+    ranges are the code lists'), each tensor once (a bf16 cache's ``data``
+    is its ``data_bf16``)."""
+    names = ("data", "data_bf16", "codes", "norms", "sq_bias", "sq_scale")
+    held = {getattr(lists, n).data_ptr(): getattr(lists, n).nbytes
+            for n in names if getattr(lists, n, None) is not None}
+    return sum(held.values())
+
+
+def same_search(name, a, b) -> None:
+    """(D, I) bit for bit, ids up to ties."""
+    assert_same_topk(a[0], a[1], b[0], b[1])
+
+
+def pq_phase(quant3, hquant, hnsw_auto, xb, xt, xq, gt, flat_rec, dev,
+             tmp) -> dict:
+    """Phase 16: IVFPQ through its decoded cache (K3, K3-SQ8) and the table
+    scan, 4-bit PQ, IVFPQR, the refine indexes, IndexPQ, the namesake
+    IVF15625_HNSW16,PQ32, files and mutations. Returns the K3 / K3-SQ8
+    launches of the phase and K3's record at kp 46 (16e)."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    ids = np.arange(NB, dtype=np.int64)
+    k3, sq8 = {"ivf_scan_fused": 1}, {"ivf_scan_sq8": 1}
+
+    # -- 16a. IVF4096,PQ32: the bf16 decoded cache through K3 ----------------
+    A, t_train, t_add = ivf_pq_over(quant3, 32, 8, xt, xb, ids, dev)
+    t0 = time.perf_counter()
+    cache = A._decoded_cache()
+    torch.cuda.synchronize()
+    t_cache = time.perf_counter() - t0
+    f32 = A._decode_lists(torch.float32)
+    C = codec_recall_rows(rows_by_id(f32, NB, dev), xq, gt, dev)
+    del f32
+    floors = {n: C * flat_rec[n] - 0.01 for n in (16, 32, 64)}
+    probes = {n: probes_of(A, xq, n, dev) for n in (16, 32, 64)}
+    res_a = pq_searches(
+        A, xq, gt, "IVFPQ bf16 cache", k3, floors=floors,
+        E=lambda n: exact_over_lists(cache, xq[:PQ_NQ_E], probes[n], dev))
+    rule = (A.invlists.nblocks + 1) * A.block_size * D * 2
+    phase("pq_ivf_bf16", train_s=t_train, add_s=t_add, cache_build_s=t_cache,
+          codec_recall=C, cache_bytes=cache_bytes(cache),
+          rule_bytes=rule, code_bytes=A.invlists.codes.nbytes,
+          searches=res_a)
+
+    # -- 16b. the same codes, decoded_cache_dtype "sq8": K3-SQ8 ---------------
+    A.decoded_cache_dtype = "sq8"
+    A._decoded = None
+    t0 = time.perf_counter()
+    c8 = A._decoded_cache()
+    torch.cuda.synchronize()
+    t_c8 = time.perf_counter() - t0
+    if not isinstance(c8, T.PackedInvListsSQ8) or hasattr(c8, "data") or \
+            c8.codes.dtype != torch.uint8:
+        raise AssertionError("the sq8 cache is not a uint8 stream alone")
+    res_b = pq_searches(A, xq, gt, "IVFPQ sq8 cache", sq8)
+    for n, r in res_b.items():
+        if abs(r["recall_at_10"] - res_a[n]["recall_at_10"]) > 0.01:
+            raise AssertionError(f"sq8 cache nprobe={n}: recall "
+                                 f"{r['recall_at_10']} vs bf16's "
+                                 f"{res_a[n]['recall_at_10']}")
+    phase("pq_ivf_sq8", cache_build_s=t_c8, cache_bytes=cache_bytes(c8),
+          searches=res_b)
+    del c8
+
+    # -- 16c. use_decoded_cache=False: the 8-bit table scan, no kernel --------
+    A.decoded_cache_dtype = "float32"
+    A._decoded = None
+    f32 = A._decoded_cache()
+    E32 = {n: exact_over_lists(f32, xq[:PQ_NQ_E], probes[n], dev)
+           for n in (16, 32, 64)}
+    A.use_decoded_cache = False
+    A._decoded = None
+    del f32
+    res_c = pq_searches(A, xq, gt, "IVFPQ table scan", {}, E=E32.get,
+                        rtol=1e-4)
+    phase("pq_ivf_table_scan", searches=res_c,
+          qps_bf16_cache={n: res_a[n]["qps"] for n in res_a})
+    A.use_decoded_cache = None
+    A.decoded_cache_dtype = "bfloat16"
+    A._decoded = None
+    del E32
+
+    # -- 16d. IVF4096,PQ64x4: 4-bit codes, the table scan over packed codes ---
+    B4, t4_train, t4_add = ivf_pq_over(quant3, 64, 4, xt, xb, ids, dev)
+    f32 = B4._decode_lists(torch.float32)
+    C4 = codec_recall_rows(rows_by_id(f32, NB, dev), xq, gt, dev)
+    E4 = {n: exact_over_lists(f32, xq[:PQ_NQ_E], probes[n], dev)
+          for n in (16, 32, 64)}
+    del f32
+    res_d = pq_searches(B4, xq, gt, "IVFPQ 4-bit", {}, E=E4.get, rtol=1e-4,
+                        floors={n: C4 * flat_rec[n] - 0.01
+                                for n in (16, 32, 64)})
+    phase("pq_ivf_4bit", train_s=t4_train, add_s=t4_add, codec_recall=C4,
+          code_bytes=B4.invlists.codes.nbytes, searches=res_d)
+    del B4, E4
+    torch.cuda.empty_cache()
+
+    # -- 16e. IVF4096,PQ32+16: IVFPQR, one K3 launch a search + the re-rank ---
+    R, tr_train, tr_add = ivf_pq_over(quant3, 32, 8, xt, xb, ids, dev,
+                                      cls=T.IndexIVFPQR, M_refine=16,
+                                      nbits_refine=8)
+    res_e = pq_searches(R, xq, gt, "IVFPQR", k3,
+                        floors={n: res_a[n]["recall_at_10"]
+                                for n in (16, 32, 64)})
+    p32 = T.SearchParametersIVF(nprobe=32)
+    xs = xq[:PQ_NQ_PER_QUERY]
+    Ds, Is = R.search(xs, K, params=p32)
+    Dp, Ip = R.search_preassigned(xs, K, R.coarse_assign(xs, 32))
+    same_search("IVFPQR search_preassigned", (Ds, Is), (Dp, Ip))
+    Dq, Iq, _ = R.search_stats_per_query(xs, K, params=p32)
+    errq = assert_close_pairs("IVFPQR per query", *(torch.from_numpy(a) for a
+                                                   in (Ds, Is, Dq, Iq)))
+    # K3 at the width IVFPQR asks for: k * k_factor = 40 wants
+    # default_kp(40) = 46 rows a (query, list), above the kernel's KP_MAX,
+    # so the search's one launch scans 32-row sub-blocks
+    # (F.scan_pairs_wide). Held against the plain version on the same
+    # inputs, per pair and for the whole scan before the re-rank, at the
+    # search's shapes (10k q, nprobe 32, k 40) and at nprobe 1, k 100 (kp
+    # 106, where a 32-row cap would drop hits): bit for bit on R's cache
+    # rounded to integers (exact bf16 products, phase 4's standard), and
+    # within rtol 1e-5, positions up to near-ties, on the cache itself
+    # (float rows: the kernel's products sum in another order). These
+    # comparison launches are left out of the phase's count.
+    c_cmp = counts()
+    dl = R._decoded_cache()
+    ri = torch.round(dl.data.float())
+    dl_int = T.PackedInvLists(
+        data=ri.to(torch.bfloat16), data_bf16=ri.to(torch.bfloat16),
+        ids=dl.ids, norms=(ri * ri).sum(-1),
+        list_block_start=dl.list_block_start, list_nblocks=dl.list_nblocks)
+    del ri
+    wide = {}
+    for nq_w, np_w, k_w in ((NQ, 32, R.k_factor * K), (PQ_NQ_E, 1, 100)):
+        xw = torch.from_numpy(xq[:nq_w]).to(dev)
+        _, pw = R._coarse_search_device(xw, np_w)
+        kp_w = F.default_kp(k_w)
+        rec = {"queries": nq_w, "kp": kp_w, "pairs": int(pw.numel())}
+        for name, lists in (("int", dl_int), ("cache", dl)):
+            q16, qn = F.fold_queries(xw, lists, False)
+            plan = F.plan_pairs(pw, lists)
+            d1, p1 = F.scan_pairs(q16, qn, plan, lists, kp_w, False)
+            d0, p0 = F.scan_pairs_reference(q16, qn, plan, lists, kp_w,
+                                            False)
+            D1, I1, _ = F.scan_invlists_fused(xw, pw, lists, k_w)
+            D0, I0, _ = F.scan_invlists_fused_reference(xw, pw, lists, k_w)
+            what = f"K3 at kp {kp_w}, nprobe {np_w}, {name} rows"
+            if name == "int":
+                if not (torch.equal(d0, d1) and torch.equal(p0, p1)):
+                    raise AssertionError(f"{what}: per-pair top-kp differs "
+                                         f"from the plain version")
+                if not (torch.equal(D0, D1) and torch.equal(I0, I1)):
+                    raise AssertionError(f"{what}: the scan differs from "
+                                         f"the plain version")
+                continue
+            rec["max_abs_err"] = assert_close_pairs(f"{what} per pair", d0,
+                                                    p0, d1, p1)
+            rec["scan_max_abs_err"] = assert_close_pairs(f"{what} scan", D0,
+                                                         I0, D1, I1)
+            rec["hits"] = int((I1 >= 0).sum())
+            rec["ms"] = cuda_ms(lambda: F.scan_pairs(q16, qn, plan, lists,
+                                                     kp_w, False), 5)
+            rec["ms_kp32"] = cuda_ms(lambda: F.scan_pairs(
+                q16, qn, plan, lists, 32, False), 5)
+            rec["plain_ms"] = host_ms(lambda: F.scan_pairs_reference(
+                q16, qn, plan, lists, kp_w, False), 1)
+        wide[f"nprobe{np_w}_k{k_w}"] = rec
+        del d0, p0, d1, p1, plan
+    del dl_int
+    cmp_launches = launched(c_cmp)
+    phase("pq_ivf_pqr", train_s=tr_train, add_s=tr_add, searches=res_e,
+          preassigned_equal=True, per_query_max_abs_err=errq,
+          k3_wide_kp=wide)
+
+    # -- 16f. IVF4096,PQ32,RFlat and ,RSQ8t, built as users build them ------
+    # RFlat: the constructor over a fresh IVFPQ with (a)'s codebook, then
+    # add (base and refine rows); RSQ8t: the factory string, train and add.
+    # Each is held bit for bit against a wrapper put together by hand from
+    # the same parts (RFlat over (a) itself and an IndexFlat of the base;
+    # RSQ8t over its own base index with codes encoded in one call).
+    xb_flat = T.IndexFlat(D, device=dev)
+    xb_flat.add(xb)
+    RF0 = T.IndexRefineFlat(A, xb_flat)
+    RF0.ntotal = NB
+    base_f = T.IndexIVFPQ(quant3, D, NLIST, 32, 8, device=dev)
+    base_f.quantizer_trains_alone = 1
+    base_f.is_trained = True
+    base_f._set_codec(A.pq.centroids)
+    RF = T.IndexRefineFlat(base_f)
+    t0 = time.perf_counter()
+    RF.add(xb)
+    torch.cuda.synchronize()
+    t_rf_add = time.perf_counter() - t0
+    RT = T.index_factory(D, f"IVF{NLIST},PQ32,RSQ8t", device=dev)
+    t0 = time.perf_counter()
+    RT.train(xt)
+    torch.cuda.synchronize()
+    t_rt_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    RT.add(xb)
+    torch.cuda.synchronize()
+    t_rt_add = time.perf_counter() - t0
+    RT0 = T.IndexRefineSQ8Tier(RT.base_index)
+    RT0.codec = RT.codec
+    RT0._codes = SQ.sq_encode(torch.from_numpy(xb).to(dev), RT.codec)
+    RT0.is_trained, RT0.ntotal = True, NB
+    if not torch.equal(RT0._codes, RT._codes):
+        raise AssertionError("RSQ8t's add encoded other codes")
+    res_f = {}
+    for name, idx in (("RFlat", RF), ("RSQ8t", RT)):
+        res_f[name] = pq_searches(idx, xq, gt, name, k3,
+                                  floors={n: res_a[n]["recall_at_10"]
+                                          for n in (16, 32, 64)})
+    for name, a, b in (("RFlat", RF, RF0), ("RSQ8t", RT, RT0)):
+        same_search(f"{name} built by add vs by hand",
+                    a.search(xq, K, params=p32), b.search(xq, K, params=p32))
+    xq_dev = torch.from_numpy(xq).to(dev)
+    Dv, Iv = RF.search(xq, K, params=p32)
+    recomp = ((xb_flat.vectors[torch.from_numpy(Iv).to(dev)]
+               - xq_dev[:, None]) ** 2).sum(-1).cpu().numpy()
+    if not np.allclose(Dv, recomp, rtol=1e-6, atol=0):
+        raise AssertionError("RFlat's D differ from an f32 recomputation")
+    _, t_base = timed(lambda: base_f.search(xq, 4 * K, params=p32), 3)
+    _, t_rf = timed(lambda: RF.search(xq, K, params=p32), 3)
+    phase("pq_refine", searches=res_f, rflat_d_exact=True,
+          rflat_add_s=t_rf_add, rsq8t_train_s=t_rt_train,
+          rsq8t_add_s=t_rt_add, equal_to_hand_built=True,
+          rerank_share={"RFlat": 1.0 - t_base / t_rf})
+    del RF0, RT0
+
+    # -- 16g. IndexPQ(128, 32, 8) over the 1M base: no kernel ----------------
+    before = counts()
+    P = T.IndexPQ(D, 32, 8, device=dev)
+    P.train(xt)
+    P.add(xb)
+    (Dp, Ip), t_pq = timed(lambda: P.search(xq, K), 1)
+    rec_pq = T.recall_k_at_k(Ip, gt, K)
+    rec_adc = codec_recall_rows(P._decode(P._codes), xq, gt, dev)
+    if abs(rec_pq - rec_adc) > 0.005:
+        raise AssertionError(f"IndexPQ ST_PQ recall {rec_pq} vs exact ADC "
+                             f"{rec_adc}")
+    P.search_type = P.ST_SDC
+    (Dd, Id), t_sdc = timed(lambda: P.search(xq[:PQ_NQ_E], K), 1)
+    expect_launches("IndexPQ", before, {})
+    phase("pq_flat", recall_pq=rec_pq, recall_exact_adc=rec_adc,
+          qps_pq=NQ / t_pq, recall_sdc=T.recall_k_at_k(Id, gt[:PQ_NQ_E], K),
+          qps_sdc=PQ_NQ_E / t_sdc, cache_bytes=P._dec.nbytes)
+    del P
+
+    # -- 16h. IVF15625_HNSW16,PQ32 over phase 9's graph quantizer -------------
+    H, th_train, th_add = ivf_pq_over(hquant, 32, 8, xt, xb, ids, dev)
+    Ch = codec_recall_rows(rows_by_id(H._decode_lists(torch.float32), NB,
+                                      dev), xq, gt, dev)
+    n_chunks = -(-NQ // hquant.search_chunk)
+    hops = hquant.hnsw.fused_hops
+    res_h = {}
+    for mode in ("auto", "quantizer"):
+        H.coarse_mode = mode
+        want = {"ivf_scan_fused": 1 if mode == "auto"
+                else n_chunks * (1 + hops) + 1}
+        res_h[mode] = pq_searches(
+            H, xq, gt, f"IVFHNSW PQ32 {mode}", want, nprobes=(32, 64),
+            floors={n: Ch * hnsw_auto[n] - 0.01 for n in (32, 64)}
+            if mode == "auto" else None)
+    H.coarse_mode = "auto"
+    for n in (32, 64):
+        a, q = (res_h[m][n]["recall_at_10"] for m in ("auto", "quantizer"))
+        if abs(a - q) > 0.01:
+            raise AssertionError(f"IVFHNSW PQ32 nprobe={n}: quantizer {q} "
+                                 f"vs auto {a}")
+    phase("pq_ivf_hnsw", nlist=hquant.ntotal, train_s=th_train,
+          add_s=th_add, codec_recall=Ch, searches=res_h)
+    del H
+
+    # -- 16i. through files: (a), (e), (f); two shards merged on disk --------
+    files = {}
+    for name, idx in (("IVFPQ", A), ("IVFPQR", R), ("RFlat", RF)):
+        path = os.path.join(tmp, f"{name}.tann")
+        want = idx.search(xq, K, params=p32)
+        T.write_index(idx, path)
+        back = T.read_index(path, mmap=True, device=dev)
+        t0 = time.perf_counter()
+        base = getattr(back, "base_index", back)
+        base._ready()
+        torch.cuda.synchronize()
+        t_rebuild = time.perf_counter() - t0
+        same_search(f"{name} through a file", want,
+                    back.search(xq, K, params=p32))
+        files[name] = {"file_bytes": os.path.getsize(path),
+                       "cache_rebuild_s": t_rebuild}
+        del back
+        os.remove(path)
+    half = NB // 2
+    paths = []
+    for j, (lo, hi) in enumerate(((0, half), (half, NB))):
+        shard, _, _ = ivf_pq_over(quant3, 32, 8, xt, xb[lo:hi], ids[lo:hi],
+                                  dev, codec=(A.pq.centroids,))
+        paths.append(os.path.join(tmp, f"pq_shard{j}.tann"))
+        T.write_index(shard, paths[-1])
+        del shard
+    empty = T.IndexIVFPQ(quant3, D, NLIST, 32, 8, device=dev)
+    empty.is_trained = True
+    empty._set_codec(A.pq.centroids)
+    dst = os.path.join(tmp, "pq_merged.tann")
+    t0 = time.perf_counter()
+    n = T.merge_ondisk(empty, [T.FileInvlistSource(p) for p in paths], dst)
+    t_merge = time.perf_counter() - t0
+    merged = T.read_index(dst, mmap=True, device=dev)
+    if n != NB:
+        raise AssertionError(f"merge_ondisk wrote {n} rows")
+    same_search("the merged IVFPQ file", A.search(xq, K, params=p32),
+                merged.search(xq, K, params=p32))
+    phase("pq_files", files=files, merge_s=t_merge,
+          merged_bytes=os.path.getsize(dst))
+    del merged
+    for p in paths + [dst]:
+        os.remove(p)
+
+    # -- 16j. remove_ids on (a) through K3 and (b) through K3-SQ8 -------------
+    gone = np.random.RandomState(16).choice(NB, NB // 10, replace=False)
+    keep = np.setdiff1d(ids, gone)
+    rest, _, _ = ivf_pq_over(quant3, 32, 8, xt, xb[keep], keep, dev,
+                             codec=(A.pq.centroids,))
+    t0 = time.perf_counter()
+    A.remove_ids(T.IDSelectorBatch(gone))
+    t_remove = time.perf_counter() - t0
+    for dtype, want in (("bfloat16", k3), ("sq8", sq8)):
+        for idx in (A, rest):
+            idx.decoded_cache_dtype = dtype
+            idx._decoded = None
+        before = counts()
+        D1, I1 = A.search(xq, K, params=p32)
+        expect_launches(f"IVFPQ {dtype} after remove_ids", before, want)
+        if np.isin(I1, gone).any():
+            raise AssertionError(f"{dtype}: a removed id came back")
+        same_search(f"IVFPQ {dtype} after remove_ids",
+                    rest.search(xq, K, params=p32), (D1, I1))
+    phase("pq_remove", removed=len(gone), remove_s=t_remove,
+          bit_equal=True)
+    del A, R, RF, RT, rest, xb_flat, base_f
+    torch.cuda.empty_cache()
+    got = {k: v - cmp_launches.get(k, 0) for k, v in launched().items()
+           if v != cmp_launches.get(k, 0)}
+    phase("pq", seconds=time.perf_counter() - t_phase, launches=got)
+    return got, wide["nprobe32_k40"]
 
 
 if __name__ == "__main__":

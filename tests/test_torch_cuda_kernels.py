@@ -117,10 +117,98 @@ def test_kernel_float_data_overlap():
 
 
 def test_kernel_rejects_unsupported():
+    """A kp outside [1, KP_MAX] no longer goes to the kernel as is: kp 33
+    is served by one launch over sub-blocks and equals the plain version
+    at 33; a kp below 1 and a d that is not a multiple of 8 still
+    raise."""
     dev = _cuda()
     xq, probes, il = _setup(dev, 128, 128, n=500, nq=10)
+    d1, p1 = _pairs(F.scan_pairs, xq, probes, il, 33, 1)
+    d0, p0 = _pairs(F.scan_pairs_reference, xq, probes, il, 33, 1)
+    assert np.array_equal(d0, d1) and np.array_equal(p0, p1)
     with pytest.raises(ValueError):
-        F.scan_invlists_fused(xq, probes, il, 10, kp=33)
+        F.scan_invlists_fused(xq, probes, il, 10, kp=-1)
     xq, probes, il = _setup(dev, 12, 128, n=500, nq=10)
     with pytest.raises(ValueError):
         F.scan_invlists_fused(xq, probes, il, 10)
+
+
+@pytest.mark.parametrize("d,B,kp,nprobe,metric,sq8", [
+    (128, 128, 33, 1, 1, False), (128, 128, 46, 1, 1, False),
+    (128, 128, 106, 1, 1, False), (128, 128, 46, 6, 1, False),
+    (96, 48, 106, 3, 0, False), (128, 16, 40, 6, 1, False),
+    (128, 128, 46, 6, 1, True), (128, 64, 106, 1, 0, True)])
+def test_wide_kp_equals_plain(d, B, kp, nprobe, metric, sq8):
+    """kp above KP_MAX: ONE launch over sub-blocks of at most 32 rows
+    (`scan_pairs_wide` over K3, or K3-SQ8 on the SQ8 stream) gives the
+    plain version's per-pair top-kp bit for bit, positions included, and
+    the whole scan's (D, I) too."""
+    from tpu_ann_torch.ops.ivf_scan import sq8_requantize_invlists
+
+    dev = _cuda()
+    xq, probes, il = _setup(dev, d, B, nprobe=nprobe, metric=metric)
+    if sq8:
+        il = sq8_requantize_invlists(il)
+    sim = TD.is_similarity_metric(metric)
+    q, qn = F.fold_queries(xq, il, sim)
+    plan = F.plan_pairs(probes, il)
+    before = (F.LAUNCHES, F.LAUNCHES_SQ8)
+    d1, p1 = F.scan_pairs(q, qn, plan, il, kp, sim)
+    torch.cuda.synchronize()
+    got = (F.LAUNCHES - before[0], F.LAUNCHES_SQ8 - before[1])
+    assert got == ((0, 1) if sq8 else (1, 0))
+    d0, p0 = F.scan_pairs_reference(q, qn, plan, il, kp, sim)
+    assert torch.equal(d0, d1) and torch.equal(p0, p1)
+    k = kp - 6
+    D1, I1, _ = F.scan_invlists_fused(xq, probes, il, k, metric, kp=kp)
+    D0, I0, _ = F.scan_invlists_fused_reference(xq, probes, il, k, metric,
+                                                kp=kp)
+    assert torch.equal(D0, D1) and torch.equal(I0, I1)
+
+
+@pytest.mark.parametrize("cache_dtype,k,nprobe", [
+    ("bfloat16", 10, 8), ("sq8", 10, 8), ("bfloat16", 40, 8),
+    ("bfloat16", 100, 1), ("sq8", 100, 1)])
+def test_k3_over_decoded_pq_cache(cache_dtype, k, nprobe):
+    """An IndexIVFPQ's decoded cache (integer codebooks: the bf16 rows are
+    exact) through K3, or through K3-SQ8 for "sq8": one launch a search,
+    (D, I) equal to the plain version at default_kp(k) over the same
+    cache, wider than the kernel's KP_MAX at k 40 (an IVFPQR's k *
+    k_factor) and k 100, where nprobe 1 returns min(k, list size) hits."""
+    from tpu_ann_torch.models.flat import IndexFlat
+    from tpu_ann_torch.models.ivf import SearchParametersIVF
+    from tpu_ann_torch.models.ivf_pq import IndexIVFPQ
+
+    dev = _cuda()
+    rs = np.random.RandomState(3)
+    xb = rs.randint(0, 128, size=(6000, 64)).astype(np.float32)
+    xq = rs.randint(0, 128, size=(500, 64)).astype(np.float32)
+    q = IndexFlat(64, device=dev)
+    q.add(xb[rs.choice(len(xb), 32, replace=False)])
+    idx = IndexIVFPQ(q, 64, 32, 16, 8, device=dev)
+    idx.quantizer_trains_alone = 1
+    idx.decoded_cache_dtype = cache_dtype
+    idx.train(xb[:3000])
+    idx._set_codec(np.round(idx.pq.centroids))
+    idx.add(xb)
+    xq_t = torch.from_numpy(xq).to(dev)
+    _, probes = idx._coarse_search_device(xq_t, nprobe)
+    before = (F.LAUNCHES, F.LAUNCHES_SQ8)
+    D1, I1 = idx.search(xq, k, params=SearchParametersIVF(nprobe=nprobe))
+    got = (F.LAUNCHES - before[0], F.LAUNCHES_SQ8 - before[1])
+    assert got == ((1, 0) if cache_dtype == "bfloat16" else (0, 1))
+    D0, I0, _ = F.scan_invlists_fused_reference(
+        xq_t, probes, idx._decoded, k, kp=F.default_kp(k))
+    I0 = idx._map_ids(I0.cpu().numpy())
+    if cache_dtype == "bfloat16":
+        assert_topk_equal(D0.cpu().numpy(), I0, D1, I1, rtol=0)
+    else:
+        assert_topk_equal(D0.cpu().numpy(), I0, D1, I1, rtol=1e-5)
+    if k == 100:
+        il = idx.invlists
+        ids = il.ids.cpu().numpy()
+        size = np.array([(ids[s:s + n] >= 0).sum() for s, n in zip(
+            il.list_block_start.cpu().numpy(),
+            il.list_nblocks.cpu().numpy())])
+        held = np.minimum(size[probes.cpu().numpy()].sum(1), k)
+        assert np.array_equal((I1 >= 0).sum(1), held)

@@ -231,10 +231,16 @@ def test_ivf_sq_direct_equals_ivf_flat_on_card():
 
 
 def test_sq8_rejects_unsupported():
+    """kp 33 is served (one launch over 32-row sub-blocks) and equals the
+    plain version bit for bit; kp below 1, a misaligned stream and a d
+    that is not a multiple of 8 raise."""
     dev = _cuda()
     xq, probes, il = _setup(dev, 128, SQ.QT_8BIT_DIRECT, n=600, nq=10)
+    d1, p1 = _pairs(F.scan_pairs, xq, probes, il, 33, 1)
+    d0, p0 = _pairs(F.scan_pairs_reference, xq, probes, il, 33, 1)
+    assert np.array_equal(d0, d1) and np.array_equal(p0, p1)
     with pytest.raises(ValueError):
-        F.scan_invlists_fused(xq, probes, il, 10, kp=33)
+        F.scan_invlists_fused(xq, probes, il, 10, kp=-1)
     # a stream that is not 16-byte aligned
     flat = torch.zeros(il.codes.numel() + 16, dtype=torch.uint8, device=dev)
     shifted = flat[1:1 + il.codes.numel()].view(il.codes.shape)

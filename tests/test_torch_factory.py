@@ -15,20 +15,30 @@ D = 32
 PORTED = ["Flat", "SQ8", "SQ6", "SQ4", "SQfp16", "SQbf16", "HNSW32",
           "HNSW16,Flat", "HNSW", "IVF64,Flat", "IVF64", "IVF64_HNSW16,Flat",
           "IVF64,SQ8", "IVF64_HNSW8,SQ8", "IVF64,SQ4", "IVF64,SQ6",
-          "IVF64,SQfp16", "IVF64,SQbf16", "IVF64_HNSW8,SQ4"]
+          "IVF64,SQfp16", "IVF64,SQbf16", "IVF64_HNSW8,SQ4",
+          "PQ8", "PQ8x4", "PQ16x4fs", "PQ8x6", "IVF64,PQ8", "IVF64,PQ8x4fs",
+          "IVF64,PQ16x4", "IVF64,PQ8x4fs_32", "IVF64_HNSW16,PQ8",
+          "IVF64,PQ8+16", "IVF64_HNSW8,PQ4+8", "IVF64,PQ8,RFlat",
+          "Flat,RFlat", "IVF64,SQ8,RSQ8t", "IVF64,PQ8,Refine(Flat)",
+          "PQ8,Refine(SQ8Tier)", "IVF64_HNSW16,PQ8+4,RFlat",
+          "IVF64,Flat,RFlat", "IVF64,PQ4x4fs"]
 
 
 def _params(idx) -> dict:
     out = {"class": type(idx).__name__, "d": idx.d,
            "metric": idx.metric_type}
-    for name in ("nlist", "qtype", "block_size"):
+    for name in ("nlist", "qtype", "block_size", "M", "nbits",
+                 "M_refine", "nbits_refine", "k_factor"):
         if hasattr(idx, name):
             out[name] = getattr(idx, name)
+    if "PQ" in out["class"] and hasattr(idx, "nlist"):
+        out["by_residual"] = idx.by_residual
     if hasattr(idx, "hnsw"):
         out["M"] = idx.hnsw.M
-    q = getattr(idx, "quantizer", None)
-    if q is not None:
-        out["quantizer"] = _params(q)
+    for name in ("quantizer", "base_index", "refine_index"):
+        sub = getattr(idx, name, None)
+        if sub is not None:
+            out[name] = _params(sub)
     return out
 
 
@@ -68,12 +78,11 @@ def test_built_index_trains_and_searches():
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("PQ8", "item 5"), ("IVF64,PQ8", "item 5"), ("IVF64,PQ8+16", "item 5"),
-    ("IVF64,Flat,RFlat", "item 6"), ("Flat,RFlat", "item 6"),
     ("HNSW32,SQ8", "item 7"), ("HNSW32,PQ8", "item 7"),
+    ("HNSW32,PQ8,RFlat", "item 7"), ("IDMap,Flat,RFlat", "item 8"),
     ("IDMap,Flat", "item 8"), ("PCA16,IVF64,Flat", "item 8"),
     ("OPQ8_16,IVF64,PQ8", "item 8"), ("L2norm,Flat", "item 8"),
-    ("IVF64,PQ4x4fs", "item 5"), ("IDMap2,Flat", "item 8"),
+    ("IDMap2,Flat", "item 8"),
     ("RQ4x8", "item 9"), ("NSG32", "item 9"), ("LSH", "item 9"),
     ("IVF64(RCQ2x3),Flat", "item 9"), ("ZnLattice4x10_4", "item 9")])
 def test_unported_specs_raise(spec, item):
@@ -114,3 +123,34 @@ def test_default_device_is_cuda():
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             TF.index_factory(D, "IVF64,Flat")
+
+
+@pytest.mark.parametrize("spec", ["PQ8np", "IVF64,PQ8np", "PQ8x4np"])
+def test_pq_np_spec(spec):
+    """"np" (no polysemous training) builds the plain PQ class in both
+    packages; neither gives it a code size."""
+    t = TF.index_factory(D, spec, device="cpu")
+    j = JF.index_factory(D, spec)
+    assert _params(t) == _params(j)
+    for f in (TF.get_code_size, JF.get_code_size):
+        with pytest.raises(ValueError):
+            f(D, spec)
+    assert TF.reverse_index_factory(t) == JF.reverse_index_factory(j)
+
+
+def test_namesake_pq_factory_builds_and_searches():
+    """IVF<n>_HNSW<M>,PQ<m>: an IndexIVFPQ over an IndexHNSWFlat
+    quantizer, trained (k-means, then the graph) and searched."""
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    x = rs.rand(3000, D).astype(np.float32)
+    idx = TF.index_factory(D, "IVF16_HNSW8,PQ8", device="cpu")
+    assert isinstance(idx, T.IndexIVFPQ)
+    assert isinstance(idx.quantizer, T.IndexHNSWFlat)
+    idx.cp.niter = 3
+    idx.train(x)
+    idx.add(x)
+    idx.nprobe = 16
+    _, I = idx.search(x[:20], 1)
+    assert (I[:, 0] == np.arange(20)).mean() >= 0.9

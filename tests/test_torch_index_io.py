@@ -325,8 +325,8 @@ def test_pending_removals_cross_package(tag, writer, data, tmp_path):
     assert not ((I1 >= 100) & (I1 < 900)).any()
 
 
-@pytest.mark.parametrize("tag,item", [("IxPQ", "item 5"), ("IwPQ", "item 5"),
-                                      ("IxRF", "item 6"), ("IHNs", "item 7"),
+@pytest.mark.parametrize("tag,item", [("IHNq", "item 7"), ("IxPT", "item 8"),
+                                      ("IwRQ", "item 9"), ("IHNs", "item 7"),
                                       ("IxMp", "item 8"), ("IxNS", "item 9"),
                                       ("IxSh", "item 10")])
 def test_unported_tag_raises(tag, item, tmp_path):
@@ -337,15 +337,14 @@ def test_unported_tag_raises(tag, item, tmp_path):
 
 
 def test_unported_tag_from_a_jax_file(data, tmp_path):
-    from tpu_ann.models.pq import IndexPQ
+    from tpu_ann.models.idmap import IndexIDMap
 
-    xb, xt, _ = data
-    idx = IndexPQ(D, 4, 4)
-    idx.train(xt)
-    idx.add(xb[:100])
-    path = str(tmp_path / "pq.tann")
+    xb, _, _ = data
+    idx = IndexIDMap(JFlat(D))
+    idx.add_with_ids(xb[:100], np.arange(100, 200, dtype=np.int64))
+    path = str(tmp_path / "idmap.tann")
     jio.write_index(idx, path)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
         T.read_index(path, device="cpu")
     tio._write_container(path, {"tag": "Zzzz"}, {})
     with pytest.raises(ValueError, match="unknown index tag"):

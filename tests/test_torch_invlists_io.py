@@ -209,6 +209,57 @@ def test_merge_ondisk_coded(ds, tmp_path):
         loaded.add_with_ids(xb[:3], np.arange(3, dtype=np.int64))
 
 
+def test_merge_ondisk_coded_pq(ds, tmp_path):
+    """The twin of the JAX tests' test_merge_ondisk_coded: IndexIVFPQ
+    shards over one quantizer and codebook merge on disk into a
+    search-only IVFPQ file, reopened with mmap. Its (D, I) equal the
+    in-memory merge's and one index's over all rows bit for bit (the
+    reference holds ranks to 90%); the JAX package reads the file too."""
+    xt, xb = ds.get_train(), ds.get_database()
+    nlist = 16
+    base = T.IndexIVFPQ(T.IndexFlat(ds.d, device="cpu"), ds.d, nlist, 4, 8,
+                        device="cpu")
+    base.cp.niter = 5
+    base.train(xt)
+
+    def pq_index():
+        ix = _ivf(T.IndexIVFPQ, base.quantizer, ds.d, nlist, M=4, nbits=8)
+        ix._set_codec(base.pq.centroids)
+        return ix
+
+    half = len(xb) // 2
+    shards, paths = [], []
+    for j, (lo, hi) in enumerate(((0, half), (half, len(xb)))):
+        ix = pq_index()
+        ix.add_with_ids(xb[lo:hi], np.arange(lo, hi, dtype=np.int64))
+        paths.append(str(tmp_path / f"pq{j}.tann"))
+        T.write_index(ix, paths[-1])
+        shards.append(ix)
+    ram = pq_index()
+    T.merge_indexes(ram, shards)
+    one = pq_index()
+    one.add_with_ids(xb, np.arange(len(xb), dtype=np.int64))
+    dst = str(tmp_path / "pq_merged.tann")
+    assert merge_ondisk(pq_index(), [FileInvlistSource(p) for p in paths],
+                        dst) == len(xb)
+    loaded = T.read_index(dst, mmap=True, device="cpu")
+    assert isinstance(loaded, T.IndexIVFPQ)
+    xq = ds.get_queries()
+    for idx in (loaded, ram, one):
+        idx.nprobe = 8
+    D1, I1 = loaded.search(xq, K)
+    for D0, I0 in (ram.search(xq, K), one.search(xq, K)):
+        np.testing.assert_array_equal(I1, I0)
+        np.testing.assert_array_equal(D1, D0)
+    ref = jio.read_index(dst, mmap=True)
+    ref.nprobe, ref.max_list_scan_factor = 8, 0
+    D2, I2 = ref.search(xq, K)
+    assert np.mean([len(set(a) & set(b)) / K for a, b in zip(I2, I1)]) \
+        >= 0.99
+    with pytest.raises(RuntimeError):        # a coded merge is search-only
+        loaded.add_with_ids(xb[:3], np.arange(3, dtype=np.int64))
+
+
 def test_ondisk_slot_allocator(tmp_path):
     """OnDiskInvertedLists (OnDiskInvertedLists.h:132-133): chunked adds
     fill block padding, then free or new blocks; removals free emptied

@@ -1,7 +1,9 @@
 """Port twin of tests/test_io_sweep.py for tpu_ann_torch.utils.index_io:
 every index class the port registers round-trips through write_index /
 read_index (and read_index(mmap=True)) and searches identically after the
-reload, on the CPU; every index class the port exports is registered."""
+reload, on the CPU; every index class the port exports is registered; and
+the PQ / refine files (IxPQ, IwPQ, IwPR, IxRF, IxRT) that one package
+writes, the other reads and searches alike."""
 
 import os
 
@@ -51,6 +53,16 @@ def _build(name, xt, xb, path):
         idx = T.IndexScalarQuantizer(D_, T.QT_8BIT, device=dev)
     elif name == "IndexIVFScalarQuantizer":
         idx = T.IndexIVFScalarQuantizer(flat, D_, 8, T.QT_8BIT, device=dev)
+    elif name == "IndexPQ":
+        idx = T.IndexPQ(D_, 4, 6, device=dev)
+    elif name == "IndexIVFPQ":
+        idx = T.IndexIVFPQ(flat, D_, 8, 4, 6, device=dev)
+    elif name == "IndexIVFPQR":
+        idx = T.IndexIVFPQR(flat, D_, 8, 4, 6, 4, 6, device=dev)
+    elif name in ("IndexRefine", "IndexRefineFlat"):
+        idx = T.IndexRefineFlat(T.IndexPQ(D_, 4, 6, device=dev))
+    elif name == "IndexRefineSQ8Tier":
+        idx = T.IndexRefineSQ8Tier(T.IndexPQ(D_, 4, 6, device=dev))
     else:
         raise KeyError(name)
     if hasattr(idx, "cp"):
@@ -93,3 +105,72 @@ def test_roundtrip(name, mmap, data, tmp_path):
     np.testing.assert_array_equal(D1, D2)
     if hasattr(idx, "instances"):
         assert idx.instances and idx2.instances == idx.instances
+
+
+# -- the PQ / refine tags across the two packages -----------------------------
+
+CROSS = {"IxPQ": "IndexPQ", "IwPQ": "IndexIVFPQ", "IwPR": "IndexIVFPQR",
+         "IxRF": "IndexRefineFlat", "IxRT": "IndexRefineSQ8Tier"}
+
+
+def _jax_build(name, xt, xb):
+    from tpu_ann import models as JM
+    from tpu_ann.models.flat import IndexFlat as JFlat
+
+    if name == "IndexPQ":
+        idx = JM.IndexPQ(D_, 4, 6)
+    elif name == "IndexIVFPQ":
+        idx = JM.IndexIVFPQ(JFlat(D_), D_, 8, 4, 6)
+    elif name == "IndexIVFPQR":
+        idx = JM.IndexIVFPQR(JFlat(D_), D_, 8, 4, 6, 4, 6)
+    elif name == "IndexRefineFlat":
+        idx = JM.IndexRefineFlat(JM.IndexPQ(D_, 4, 6))
+    else:
+        idx = JM.IndexRefineSQ8Tier(JM.IndexPQ(D_, 4, 6))
+    if hasattr(idx, "cp"):
+        idx.cp.niter = 4
+    if hasattr(idx, "nprobe"):
+        idx.nprobe = 4
+        idx.max_list_scan_factor = 0
+    idx.train(xt)
+    idx.add(xb)
+    return idx
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("tag", sorted(CROSS))
+def test_pq_refine_files_cross_packages(tag, writer, data, tmp_path):
+    """A file one package writes, the other reads: the same class, codes
+    and codebooks, and the same search (ids overlapping >= 0.95, the
+    distances of common ids within rtol 1e-5: the JAX index scans its
+    decoded cache query-major on the CPU, the port through K3's plain
+    version, and each rounds its own way near a tie)."""
+    from tpu_ann.utils import index_io as jio
+
+    xt, xb, xq = data
+    name = CROSS[tag]
+    p = str(tmp_path / f"{tag}.tann")
+    if writer == "jax":
+        src = _jax_build(name, xt, xb)
+        jio.write_index(src, p)
+        dst = index_io.read_index(p, device="cpu")
+        jidx, tidx = src, dst
+    else:
+        src = _build(name, xt, xb, None)
+        index_io.write_index(src, p)
+        dst = jio.read_index(p)
+        jidx, tidx = dst, src
+    assert index_io._read_container(p)[0]["tag"] == tag
+    assert type(dst).__name__ == type(src).__name__
+    assert dst.ntotal == src.ntotal == NB
+    if hasattr(jidx, "max_list_scan_factor"):
+        jidx.max_list_scan_factor = 0
+    D0, I0 = jidx.search(xq, 10)
+    D1, I1 = tidx.search(xq, 10)
+    ov = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(I0, I1)])
+    assert ov >= 0.95, ov
+    for q in range(NQ):
+        m0 = dict(zip(I0[q], D0[q]))
+        for i, dd in zip(I1[q], D1[q]):
+            if i in m0:
+                np.testing.assert_allclose(dd, m0[i], rtol=1e-5)

@@ -64,6 +64,9 @@ def _pair(data, metric=L2, ids=None, block_size=B, chunks=2):
             q = JFlat(D, metric)
             q.add(cent)
             idx = JIVF(q, D, NLIST, metric, block_size)
+            # the reference's per-list cap is a TPU-watchdog workaround
+            # that the port does not copy: read whole lists on both sides
+            idx.max_list_scan_factor = 0
         else:
             q = TFlat(D, metric, device="cpu")
             q.add(cent)
@@ -506,3 +509,96 @@ def test_carried_index_with_pending_removals(data):
     assert not np.isin(I1, gone).any()
     with pytest.raises(RuntimeError):
         t.remove_ids(TS.IDSelectorBatch(gone[:1] + 3))
+
+
+@pytest.fixture(scope="module")
+def skewed():
+    """22k rows in 64 lists, d 8: list 0 holds 12156 rows (95 blocks of
+    128), far past the reference's per-list cap of max(64, 16 x the
+    average) blocks; the other 63 lists share the rest."""
+    rs = np.random.RandomState(5)
+    cent = (np.arange(64, dtype=np.float32)[:, None] * 100
+            + np.zeros((1, 8), np.float32))
+    big = cent[0] + rs.randint(-3, 4, size=(12156, 8)).astype(np.float32)
+    lst = rs.randint(1, 64, 22000 - 12156)
+    rest = cent[lst] + rs.randint(-3, 4, size=(len(lst), 8)).astype(
+        np.float32)
+    xb = np.concatenate([big, rest])
+    q = TFlat(8, device="cpu")
+    q.add(cent)
+    idx = TIVF(q, 8, 64, device="cpu")
+    idx.quantizer_trains_alone = 1
+    idx.train(xb[:100])
+    idx.add(xb)
+    xq = cent[:1] + rs.randint(-2, 3, size=(5, 8)).astype(np.float32)
+    return idx, xb, xq
+
+
+def test_skewed_index_reads_whole_lists(skewed):
+    """The port reads whole lists on every route (max_list_scan_factor 0):
+    IDSelectorAll returns what no selector returns, and a range search with
+    an infinite radius returns every row of the probed list."""
+    idx, xb, xq = skewed
+    assert idx.list_sizes[0] == 12156 and idx.invlists.list_nblocks[0] == 95
+    assert idx.max_list_scan_factor == 0
+    p = TParams(nprobe=1)
+    D0, I0 = idx.search(xq, K, params=p)
+    before = F.LAUNCHES
+    D1, I1 = idx.search(xq, K, params=TParams(nprobe=1,
+                                              sel=TS.IDSelectorAll()))
+    assert F.LAUNCHES == before                    # the query-major route
+    assert_topk_equal(D0, I0, D1, I1, rtol=0)
+    # both equal an exact search over list 0's rows
+    ex = ((xq[:, None, :] - xb[None, :12156]) ** 2).sum(-1)
+    np.testing.assert_array_equal(D0, np.sort(ex, 1)[:, :K])
+    idx.nprobe = 1
+    lims, Dr, Ir = idx.range_search(xq, float("inf"))
+    assert np.all(np.diff(lims) == 12156)
+    assert all(set(Ir[lims[i]:lims[i + 1]]) == set(range(12156))
+               for i in range(len(xq)))
+    # a caller may still set the cap: the query-major routes then read
+    # max(64, 16 x the average) blocks of a list, as the reference's do
+    idx.max_list_scan_factor = 16
+    try:
+        lims, _, _ = idx.range_search(xq, float("inf"))
+        assert np.all(np.diff(lims) == 64 * 128)
+    finally:
+        idx.max_list_scan_factor = 0
+
+
+def test_update_vectors_repeated_id_keeps_the_last(data):
+    """An id given twice to update_vectors takes its last vector, moved to
+    another list, and is stored once: search returns it once, the list
+    sizes sum to ntotal, and the index equals one rebuilt from the final
+    vectors. (The reference stores each occurrence.)"""
+    xb, xq, cent = data
+    xb = xb[:2000]
+    rs = np.random.RandomState(3)
+    x64 = xb[rs.choice(len(xb), 64, replace=False)]
+
+    def build(rows):
+        q = TFlat(D, device="cpu")
+        q.add(x64)
+        idx = TIVF(q, D, 64, device="cpu")
+        idx.quantizer_trains_alone = 1
+        idx.train(rows[:100])
+        idx.add(rows)
+        return idx
+
+    t = build(xb)
+    own = t.list_of_ids([7])[0]
+    other = [lst for lst in range(64) if lst != own][:2]
+    first, last = x64[other[0]], x64[other[1]]
+    t.update_vectors([7, 7], np.stack([first, last]))
+    assert t.list_of_ids([7])[0] == other[1]
+    assert t.list_sizes.sum() == t.ntotal == len(xb)
+    np.testing.assert_array_equal(t.reconstruct(7), last)
+    Dq, Iq = t.search(last[None], 5, params=TParams(nprobe=64))
+    assert list(Iq[0]).count(7) == 1
+    final = xb.copy()
+    final[7] = last
+    ref = build(final)
+    p = TParams(nprobe=4)
+    D0, I0 = ref.search(xq, K, params=p)
+    D1, I1 = t.search(xq, K, params=p)
+    assert_topk_equal(D0, I0, D1, I1, rtol=0)

@@ -43,6 +43,9 @@ def _pair(data):
             q = JFlat(D)
             q.add(cent)
             idx = JDedup(q, D, NLIST)
+            # the reference's per-list cap is a TPU-watchdog workaround
+            # that the port does not copy: read whole lists on both sides
+            idx.max_list_scan_factor = 0
         else:
             q = TFlat(D, device="cpu")
             q.add(cent)
@@ -141,3 +144,25 @@ def test_dedup_from_reference(data):
     assert isinstance(t, TDedup)
     t.nprobe = 3
     _equal(j, t, xq)
+
+
+def test_dedup_remove_count_equals_stored_ids_gone(data):
+    """remove_ids counts each stored id that goes once: a representative
+    removed with all its duplicates is the base removal's row, not a second
+    count (the reference counts it twice)."""
+    _, t = _pair(data)
+    rep = next(r for r, dups in t.instances.items() if len(dups) == 1)
+    dup = t.instances[rep][0]
+    n0 = t.ntotal + sum(len(v) for v in t.instances.values())
+    assert t.remove_ids(TBatch(np.asarray([rep, dup], np.int64))) == 2
+    assert rep not in t.instances
+    # more generally: the count is the number of stored ids that went
+    keys = list(t.instances)
+    gone = np.asarray(keys[:5] + [t.instances[keys[5]][0], 3, 4, 10 ** 7],
+                      np.int64)
+    held = {i for r, ds in t.instances.items() for i in (r, *ds)} | set(
+        np.concatenate(t._ids_host).tolist())
+    want = len(set(gone.tolist()) & held)
+    assert t.remove_ids(TBatch(gone)) == want
+    n1 = t.ntotal + sum(len(v) for v in t.instances.values())
+    assert n0 - n1 == 2 + want

@@ -179,3 +179,47 @@ def test_cpu_tensors_take_plain_version_and_count_no_launch():
                           torch.from_numpy(_probes(xq, cent, 2, 1)), tl, 5)
     assert F.LAUNCHES == before
     assert F.default_kp(10) == 16 and F.default_kp(2) == 4
+
+
+WIDE_CASES = [(16, 33, 1, JD.METRIC_L2, "bf16"),
+              (128, 46, 1, JD.METRIC_L2, "bf16"),
+              (128, 106, 1, JD.METRIC_L2, "bf16"),
+              (128, 46, 3, JD.METRIC_INNER_PRODUCT, "bf16"),
+              (48, 106, 3, JD.METRIC_L2, "bf16"),
+              (128, 46, 2, JD.METRIC_L2, "sq8"),
+              (64, 70, 4, JD.METRIC_INNER_PRODUCT, "sq8")]
+
+
+@pytest.mark.parametrize("bs,kp,nprobe,metric,stream", WIDE_CASES)
+@pytest.mark.parametrize("budget", [0, 640])
+def test_wide_kp_equals_per_pair_scan(bs, kp, nprobe, metric, stream,
+                                      budget, monkeypatch):
+    """kp above KP_MAX: one pass over sub-blocks of at most 32 rows, each
+    kept whole (`scan_pairs_wide`, here over the plain version, as the
+    card runs it over one K3 / K3-SQ8 launch), gives the per-pair scan's
+    top-kp bit for bit, on data of few values (many ties), probes of -1
+    and empty lists included; ``budget`` 640 selects in groups of five
+    sub-pairs (a pair wider than a group taken alone)."""
+    from tpu_ann_torch.ops.ivf_scan import sq8_requantize_invlists
+
+    if budget:
+        monkeypatch.setattr(F, "_PLAIN_BUDGET", budget)
+    rs = np.random.RandomState(kp + bs + nprobe)
+    xb = rs.randint(0, 3, size=(2500, 16)).astype(np.float32)
+    xq = rs.randint(0, 3, size=(20, 16)).astype(np.float32)
+    nlist = 10
+    assign = rs.choice(nlist - 2, len(xb), p=[.4] + [.6 / 7] * 7)
+    il = t_pack(xb, np.arange(len(xb)), assign, nlist, block_size=bs,
+                device="cpu")
+    if stream == "sq8":
+        il = sq8_requantize_invlists(il)
+    probes = rs.randint(0, nlist, size=(len(xq), nprobe)).astype(np.int32)
+    probes[::4, 0] = -1
+    sim = JD.is_similarity_metric(metric)
+    q, qn = F.fold_queries(torch.from_numpy(xq), il, sim)
+    plan = F.plan_pairs(torch.from_numpy(probes), il)
+    want = F.scan_pairs_reference(q, qn, plan, il, kp, sim)
+    got = F.scan_pairs_wide(q, qn, plan, il, kp, sim, F.scan_pairs_reference)
+    assert F.sub_block_rows(bs) == {16: 16, 128: 32, 48: 24, 64: 32}[bs]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.isfinite(want[0][:, :kp]).any(1).sum() > 0

@@ -52,6 +52,9 @@ def _pair(data, qtype, metric=L2):
             q = JFlat(D, metric)
             q.add(cent)
             idx = JIVFSQ(q, D, NLIST, qtype, metric, B)
+            # the reference's per-list cap is a TPU-watchdog workaround
+            # that the port does not copy: read whole lists on both sides
+            idx.max_list_scan_factor = 0
         else:
             q = TFlat(D, metric, device="cpu")
             q.add(cent)

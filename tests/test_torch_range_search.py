@@ -123,6 +123,9 @@ def _ivf_pair(data, metric, qtype=None):
             q.add(cent)
             idx = JIVF(q, D, NLIST, metric, 32) if qtype is None else \
                 JIVFSQ(q, D, NLIST, qtype, metric, 32)
+            # the reference's per-list cap is a TPU-watchdog workaround
+            # that the port does not copy: read whole lists on both sides
+            idx.max_list_scan_factor = 0
         else:
             q = TFlat(D, metric, device="cpu")
             q.add(cent)

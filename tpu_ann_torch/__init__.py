@@ -33,6 +33,11 @@ Covered today:
   of IndexFlat, IndexScalarQuantizer and the IVF indexes (ops.range_search),
   remove_ids / update_vectors / merge_from / reconstruct / list_of_ids /
   sa_encode over the DirectMap, and IndexIVFFlatDedup;
+- the PQ and refine slice — the PQ codec (ops.pq), IndexPQ, IndexIVFPQ
+  (its 8-bit codes decoded once into a cache that K3, or K3-SQ8 for an
+  "sq8" cache, scans; the query-major table scan scan_invlists_pq
+  otherwise), IndexIVFPQR, and IndexRefine / IndexRefineFlat /
+  IndexRefineSQ8Tier;
 - the fork's workflow around them — index files in the JAX package's
   format (utils.index_io: write_index, read_index with mmap, clone,
   serialize; IndexIVFHNSW.save_to_disk / load), on-disk inverted lists and
@@ -64,7 +69,13 @@ from .models import (  # noqa: F401
     IndexIVFFlatDedup,
     IndexIVFFlatPaged,
     IndexIVFHNSW,
+    IndexIVFPQ,
+    IndexIVFPQR,
     IndexIVFScalarQuantizer,
+    IndexPQ,
+    IndexRefine,
+    IndexRefineFlat,
+    IndexRefineSQ8Tier,
     IndexScalarQuantizer,
     QueryLatencyStats,
     SearchParameters,
@@ -96,11 +107,13 @@ from .ops.ivf_scan import (  # noqa: F401
     PackedCodeInvLists,
     PackedInvLists,
     PackedInvListsSQ8,
+    decode_code_invlists,
     decode_code_invlists_generic,
     pack_code_invlists,
     pack_invlists,
     pack_invlists_device,
     scan_invlists,
+    scan_invlists_pq,
     scan_invlists_sq,
     sq8_requantize_invlists,
     sq8_view_from_codes,
@@ -118,6 +131,7 @@ from .ops.ivf_scan_paged import (  # noqa: F401
     scan_invlists_paged,
 )
 from .ops.kmeans import ClusteringParameters, kmeans  # noqa: F401
+from .ops.pq import PQCodec, train_pq  # noqa: F401
 from .ops.range_search import (  # noqa: F401
     RangeSearchResult,
     csr_from_hits,
@@ -146,7 +160,11 @@ from .utils.convert import (  # noqa: F401
     hnsw_from_reference,
     ivf_flat_from_reference,
     ivf_hnsw_from_reference,
+    ivf_pq_from_reference,
+    ivf_pqr_from_reference,
     ivf_sq_from_reference,
+    pq_from_reference,
+    refine_from_reference,
     sq_from_reference,
 )
 from .utils.benchmark import per_query_latency  # noqa: F401

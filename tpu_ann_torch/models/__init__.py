@@ -29,8 +29,17 @@ from .ivf import (  # noqa: F401
 )
 from .ivf_hnsw import IndexIVFHNSW  # noqa: F401
 from .ivf_paged import IndexIVFFlatPaged  # noqa: F401
-from .ivf_pq import IndexIVFScalarQuantizer  # noqa: F401
-from .pq import IndexScalarQuantizer  # noqa: F401
+from .ivf_pq import (  # noqa: F401
+    IndexIVFPQ,
+    IndexIVFPQR,
+    IndexIVFScalarQuantizer,
+)
+from .pq import IndexPQ, IndexScalarQuantizer  # noqa: F401
+from .refine import (  # noqa: F401
+    IndexRefine,
+    IndexRefineFlat,
+    IndexRefineSQ8Tier,
+)
 from .selectors import (  # noqa: F401
     IDSelector,
     IDSelectorAll,

@@ -362,20 +362,27 @@ class IndexIVF(Index):
     # SearchParametersIVF.max_codes overrides it per call
     max_codes = 0
     # per-list scan cap of the query-major and range routes, as a multiple
-    # of the average list length (0 = none; reference :444-463)
-    max_list_scan_factor = 16
+    # of the average list length (0 = none, the default). The reference
+    # defaults to 16, a TPU-watchdog workaround (reference :444-463) that
+    # makes those routes read only part of a long list; the port keeps the
+    # attribute but reads whole lists unless a caller sets it
+    max_list_scan_factor = 0
     # query batches above this many rows are searched in pages (0 = off)
     search_chunk = 0
     _max_nb = None
 
+    def _longest_list_blocks(self) -> int:
+        """The longest list's block count, cached until the lists change."""
+        if self._max_nb is None:
+            self._max_nb = self.invlists.max_nblocks_per_list
+        return self._max_nb
+
     def _default_capped_mnb(self) -> int:
         """Blocks read per list by the query-major and range routes without
         an explicit max_codes: the longest list, capped at max(64,
-        max_list_scan_factor x the average list's blocks). K3 reads whole
-        lists (in both packages)."""
-        if self._max_nb is None:
-            self._max_nb = self.invlists.max_nblocks_per_list
-        mnb = self._max_nb
+        max_list_scan_factor x the average list's blocks) where the factor
+        is set. K3 reads whole lists (in both packages)."""
+        mnb = self._longest_list_blocks()
         if self.max_list_scan_factor:
             avg_nb = max(1, -(-self.ntotal // (self.nlist * self.block_size)))
             mnb = min(mnb, max(64, self.max_list_scan_factor * avg_nb))
@@ -429,11 +436,12 @@ class IndexIVF(Index):
 
     # --- search -------------------------------------------------------------
     def _query_major(self, mnb: Optional[int], id_mask) -> bool:
-        """The reference's route rule (:549-586): a selector, an explicit
-        max_codes below the default cap, or scan_mode "query" takes the
-        query-major scan; everything else the fused scan."""
+        """The reference's route rule (:549-586): a selector, a cap below
+        the longest list (an explicit max_codes, or a max_list_scan_factor
+        a caller set), or scan_mode "query" takes the query-major scan;
+        everything else the fused scan."""
         return (id_mask is not None or self.scan_mode == "query"
-                or (mnb is not None and mnb < self._default_capped_mnb()))
+                or (mnb is not None and mnb < self._longest_list_blocks()))
 
     def _search_device(self, xq_dev: torch.Tensor, k: int, nprobe: int,
                        mnb: Optional[int] = None, id_mask=None):
@@ -693,11 +701,19 @@ class IndexIVF(Index):
         to another list appends into that list's block padding (the old
         slot becomes a hole). A move into a full list, and any update of
         coded storage, repacks. Ids that are absent or removed are
-        skipped."""
+        skipped; an id given more than once takes its last vector, as
+        faiss's sequential DirectMap update ends up (the reference stores
+        each occurrence)."""
         self._check_mutable()
         self._maybe_repack()
         x = self._check_input(x)
         ids = np.asarray(ids, np.int64)
+        if len(ids) != len(x):
+            raise ValueError("ids / x length mismatch")
+        _, last = np.unique(ids[::-1], return_index=True)
+        if len(last) < len(ids):
+            keep = np.sort(len(ids) - 1 - last)
+            ids, x = ids[keep], x[keep]
         if self.invlists is None:
             return
         rows = self._rows_of_ids(ids)
@@ -968,9 +984,11 @@ class IndexIVFFlatDedup(IndexIVFFlat):
             keep_dups = [int(v) for v in da[~gone]]
             removed += int(gone.sum())
             if bool(sel.member_array(np.asarray([rep], np.int64))[0]):
-                removed += 1
+                # with no duplicate left the row itself goes, and the base
+                # removal counts it (the reference counts it here too)
                 if keep_dups:
                     # the stored row survives under a duplicate's id
+                    removed += 1
                     promote[int(rep)] = keep_dups[0]
                     if keep_dups[1:]:
                         new_instances[keep_dups[0]] = keep_dups[1:]

@@ -14,7 +14,8 @@ in id order, each list's blocks contiguous:
 The layout is byte-identical to the reference's, so stream positions
 (block * B + lane) mean the same thing in both packages. ``data_bf16`` is
 the stream the fused scan reads; it is cast once here, at pack time,
-instead of on every search.
+instead of on every search. A bf16 decoded PQ cache holds its rows once:
+its ``data`` is ``data_bf16`` itself, widened where it is read.
 
 Coded lists (`PackedCodeInvLists`) keep the same layout with a codec's code
 rows in place of the vectors. `PackedInvListsSQ8` is the 8-bit scalar-
@@ -29,9 +30,11 @@ faiss/IndexIVF.cpp:399-723): a per-query compacted block table, queries
 sorted by scan length, exact f32 scores and a running top-k. The HNSW
 graph build uses it for its kNN candidates, and IVF searches with an
 IDSelector or a max_codes cap take it. `scan_invlists_sq` is the same scan
-over SQ code lists (dequantized per chunk), and
-`decode_code_invlists_generic` decodes code lists into a raw layout (the
-IVF-SQ range search's, later IVFPQ's decoded cache).
+over SQ code lists (dequantized per chunk), `scan_invlists_pq` over PQ
+code lists (the ADC table summed per code), and
+`decode_code_invlists_generic` / `decode_code_invlists` decode code lists
+into a raw layout (the IVF-SQ and IVF-PQ range searches', and IVFPQ's
+decoded cache, which the fused scan streams).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 
 from . import distances as D
+from . import pq as PQ
 from . import topk as TK
 
 
@@ -74,8 +78,9 @@ class PackedInvLists:
         return max(int(self.list_nblocks.max()), 1) if self.nlist else 1
 
     def rows_at(self, pos: torch.Tensor):
-        """The f32 rows and norms at stream positions ``pos`` (>= 0)."""
-        return (self.data.view(-1, self.data.shape[-1])[pos],
+        """The f32 rows (a bf16 ``data`` widened) and norms at stream
+        positions ``pos`` (>= 0)."""
+        return (self.data.view(-1, self.data.shape[-1])[pos].float(),
                 self.norms.view(-1)[pos])
 
     def ids_at(self, pos: torch.Tensor) -> torch.Tensor:
@@ -292,15 +297,20 @@ def scan_invlists(xq: torch.Tensor, probes: torch.Tensor,
     2 q.x, 0); IP: q.x). ``max_nblocks`` caps the blocks read per list, as
     the reference's static cap does (the role of max_codes); ``id_mask`` is
     an IDSelector's uint8 bitmap over stored rows (SearchParameters.sel).
-    The per-chunk top-k is always exact (the reference's ``approx`` switch
-    is not taken). See `_scan_compacted` for the loop.
+    A `PackedInvListsSQ8` is dequantized per chunk (bias + code * scale,
+    the rows its norms hold), as the reference's is. The per-chunk top-k
+    is always exact (the reference's ``approx`` switch is not taken). See
+    `_scan_compacted` for the loop.
     Returns (D (nq, k) f32, I (nq, k) int32 stored ids, ndis 0-d tensor:
     the real, allowed rows scored)."""
     similarity = D.is_similarity_metric(metric)
+    sq8 = isinstance(invlists, PackedInvListsSQ8)
 
     def score(q, bids):
-        return (_l2_or_ip(q, invlists.data[bids], invlists.norms[bids],
-                          similarity), invlists.ids[bids])
+        vecs = (invlists.sq_bias + invlists.codes[bids].float()
+                * invlists.sq_scale) if sq8 else invlists.data[bids].float()
+        return (_l2_or_ip(q, vecs, invlists.norms[bids], similarity),
+                invlists.ids[bids])
 
     return _scan_compacted(xq, probes, invlists, score, k, similarity,
                            max_nblocks=max_nblocks,
@@ -499,13 +509,19 @@ def scan_invlists_sq(xq: torch.Tensor, probes: torch.Tensor,
 
 def decode_code_invlists_generic(invlists: PackedCodeInvLists, decode_rows,
                                  d: int, coarse_centroids=None, *,
-                                 chunk_blocks: int = 128) -> PackedInvLists:
-    """Raw f32 invlists decoded from code lists, chunk by chunk on the
-    codes' device (reference :739-804): ``decode_rows((n, code width)
-    codes) -> (n, d) f32``; with ``coarse_centroids`` ((nlist, d), for
-    codecs of residuals) each row adds its list's centroid. The bf16
-    stream is cast from the rows; the id plane and list ranges are shared
-    with ``invlists``."""
+                                 chunk_blocks: int = 128,
+                                 dtype=torch.float32) -> PackedInvLists:
+    """Raw invlists decoded from code lists, chunk by chunk on the codes'
+    device (reference :739-804): ``decode_rows((n, code width) codes) ->
+    (n, d) f32``; with ``coarse_centroids`` ((nlist, d), for codecs of
+    residuals) each row adds its list's centroid. The id plane and list
+    ranges are shared with ``invlists``.
+
+    ``dtype`` is the reference's cache dtype: the norms come from the f32
+    decode, the rows are rounded to ``dtype``. A bf16 cache holds its rows
+    once: ``data`` IS the bf16 stream ``data_bf16``, which the fused scan
+    reads and its exact re-rank widens (`PackedInvLists.rows_at`), as the
+    reference re-ranks its bf16 rows."""
     codes = invlists.codes
     total, B = codes.shape[:2]
     dev = codes.device
@@ -519,7 +535,7 @@ def decode_code_invlists_generic(invlists: PackedCodeInvLists, decode_rows,
             invlists.list_nblocks.long())
         block2list = torch.zeros(total, dtype=torch.long, device=dev)
         block2list[:len(runs)] = runs
-    data = torch.empty((total, B, d), dtype=torch.float32, device=dev)
+    data = torch.empty((total, B, d), dtype=dtype, device=dev)
     norms = torch.empty((total, B), dtype=torch.float32, device=dev)
     for s in range(0, total, chunk_blocks):
         cblk = codes[s:s + chunk_blocks]
@@ -528,8 +544,86 @@ def decode_code_invlists_generic(invlists: PackedCodeInvLists, decode_rows,
         if coarse_centroids is not None:
             x = x + cent[block2list[s:s + chunk_blocks]][:, None, :]
         norms[s:s + chunk_blocks] = (x * x).sum(2)
-        data[s:s + chunk_blocks] = x
+        data[s:s + chunk_blocks] = x.to(dtype)
     return PackedInvLists(
-        data=data, data_bf16=data.to(torch.bfloat16), ids=invlists.ids,
+        data=data, data_bf16=data if dtype == torch.bfloat16
+        else data.to(torch.bfloat16), ids=invlists.ids,
         norms=norms, list_block_start=invlists.list_block_start,
         list_nblocks=invlists.list_nblocks)
+
+
+def decode_code_invlists(invlists: PackedCodeInvLists, pq_centroids,
+                         coarse_centroids=None, *, packed4: bool = False,
+                         chunk_blocks: int = 128,
+                         dtype=torch.float32) -> PackedInvLists:
+    """PQ code lists decoded into a raw PackedInvLists with the same block
+    structure, the "decoded cache" (reference :807-856): scanning it with
+    the fused scan computes the ADC distance itself (||q - c_l - dec||^2 is
+    the summed residual table, the subspaces being orthogonal) at the raw
+    scan's speed. ``pq_centroids`` (M, ksub, dsub) f32 on the codes'
+    device; ``coarse_centroids`` (nlist, d) for residual codes, None
+    otherwise; ``packed4`` for two 4-bit sub-indices a byte; ``dtype`` as
+    in `decode_code_invlists_generic`. Padding rows decode whatever their
+    zero codes decode to: every scan masks them by id."""
+    M, ksub, dsub = pq_centroids.shape
+
+    def decode_rows(flat):
+        return PQ.pq_decode(PQ.unpack_codes_4bit(flat) if packed4 else flat,
+                            pq_centroids)
+
+    return decode_code_invlists_generic(
+        invlists, decode_rows, M * dsub, coarse_centroids,
+        chunk_blocks=chunk_blocks, dtype=dtype)
+
+
+def scan_invlists_pq(xq: torch.Tensor, probes: torch.Tensor,
+                     invlists: PackedCodeInvLists, pq_centroids: torch.Tensor,
+                     coarse_centroids, k: int, metric: int = D.METRIC_L2, *,
+                     by_residual: bool = True, max_nblocks: int,
+                     chunk_blocks: int = 8, id_mask=None,
+                     packed4: bool = False):
+    """ADC scan of PQ code lists (IndexIVFPQ::search_preassigned ->
+    scan_list_with_table; reference :865-965), on `_scan_compacted`'s
+    loop. With ``by_residual`` on L2 each probed block's table comes from
+    r = q - c(its list) (the use_precomputed_table=0 path), the block's
+    list from the packed layout's contiguous runs; otherwise one table a
+    query. The distance is an f32 gather-and-sum of the table for every
+    ksub: the reference's bf16 one-hot contraction for ksub <= 16 (:937-951)
+    is an MXU workaround, not taken. ``packed4`` codes are unpacked in the
+    gather. Same arguments and returns as `scan_invlists`."""
+    similarity = D.is_similarity_metric(metric)
+    M, ksub, dsub = pq_centroids.shape
+    NB = invlists.nblocks
+    dev = invlists.codes.device
+    use_residual = by_residual and not similarity
+    if use_residual:
+        cent = torch.as_tensor(coarse_centroids, dtype=torch.float32,
+                               device=dev)
+        runs = torch.repeat_interleave(
+            torch.arange(invlists.nlist, device=dev),
+            invlists.list_nblocks.long())
+        # the dummy block (and any tail) takes list 0; its ids are -1
+        block2list = torch.zeros(NB + 1, dtype=torch.long, device=dev)
+        block2list[:len(runs)] = runs
+    moffs = torch.arange(M, device=dev) * ksub
+
+    def score(q, bids):
+        qt, cb = bids.shape
+        codes = invlists.codes[bids]                  # (qt, cb, B, M[/2])
+        if packed4:
+            codes = PQ.unpack_codes_4bit(codes)
+        B = codes.shape[2]
+        if use_residual:
+            resid = q[:, None, :] - cent[block2list[bids]]
+            lut = PQ.query_tables(resid.reshape(qt * cb, -1), pq_centroids,
+                                  metric).reshape(qt, cb, M * ksub)
+        else:
+            lut = PQ.query_tables(q, pq_centroids, metric).reshape(
+                qt, 1, M * ksub).expand(qt, cb, M * ksub)
+        idx = (codes.long() + moffs).view(qt, cb, B * M)
+        dis = torch.gather(lut, 2, idx).view(qt, cb, B, M).sum(3)
+        return dis, invlists.ids[bids]
+
+    return _scan_compacted(xq, probes, invlists, score, k, similarity,
+                           max_nblocks=max_nblocks,
+                           chunk_blocks=chunk_blocks, id_mask=id_mask)

@@ -27,6 +27,11 @@ Steps (the wrapper is plain torch around one kernel launch):
      dequantized codes), map stream positions to row ids, and flip the sign
      back for IP.
 
+The kernels keep at most KP_MAX (32) a pair. A wider kp (k above 26 at
+the default width) is served by one launch over sub-blocks of at most 32
+rows, each kept whole, from which each pair's top-kp is selected
+(`scan_pairs_wide`): the same per-pair top-kp.
+
 Unlike the reference, the per-pair top-kp is always exact: the reference's
 RW=512 lane-min reservoir (which can drop candidates) exists only because
 extraction rounds are expensive on the TPU's vector unit.
@@ -49,7 +54,8 @@ from .ivf_scan import PackedInvLists, PackedInvListsSQ8
 
 # pairs per tile: the CUDA kernel is written for this tile (kPT in the .cu)
 PT = 128
-# largest per-pair width the CUDA kernel keeps (one list entry per lane)
+# largest per-pair width the CUDA kernel keeps (one list entry per lane); a
+# wider kp scans sub-blocks of at most KP_MAX rows (`scan_pairs_wide`)
 KP_MAX = 32
 # kernel launches made by `scan_pairs` (one per call on a CUDA tensor):
 # K3 on a bf16 stream, K3-SQ8 on a uint8 one
@@ -102,7 +108,17 @@ def plan_pairs(probes: torch.Tensor, invlists, pt: int = PT) -> PairPlan:
     p_start = torch.where(valid, sstart[ls_safe], 0)
     p_end = p_start + torch.where(valid, nblk[ls_safe], 0)
     pair_q = order // nprobe
+    ndis = torch.where(l_flat >= 0, nblk[l_flat.clamp(min=0)], 0).sum() \
+        * invlists.block_size
+    return _tiled(order, p_start, p_end, pair_q, pt, invlists.nblocks, ndis)
 
+
+def _tiled(order, p_start, p_end, pair_q, pt: int, nblocks: int,
+           ndis) -> PairPlan:
+    """The PairPlan of sorted pairs' ranges [p_start, p_end) (in blocks of
+    the scan) and query rows: padded to whole tiles of ``pt`` pairs, with
+    each tile's block range."""
+    npairs = p_start.shape[0]
     ntiles = -(-npairs // pt)
     pad = ntiles * pt - npairs
     if pad:
@@ -115,11 +131,9 @@ def plan_pairs(probes: torch.Tensor, invlists, pt: int = PT) -> PairPlan:
     pe2 = p_end.view(ntiles, pt)
     real = pe2 > ps2
     tile_be = torch.where(real, pe2, 0).amax(1) if ntiles else pe2[:, 0]
-    tile_bs = torch.where(real, ps2, invlists.nblocks).amin(1) \
+    tile_bs = torch.where(real, ps2, nblocks).amin(1) \
         if ntiles else ps2[:, 0]
     tile_bs = torch.minimum(tile_bs, tile_be)      # empty tile -> 0 length
-    ndis = torch.where(l_flat >= 0, nblk[l_flat.clamp(min=0)], 0).sum() \
-        * invlists.block_size
     i32 = torch.int32
     return PairPlan(order=order, pair_q=pair_q.to(i32),
                     pstart=p_start.to(i32), pend=p_end.to(i32),
@@ -142,8 +156,9 @@ def stream_of(invlists) -> torch.Tensor:
 
 def scan_pairs_reference(xq_bf16: torch.Tensor, qn: torch.Tensor,
                          plan: PairPlan, invlists: PackedInvLists, kp: int,
-                         similarity: bool):
-    """Plain torch version of the kernels: the same per-pair top-kp.
+                         similarity: bool, B: int = 0):
+    """Plain torch version of the kernels: the same per-pair top-kp. The
+    plan's ranges count blocks of ``B`` rows (0: the lists' block size).
 
     Tiles are processed in batches whose gathered rows and scores stay
     under ``_PLAIN_BUDGET`` float32 elements. Scores are f32 products of the
@@ -153,7 +168,7 @@ def scan_pairs_reference(xq_bf16: torch.Tensor, qn: torch.Tensor,
     Returns (dist (npairs_pad, kp) f32, pos (npairs_pad, kp) int32)."""
     dev = xq_bf16.device
     d = xq_bf16.shape[1]
-    B = invlists.block_size
+    B = B or invlists.block_size
     data = stream_of(invlists).view(-1, d)
     ids = invlists.ids.view(-1)
     norms = invlists.norms.view(-1)
@@ -240,26 +255,39 @@ def _check(t: torch.Tensor, dtype, name: str, dev) -> None:
 
 def scan_pairs(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
                invlists: PackedInvLists, kp: int, similarity: bool):
-    """Per-pair exact top-kp: for CUDA tensors the CUDA kernel of the
-    stream's type (K3 on bf16 rows, K3-SQ8 on uint8 codes), for CPU
-    tensors the plain version. Returns (dist, pos) of shape
-    (npairs_pad, kp)."""
-    global LAUNCHES, LAUNCHES_SQ8
-    dev = xq_bf16.device
-    if dev.type == "cpu":
+    """Per-pair exact top-kp: for CUDA tensors one launch of the CUDA
+    kernel of the stream's type (K3 on bf16 rows, K3-SQ8 on uint8 codes),
+    over the plan itself or, for kp above KP_MAX, over its sub-blocks
+    (`scan_pairs_wide`); for CPU tensors the plain version. Returns (dist,
+    pos) of shape (npairs_pad, kp)."""
+    if xq_bf16.device.type == "cpu":
         return scan_pairs_reference(xq_bf16, qn, plan, invlists, kp,
                                     similarity)
+    if kp > KP_MAX:
+        return scan_pairs_wide(xq_bf16, qn, plan, invlists, kp, similarity,
+                               _launch)
+    return _launch(xq_bf16, qn, plan, invlists, kp, similarity)
+
+
+def _launch(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
+            invlists: PackedInvLists, kp: int, similarity: bool,
+            B: int = 0):
+    """One launch of the kernel of the stream's type over ``plan``, whose
+    ranges count blocks of ``B`` rows (0: the lists' block size); kp in
+    [1, KP_MAX]."""
+    global LAUNCHES, LAUNCHES_SQ8
+    dev = xq_bf16.device
     if dev.type != "cuda":
         raise ValueError(f"ivf_scan_fused: unsupported device {dev}")
     d = xq_bf16.shape[1]
-    B = invlists.block_size
+    B = B or invlists.block_size
     if d % 8:
         raise ValueError(f"ivf_scan_fused: d must be a multiple of 8 "
                          f"(got {d})")
     if not 1 <= kp <= KP_MAX:
         raise ValueError(f"ivf_scan_fused: kp must be in [1, {KP_MAX}] "
                          f"(got {kp})")
-    if (invlists.nblocks + 1) * B >= 2**31:
+    if (invlists.nblocks + 1) * invlists.block_size >= 2**31:
         raise ValueError("ivf_scan_fused: stream exceeds int32 positions")
     if plan.pair_q.shape[0] != plan.ntiles * PT:
         raise ValueError(f"ivf_scan_fused: plan must be tiled by PT={PT}")
@@ -303,6 +331,71 @@ def scan_pairs(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
         LAUNCHES_SQ8 += 1
     else:
         LAUNCHES += 1
+    return out_d, out_p
+
+
+def sub_block_rows(B: int) -> int:
+    """Rows of the sub-blocks `scan_pairs_wide` cuts lists of block size B
+    into: B's largest divisor up to KP_MAX."""
+    return max(r for r in range(1, KP_MAX + 1) if B % r == 0)
+
+
+def scan_pairs_wide(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
+                    invlists, kp: int, similarity: bool, pair_fn):
+    """Per-pair exact top-kp for any kp from ONE call of ``pair_fn`` (the
+    kernel's `_launch`, or `scan_pairs_reference`), which keeps at most
+    KP_MAX a pair: each pair's range is cut into sub-blocks of r =
+    `sub_block_rows` rows, a sub-pair each that keeps all its rows; the
+    sub-pairs, sorted by sub-block so that the pairs of one list share its
+    reads, form a plan of their own. Each pair's top-kp is then taken from
+    its sub-pairs' rows by (distance, stream position): sub-pairs come in
+    stream order and each lists its rows by (distance, position), so a
+    stable sort by distance keeps the lower position first on ties, as the
+    per-pair scan does. The result equals `scan_pairs_reference` at kp.
+    Returns (dist, pos) of shape (npairs_pad, kp)."""
+    dev = xq_bf16.device
+    r = sub_block_rows(invlists.block_size)
+    s = invlists.block_size // r
+    ps = plan.pstart.long() * s
+    n = torch.clamp(plan.pend.long() * s - ps, min=0)   # sub-pairs a pair
+    npp = n.shape[0]
+    ends = torch.cumsum(n, 0)
+    first = ends - n
+    parent = torch.repeat_interleave(torch.arange(npp, device=dev), n)
+    ns = parent.shape[0]
+    sub = ps[parent] + torch.arange(ns, device=dev) - first[parent]
+    order = torch.argsort(sub, stable=True)
+    ss = sub[order]
+    splan = _tiled(order, ss, ss + 1, plan.pair_q.long()[parent[order]], PT,
+                   invlists.nblocks * s, plan.ndis)
+    sd, sp = pair_fn(xq_bf16, qn, splan, invlists, r, similarity, B=r)
+    cd = torch.empty((ns, r), dtype=sd.dtype, device=dev)
+    cp = torch.empty((ns, r), dtype=sp.dtype, device=dev)
+    cd[order] = sd[:ns]                # back to pair-major, stream order
+    cp[order] = sp[:ns]
+    out_d = torch.full((npp, kp), float("inf"), device=dev)
+    out_p = torch.full((npp, kp), -1, dtype=torch.int32, device=dev)
+    # pairs in groups whose candidates stay under _PLAIN_BUDGET / 4
+    step = max(_PLAIN_BUDGET // (4 * r), 1)
+    ends_h = ends.cpu().numpy()
+    p0 = 0
+    while p0 < npp:
+        s0 = int(ends_h[p0 - 1]) if p0 else 0
+        p1 = max(int(np.searchsorted(ends_h, s0 + step, side="right")),
+                 p0 + 1)
+        s1 = int(ends_h[p1 - 1])
+        if s1 > s0:
+            fd = cd[s0:s1].reshape(-1)
+            fp = cp[s0:s1].reshape(-1)
+            fpar = parent[s0:s1].repeat_interleave(r)
+            o = torch.sort(fd, stable=True)[1]
+            o = o[torch.sort(fpar[o], stable=True)[1]]
+            par = fpar[o]
+            rank = torch.arange(o.shape[0], device=dev) - (first[par] - s0) * r
+            keep = rank < kp
+            out_d[par[keep], rank[keep]] = fd[o][keep]
+            out_p[par[keep], rank[keep]] = fp[o][keep]
+        p0 = p1
     return out_d, out_p
 
 
@@ -412,7 +505,8 @@ def scan_invlists_fused(xq: torch.Tensor, probes: torch.Tensor,
         codes, K3-SQ8). probes: (nq, nprobe)
         list ids, -1 entries skipped. refine: the top refine*k merged
         candidates are re-ranked in exact f32 (refine <= 1 keeps the bf16
-        distances). kp: per-pair width (0 = default_kp(k)).
+        distances). kp: per-pair width (0 = default_kp(k)); above KP_MAX
+        the launch scans sub-blocks (`scan_pairs_wide`), same result.
     Returns (D, I, ndis): (nq, k) distances and stored row ids (int64,
     -1 for empty slots) and the scanned row count as a 0-d tensor.
     """

@@ -16,8 +16,10 @@ from ..models.flat import IndexFlat
 from ..models.hnsw import IndexHNSWFlat
 from ..models.ivf import IndexIVFFlat
 from ..models.ivf_hnsw import IndexIVFHNSW
-from ..models.ivf_pq import IndexIVFScalarQuantizer
-from ..models.pq import IndexScalarQuantizer
+from ..models.ivf_pq import (IndexIVFPQ, IndexIVFPQR,
+                             IndexIVFScalarQuantizer)
+from ..models.pq import IndexPQ, IndexScalarQuantizer
+from ..models.refine import IndexRefineFlat, IndexRefineSQ8Tier
 from ..ops import sq as SQ
 from ..ops.distances import METRIC_L2
 from . import index_io as iio
@@ -170,3 +172,84 @@ def ivf_sq_from_reference(state: dict,
     lists = {"il_data": _codes(state["codes"], qtype),
              "il_ids": state["ids"], **_codec_arrays(state, "sq_")}
     return _load_ivf("IwSQ", state, quantizer, lists, device, qtype=qtype)
+
+
+def pq_from_reference(state: dict, device="cuda") -> IndexPQ:
+    """A port `IndexPQ` from a `tpu_ann` one's arrays, as numpy: d, M,
+    nbits, metric, centroids (M, ksub, dsub) and codes (ntotal, code
+    width) uint8."""
+    codes = np.asarray(state["codes"], np.uint8)
+    meta = {"tag": "IxPQ", "d": int(state["d"]), "M": int(state["M"]),
+            "nbits": int(state["nbits"]),
+            "metric": int(state.get("metric", METRIC_L2)),
+            "ntotal": len(codes)}
+    return iio.load_index(meta, {"centroids": state["centroids"],
+                                 "codes": codes}, device=device)
+
+
+def _pq_meta(state: dict) -> dict:
+    return {"M": int(state["M"]), "nbits": int(state["nbits"]),
+            "by_residual": bool(state.get("by_residual", True))}
+
+
+def _pq_lists(state: dict) -> tuple:
+    quantizer = ({"tag": "IxFl", "d": int(state["d"]),
+                  "metric": int(state["metric"]),
+                  "ntotal": int(state["nlist"])},
+                 {"xb": np.asarray(state["vectors"], np.float32)})
+    lists = {"il_data": np.asarray(state["codes"], np.uint8),
+             "il_ids": state["ids"],
+             "pq_centroids": np.asarray(state["pq_centroids"], np.float32)}
+    return quantizer, lists
+
+
+def ivf_pq_from_reference(state: dict, device="cuda") -> IndexIVFPQ:
+    """A search-only port `IndexIVFPQ` from a `tpu_ann` one's arrays: the
+    keys of `ivf_flat_from_reference` with ``codes`` ((nblocks+1, B, code
+    width), the packed code lists) in place of data and norms, plus M,
+    nbits, by_residual and pq_centroids (M, ksub, dsub). The decoded cache
+    is built from them at the first search."""
+    return _load_ivf("IwPQ", state, *_pq_lists(state), device,
+                     **_pq_meta(state))
+
+
+def ivf_pqr_from_reference(state: dict, device="cuda") -> IndexIVFPQR:
+    """A search-only port `IndexIVFPQR`: the keys of
+    `ivf_pq_from_reference` plus M_refine, nbits_refine, k_factor,
+    refine_centroids and the row tables row_codes (n, M), row_refine
+    (n, M_refine) and row_assign (n,)."""
+    quantizer, lists = _pq_lists(state)
+    lists.update(refine_centroids=np.asarray(state["refine_centroids"],
+                                             np.float32),
+                 row_codes=np.asarray(state["row_codes"], np.uint8),
+                 row_refine=np.asarray(state["row_refine"], np.uint8),
+                 row_assign=np.asarray(state["row_assign"], np.int32))
+    return _load_ivf("IwPR", state, quantizer, lists, device,
+                     M_refine=int(state["M_refine"]),
+                     nbits_refine=int(state["nbits_refine"]),
+                     k_factor=int(state.get("k_factor", 4)),
+                     **_pq_meta(state))
+
+
+def refine_from_reference(state: dict, base, device="cuda"):
+    """A port refine index over ``base`` (a port index already carried
+    over, e.g. by `ivf_pq_from_reference`) from a `tpu_ann` refine index's
+    arrays: ``xb`` (ntotal, d), the refine IndexFlat's rows, for an
+    `IndexRefineFlat`; or qtype, vmin, vdiff and ``codes`` (ntotal, code
+    size) uint8 for an `IndexRefineSQ8Tier`; and k_factor."""
+    if "xb" in state:
+        refine = flat_from_reference(
+            {"d": base.d, "metric": base.metric_type,
+             "ntotal": len(state["xb"]), "xb": state["xb"]}, device=device)
+        idx = IndexRefineFlat(base, refine)
+    else:
+        idx = IndexRefineSQ8Tier(base)
+        idx.codec = SQ.SQCodec(
+            qtype=int(state.get("qtype", SQ.QT_8BIT)), d=base.d,
+            vmin=np.asarray(state["vmin"], np.float32),
+            vdiff=np.asarray(state["vdiff"], np.float32))
+        idx._codes = iio.to_tensor(state["codes"], device, np.uint8)
+        idx.is_trained = True
+    idx.k_factor = int(state.get("k_factor", 4))
+    idx.ntotal = base.ntotal
+    return idx

@@ -11,6 +11,14 @@ for the index classes the port has:
                                 IndexIVFScalarQuantizer over an
                                 IndexFlat / IndexHNSWFlat quantizer
   IVF<n>,FlatDedup              IndexIVFFlatDedup
+  PQ<M>[x<b>][fs[_n]|np]        IndexPQ
+  IVF<n>[_HNSW<M>],PQ<m>[x<b>][fs[_n]|np]
+                                IndexIVFPQ (PQ<m>x4fs: 4-bit codes)
+  IVF<n>[_HNSW<M>],PQ<m>+<m'>   IndexIVFPQR (8-bit base and refine PQ)
+  <any of these>,RFlat | Refine(Flat)
+                                IndexRefineFlat over the index
+  <any of these>,RSQ8t | Refine(SQ8Tier)
+                                IndexRefineSQ8Tier over the index
 
 with the same spelling as the reference. Every other token of the
 reference's grammar raises NotImplementedError naming the ROADMAP queue 1
@@ -29,7 +37,9 @@ from ..models.hnsw import IndexHNSW, IndexHNSWFlat
 from ..models.ivf import IndexIVF, IndexIVFFlat, IndexIVFFlatDedup
 from ..models.ivf_hnsw import IndexIVFHNSW
 from ..models.ivf_pq import IndexIVFScalarQuantizer
-from ..models.pq import IndexScalarQuantizer
+from ..models.ivf_pq import IndexIVFPQ, IndexIVFPQR
+from ..models.pq import IndexPQ, IndexScalarQuantizer
+from ..models.refine import IndexRefine, IndexRefineFlat, IndexRefineSQ8Tier
 from ..ops import distances as D
 from ..ops import sq as SQ
 
@@ -41,8 +51,6 @@ _SQ_BITS = {"SQ8": 8, "SQ6": 6, "SQ4": 4, "SQfp16": 16, "SQbf16": 16}
 # the reference's other tokens (regex), by the ROADMAP queue 1 item that
 # ports their classes
 _UNPORTED = (
-    (r"PQ\d+\+\d+|PQ\d+(x\d+)?(fs(_\d+)?|np)?", "item 5 (PQ)"),
-    (r"RFlat|Refine\(Flat\)|RSQ8t|Refine\(SQ8Tier\)", "item 6 (refine)"),
     (r"IDMap2?|PCA[RW]?\d+|OPQ\d+(_\d+)?|RR\d+|L2norm|ITQ\d*",
      "item 8 (index API breadth: idmap, transforms)"),
     (r"(P?RQ|P?LSQ)\d+x\d+(x\d+)?(fs(_\d+)?)?|NSG\d*|LSH\d*r?t?"
@@ -62,23 +70,45 @@ def _refusal(tok: str) -> Exception:
     return ValueError(f"index_factory: unknown token {tok!r}")
 
 
+_PQ = r"PQ(\d+)(?:x(\d+))?(?:fs(?:_\d+)?|np)?"
+_REFINE = {"RFlat": "RFlat", "Refine(Flat)": "RFlat", "RSQ8t": "RSQ8t",
+           "Refine(SQ8Tier)": "RSQ8t"}
+
+
 def _split(spec: str):
-    """(container token, its code token): a prefix or a suffix token that
-    the port lacks is refused here."""
+    """(container token, its code token, refine suffix "RFlat" / "RSQ8t"
+    or None): a prefix or a suffix token that the port lacks is refused
+    here."""
     toks = [t for t in spec.split(",") if t]
     if not toks:
         raise ValueError("empty factory spec")
-    if not re.fullmatch(r"IVF\d+(_HNSW\d+)?|HNSW\d*|Flat|SQ\w+", toks[0]):
+    refine = _REFINE.get(toks[-1]) if len(toks) > 1 else None
+    if refine:
+        toks = toks[:-1]
+    if not re.fullmatch(r"IVF\d+(_HNSW\d+)?|HNSW\d*|Flat|SQ\w+|" + _PQ,
+                        toks[0]):
         raise _refusal(toks[0])
     if len(toks) > 2:
         raise _refusal(toks[2])
-    return toks[0], toks[1] if len(toks) > 1 else None
+    return toks[0], toks[1] if len(toks) > 1 else None, refine
+
+
+def _refined(index: Index, refine) -> Index:
+    if refine == "RFlat":
+        return IndexRefineFlat(index)
+    if refine == "RSQ8t":
+        return IndexRefineSQ8Tier(index)
+    return index
 
 
 def index_factory(d: int, spec: str, metric: int = D.METRIC_L2, *,
                   device="cuda") -> Index:
     """Build an index on ``device`` from a faiss-style factory string."""
-    head, code = _split(spec)
+    head, code, refine = _split(spec)
+    return _refined(_container(d, head, code, metric, device), refine)
+
+
+def _container(d: int, head: str, code, metric: int, device) -> Index:
     if m := re.fullmatch(r"IVF(\d+)(?:_HNSW(\d+))?", head):
         code = code or "Flat"
         nlist, hnsw_m = int(m.group(1)), int(m.group(2) or 0)
@@ -93,11 +123,20 @@ def index_factory(d: int, spec: str, metric: int = D.METRIC_L2, *,
             # reference builds it
             return IndexIVFFlatDedup(IndexFlat(d, metric, device=device), d,
                                      nlist, metric, device=device)
+        quant = IndexHNSWFlat(d, hnsw_m, metric, device=device) \
+            if hnsw_m else IndexFlat(d, metric, device=device)
         if code in _SQ_TYPES:
-            quant = IndexHNSWFlat(d, hnsw_m, metric, device=device) \
-                if hnsw_m else IndexFlat(d, metric, device=device)
             return IndexIVFScalarQuantizer(quant, d, nlist, _SQ_TYPES[code],
                                            metric, device=device)
+        if m := re.fullmatch(r"PQ(\d+)\+(\d+)", code):
+            # IVFPQR: the base PQ and a refinement PQ, 8 bits each
+            return IndexIVFPQR(quant, d, nlist, int(m.group(1)), 8,
+                               int(m.group(2)), 8, metric, device=device)
+        if m := re.fullmatch(_PQ, code):
+            # "fs" is the 4-bit packed layout, "np" no polysemous training
+            # (neither package trains it here)
+            return IndexIVFPQ(quant, d, nlist, int(m.group(1)),
+                              int(m.group(2) or 8), metric, device=device)
         raise _refusal(code)
     if m := re.fullmatch(r"HNSW(\d+)?", head):
         if code in (None, "Flat"):
@@ -115,21 +154,26 @@ def index_factory(d: int, spec: str, metric: int = D.METRIC_L2, *,
     if head in _SQ_TYPES:
         return IndexScalarQuantizer(d, _SQ_TYPES[head], metric,
                                     device=device)
+    if m := re.fullmatch(_PQ, head):
+        return IndexPQ(d, int(m.group(1)), int(m.group(2) or 8), metric,
+                       device=device)
     raise _refusal(head)
 
 
 def get_code_size(d: int, spec: str) -> int:
     """Per-vector storage bytes implied by a factory string
-    (contrib/factory_tools.py:get_code_size role)."""
-    head, code = _split(spec)
+    (contrib/factory_tools.py:get_code_size role): a refine suffix adds
+    its rows (4 d bytes for RFlat, d for RSQ8t)."""
+    head, code, refine = _split(spec)
+    size = {None: 0, "RFlat": 4 * d, "RSQ8t": d}[refine]
     if re.fullmatch(r"IVF(\d+)(?:_HNSW(\d+))?", head):
-        return _code_bytes(d, code or "Flat")
+        return size + _code_bytes(d, code or "Flat")
     if m := re.fullmatch(r"HNSW(\d+)?", head):
         links = 4 * 2 * int(m.group(1) or 32)   # ~2M int32 level-0 edges
-        return links + _code_bytes(d, code or "Flat")
+        return size + links + _code_bytes(d, code or "Flat")
     if code is not None:
         raise _refusal(code)
-    return _code_bytes(d, head)
+    return size + _code_bytes(d, head)
 
 
 def _code_bytes(d: int, code: str) -> int:
@@ -137,6 +181,10 @@ def _code_bytes(d: int, code: str) -> int:
         return 4 * d
     if code in _SQ_TYPES:
         return (d * _SQ_BITS[code] + 7) // 8
+    if m := re.fullmatch(r"PQ(\d+)\+(\d+)", code):
+        return int(m.group(1)) + int(m.group(2))
+    if m := re.fullmatch(r"PQ(\d+)(?:x(\d+))?(?:fs(?:_\d+)?)?", code):
+        return (int(m.group(1)) * int(m.group(2) or 8) + 7) // 8
     raise _refusal(code)
 
 
@@ -149,10 +197,21 @@ def get_hnsw_M(index) -> int:
 def reverse_index_factory(index) -> str:
     """A factory string that re-parses to the same index class and layout
     (contrib/factory_tools.py:reverse_index_factory role)."""
+    if isinstance(index, IndexRefine):
+        if isinstance(index.refine_index, IndexFlat):
+            return reverse_index_factory(index.base_index) + ",RFlat"
+        raise ValueError("cannot reverse non-Flat refine")
+    if isinstance(index, IndexRefineSQ8Tier):
+        return reverse_index_factory(index.base_index) + ",RSQ8t"
     if isinstance(index, IndexIVF):
         prefix = f"IVF{index.nlist}"
         if isinstance(index.quantizer, IndexHNSW):
             prefix += f"_HNSW{get_hnsw_M(index.quantizer)}"
+        if isinstance(index, IndexIVFPQR):
+            return f"{prefix},PQ{index.M}+{index.M_refine}"
+        if isinstance(index, IndexIVFPQ):
+            suffix = "fs" if index.nbits == 4 else ""
+            return f"{prefix},PQ{index.M}x{index.nbits}{suffix}"
         if isinstance(index, IndexIVFScalarQuantizer):
             return f"{prefix},{_SQ_NAMES[index.qtype]}"
         if isinstance(index, IndexIVFFlatDedup):
@@ -162,6 +221,8 @@ def reverse_index_factory(index) -> str:
         return f"{prefix},Flat"
     if isinstance(index, IndexHNSW):
         return f"HNSW{get_hnsw_M(index)}"
+    if isinstance(index, IndexPQ):
+        return f"PQ{index.M}x{index.nbits}"
     if isinstance(index, IndexScalarQuantizer):
         return _SQ_NAMES[index.qtype]
     if isinstance(index, IndexFlat):

@@ -475,6 +475,139 @@ def _load_ivfsq(meta, arrays, device):
     return _restore_ivf_common(idx, meta, arrays, device)
 
 
+def _dump_pq(index):
+    """IxPQ (reference :499-527): the codebook and the stored codes."""
+    return ({"tag": "IxPQ", "d": index.d, "metric": index.metric_type,
+             "ntotal": index.ntotal, "M": index.M, "nbits": index.nbits},
+            {"centroids": index.pq.centroids,
+             "codes": index._codes if index.ntotal
+             else np.zeros((0, 0), np.uint8)})
+
+
+def _load_pq(meta, arrays, device):
+    from ..models.pq import IndexPQ
+
+    idx = IndexPQ(int(meta["d"]), int(meta["M"]), int(meta["nbits"]),
+                  int(meta["metric"]), device=device)
+    idx._set_codec(arrays["centroids"])
+    if meta["ntotal"]:
+        idx._codes = to_tensor(arrays["codes"], device, np.uint8)
+        idx._capacity = idx._codes.shape[0]
+        idx.ntotal = int(meta["ntotal"])
+    return idx
+
+
+def _dump_ivfpq(index, tag="IwPQ"):
+    """IwPQ (reference :566-592): the IVF arrays (code lists), the PQ
+    codebook and by_residual. The decoded cache is never written."""
+    meta, arrays = _dump_ivf_common(index)
+    meta["tag"] = tag
+    meta.update(M=index.M, nbits=index.nbits,
+                by_residual=bool(index.by_residual))
+    arrays["pq_centroids"] = index.pq.centroids
+    return meta, arrays
+
+
+def _ivfpq_shell(cls, meta, arrays, device, *extra):
+    from ..models.flat import IndexFlat
+
+    d, metric = int(meta["d"]), int(meta["metric"])
+    idx = cls(IndexFlat(d, metric, device=device), d, int(meta["nlist"]),
+              int(meta["M"]), int(meta["nbits"]), *extra, metric,
+              int(meta["block_size"]), device=device)
+    idx.by_residual = bool(meta["by_residual"])
+    idx._set_codec(arrays["pq_centroids"])
+    return idx
+
+
+def _load_ivfpq(meta, arrays, device):
+    from ..models.ivf_pq import IndexIVFPQ
+
+    idx = _ivfpq_shell(IndexIVFPQ, meta, arrays, device)
+    return _restore_ivf_common(idx, meta, arrays, device)
+
+
+def _dump_ivfpqr(index):
+    """IwPR (reference :924-965): IwPQ's arrays, the refine codebook and
+    the row-indexed side tables of the re-rank."""
+    meta, arrays = _dump_ivfpq(index, "IwPR")
+    meta.update(M_refine=index.M_refine, nbits_refine=index.nbits_refine,
+                k_factor=index.k_factor)
+    arrays["refine_centroids"] = index.refine_pq.centroids
+    if index._row_codes is not None:
+        arrays.update(row_codes=index._row_codes,
+                      row_refine=index._row_refine,
+                      row_assign=index._row_assign)
+    return meta, arrays
+
+
+def _load_ivfpqr(meta, arrays, device):
+    from ..models.ivf_pq import IndexIVFPQR
+
+    idx = _ivfpq_shell(IndexIVFPQR, meta, arrays, device,
+                       int(meta["M_refine"]), int(meta["nbits_refine"]))
+    idx.k_factor = int(meta["k_factor"])
+    idx._set_refine_codec(arrays["refine_centroids"])
+    if "row_codes" in arrays:
+        idx._row_codes = to_tensor(arrays["row_codes"], device, np.uint8)
+        idx._row_refine = to_tensor(arrays["row_refine"], device, np.uint8)
+        idx._row_assign = to_tensor(arrays["row_assign"], device, np.int32)
+    return _restore_ivf_common(idx, meta, arrays, device)
+
+
+def _dump_refine(index):
+    """IxRF (reference :688-710): the base and the refine index, nested."""
+    meta = {"tag": "IxRF", "d": index.d, "metric": index.metric_type,
+            "ntotal": index.ntotal, "k_factor": index.k_factor}
+    arrays: dict = {}
+    _flatten("base", *dump_index(index.base_index), meta, arrays)
+    _flatten("refine", *dump_index(index.refine_index), meta, arrays)
+    return meta, arrays
+
+
+def _load_refine(meta, arrays, device):
+    from ..models.refine import IndexRefineFlat
+
+    idx = IndexRefineFlat(
+        load_index(*_sub("base", meta, arrays), device=device),
+        load_index(*_sub("refine", meta, arrays), device=device))
+    idx.k_factor = int(meta["k_factor"])
+    idx.ntotal = int(meta["ntotal"])
+    idx.is_trained = True
+    return idx
+
+
+def _dump_refine_sq8_tier(index):
+    """IxRT (reference :712-740): the codec, the codes and the base
+    index."""
+    meta = {"tag": "IxRT", "d": index.d, "metric": index.metric_type,
+            "ntotal": index.ntotal, "k_factor": index.k_factor,
+            "qtype": index.codec.qtype}
+    arrays = {"vmin": np.asarray(index.codec.vmin, np.float32),
+              "vdiff": np.asarray(index.codec.vdiff, np.float32)}
+    if index._codes is not None:
+        arrays["codes"] = index._codes
+    _flatten("base", *dump_index(index.base_index), meta, arrays)
+    return meta, arrays
+
+
+def _load_refine_sq8_tier(meta, arrays, device):
+    from ..models.refine import IndexRefineSQ8Tier
+    from ..ops.sq import SQCodec
+
+    idx = IndexRefineSQ8Tier(
+        load_index(*_sub("base", meta, arrays), device=device))
+    idx.codec = SQCodec(qtype=int(meta["qtype"]), d=int(meta["d"]),
+                        vmin=_f32_or_none(arrays, "vmin"),
+                        vdiff=_f32_or_none(arrays, "vdiff"))
+    if "codes" in arrays:
+        idx._codes = to_tensor(arrays["codes"], device, np.uint8)
+    idx.k_factor = int(meta["k_factor"])
+    idx.ntotal = int(meta["ntotal"])
+    idx.is_trained = True
+    return idx
+
+
 def _dump_ivf_paged(index):
     """Like faiss OnDiskInvertedLists, the file holds the DIRECTORY of the
     block-stream memmaps (byte-equal across the two packages), not the
@@ -530,12 +663,17 @@ _register("IndexIVFHNSW", "IwHn", _dump_ivfhnsw, _load_ivfhnsw)
 _register("IndexIVFFlatPaged", "IwPG", _dump_ivf_paged, _load_ivf_paged)
 _register("IndexScalarQuantizer", "IxSQ", _dump_sq, _load_sq)
 _register("IndexIVFScalarQuantizer", "IwSQ", _dump_ivfsq, _load_ivfsq)
+_register("IndexPQ", "IxPQ", _dump_pq, _load_pq)
+_register("IndexIVFPQ", "IwPQ", _dump_ivfpq, _load_ivfpq)
+_register("IndexIVFPQR", "IwPR", _dump_ivfpqr, _load_ivfpqr)
+_register("IndexRefine", "IxRF", _dump_refine, _load_refine)
+_register("IndexRefineFlat", "IxRF", _dump_refine, _load_refine)
+_register("IndexRefineSQ8Tier", "IxRT", _dump_refine_sq8_tier,
+          _load_refine_sq8_tier)
 
 # the reference's other tags, by the ROADMAP queue 1 item that ports their
 # classes
 _ITEMS = {
-    "item 5 (PQ)": ("IxPQ", "IwPQ", "IwPR"),
-    "item 6 (refine)": ("IxRF", "IxRT"),
     "item 7 (the rest of HNSW)": ("IHNs", "IHNq", "IHN2"),
     "item 8 (index API breadth: idmap, transforms)": ("IxMp", "IxM2",
                                                       "IxPT"),

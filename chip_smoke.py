@@ -188,15 +188,14 @@ Phases, one line each; any failure raises and exits non-zero:
      IVF4096,PQ64x4 (4-bit, 32 B a vector as (a)): the table scan over
      packed codes, no launch, within rtol 1e-4 of its E, recall >= R with
      its own C; (e) IVF4096,PQ32+16 (IndexIVFPQR, k_factor 4): one K3
-     launch a search (k 40: default_kp(40) = 46 rows a list, above the
-     kernel's 32, so the launch scans 32-row sub-blocks) plus the
-     re-rank, recall >= (a)'s; search_preassigned over 100 queries at
+     launch a search (k 40: default_kp(40) = 46 rows a list, above 32,
+     so the launch is K3's wide-list kernel) plus the re-rank, recall >= (a)'s; search_preassigned over 100 queries at
      nprobe 32 equal to search, search_stats_per_query within rtol 1e-5;
      K3 at kp 46 (10k q, nprobe 32, k 40) and kp 106 (1000 q, nprobe 1, k
      100) against its plain version on the same inputs, per pair and for
      the whole scan: bit for bit on R's cache rounded to integers, within
-     rtol 1e-5 (positions up to near-ties) on the cache itself, with both
-     times and the kp-32 launch's;
+     rtol 1e-5 (positions up to near-ties) on the cache itself, K3 faster
+     than the plain version, with both times and the kp-32 launch's;
      (f) IVF4096,PQ32,RFlat (the constructor over a fresh IVFPQ with
      (a)'s codebook, then add) and the factory's IVF4096,PQ32,RSQ8t
      (train, add): one K3 launch a search, recall >= (a)'s, each bit for
@@ -215,11 +214,56 @@ Phases, one line each; any failure raises and exits non-zero:
      reopened: equal to (a); (j) remove_ids of NB/10 random ids on (a): no
      removed id through K3 (bf16 cache) or K3-SQ8 ("sq8"), D bit-equal to
      an index of the rest with the same codebook.
+  17. the rest of HNSW on phase 3's data, 10k queries at efSearch 16 / 64
+     unless named; F: an IndexHNSWFlat(128, 16) on (a)'s graph through the
+     fused tiles (1 + fused_hops K3 launches a 8192-query chunk), C: a
+     codec's recall@10 (exact f32 search over its decoded base). (a)
+     index_factory(128, "HNSW16,SQ8") builds the graph once: 1 + fused_hops
+     K3-SQ8 launches a chunk and no K3, recall@10 >= C x F - 0.01, the
+     device holds its uint8 tiles and no f32 / bf16 stream or storage,
+     reconstruct equals the dequantized code; (b) "HNSW16,SQbf16" and
+     "HNSW16,SQfp16" on (a)'s graph set by hand: (D, I) bit for bit F's
+     (lossless on integers), K3 only, stream bytes; (c) "HNSW16,PQ32":
+     no launch, recall >= C x F' - 0.01 with F' F's tiles searched at the
+     PQ route's tile budget (hop 0 max(4, ef / 8) tiles, F's max(8, ef /
+     2)), D the ADC distances of the returned ids (rtol 1e-4), code
+     bytes; (d) "HNSW16,4096+PQ32"
+     (IndexHNSW2Level): sa_decode(sa_encode(x)) equal to the rows the
+     graph was built on, recall >= C x F - 0.01, K3 only; (i) (a), (c),
+     (d) through write_index / read_index(mmap=True): (D, I) bit for bit;
+     (e) the tile beam, no launch, efSearch 64, 1000 queries: on phase
+     5's float set IndexHNSWFlat IP in "auto" and L2 forced to "beam",
+     and F forced to "beam" on the SIFT surrogate: recall >= the per-node
+     beam's (hnsw_search on the same graph) - 0.01, hops, the visited
+     table's bytes, and the recall from the reference's 8 entry tiles
+     (the index takes efSearch / 2) and with 16 tiles a hop; (f)
+     build_mode="insert" over
+     phase 9's 15625 centroids as IVFHNSW15625's quantizer at nprobe 32 /
+     64: fidelity >= 0.99, recall within 0.01 of phase 9's auto, build
+     seconds beside the kNN build's; (j) phase 9's quantizer mode at
+     nprobe 64 (kp 64): QPS, and its hop-0 scan (one 8192-query chunk, one
+     launch of K3's wide-list kernel) held against its plain version: bit
+     for bit on an integer-rounded copy of the tiles, within rtol 1e-5
+     (positions up to near-ties) on the centroids themselves, and faster
+     than it; (g) an IndexHNSWFlat over the first
+     900k rows, then an add of the last 100k (extend_graph, no launch):
+     recall@10 at efSearch 64 within 0.01 of F's; 1000 added and 1000
+     built rows searched back: through the fused tiles (G.search,
+     efSearch 64) the added rows come back first at distance 0 as often
+     as the built ones, within 2% of the sample (the graph walk's misses
+     printed, and recall and misses with the tiles in the build's id
+     order within the carried cells and in spatial_order's k-means
+     order); (h) range_search on (g) over 1000 queries at the
+     median exact 10th-NN distance: every hit inside the radius at its
+     f32 distance (rtol 1e-5), a subset of the brute-force range set
+     (share printed).
 The last two lines are the kernels' JSON record (each with its time,
 its plain version's, the card's bound for the same work and, where one
 torch call computes the same function, that call's time; K3, K3-SQ8 and
 K4 add their time and bound at the main path's 10k queries, K3 its time
-at IVFPQR's kp 46 (phase 16e), and K3 has a second record at batch 1)
+at IVFPQR's kp 46 (phase 16e) and at the quantizer's kp 64 (phase 17j),
+each kernel its phase-16 and phase-17 launches, and K3 has a second
+record at batch 1)
 and {"ok": true, ...}.
 """
 
@@ -244,6 +288,7 @@ from tpu_ann_torch.ops import ivf_scan_fused as F
 from tpu_ann_torch.ops import hnsw as HN
 from tpu_ann_torch.ops import hnsw_tiles as HT
 from tpu_ann_torch.ops import ivf_scan_paged as P
+from tpu_ann_torch.ops import pq as PQ
 from tpu_ann_torch.ops import row_copy_probe as B2
 from tpu_ann_torch.ops import sq as SQ
 from tpu_ann_torch.utils.benchmark import per_query_report
@@ -612,18 +657,27 @@ def main() -> None:
         graph_phase(dev)
         b2 = row_copy_phase(xb, dev)
         k3_b1 = workflow_phase(hidx, quant3, paged, xb, xt, xq, gt, dev, tmp)
-        hquant = hidx.quantizer
-        del hidx, paged
+        del paged
         ivf_api_phase(quant3, xb, xt, xq, gt, results, dev)
-        pq_launches, wide = pq_phase(quant3, hquant, hnsw_auto, xb, xt, xq,
-                                     gt, results, dev, tmp)
+        pq_launches, wide = pq_phase(quant3, hidx.quantizer, hnsw_auto, xb,
+                                     xt, xq, gt, results, dev, tmp)
+        hnsw_launches, kp64 = hnsw_rest_phase(hidx, hnsw_auto, xb, xt, xq,
+                                              gt, dev, tmp)
+        del hidx
     k3["launches_pq"] = pq_launches.get("ivf_scan_fused", 0)
-    # K3 at IVFPQR's kp 46 (10k q, nprobe 32; one launch over 32-row
-    # sub-blocks and the selection), its plain version and the kp-32 launch
+    k3["launches_hnsw"] = hnsw_launches.get("ivf_scan_fused", 0)
+    # K3 at the IVFHNSW quantizer's kp 64 (phase 17j: the hop-0 scan of one
+    # 8192-query chunk at nprobe 64), and its plain version
+    k3.update(kp64_ms=kp64["ms"], kp64_plain_ms=kp64["plain_ms"],
+              kp64_max_abs_err=kp64["max_abs_err"],
+              kp64_bound_ms=kp64["bound_ms"])
+    # K3 at IVFPQR's kp 46 (10k q, nprobe 32; one launch of the wide-list
+    # kernel), its plain version and the kp-32 launch
     k3.update(kp46_ms=wide["ms"], kp46_plain_ms=wide["plain_ms"],
               kp46_ms_kp32=wide["ms_kp32"],
               kp46_max_abs_err=wide["max_abs_err"])
     sq_records[0]["launches_pq"] = pq_launches.get("ivf_scan_sq8", 0)
+    sq_records[0]["launches_hnsw"] = hnsw_launches.get("ivf_scan_sq8", 0)
     print(json.dumps({"kernels": [k3, *sq_records, *flat_records,
                                   *variant_records, k4, b2, k3_b1]}),
           flush=True)
@@ -1494,14 +1548,18 @@ def device_profile(fn, top: int = 4, kernel: str = "") -> dict:
 def device_ms(fn, reps: int = 20, kernel: str = "") -> float:
     """Mean device time of a call of fn over reps calls under
     torch.profiler: the launches of the kernels whose name holds
-    ``kernel`` (it raises if the profiler saw none), or without it every
-    device event (None where the profiler saw none: not measured)."""
-    prof = device_profile(lambda: [fn() for _ in range(reps)],
-                          kernel=kernel)
+    ``kernel``, or without it every device event (None where the profiler
+    saw none: not measured). A trace that holds none of the kernel's
+    launches (the profiler now and then returns one without them) is
+    taken again, up to three times in all; then it raises."""
     if kernel:
-        if not prof["launches_ms"]:
-            raise AssertionError(f"the profiler saw no {kernel} launch")
-        return sum(prof["launches_ms"]) / reps
+        for _ in range(3):
+            prof = device_profile(lambda: [fn() for _ in range(reps)],
+                                  kernel=kernel)
+            if prof["launches_ms"]:
+                return sum(prof["launches_ms"]) / reps
+        raise AssertionError(f"the profiler saw no {kernel} launch")
+    prof = device_profile(lambda: [fn() for _ in range(reps)])
     busy = prof["device_busy_ms"]
     return None if busy is None else busy / reps
 
@@ -1808,7 +1866,10 @@ def graph_phase(dev) -> None:
         I = I.cpu().numpy()
         if not (I.shape == (NQ, K) and (I >= 0).all() and (I < NB).all()):
             raise AssertionError(f"tile search hops={hops}: malformed")
-        prof = device_profile(call, kernel="ivf_scan_fused_kernel")
+        for _ in range(3):              # a trace may miss launches (device_ms)
+            prof = device_profile(call, kernel="ivf_scan_fused_kernel")
+            if len(prof["launches_ms"]) == 1 + hops:
+                break
         if len(prof["launches_ms"]) != 1 + hops:
             raise AssertionError(f"tile search hops={hops}: profiled K3 "
                                  f"launches {prof['launches_ms']}")
@@ -3006,12 +3067,14 @@ def pq_phase(quant3, hquant, hnsw_auto, xb, xt, xq, gt, flat_rec, dev,
     errq = assert_close_pairs("IVFPQR per query", *(torch.from_numpy(a) for a
                                                    in (Ds, Is, Dq, Iq)))
     # K3 at the width IVFPQR asks for: k * k_factor = 40 wants
-    # default_kp(40) = 46 rows a (query, list), above the kernel's KP_MAX,
-    # so the search's one launch scans 32-row sub-blocks
-    # (F.scan_pairs_wide). Held against the plain version on the same
-    # inputs, per pair and for the whole scan before the re-rank, at the
-    # search's shapes (10k q, nprobe 32, k 40) and at nprobe 1, k 100 (kp
-    # 106, where a 32-row cap would drop hits): bit for bit on R's cache
+    # default_kp(40) = 46 rows a (query, list), above 32, so the search's
+    # one launch is K3's wide-list kernel (two entries a lane), and at
+    # nprobe 1, k 100 (kp 106, above KP_MAX 64, where a 32-row cap would
+    # drop hits) one launch over 32-row sub-blocks (F.scan_pairs_wide).
+    # Held against the plain version on the same inputs, per pair and for
+    # the whole scan before the re-rank, at the search's shapes (10k q,
+    # nprobe 32, k 40) and at nprobe 1, k 100, and faster than it: bit for
+    # bit on R's cache
     # rounded to integers (exact bf16 products, phase 4's standard), and
     # within rtol 1e-5, positions up to near-ties, on the cache itself
     # (float rows: the kernel's products sum in another order). These
@@ -3058,6 +3121,9 @@ def pq_phase(quant3, hquant, hnsw_auto, xb, xt, xq, gt, flat_rec, dev,
                 q16, qn, plan, lists, 32, False), 5)
             rec["plain_ms"] = host_ms(lambda: F.scan_pairs_reference(
                 q16, qn, plan, lists, kp_w, False), 1)
+            if rec["ms"] >= rec["plain_ms"]:
+                raise AssertionError(f"{what}: K3 takes {rec['ms']} ms, its "
+                                     f"plain version {rec['plain_ms']}")
         wide[f"nprobe{np_w}_k{k_w}"] = rec
         del d0, p0, d1, p1, plan
     del dl_int
@@ -3237,6 +3303,477 @@ def pq_phase(quant3, hquant, hnsw_auto, xb, xt, xq, gt, flat_rec, dev,
            if v != cmp_launches.get(k, 0)}
     phase("pq", seconds=time.perf_counter() - t_phase, launches=got)
     return got, wide["nprobe32_k40"]
+
+
+# -- phase 17: the rest of HNSW -------------------------------------------
+
+# queries of the beam checks (17e) and the range search (17h), and added
+# rows searched back as queries (17g)
+HNSW_NQ_SMALL = 1000
+HNSW_EFS = (16, 64)
+
+
+def on_graph(idx, src, xb):
+    """``idx`` (an empty IndexHNSW) holding xb with ``src``'s graph and
+    coarse order, set by hand (no build)."""
+    idx.storage.add(xb)
+    idx.ntotal = idx._built_n = len(xb)
+    idx.graph, idx._coarse_assign = src.graph, src._coarse_assign
+    return idx
+
+
+def hnsw_searches(idx, xq, gt, name, want_per_chunk, efs=HNSW_EFS):
+    """At each efSearch a warm-up and TIMED_REPS timed searches of all
+    queries, each launching ``want_per_chunk`` (a launches dict) per
+    8192-query chunk; returns {ef: {recall_at_10, qps, D, I}}."""
+    out = {}
+    n_chunks = -(-len(xq) // idx.search_chunk)
+    for ef in efs:
+        p = T.SearchParametersHNSW(efSearch=ef)
+        before = counts()
+        Dv, Iv = idx.search(xq, K, params=p)
+        times = []
+        for _ in range(TIMED_REPS):
+            t1 = time.perf_counter()
+            Dv, Iv = idx.search(xq, K, params=p)
+            times.append(time.perf_counter() - t1)
+        expect_launches(f"{name} ef={ef}", before,
+                        {k: v * n_chunks * (1 + TIMED_REPS)
+                         for k, v in want_per_chunk.items()})
+        if not (Dv.shape == Iv.shape == (len(xq), K) and
+                np.isfinite(Dv).all() and (Iv >= 0).all()):
+            raise AssertionError(f"{name} ef={ef}: malformed")
+        out[ef] = {"recall_at_10": T.recall_k_at_k(Iv, gt, K),
+                   "qps": len(xq) / float(np.median(times)), "D": Dv,
+                   "I": Iv}
+    return out
+
+
+def public(res) -> dict:
+    return {str(ef): {k: v for k, v in r.items() if k not in ("D", "I")}
+            for ef, r in res.items()}
+
+
+def codec_floor(name, res, C, flat) -> None:
+    """recall@10 >= C x F - 0.01 at each efSearch."""
+    for ef, r in res.items():
+        floor = C * flat[ef]["recall_at_10"] - 0.01
+        r["floor"] = floor
+        if r["recall_at_10"] < floor:
+            raise AssertionError(f"{name} ef={ef}: recall@10 "
+                                 f"{r['recall_at_10']} < {floor}")
+
+
+def uncounted(fn, acc: dict):
+    """fn()'s result; the launches it made are added to ``acc`` (launches
+    that compare a kernel with its plain version, or a route with another,
+    are left out of a phase's count)."""
+    before = counts()
+    out = fn()
+    for k, v in launched(before).items():
+        acc[k] = acc.get(k, 0) + v
+    return out
+
+
+def hnsw_rest_phase(hidx, hnsw_auto, xb, xt, xq, gt, dev, tmp) -> dict:
+    """Phase 17: IndexHNSWSQ (sq8 / bf16 / fp16), IndexHNSWPQ,
+    IndexHNSW2Level, the tile beam, wave insertion, extend_graph,
+    range_search, their files and the fused tiles above kp 32, on phase
+    3's SIFT surrogate (phase 5's float set for the IP beam, phase 9's
+    IVFHNSW15625 for the quantizer). Returns the phase's K3 / K3-SQ8
+    launches."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    cmp = {}                             # comparison launches
+    hops = 1                            # fused_hops, the default
+    per = {"ivf_scan_fused": 1 + hops}
+    per8 = {"ivf_scan_sq8": 1 + hops}
+    xq_dev = torch.from_numpy(xq).to(dev)
+
+    # -- 17a. HNSW16,SQ8: the graph built once, the uint8 tiles (K3-SQ8) ---
+    A = T.index_factory(D, "HNSW16,SQ8", device=dev)
+    t0 = time.perf_counter()
+    A.add(xb)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    if any(counts().values()):
+        raise AssertionError(f"HNSW16,SQ8 build launched {counts()}")
+    FL = on_graph(T.IndexHNSWFlat(D, 16, device=dev), A, xb)
+    res_f = hnsw_searches(FL, xq, gt, "IndexHNSWFlat FL", per)
+    res_a = hnsw_searches(A, xq, gt, "HNSW16,SQ8", per8)
+    il = A._tiles_fused.il
+    if not (isinstance(il, T.PackedInvListsSQ8) and not hasattr(il, "data")
+            and A.storage.ntotal == 0 and A.storage.vectors.numel() == 0
+            and A._vec_dev is None and il.codes.dtype == torch.uint8):
+        raise AssertionError("HNSW16,SQ8 holds more than its uint8 tiles")
+    rows8 = A._vectors()                 # the codes, dequantized
+    C8 = codec_recall_rows(rows8, xq, gt, dev)
+    codec_floor("HNSW16,SQ8", res_a, C8, res_f)
+    ftg = A._tiles_fused
+    pos_of = torch.empty(NB, dtype=torch.long, device=dev)
+    pos_of[ftg.orig_ids[:NB].long()] = torch.arange(NB, device=dev)
+    slot_of = torch.full((il.ids.numel(),), -1, dtype=torch.long, device=dev)
+    ok = il.ids.view(-1) >= 0
+    slot_of[il.ids.view(-1)[ok].long()] = torch.nonzero(ok).squeeze(1)
+    for key in (0, 12345, NB - 1):
+        slot = slot_of[pos_of[key]]
+        want = (il.codes.view(-1, D)[slot].float() * il.sq_scale
+                + il.sq_bias).cpu().numpy()
+        if not np.array_equal(A.reconstruct(key), want):
+            raise AssertionError(f"HNSW16,SQ8 reconstruct({key}) differs "
+                                 f"from its dequantized code")
+    phase("hnsw_sq8", build_s=t_build, tiles_s=A.build_seconds.get("tiles"),
+          codec_recall=C8, tile_bytes=il.codes.nbytes,
+          device_bytes=sum(t.nbytes for t in (il.codes, il.ids, il.norms)),
+          flat=public(res_f), sq8=public(res_a))
+    del rows8
+
+    # -- 17b. SQbf16 / SQfp16 on (a)'s graph: bit for bit FL's (K3) ---------
+    res_b = {}
+    for spec in ("HNSW16,SQbf16", "HNSW16,SQfp16"):
+        S = on_graph(T.index_factory(D, spec, device=dev), A, xb)
+        r = hnsw_searches(S, xq, gt, spec, per)
+        for ef in HNSW_EFS:
+            if not (np.array_equal(r[ef]["D"], res_f[ef]["D"]) and
+                    np.array_equal(r[ef]["I"], res_f[ef]["I"])):
+                raise AssertionError(f"{spec} ef={ef}: (D, I) differ from "
+                                     f"IndexHNSWFlat's")
+        sil = S._tiles_fused.il
+        res_b[spec] = {"stream_bytes": sum(
+            {t.data_ptr(): t.nbytes for t in (sil.data, sil.data_bf16)}
+            .values()), "bit_equal_to_flat": True, **public(r)}
+        del S, sil
+    phase("hnsw_sq16", **res_b)
+    torch.cuda.empty_cache()
+
+    # -- 17c. HNSW16,PQ32: the PQ tiles, ADC, no launch ----------------------
+    P = T.index_factory(D, "HNSW16,PQ32", device=dev)
+    t0 = time.perf_counter()
+    P.train(xt)
+    P.add(xb)
+    torch.cuda.synchronize()
+    t_pq = time.perf_counter() - t0
+    res_c = hnsw_searches(P, xq, gt, "HNSW16,PQ32", {})
+    dec = PQ.pq_decode(P._codes, P._cent)
+    Cpq = codec_recall_rows(dec, xq, gt, dev)
+    # the PQ route scans max(4, ef / 8) tiles at hop 0 where F's scans
+    # max(8, ef / 2) (the reference's knobs): its floor takes F's tiles
+    # searched at the PQ route's budget (K3 launches left out of the count)
+    ftg = FL._ensure_tiles_fused()
+    f_pq = {}
+    for ef in HNSW_EFS:
+        _, _, Im = uncounted(lambda: HT.tile_search_fused(
+            ftg, xq_dev, K, nprobe0=max(4, ef // 8), hops=hops,
+            expand=FL.hnsw.expand_tiles * 2, F=FL.hnsw.fused_F,
+            kp=FL.hnsw.fused_kp, rk=max(2 * K, min(ef, 64))), cmp)
+        f_pq[ef] = {"recall_at_10": T.recall_k_at_k(Im.cpu().numpy(), gt,
+                                                    K)}
+        res_c[ef]["flat_at_its_budget"] = f_pq[ef]["recall_at_10"]
+    codec_floor("HNSW16,PQ32", res_c, Cpq, f_pq)
+    lut = PQ.query_tables(xq_dev, P._cent)
+    for ef, r in res_c.items():
+        Ir = torch.from_numpy(r["I"]).to(dev)
+        adc = PQ.adc_scan(lut, P._codes[Ir]).cpu().numpy()
+        if not np.allclose(r["D"], adc, rtol=1e-4, atol=0):
+            raise AssertionError(f"HNSW16,PQ32 ef={ef}: D are not the ADC "
+                                 f"distances of the returned ids")
+    phase("hnsw_pq", build_s=t_pq, codec_recall=Cpq,
+          code_bytes=P._codes.nbytes, tile_code_bytes=P._ptiles.il.codes.nbytes,
+          storage_rows=P.storage.ntotal, searches=public(res_c))
+    del dec, lut
+
+    # -- 17d. HNSW16,4096+PQ32: IndexHNSW2Level, bf16 decoded tiles (K3) ---
+    L = T.index_factory(D, "HNSW16,4096+PQ32", device=dev)
+    t0 = time.perf_counter()
+    L.train(xt)
+    L.add(xb)
+    torch.cuda.synchronize()
+    t_2l = time.perf_counter() - t0
+    back = L.sa_decode(L.sa_encode(xb))
+    if not np.array_equal(back, L.storage.vectors.cpu().numpy()):
+        raise AssertionError("2-level: sa_decode(sa_encode(x)) differs from "
+                             "the rows the graph was built on")
+    del back
+    res_d = hnsw_searches(L, xq, gt, "HNSW16,4096+PQ32", per)
+    C2 = codec_recall_rows(L._vectors(), xq, gt, dev)
+    codec_floor("HNSW16,4096+PQ32", res_d, C2, res_f)
+    phase("hnsw_2level", build_s=t_2l, codec_recall=C2,
+          code_bytes=L.codec._codes.nbytes + L.codec._list_ids.nbytes,
+          searches=public(res_d))
+
+    # -- 17i. (a), (c), (d) through files: (D, I) bit for bit ---------------
+    files = {}
+    p64 = T.SearchParametersHNSW(efSearch=64)
+    for name, idx in (("SQ8", A), ("PQ32", P), ("4096+PQ32", L)):
+        path = os.path.join(tmp, "hnsw.tann")
+        want = idx.search(xq, K, params=p64)
+        t0 = time.perf_counter()
+        T.write_index(idx, path)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = T.read_index(path, mmap=True, device=dev)
+        got = again.search(xq, K, params=p64)
+        t_reopen = time.perf_counter() - t0
+        if not (np.array_equal(want[0], got[0]) and
+                np.array_equal(want[1], got[1])):
+            raise AssertionError(f"HNSW16,{name}: (D, I) differ after a "
+                                 f"reopen")
+        files[name] = {"file_bytes": os.path.getsize(path),
+                       "write_s": t_write, "read_and_search_s": t_reopen}
+        del again
+        os.remove(path)
+    phase("hnsw_files", bit_equal=True, **files)
+    del A, P, L
+    torch.cuda.empty_cache()
+
+    # -- 17e. the tile beam on phase 5's float set: IP in "auto", L2 forced;
+    # and L2 forced on F (the SIFT surrogate); no launch
+    rng = np.random.default_rng(7)          # phase 5's float set
+    xb_f = xb + rng.random(xb.shape, dtype=np.float32)
+    xq_f = (xq[:1024] + rng.random(xq[:1024].shape, dtype=np.float32)
+            )[:HNSW_NQ_SMALL]
+    beam = {}
+    for name in ("ip_auto", "l2_beam", "sift_l2_beam"):
+        if name == "sift_l2_beam":
+            idx, q, g = FL, xq[:HNSW_NQ_SMALL], gt[:HNSW_NQ_SMALL]
+        else:
+            metric = T.METRIC_INNER_PRODUCT if name == "ip_auto" else \
+                T.METRIC_L2
+            idx = T.IndexHNSWFlat(D, 16, metric, device=dev)
+            idx.add(xb_f)
+            _, g = TD.knn(torch.from_numpy(xq_f).to(dev), idx._vectors(), K,
+                          metric)
+            q, g = xq_f, g.cpu().numpy()
+        if name != "ip_auto":
+            idx.hnsw.tile_mode = "beam"
+        before = counts()
+        res = hnsw_searches(idx, q, g, name, {}, efs=(64,))[64]
+        q_dev = torch.from_numpy(q).to(dev)
+        (_, In, _), t_node = timed(lambda: HN.hnsw_search(
+            idx._vectors(), idx.graph, q_dev, ef=64, k=K,
+            metric=idx.metric_type), 1)
+        r_node = T.recall_k_at_k(In.cpu().numpy(), g, K)
+        tg = idx._ensure_tiles()
+        _, _, st = idx._tile_search_chunk(q_dev, K, 64)
+        expect_launches(f"beam {name}", before, {})
+        beam[name] = {
+            "recall_at_10": res["recall_at_10"], "qps": res["qps"],
+            "per_node_recall_at_10": r_node,
+            "per_node_qps": len(q) / t_node,
+            "hops": int(st["nhops"]),
+            "visited_table_bytes": len(q) * (tg.ntiles + 1),
+            "visited_table_bytes_8192": 8192 * (tg.ntiles + 1),
+            "tiles_bytes": tg.device_bytes(),
+            "beam_tiles_s": idx.build_seconds.get("beam_tiles")}
+        # the same beam from the reference's 8 entry tiles (the index's
+        # default takes efSearch / 2 = 32), and with 16 tiles a hop
+        for key, kw in (("reference_seeds_8", dict(seed_count=8)),
+                        ("scan_tiles_16", dict(scan_tiles=16))):
+            _, Ik, _ = HT.tile_search(
+                tg, q_dev, K, ef=64, expand=idx.hnsw.expand_tiles,
+                metric=idx.metric_type, refine_vectors=idx._vectors(), **kw)
+            beam[name][f"recall_at_10_{key}"] = T.recall_k_at_k(
+                Ik.cpu().numpy(), g, K)
+        if res["recall_at_10"] < r_node - 0.01:
+            raise AssertionError(f"beam {name}: recall@10 "
+                                 f"{res['recall_at_10']} < the per-node "
+                                 f"beam's {r_node} - 0.01")
+        if idx is not FL:
+            del idx
+        torch.cuda.empty_cache()
+    FL.hnsw.tile_mode = "auto"
+    phase("hnsw_beam", nq=HNSW_NQ_SMALL, efSearch=64, **beam)
+    del xb_f
+
+    # -- 17f. wave insertion over phase 9's 15625 centroids ------------------
+    knn_q = hidx.quantizer
+    Q = T.IndexHNSWFlat(D, 16, device=dev)
+    Q.hnsw.build_mode = "insert"
+    Q.hnsw.efConstruction = 40
+    Q.add(knn_q._vectors().cpu().numpy())
+    t_insert = Q.build_seconds["graph"]
+    hidx.quantizer = Q
+    n_chunks = -(-NQ // Q.search_chunk)
+    ins = {}
+    try:
+        for nprobe in (32, 64):
+            r = ivf_hnsw_search(hidx, xq_dev, xq, gt, nprobe, "quantizer",
+                                n_chunks)
+            _, hp = hidx._coarse_search_device(xq_dev, nprobe)
+            hidx.coarse_mode = "auto"
+            _, ep = hidx._coarse_search_device(xq_dev, nprobe)
+            hp, ep = hp.cpu().numpy(), ep.cpu().numpy()
+            fid = float(np.mean([len(set(a) & set(b)) / nprobe
+                                 for a, b in zip(hp, ep)]))
+            ins[nprobe] = {"recall_at_10": r["recall_at_10"],
+                           "auto_recall_at_10": hnsw_auto[nprobe],
+                           "qps": r["qps"], "fidelity": fid}
+            if fid < 0.99 or abs(r["recall_at_10"] - hnsw_auto[nprobe]) \
+                    > 0.01:
+                raise AssertionError(f"insertion quantizer nprobe={nprobe}: "
+                                     f"{ins[nprobe]}")
+    finally:
+        hidx.quantizer = knn_q
+        hidx.coarse_mode = "auto"
+    phase("hnsw_insert", nodes=Q.ntotal, insert_build_s=t_insert,
+          knn_build_s=knn_q.build_seconds.get("graph"),
+          max_level=Q.graph.max_level,
+          searches={str(n): r for n, r in ins.items()})
+    del Q
+
+    # -- 17j. the fused tiles above kp 32: phase 9's quantizer at nprobe 64,
+    # whose hop-0 scan is one launch of K3's wide-list kernel (kp 64) ------
+    hidx.coarse_mode = "quantizer"
+    qr = ivf_hnsw_search(hidx, xq_dev, xq, gt, 64, "quantizer", n_chunks)
+    hidx.coarse_mode = "auto"
+    c_cmp = counts()
+    hq = hidx.quantizer
+    ftq = hq._ensure_tiles_fused()
+    x8 = xq_dev[:hq.search_chunk]
+    ef = max(hq.hnsw.efSearch, hidx.coarse_ef_factor * 64)
+    kp = max(hq.hnsw.fused_kp, min(ftq.b, 64, hq.hnsw.fused_kp_max))
+    _, seeds = TD.knn(x8, ftq.cent, max(8, ef // 2), compute_dtype="bfloat16")
+    plan = F.plan_pairs(seeds.to(torch.int32), ftq.il)
+    # the centroids are floats: K3 and its plain version sum the exact
+    # bf16 products in another order, so the pairs agree bit for bit on
+    # an integer-rounded copy of the tiles (phase 16e's standard) and
+    # within rtol 1e-5, positions up to near-ties, on the tiles themselves
+    ri = torch.round(ftq.il.data)
+    il_int = T.PackedInvLists(
+        data=ri, data_bf16=ri.to(torch.bfloat16), ids=ftq.il.ids,
+        norms=(ri * ri).sum(-1), list_block_start=ftq.il.list_block_start,
+        list_nblocks=ftq.il.list_nblocks)
+    for lists in (il_int, ftq.il):
+        q16, qn = F.fold_queries(torch.round(x8) if lists is il_int
+                                 else x8, lists, False)
+        d1, p1 = F.scan_pairs(q16, qn, plan, lists, kp, False)
+        d0, p0 = F.scan_pairs_reference(q16, qn, plan, lists, kp, False)
+        if lists is il_int and not (torch.equal(d0, d1) and
+                                    torch.equal(p0, p1)):
+            raise AssertionError("the quantizer's hop-0 scan at kp 64 "
+                                 "differs from its plain version on "
+                                 "integer tiles")
+    err = assert_close_pairs("the quantizer's hop-0 scan at kp 64", d0, p0,
+                             d1, p1)
+    wide = {"kp": kp, "pairs": int(seeds.numel()),
+            "ms": cuda_ms(lambda: F.scan_pairs(q16, qn, plan, ftq.il, kp,
+                                                False), 5),
+            "plain_ms": host_ms(lambda: F.scan_pairs_reference(
+                q16, qn, plan, ftq.il, kp, False), 1),
+            "max_abs_err": err, "integer_tiles_bit_equal": True,
+            **bound(*pair_scan_work(plan, ftq.il.ids, ftq.il.block_size, D,
+                                    kp, 0, ftq.il.nblocks))}
+    if wide["ms"] >= wide["plain_ms"]:
+        raise AssertionError(f"the quantizer's hop-0 scan at kp 64: K3 takes "
+                             f"{wide['ms']} ms, its plain version "
+                             f"{wide['plain_ms']}")
+    del il_int, ri
+    for k, v in launched(c_cmp).items():
+        cmp[k] = cmp.get(k, 0) + v
+    phase("hnsw_quantizer_kp64", qps=qr["qps"],
+          recall_at_10=qr["recall_at_10"], hop0_scan=wide)
+    del d0, p0, d1, p1, plan
+
+    # -- 17g. extend_graph: 900k by the kNN build, 100k added by waves ------
+    nb0 = NB - NB // 10
+    G = T.IndexHNSWFlat(D, 16, device=dev)
+    G.add(xb[:nb0])
+    t_g_build = G.build_seconds["graph"]
+    before = counts()
+    G.add(xb[nb0:])
+    t_extend = G.build_seconds["extend"]
+    expect_launches("extend_graph", before, {})
+    res_g = hnsw_searches(G, xq, gt, "extended", per, efs=(64,))[64]
+    if abs(res_g["recall_at_10"] - res_f[64]["recall_at_10"]) > 0.01:
+        raise AssertionError(f"extended: recall@10 {res_g['recall_at_10']} "
+                             f"vs a fresh build's {res_f[64]['recall_at_10']}")
+    # rows searched back as queries: 1000 added and 1000 built ones. Not
+    # every row comes back first, added or not (an approximate search on
+    # this surrogate): through the route G.search takes (the fused tiles,
+    # efSearch 64) the added rows must come back first at distance 0 (the
+    # row or an exact duplicate) as often as the built ones, within 2% of
+    # the sample (at a 3% miss rate two 1000-row samples differ by 7.6 rows
+    # at one standard deviation: 20 is 2.6 of them); the graph walk's
+    # misses (the per-node beam over G's graph) are printed beside them
+    rs = np.random.RandomState(17)
+    sample = {"added": rs.choice(np.arange(nb0, NB), HNSW_NQ_SMALL, False),
+              "built": rs.choice(nb0, HNSW_NQ_SMALL, False)}
+
+    def misses(D1, I1, rows):
+        found = (D1[:, 0] == 0) & ((I1[:, 0] == rows) |
+                                   (xb[I1[:, 0]] == xb[rows]).all(1))
+        return int((~found).sum())
+
+    missed = {}
+    for name, rows in sample.items():
+        q_dev = torch.from_numpy(xb[rows]).to(dev)
+        Dn, In, _ = HN.hnsw_search(G._vectors(), G.graph, q_dev, ef=64, k=1)
+        missed[f"{name}_graph"] = misses(Dn.cpu().numpy(), In.cpu().numpy(),
+                                         rows)
+        missed[f"{name}_fused"] = misses(
+            *G.search(xb[rows], 1, params=p64), rows)
+    if missed["added_fused"] > missed["built_fused"] + HNSW_NQ_SMALL // 50:
+        raise AssertionError(f"extended: the added rows are found less "
+                             f"often than the built ones: {missed}")
+    # the fused tiles in two other orders, searched by the same calls: the
+    # carried cells with their rows in id order (the build's own rule,
+    # under which the added rows close every cell), and `spatial_order`'s
+    # own k-means order (the reference's after an extension, as it drops
+    # the coarse assignment)
+    ca, order = G._coarse_assign, G._tile_order
+    others = {}
+    orders = [("kmeans", None)]
+    if ca is not None:
+        orders.insert(0, ("id_in_cell", np.lexsort((np.arange(NB), ca))))
+    for key, o in orders:
+        G._coarse_assign = ca if o is not None else None
+        G._tile_order, G._tiles_fused = o, None
+        _, Io = uncounted(lambda: G.search(xq, K, params=p64), cmp)
+        others[key] = {"recall_at_10": T.recall_k_at_k(Io, gt, K)}
+        for name, rows in sample.items():
+            others[key][f"{name}_fused_missed"] = misses(*uncounted(
+                lambda: G.search(xb[rows], 1, params=p64), cmp), rows)
+    G._coarse_assign, G._tile_order, G._tiles_fused = ca, order, None
+    phase("hnsw_extend", base=nb0, added=NB - nb0, build_s=t_g_build,
+          extend_s=t_extend, recall_at_10=res_g["recall_at_10"],
+          fresh_recall_at_10=res_f[64]["recall_at_10"], qps=res_g["qps"],
+          sampled=HNSW_NQ_SMALL, missed_first=missed, other_orders=others)
+
+    # -- 17h. range_search on (g)'s index --------------------------------------
+    xr = xq[:HNSW_NQ_SMALL]
+    xr_dev = xq_dev[:HNSW_NQ_SMALL]
+    xb_dev = G._vectors()
+    De, _ = TD.knn(xr_dev, xb_dev, K)
+    radius = float(De[:, K - 1].median())
+    before = counts()
+    (lims, Dr, Ir), t_range = timed(lambda: G.range_search(xr, radius), 1)
+    qr_ = np.repeat(np.arange(len(xr)), np.diff(lims))
+    exact = ((xb[Ir] - xr[qr_]) ** 2).sum(1)
+    if not ((Dr < radius).all() and np.allclose(Dr, exact, rtol=1e-5,
+                                                atol=0)):
+        raise AssertionError("range_search: a hit outside the radius or at "
+                             "another distance")
+    hit_keys = set((qr_ * NB + Ir).tolist())
+    brute = set()
+    for q0 in range(0, len(xr), 100):
+        dist = TD.pairwise_l2sqr(xr_dev[q0:q0 + 100], xb_dev)
+        qi, ii = torch.nonzero(dist < radius, as_tuple=True)
+        brute.update(((qi + q0) * NB + ii).cpu().numpy().tolist())
+        del dist
+    n_brute, missing = len(brute), len(hit_keys - brute)
+    if missing:
+        raise AssertionError(f"range_search: {missing} hits outside the "
+                             f"brute-force range set")
+    phase("hnsw_range", nq=len(xr), radius=radius, hits=int(lims[-1]),
+          brute_force=n_brute, share=lims[-1] / max(n_brute, 1),
+          seconds=t_range, launches=launched(before))
+    del G, FL
+    torch.cuda.empty_cache()
+    got = {k: v - cmp.get(k, 0) for k, v in launched().items()
+           if v != cmp.get(k, 0)}
+    phase("hnsw_rest", seconds=time.perf_counter() - t_phase, launches=got,
+          comparison_launches=cmp, kp64=wide)
+    return got, wide
 
 
 if __name__ == "__main__":

@@ -117,15 +117,16 @@ def test_kernel_float_data_overlap():
 
 
 def test_kernel_rejects_unsupported():
-    """A kp outside [1, KP_MAX] no longer goes to the kernel as is: kp 33
-    is served by one launch over sub-blocks and equals the plain version
-    at 33; a kp below 1 and a d that is not a multiple of 8 still
-    raise."""
+    """A kp above the one-entry-a-lane 32 no longer goes to that kernel:
+    kp 33 is served by the wide lists and kp 65 by one launch over
+    sub-blocks, each equal to the plain version; a kp below 1 and a d
+    that is not a multiple of 8 still raise."""
     dev = _cuda()
     xq, probes, il = _setup(dev, 128, 128, n=500, nq=10)
-    d1, p1 = _pairs(F.scan_pairs, xq, probes, il, 33, 1)
-    d0, p0 = _pairs(F.scan_pairs_reference, xq, probes, il, 33, 1)
-    assert np.array_equal(d0, d1) and np.array_equal(p0, p1)
+    for kp in (33, 65):
+        d1, p1 = _pairs(F.scan_pairs, xq, probes, il, kp, 1)
+        d0, p0 = _pairs(F.scan_pairs_reference, xq, probes, il, kp, 1)
+        assert np.array_equal(d0, d1) and np.array_equal(p0, p1)
     with pytest.raises(ValueError):
         F.scan_invlists_fused(xq, probes, il, 10, kp=-1)
     xq, probes, il = _setup(dev, 12, 128, n=500, nq=10)
@@ -137,12 +138,15 @@ def test_kernel_rejects_unsupported():
     (128, 128, 33, 1, 1, False), (128, 128, 46, 1, 1, False),
     (128, 128, 106, 1, 1, False), (128, 128, 46, 6, 1, False),
     (96, 48, 106, 3, 0, False), (128, 16, 40, 6, 1, False),
-    (128, 128, 46, 6, 1, True), (128, 64, 106, 1, 0, True)])
+    (128, 128, 46, 6, 1, True), (128, 64, 106, 1, 0, True),
+    (128, 128, 64, 6, 0, False), (128, 16, 64, 6, 1, True),
+    (256, 128, 64, 3, 0, False), (128, 128, 65, 6, 0, False)])
 def test_wide_kp_equals_plain(d, B, kp, nprobe, metric, sq8):
-    """kp above KP_MAX: ONE launch over sub-blocks of at most 32 rows
-    (`scan_pairs_wide` over K3, or K3-SQ8 on the SQ8 stream) gives the
-    plain version's per-pair top-kp bit for bit, positions included, and
-    the whole scan's (D, I) too."""
+    """kp above 32: ONE launch, of the wide-list kernel up to KP_MAX (64)
+    or over sub-blocks of at most 32 rows above it (`scan_pairs_wide`),
+    of K3, or K3-SQ8 on the SQ8 stream, gives the plain version's
+    per-pair top-kp bit for bit, positions included, and the whole scan's
+    (D, I) too."""
     from tpu_ann_torch.ops.ivf_scan import sq8_requantize_invlists
 
     dev = _cuda()
@@ -166,6 +170,28 @@ def test_wide_kp_equals_plain(d, B, kp, nprobe, metric, sq8):
     assert torch.equal(D0, D1) and torch.equal(I0, I1)
 
 
+@pytest.mark.parametrize("sq8", [False, True])
+def test_wide_kp_without_pairs_launches_nothing(sq8):
+    """A scan above KP_MAX whose probes are all -1 (a tile hop that found
+    no fresh tile) has no sub-pair and launches nothing; it returns empty
+    slots only, as the plain version."""
+    from tpu_ann_torch.ops.ivf_scan import sq8_requantize_invlists
+
+    dev = _cuda()
+    xq, probes, il = _setup(dev, 128, 128, nprobe=4)
+    if sq8:
+        il = sq8_requantize_invlists(il)
+    q, qn = F.fold_queries(xq[:1], il, False)
+    plan = F.plan_pairs(torch.full_like(probes[:1], -1), il)
+    before = (F.LAUNCHES, F.LAUNCHES_SQ8)
+    d1, p1 = F.scan_pairs(q, qn, plan, il, 106, False)
+    torch.cuda.synchronize()
+    assert (F.LAUNCHES - before[0], F.LAUNCHES_SQ8 - before[1]) == (0, 0)
+    d0, p0 = F.scan_pairs_reference(q, qn, plan, il, 106, False)
+    assert torch.equal(d0, d1) and torch.equal(p0, p1)
+    assert (p1 == -1).all() and torch.isinf(d1).all()
+
+
 @pytest.mark.parametrize("cache_dtype,k,nprobe", [
     ("bfloat16", 10, 8), ("sq8", 10, 8), ("bfloat16", 40, 8),
     ("bfloat16", 100, 1), ("sq8", 100, 1)])
@@ -173,8 +199,9 @@ def test_k3_over_decoded_pq_cache(cache_dtype, k, nprobe):
     """An IndexIVFPQ's decoded cache (integer codebooks: the bf16 rows are
     exact) through K3, or through K3-SQ8 for "sq8": one launch a search,
     (D, I) equal to the plain version at default_kp(k) over the same
-    cache, wider than the kernel's KP_MAX at k 40 (an IVFPQR's k *
-    k_factor) and k 100, where nprobe 1 returns min(k, list size) hits."""
+    cache, above 32 at k 40 (an IVFPQR's k * k_factor: the wide lists)
+    and above KP_MAX at k 100, where nprobe 1 returns min(k, list size)
+    hits."""
     from tpu_ann_torch.models.flat import IndexFlat
     from tpu_ann_torch.models.ivf import SearchParametersIVF
     from tpu_ann_torch.models.ivf_pq import IndexIVFPQ

@@ -21,14 +21,16 @@ PORTED = ["Flat", "SQ8", "SQ6", "SQ4", "SQfp16", "SQbf16", "HNSW32",
           "IVF64,PQ8+16", "IVF64_HNSW8,PQ4+8", "IVF64,PQ8,RFlat",
           "Flat,RFlat", "IVF64,SQ8,RSQ8t", "IVF64,PQ8,Refine(Flat)",
           "PQ8,Refine(SQ8Tier)", "IVF64_HNSW16,PQ8+4,RFlat",
-          "IVF64,Flat,RFlat", "IVF64,PQ4x4fs"]
+          "IVF64,Flat,RFlat", "IVF64,PQ4x4fs", "HNSW32,SQ8", "HNSW16,SQfp16",
+          "HNSW8,SQbf16", "HNSW32,PQ8", "HNSW16,PQ8x6", "HNSW32,PQ8,RFlat"]
 
 
 def _params(idx) -> dict:
     out = {"class": type(idx).__name__, "d": idx.d,
            "metric": idx.metric_type}
     for name in ("nlist", "qtype", "block_size", "M", "nbits",
-                 "M_refine", "nbits_refine", "k_factor"):
+                 "M_refine", "nbits_refine", "k_factor", "storage_dtype",
+                 "pq_m"):
         if hasattr(idx, name):
             out[name] = getattr(idx, name)
     if "PQ" in out["class"] and hasattr(idx, "nlist"):
@@ -78,8 +80,7 @@ def test_built_index_trains_and_searches():
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("HNSW32,SQ8", "item 7"), ("HNSW32,PQ8", "item 7"),
-    ("HNSW32,PQ8,RFlat", "item 7"), ("IDMap,Flat,RFlat", "item 8"),
+    ("IDMap,Flat,RFlat", "item 8"),
     ("IDMap,Flat", "item 8"), ("PCA16,IVF64,Flat", "item 8"),
     ("OPQ8_16,IVF64,PQ8", "item 8"), ("L2norm,Flat", "item 8"),
     ("IDMap2,Flat", "item 8"),
@@ -89,6 +90,29 @@ def test_unported_specs_raise(spec, item):
     JF.index_factory(D, spec)         # a spec of the reference's grammar
     with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
         TF.index_factory(D, spec, device="cpu")
+
+
+@pytest.mark.parametrize("metric", [T.METRIC_L2, T.METRIC_INNER_PRODUCT])
+@pytest.mark.parametrize("spec", ["HNSW32,4096+PQ16", "HNSW,64+PQ8"])
+def test_hnsw_2level_spec(spec, metric):
+    """HNSW<M>,<n>+PQ<m> builds the reference's IndexHNSW2Level with the
+    same codec shape. The reference's reverse spec says "HNSW<M>", which
+    builds another class; the port's names the codec. Neither package
+    gives it a code size."""
+    t = TF.index_factory(D, spec, metric, device="cpu")
+    j = JF.index_factory(D, spec, metric)
+    assert isinstance(t, T.IndexHNSW2Level)
+    assert _params(t) == _params(j)
+    for a, b in ((t.codec, j.codec), (t.codec.q1, j.codec.q1)):
+        assert _params(a) == _params(b)
+    rev = TF.reverse_index_factory(t)
+    assert JF.reverse_index_factory(j) == rev.split(",")[0]
+    again = TF.index_factory(D, rev, metric, device="cpu")
+    assert _params(again) == _params(t) and \
+        _params(again.codec) == _params(t.codec)
+    for f in (TF.get_code_size, JF.get_code_size):
+        with pytest.raises(ValueError):
+            f(D, spec)
 
 
 @pytest.mark.parametrize("spec", ["", "Foo", "IVF64,Bar", "HNSW32,Baz"])

@@ -196,38 +196,78 @@ def test_index_hnsw_flat_end_to_end(data):
     D2, I2 = t.search(xq, 10, params=SearchParametersHNSW(efSearch=64))
     assert _overlap(I2, gt) >= 0.95
     assert "tiles" in t.build_seconds
+    # the tile beam, forced (the reference's CPU tile route): recall@10
+    # within 0.01 of the JAX package's
+    from tpu_ann.models.hnsw import SearchParametersHNSW as JParams
+
     t.hnsw.tile_mode = "beam"
-    with pytest.raises(NotImplementedError):
-        t.search(xq, 10)
-    with pytest.raises(NotImplementedError):
-        t.range_search(xq, 1.0)
-    with pytest.raises(NotImplementedError):
-        t.add(xb[:10])                            # extend_graph waits
+    j.hnsw.tile_threshold = 1000
+    _, I3 = t.search(xq, 10, params=SearchParametersHNSW(efSearch=64))
+    _, I4 = j.search(xq, 10, params=JParams(efSearch=64))
+    assert abs(_overlap(I3, gt) - _overlap(np.asarray(I4), gt)) <= 0.01
+    # range search over the beam at the median exact 5th-NN distance:
+    # every hit inside the radius at its exact distance, and as many hits
+    # as the reference's within 1%
+    D5, _ = JD.knn(jnp.asarray(xq), jnp.asarray(xb), 5)
+    radius = float(np.median(np.asarray(D5)[:, 4]))
+    lims, Dr, Ir = t.range_search(xq, radius)
+    l0, _, _ = j.range_search(xq, radius)
+    assert (Dr < radius).all() and abs(lims[-1] - l0[-1]) <= 0.01 * l0[-1]
+    qr = np.repeat(np.arange(len(xq)), np.diff(lims))
+    np.testing.assert_allclose(Dr, ((xb[Ir] - xq[qr]) ** 2).sum(1),
+                               rtol=1e-5)
+    # an add of at most incremental_frac extends the graph in both: the
+    # added rows (copies of rows 0..9) come back first (the row or its
+    # original) at distance 0 up to f32 rounding of ||q||^2 + ||x||^2 -
+    # 2 q.x, and recall@10 stays within 0.01 of the JAX package's
+    for idx in (j, t):
+        idx.add(xb[:10])
+        idx.hnsw.tile_threshold = 8192
+    assert t.ntotal == 3010 and "extend" in t.build_seconds
+    for idx in (j, t):
+        D6, I6 = idx.search(xb[:10], 1)
+        assert (np.abs(np.asarray(D6)) <= 1e-3).all()
+        assert all(r[0] in (i, 3000 + i) for i, r in enumerate(
+            np.asarray(I6)))
+    _, I0 = j.search(xq, 10)
+    _, I1 = t.search(xq, 10)
+    assert abs(_overlap(I1, gt) - _overlap(np.asarray(I0), gt)) <= 0.01
 
 
 def test_index_hnsw_ip_route_follows_reference(data):
     """Above tile_threshold the reference's tile_mode="auto" takes the
     fused tiles for L2 only (tpu_ann/models/hnsw.py:233-241) and sends IP
-    to its tile beam, which the port has not yet: "auto" raises for IP,
+    to its tile beam: "auto" IP equals "beam" in the port and its recall@10
+    is within 0.01 of the JAX package's (whose CPU route is that beam too);
     "fused" takes the tiles for either metric, and an L2 search in "auto"
     is the fused route's. IP recall@10 is held against the JAX package's
     exact inner products."""
+    from tpu_ann.models.hnsw import IndexHNSWFlat as JHNSW
     from tpu_ann_torch.models.hnsw import IndexHNSWFlat as THNSW
 
     xb, xq = data
+    _, gt = JD.knn(jnp.asarray(xq), jnp.asarray(xb), 10, IP)
+    gt = np.asarray(gt)
     ip = THNSW(32, 16, IP, device=CPU)
     ip.add(xb)
     ip.hnsw.tile_threshold = 1000
-    with pytest.raises(NotImplementedError, match="tile_search"):
-        ip.search(xq, 10)
+    D0, I0 = ip.search(xq, 10)
+    ip.hnsw.tile_mode = "beam"
+    Db, Ib = ip.search(xq, 10)
+    np.testing.assert_array_equal(D0, Db)
+    np.testing.assert_array_equal(I0, Ib)
+    j = JHNSW(32, 16, IP)
+    j.add(xb)
+    j.hnsw.tile_threshold = 1000
+    _, Ij = j.search(xq, 10)
+    assert abs(_overlap(I0, gt) - _overlap(np.asarray(Ij), gt)) <= 0.01
     ip.hnsw.tile_mode = "fused"
     D, I = ip.search(xq, 10)
     assert (I >= 0).all() and (I < len(xb)).all()
     assert (np.diff(D, axis=1) <= 0).all()           # descending
     np.testing.assert_allclose(D, np.einsum("qd,qkd->qk", xq, xb[I]),
                                rtol=1e-5, atol=1e-3)
-    _, gt = JD.knn(jnp.asarray(xq), jnp.asarray(xb), 10, IP)
-    assert _overlap(I, np.asarray(gt)) >= 0.9
+    assert _overlap(I, gt) >= 0.9
     l2 = THNSW(32, 16, device=CPU)
     l2.add(xb)
     l2.hnsw.tile_threshold = 1000
@@ -242,8 +282,11 @@ def test_index_hnsw_large_add_rebuilds(data):
     """A second add of more than incremental_frac (0.5) of the built rows
     rebuilds the graph over all rows with build_graph_knn, in both
     packages: level-0 link sets equal on >= 99% of rows, recall@10 within
-    0.01. An add of at most that share (extend_graph in the reference)
-    raises and leaves the index as it was."""
+    0.01. An add of at most that share extends the graph (extend_graph) in
+    both: levels equal, recall@10 within 0.01, link sets >= 90% equal (the
+    two graphs were built apart on float data, and every wave sees the
+    earlier differences; tests/test_torch_hnsw_insert.py holds
+    extend_graph over one graph)."""
     from tpu_ann.models.hnsw import IndexHNSWFlat as JHNSW
     from tpu_ann_torch.models.hnsw import IndexHNSWFlat as THNSW
 
@@ -263,6 +306,14 @@ def test_index_hnsw_large_add_rebuilds(data):
     _, I0 = j.search(xq, 10)
     _, I1 = t.search(xq, 10)
     assert abs(_overlap(I1, gt) - _overlap(np.asarray(I0), gt)) <= 0.01
-    with pytest.raises(NotImplementedError, match="extend_graph"):
-        t.add(xb[:100])                     # 100 <= 0.5 * 3000
-    assert t.ntotal == t.storage.ntotal == len(xb)
+    for idx in (j, t):
+        idx.add(xb[:100])                   # 100 <= 0.5 * 3000: extend
+    assert t.ntotal == t.storage.ntotal == t._built_n == len(xb) + 100
+    assert "extend" in t.build_seconds
+    np.testing.assert_array_equal(t.graph.levels.numpy(),
+                                  np.asarray(j.graph.levels))
+    assert _row_sets_equal(t.graph.neighbors0.numpy(),
+                           np.asarray(j.graph.neighbors0)) >= 0.9
+    _, I0 = j.search(xq, 10)
+    _, I1 = t.search(xq, 10)
+    assert abs(_overlap(I1, gt) - _overlap(np.asarray(I0), gt)) <= 0.01

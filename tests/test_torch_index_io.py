@@ -325,8 +325,7 @@ def test_pending_removals_cross_package(tag, writer, data, tmp_path):
     assert not ((I1 >= 100) & (I1 < 900)).any()
 
 
-@pytest.mark.parametrize("tag,item", [("IHNq", "item 7"), ("IxPT", "item 8"),
-                                      ("IwRQ", "item 9"), ("IHNs", "item 7"),
+@pytest.mark.parametrize("tag,item", [("IxPT", "item 8"), ("IwRQ", "item 9"),
                                       ("IxMp", "item 8"), ("IxNS", "item 9"),
                                       ("IxSh", "item 10")])
 def test_unported_tag_raises(tag, item, tmp_path):
@@ -395,3 +394,122 @@ def test_read_index_defaults_to_cuda(data, indexes):
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             T.read_index(path).search(data[2], K)
+
+
+# -- the HNSW storages (IHNs, IHNq, IHN2) across the two packages ---------------
+
+def _hnsw_storage(pkg, tag, xb, xt):
+    from tpu_ann.models import hnsw as JM
+
+    mod = JM if pkg == "jax" else T
+    kw = {} if pkg == "jax" else {"device": "cpu"}
+    if tag == "IHNs":
+        idx = mod.IndexHNSWSQ(D, "bfloat16", 8, **kw)
+    elif tag == "IHNq":
+        idx = mod.IndexHNSWPQ(D, 8, 8, **kw)
+    else:
+        idx = mod.IndexHNSW2Level(D, NLIST, 8, 8, **kw)
+    idx.train(xt) if tag != "IHNs" else None
+    idx.add(xb)
+    return idx
+
+
+def _stored_rows(idx):
+    rows = idx.storage.vectors
+    return rows.numpy() if isinstance(rows, torch.Tensor) else \
+        np.asarray(rows)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("tag", ["IHNs", "IHNq", "IHN2"])
+def test_hnsw_storage_files_cross_package(tag, writer, data, tmp_path):
+    """An IndexHNSWSQ (bf16) / IndexHNSWPQ / IndexHNSW2Level file one
+    package writes, the other reads: the same class, graph, stored rows,
+    codes and codebooks. Searches (the per-node route, below the tile
+    thresholds): IHNq's over the decoded codes equal up to ties, D within
+    SQ_ATOL (4 ulps of the largest norm: the decoded rows are floats);
+    over bf16 rows the reference rounds the norms to bf16 and the port
+    does not (tests/test_torch_hnsw_storage.py): on these rows (norms near
+    1e6, a bf16 ulp of 4096 above the distances) the port's D are the
+    exact distances to the stored rows (within SQ_ATOL) and its recall@10
+    against exact search over them is at least the reference's."""
+    xb, xt, xq = data
+    p = str(tmp_path / f"{tag}.tann")
+    src = _hnsw_storage(writer, tag, xb, xt)
+    (jio if writer == "jax" else tio).write_index(src, p)
+    dst = T.read_index(p, device="cpu") if writer == "jax" else \
+        jio.read_index(p)
+    assert tio._read_container(p)[0]["tag"] == tag
+    assert type(dst).__name__ == type(src).__name__
+    assert dst.ntotal == src.ntotal == N
+    tidx, jidx = (dst, src) if writer == "jax" else (src, dst)
+    for name in ("neighbors0", "upper_ids", "upper_neighbors", "levels"):
+        np.testing.assert_array_equal(
+            getattr(tidx.graph, name).numpy(),
+            np.asarray(getattr(jidx.graph, name)), name)
+    if tag == "IHNq":
+        np.testing.assert_array_equal(tidx._codes.numpy(),
+                                      np.asarray(jidx._codes))
+        np.testing.assert_array_equal(tidx.pq.centroids,
+                                      np.asarray(jidx.pq.centroids))
+    else:
+        np.testing.assert_array_equal(_stored_rows(tidx),
+                                      _stored_rows(jidx))
+    if tag == "IHN2":
+        np.testing.assert_array_equal(tidx.codec._codes.numpy(),
+                                      np.concatenate(jidx.codec._codes))
+        np.testing.assert_array_equal(tidx.sa_encode(xq), jidx.sa_encode(xq))
+    D0, I0 = jidx.search(xq, K)
+    D1, I1 = tidx.search(xq, K)
+    if tag == "IHNq":
+        assert_topk_equal(D0, I0, D1, I1, atol=SQ_ATOL)
+        return
+    rows = torch.from_numpy(_stored_rows(tidx)).bfloat16().float()
+    np.testing.assert_allclose(
+        D1, ((rows.numpy()[I1] - xq[:, None]) ** 2).sum(-1), rtol=0,
+        atol=SQ_ATOL)
+    _, gt = T.knn(torch.from_numpy(xq), rows, K)
+    gt = gt.numpy()
+    assert T.recall_k_at_k(I1, gt, K) >= T.recall_k_at_k(
+        np.asarray(I0), gt, K)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_hnsw_sq8_dropped_storage_cross_package(writer, data, tmp_path,
+                                                monkeypatch):
+    """An "sq8" IndexHNSWSQ whose coded tiles dropped the raw rows: the
+    file holds the dequantized rows (either package reads the other's).
+    The port's own file also holds the tiles' affine and coarse order, so
+    a reopened port index lays out the same tiles and returns the same
+    (D, I) bit for bit."""
+    import functools
+
+    from tpu_ann.models import hnsw as JM
+    from tpu_ann.ops import hnsw_tiles as JT
+
+    monkeypatch.setattr(JT, "tile_search_fused", functools.partial(
+        JT.tile_search_fused, interpret=True))
+    xb, _, xq = data
+    if writer == "jax":
+        src = JM.IndexHNSWSQ(D, "sq8", 8)
+    else:
+        src = T.IndexHNSWSQ(D, "sq8", 8, device="cpu")
+    src.hnsw.tile_threshold = 1000
+    src.hnsw.tile_mode = "fused"
+    src.add(xb)
+    D0, I0 = src.search(xq, K)
+    assert src._storage_dropped()
+    rows = np.asarray(src._sq8_rows())
+    p = str(tmp_path / "sq8.tann")
+    (jio if writer == "jax" else tio).write_index(src, p)
+    other = T.read_index(p, device="cpu") if writer == "jax" else \
+        jio.read_index(p)
+    np.testing.assert_array_equal(_stored_rows(other), rows)
+    if writer == "port":
+        back = T.read_index(p, mmap=True, device="cpu")
+        back.hnsw.tile_threshold = 1000
+        D1, I1 = back.search(xq, K)
+        np.testing.assert_array_equal(D1, D0)
+        np.testing.assert_array_equal(I1, I0)
+        np.testing.assert_array_equal(back._tiles_fused.il.codes.numpy(),
+                                      src._tiles_fused.il.codes.numpy())

@@ -1,8 +1,9 @@
 """Port twin of tests/test_io_sweep.py for tpu_ann_torch.utils.index_io:
 every index class the port registers round-trips through write_index /
 read_index (and read_index(mmap=True)) and searches identically after the
-reload, on the CPU; every index class the port exports is registered; and
-the PQ / refine files (IxPQ, IwPQ, IwPR, IxRF, IxRT) that one package
+reload, on the CPU (the HNSW storages on their tile routes); every index
+class the port exports is registered;
+and the PQ / refine files (IxPQ, IwPQ, IwPR, IxRF, IxRT) that one package
 writes, the other reads and searches alike."""
 
 import os
@@ -63,6 +64,18 @@ def _build(name, xt, xb, path):
         idx = T.IndexRefineFlat(T.IndexPQ(D_, 4, 6, device=dev))
     elif name == "IndexRefineSQ8Tier":
         idx = T.IndexRefineSQ8Tier(T.IndexPQ(D_, 4, 6, device=dev))
+    elif name == "IndexHNSWSQ":
+        # the "sq8" tiles (built at the first search)
+        idx = T.IndexHNSWSQ(D_, "sq8", 8, device=dev)
+        idx.hnsw.tile_threshold = 100
+    elif name == "IndexHNSWPQ":
+        # the PQ tiles, built at the add: the raw rows dropped
+        idx = T.IndexHNSWPQ(D_, 4, 8, 6, device=dev)
+        idx.hnsw.tile_threshold = 100
+    elif name == "IndexHNSW2Level":
+        idx = T.IndexHNSW2Level(D_, 8, 4, 8, 6, device=dev)
+    elif name == "Index2Layer":
+        idx = T.Index2Layer(flat, 8, 4, 6)
     else:
         raise KeyError(name)
     if hasattr(idx, "cp"):
@@ -98,6 +111,8 @@ def test_roundtrip(name, mmap, data, tmp_path):
     idx2 = index_io.read_index(p, mmap=mmap, device="cpu")
     assert idx2.metric_type == idx.metric_type
     assert idx2.ntotal == idx.ntotal
+    if hasattr(idx, "hnsw"):             # search knobs are not in the file
+        idx2.hnsw.__dict__.update(idx.hnsw.__dict__)
     q = xq[:, :1].copy() if name == "IndexFlat1D" else xq
     D1, I1 = idx.search(q, 4)
     D2, I2 = idx2.search(q, 4)

@@ -194,9 +194,10 @@ WIDE_CASES = [(16, 33, 1, JD.METRIC_L2, "bf16"),
 @pytest.mark.parametrize("budget", [0, 640])
 def test_wide_kp_equals_per_pair_scan(bs, kp, nprobe, metric, stream,
                                       budget, monkeypatch):
-    """kp above KP_MAX: one pass over sub-blocks of at most 32 rows, each
-    kept whole (`scan_pairs_wide`, here over the plain version, as the
-    card runs it over one K3 / K3-SQ8 launch), gives the per-pair scan's
+    """kp above the one-entry-a-lane kernel's 32: one pass over sub-blocks
+    of at most 32 rows, each kept whole (`scan_pairs_wide`, here over the
+    plain version, as the card runs it over one K3 / K3-SQ8 launch above
+    KP_MAX), gives the per-pair scan's
     top-kp bit for bit, on data of few values (many ties), probes of -1
     and empty lists included; ``budget`` 640 selects in groups of five
     sub-pairs (a pair wider than a group taken alone)."""
@@ -223,3 +224,28 @@ def test_wide_kp_equals_per_pair_scan(bs, kp, nprobe, metric, stream,
     assert F.sub_block_rows(bs) == {16: 16, 128: 32, 48: 24, 64: 32}[bs]
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.isfinite(want[0][:, :kp]).any(1).sum() > 0
+
+
+@pytest.mark.parametrize("kp", [65, 106])
+def test_wide_kp_without_pairs_calls_nothing(kp):
+    """`scan_pairs_wide` over a plan whose probes are all -1 (a tile hop
+    that found no fresh tile) has no sub-pair: it calls its pair function
+    (on the card, the kernel) not at all, and returns the per-pair scan's
+    result: empty slots only."""
+    rs = np.random.RandomState(0)
+    xb = rs.randint(0, 3, size=(600, 16)).astype(np.float32)
+    il = t_pack(xb, np.arange(600), rs.randint(0, 5, 600), 5,
+                block_size=128, device="cpu")
+    q, qn = F.fold_queries(torch.from_numpy(xb[:3]), il, False)
+    plan = F.plan_pairs(torch.full((3, 4), -1, dtype=torch.int32), il)
+    seen = []
+
+    def pair_fn(*args, **kw):
+        seen.append(args[2].ntiles)
+        return F.scan_pairs_reference(*args, **kw)
+
+    got = F.scan_pairs_wide(q, qn, plan, il, kp, False, pair_fn)
+    want = F.scan_pairs_reference(q, qn, plan, il, kp, False)
+    assert seen == []
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[1] == -1).all()

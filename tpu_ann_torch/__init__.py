@@ -22,9 +22,13 @@ Covered today:
   and IndexIVFScalarQuantizer, whose 8-bit qtypes search the uint8 codes
   through the hand-written SQ8 scan (K3-SQ8); and K3g
   (scan_invlists_fused_grid), served by K3 and K3-SQ8 on a cut plan;
-- the HNSW graph path — IndexHNSWFlat (batch kNN-graph build, per-node
-  beam below tile_threshold, fused tiles searched through K3 above it) and
-  IndexIVFHNSW, the IVF-Flat index with an HNSW coarse quantizer;
+- the HNSW graph path — IndexHNSWFlat (batch kNN-graph build or wave
+  insertion, extend_graph for small adds, per-node beam below
+  tile_threshold, above it the fused tiles searched through K3 or the
+  tile beam, range_search), the storages IndexHNSWSQ (bf16 / fp16 tiles
+  through K3, "sq8" code tiles through K3-SQ8), IndexHNSW2Level (over
+  Index2Layer codes) and IndexHNSWPQ (PQ code tiles), and IndexIVFHNSW,
+  the IVF-Flat index with an HNSW coarse quantizer;
 - the flat-scan variants and probes — flat_knn_fused(merge="packed")
   through the packed reservoir kernel (K1p), the ceiling-probe folds
   (flat_probe_scan, B1) and the row-copy issue probe (row_copy_probe, B2);
@@ -62,8 +66,12 @@ from .models import (  # noqa: F401
     IndexFlat1D,
     IndexFlatIP,
     IndexFlatL2,
+    Index2Layer,
     IndexHNSW,
+    IndexHNSW2Level,
     IndexHNSWFlat,
+    IndexHNSWPQ,
+    IndexHNSWSQ,
     IndexIVF,
     IndexIVFFlat,
     IndexIVFFlatDedup,
@@ -97,11 +105,23 @@ from .ops.flat_knn_fused import (  # noqa: F401
     pack_flat_db,
     reservoir_topk,
 )
-from .ops.hnsw import HNSWGraph, build_graph_knn, hnsw_search  # noqa: F401
+from .ops.hnsw import (  # noqa: F401
+    HNSWGraph,
+    build_graph,
+    build_graph_knn,
+    extend_graph,
+    hnsw_search,
+)
 from .ops.hnsw_tiles import (  # noqa: F401
     FusedTileGraph,
+    PQTileGraph,
+    TileGraph,
+    build_tiles,
     build_tiles_fused,
+    build_tiles_pq,
+    tile_search,
     tile_search_fused,
+    tile_search_pq,
 )
 from .ops.ivf_scan import (  # noqa: F401
     PackedCodeInvLists,
@@ -157,7 +177,10 @@ from .ops.sq import (  # noqa: F401
 from .ops.topk import merge_topk, topk_with_ids  # noqa: F401
 from .utils.convert import (  # noqa: F401
     flat_from_reference,
+    hnsw_2level_from_reference,
     hnsw_from_reference,
+    hnsw_pq_from_reference,
+    hnsw_sq_from_reference,
     ivf_flat_from_reference,
     ivf_hnsw_from_reference,
     ivf_pq_from_reference,

@@ -19,8 +19,10 @@
 // query times the dequant scale (rounded to bf16 once), and qn folds in
 // the bias: |q|^2 - 2 q.bias for L2, q.bias for IP. Each pair keeps an
 // exact sorted top-kp spread over the lanes of the warp that owns it (lane
-// i holds entry i), ordered by (distance, stream position): ties go to the
-// lower position, empty slots are (+inf, -1).
+// i holds entry i; up to kp 64 the wide instantiation, kR = 2, keeps two
+// entries a lane, i and 32 + i), ordered by (distance, stream position):
+// ties go to the lower position, empty slots are (+inf, -1). The wide
+// lists take twice the registers, so its kernels run one CTA an SM.
 //
 // What bounds it on the H100: a streamed row is 2d bytes of bf16 (d of
 // codes on the SQ8 stream) plus 8 B of id and norm, read once for every
@@ -96,7 +98,7 @@ constexpr int kCR = 64;              // stream rows per chunk (8 n8 tiles)
 constexpr int kDS = 128;             // dims per slice
 constexpr int kStages = 2;           // chunks in the cp.async ring
 constexpr int kSS = kCR + 8;         // row stride of the score tile (f32)
-constexpr int kKPMax = 32;           // one top-kp entry per lane
+constexpr int kKPMax = 32;           // top-kp entries a lane holds, per kR
 constexpr int kSerialMax = 6;        // more candidates: bitonic merge
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kInf = __builtin_huge_valf();
@@ -397,6 +399,129 @@ __device__ __noinline__ Entry update_chunk(Entry e, float dis0, bool c0,
   return e;
 }
 
+// The wide list (kR = 2, kp up to 64): lane i holds entries i (a) and
+// 32 + i (b) of a pair's sorted top-kp.
+struct Entry2 {
+  float da;
+  int pa;
+  float db;
+  int pb;
+};
+
+// Entry kp - 1 of a wide list: the pair's threshold (kp warp-uniform)
+__device__ __forceinline__ float kth2(const Entry2& e, int kp) {
+  return kp <= 32 ? __shfl_sync(kFull, e.da, kp - 1)
+                  : __shfl_sync(kFull, e.db, kp - 33);
+}
+
+// Warp-wide: the half-cleaners at distances 16 .. 1 of one bitonic set of
+// 32, ascending (the second half of merge_sorted)
+__device__ __forceinline__ void bitonic32(float& d, int& p, int lane) {
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    const float od = __shfl_xor_sync(kFull, d, j);
+    const int op = __shfl_xor_sync(kFull, p, j);
+    if (before(od, op, d, p) == ((lane & j) == 0)) {
+      d = od;
+      p = op;
+    }
+  }
+}
+
+// Warp-wide: (a, b) holds a bitonic sequence of 64 (entry i in a for i <
+// 32, in b at 32 + i); sorts it ascending in place.
+__device__ __forceinline__ void bitonic64(Entry2& e, int lane) {
+  if (before(e.db, e.pb, e.da, e.pa)) {
+    const float td = e.da;
+    const int tp = e.pa;
+    e.da = e.db;
+    e.pa = e.pb;
+    e.db = td;
+    e.pb = tp;
+  }
+  bitonic32(e.da, e.pa, lane);
+  bitonic32(e.db, e.pb, lane);
+}
+
+// Warp-wide insert_each on a wide list: inserts the candidates of mask m
+// (lane l: distance dis, stream position row0 + l, in increasing position)
+// one by one.
+__device__ __forceinline__ void insert_each2(Entry2& e, float dis, unsigned m,
+                                             int row0, int kp, int lane) {
+  float thr = kth2(e, kp);
+  while (m) {
+    const int src = __ffs(m) - 1;
+    m &= m - 1;
+    const float dv = __shfl_sync(kFull, dis, src);
+    if (dv < thr) {
+      const int idx =
+          __popc(__ballot_sync(kFull, lane < kp && e.da <= dv)) +
+          __popc(__ballot_sync(kFull, lane + 32 < kp && e.db <= dv));
+      const float a31 = __shfl_sync(kFull, e.da, 31);
+      const int pa31 = __shfl_sync(kFull, e.pa, 31);
+      const float uda = __shfl_up_sync(kFull, e.da, 1);
+      const int upa = __shfl_up_sync(kFull, e.pa, 1);
+      const float udb = __shfl_up_sync(kFull, e.db, 1);
+      const int upb = __shfl_up_sync(kFull, e.pb, 1);
+      if (lane == idx) {
+        e.da = dv;
+        e.pa = row0 + src;
+      } else if (lane > idx) {
+        e.da = uda;
+        e.pa = upa;
+      }
+      if (lane + 32 == idx) {
+        e.db = dv;
+        e.pb = row0 + src;
+      } else if (lane + 32 > idx) {
+        e.db = lane ? udb : a31;
+        e.pb = lane ? upb : pa31;
+      }
+      thr = kth2(e, kp);
+    }
+  }
+}
+
+// update_chunk on a wide list: a few candidates are inserted one by one;
+// more (up to the chunk's 64) are sorted as two sets of 32, merged into
+// one sorted set of 64, which becomes the list if it is empty and is
+// otherwise merged with it, keeping the 64 smallest (the elementwise min of
+// the list and the reversed set is bitonic). Not inlined, as update_chunk.
+__device__ __noinline__ Entry2 update_chunk2(Entry2 e, float dis0, bool c0,
+                                             float dis1, bool c1, int row0,
+                                             int kp, int lane) {
+  const unsigned m0 = __ballot_sync(kFull, c0);
+  const unsigned m1 = __ballot_sync(kFull, c1);
+  if (__popc(m0) + __popc(m1) <= kSerialMax) {
+    insert_each2(e, dis0, m0, row0, kp, lane);
+    insert_each2(e, dis1, m1, row0 + 32, kp, lane);
+    return e;
+  }
+  Entry2 c{c0 ? dis0 : kInf, c0 ? row0 + lane : INT_MAX, c1 ? dis1 : kInf,
+           c1 ? row0 + 32 + lane : INT_MAX};
+  sort32x2(c.da, c.pa, c.db, c.pb, lane);
+  // a ascending, then b reversed: bitonic
+  c.db = __shfl_sync(kFull, c.db, 31 - lane);
+  c.pb = __shfl_sync(kFull, c.pb, 31 - lane);
+  bitonic64(c, lane);
+  if (__shfl_sync(kFull, e.da, 0) == kInf) return c;
+  // entry i of the list against entry 63 - i of the candidates
+  const float rd0 = __shfl_sync(kFull, c.db, 31 - lane);
+  const int rp0 = __shfl_sync(kFull, c.pb, 31 - lane);
+  const float rd1 = __shfl_sync(kFull, c.da, 31 - lane);
+  const int rp1 = __shfl_sync(kFull, c.pa, 31 - lane);
+  if (before(rd0, rp0, e.da, e.pa)) {
+    e.da = rd0;
+    e.pa = rp0;
+  }
+  if (before(rd1, rp1, e.db, e.pb)) {
+    e.db = rd1;
+    e.pb = rp1;
+  }
+  bitonic64(e, lane);
+  return e;
+}
+
 // Warp 0: the tile's segments, runs of consecutive pairs with the same
 // non-empty row range [lo[p], hi[p]): sfirst[i], send[i] bound segment i's
 // pairs, *nseg counts them.
@@ -431,8 +556,9 @@ struct Step {
 
 // The body of one CTA, for tile tile0 + blockIdx.x (see the header
 // comment). Elem is the stream's element: uint16_t (bf16 bits) or uint8_t
-// (SQ8 codes).
-template <bool kWindow, typename Elem = uint16_t>
+// (SQ8 codes). kR is the list entries a lane: 1 (kp up to 32) or 2 (kp up
+// to 64, the wide list: lane i holds entries i and 32 + i).
+template <bool kWindow, typename Elem = uint16_t, int kR = 1>
 __device__ __forceinline__ void scan_tile(
     const uint16_t* __restrict__ xq,      // (nq, d) bf16 queries
     const float* __restrict__ qn,         // (nq,) f32 per-query offset
@@ -489,18 +615,22 @@ __device__ __forceinline__ void scan_tile(
   __syncthreads();
   const int nseg = *snseg;
 
-  // the pairs' lists: warp w holds pairs w, w + 8, ..., entry i in lane i
-  float ld[kPW];
-  int lp[kPW];
+  // the pairs' lists: warp w holds pairs w, w + 8, ..., entry 32 r + i in
+  // lane i, register r
+  float ld[kPW][kR];
+  int lp[kPW][kR];
 #pragma unroll
   for (int j = 0; j < kPW; ++j) {
     const int p = j * kWarps + warp;
-    ld[j] = kInf;
-    lp[j] = -1;
-    if (kWindow && lane < kp && phi[p] > plo[p]) {
-      const size_t o = static_cast<size_t>(pbase + p) * kp + lane;
-      ld[j] = out_d[o];
-      lp[j] = ld[j] == kInf ? -1 : out_p[o];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      ld[j][r] = kInf;
+      lp[j][r] = -1;
+      if (kWindow && 32 * r + lane < kp && phi[p] > plo[p]) {
+        const size_t o = static_cast<size_t>(pbase + p) * kp + 32 * r + lane;
+        ld[j][r] = out_d[o];
+        lp[j][r] = ld[j][r] == kInf ? -1 : out_p[o];
+      }
     }
   }
 
@@ -697,13 +827,27 @@ __device__ __forceinline__ void scan_tile(
                                       : fmaxf(qv + n0 - 2.0f * ip0, 0.0f);
         const float dis1 = similarity ? -ip1 - qv
                                       : fmaxf(qv + n1 - 2.0f * ip1, 0.0f);
-        const float thr = __shfl_sync(kFull, ld[j], kp - 1);
+        float thr;
+        if constexpr (kR == 1)
+          thr = __shfl_sync(kFull, ld[j][0], kp - 1);
+        else
+          thr = kth2({ld[j][0], lp[j][0], ld[j][1], lp[j][1]}, kp);
         const bool cand0 = ok0 && dis0 < thr, cand1 = ok1 && dis1 < thr;
         if (!__any_sync(kFull, cand0 || cand1)) continue;
-        const Entry e = update_chunk({ld[j], lp[j]}, dis0, cand0, dis1, cand1,
-                                     c0, kp, srow, lane);
-        ld[j] = e.d;
-        lp[j] = e.p;
+        if constexpr (kR == 1) {
+          const Entry e = update_chunk({ld[j][0], lp[j][0]}, dis0, cand0,
+                                       dis1, cand1, c0, kp, srow, lane);
+          ld[j][0] = e.d;
+          lp[j][0] = e.p;
+        } else {
+          const Entry2 e =
+              update_chunk2({ld[j][0], lp[j][0], ld[j][1], lp[j][1]}, dis0,
+                            cand0, dis1, cand1, c0, kp, lane);
+          ld[j][0] = e.da;
+          lp[j][0] = e.pa;
+          ld[j][1] = e.db;
+          lp[j][1] = e.pb;
+        }
       }
     }
     cur = advance(cur);
@@ -714,10 +858,13 @@ __device__ __forceinline__ void scan_tile(
 #pragma unroll
   for (int j = 0; j < kPW; ++j) {
     const int p = j * kWarps + warp;
-    if (lane < kp && (!kWindow || phi[p] > plo[p])) {
-      const size_t o = static_cast<size_t>(pbase + p) * kp + lane;
-      out_d[o] = ld[j];
-      out_p[o] = ld[j] == kInf ? -1 : lp[j];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (32 * r + lane < kp && (!kWindow || phi[p] > plo[p])) {
+        const size_t o = static_cast<size_t>(pbase + p) * kp + 32 * r + lane;
+        out_d[o] = ld[j][r];
+        out_p[o] = ld[j][r] == kInf ? -1 : lp[j][r];
+      }
     }
   }
 }
@@ -737,10 +884,10 @@ __device__ __forceinline__ void scan_tile(
   xq, qn, pair_q, pstart, pend, tile_bs, tile_nb, data, ids, norms, wrow0,  \
       wrow1, tile0, d, B, kp, similarity, out_d, out_p
 
-// Launches `kernel` (a scan_tile kernel on a stream of Elem), one CTA per
-// tile of [tile0, tile0 + ntiles), on `stream`; allocates nothing. Returns
-// cudaGetLastError() (0 on success).
-template <typename Elem = uint16_t, typename Kernel>
+// Launches `kernel` (a scan_tile kernel on a stream of Elem, kR list
+// entries a lane), one CTA per tile of [tile0, tile0 + ntiles), on
+// `stream`; allocates nothing. Returns cudaGetLastError() (0 on success).
+template <typename Elem = uint16_t, int kR = 1, typename Kernel>
 int launch_scan_tiles(Kernel kernel, const void* xq, const void* qn,
                       const void* pair_q, const void* pstart,
                       const void* pend, const void* tile_bs,
@@ -748,7 +895,7 @@ int launch_scan_tiles(Kernel kernel, const void* xq, const void* qn,
                       const void* norms, int wrow0, int wrow1, int tile0,
                       int ntiles, int d, int B, int kp, int similarity,
                       void* out_d, void* out_p, void* stream) {
-  if (d <= 0 || d % 8 != 0 || B <= 0 || kp < 1 || kp > kKPMax ||
+  if (d <= 0 || d % 8 != 0 || B <= 0 || kp < 1 || kp > kR * kKPMax ||
       ntiles < 0 || tile0 < 0 || wrow0 < 0 || wrow1 < wrow0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = layout<Elem>(d).total;

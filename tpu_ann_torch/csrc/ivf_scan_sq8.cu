@@ -13,8 +13,9 @@
 // stream: each chunk's codes land in shared memory as bytes (8-byte
 // cp.async copies) and are widened there to the bf16 operand tile, so the
 // stream's HBM bytes halve while the tensor-core products and the top-kp
-// epilogue are K3's. It is a library of its own so that K3's
-// instantiation, and its register count, stay as they are.
+// epilogue are K3's, with K3's two kernels: up to kp 32, and with two list
+// entries a lane up to kp 64. It is a library of its own so that K3's
+// instantiations, and their register counts, stay as they are.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see tpu_ann_torch/kernels). Plain C interface.
@@ -29,6 +30,12 @@ ivf_scan_sq8_kernel(IVF_SCAN_TILE_PARAMS(uint8_t)) {
   ivf_scan::scan_tile<false>(IVF_SCAN_TILE_ARGS);
 }
 
+// K3's wide lists (kp 33 to 64): one CTA an SM.
+__global__ void __launch_bounds__(ivf_scan::kThreads, 1)
+ivf_scan_sq8_wide_kernel(IVF_SCAN_TILE_PARAMS(uint8_t)) {
+  ivf_scan::scan_tile<false, uint8_t, 2>(IVF_SCAN_TILE_ARGS);
+}
+
 }  // namespace
 
 extern "C" {
@@ -36,14 +43,19 @@ extern "C" {
 // pairs per tile the kernel is written for (the wrapper checks it)
 int ivf_scan_sq8_tile_pairs() { return ivf_scan::kPT; }
 
-// Launches one CTA per tile on `stream`; allocates nothing. `codes` is the
-// (rows, d) uint8 stream, each row 8-byte aligned (d % 8 == 0). Returns
-// cudaGetLastError() (0 on success).
+// Launches one CTA per tile on `stream` (kp in [1, 64]); allocates
+// nothing. `codes` is the (rows, d) uint8 stream, each row 8-byte aligned
+// (d % 8 == 0). Returns cudaGetLastError() (0 on success).
 int ivf_scan_sq8(const void* xq, const void* qn, const void* pair_q,
                  const void* pstart, const void* pend, const void* tile_bs,
                  const void* tile_nb, const void* codes, const void* ids,
                  const void* norms, int ntiles, int d, int B, int kp,
                  int similarity, void* out_d, void* out_p, void* stream) {
+  if (kp > ivf_scan::kKPMax)
+    return ivf_scan::launch_scan_tiles<uint8_t, 2>(
+        ivf_scan_sq8_wide_kernel, xq, qn, pair_q, pstart, pend, tile_bs,
+        tile_nb, codes, ids, norms, /*wrow0=*/0, /*wrow1=*/INT_MAX,
+        /*tile0=*/0, ntiles, d, B, kp, similarity, out_d, out_p, stream);
   return ivf_scan::launch_scan_tiles<uint8_t>(
       ivf_scan_sq8_kernel, xq, qn, pair_q, pstart, pend, tile_bs, tile_nb,
       codes, ids, norms, /*wrow0=*/0, /*wrow1=*/INT_MAX, /*tile0=*/0, ntiles,

@@ -14,10 +14,14 @@ from .flat import (  # noqa: F401
     IndexFlatIP,
     IndexFlatL2,
 )
+from .extra import Index2Layer  # noqa: F401
 from .hnsw import (  # noqa: F401
     HNSWParams,
     IndexHNSW,
+    IndexHNSW2Level,
     IndexHNSWFlat,
+    IndexHNSWPQ,
+    IndexHNSWSQ,
     SearchParametersHNSW,
 )
 from .ivf import (  # noqa: F401

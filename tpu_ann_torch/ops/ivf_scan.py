@@ -437,15 +437,20 @@ def sq8_view_from_codes(invlists: PackedCodeInvLists, bias, scale,
         list_nblocks=invlists.list_nblocks, sq_bias=bias, sq_scale=scale)
 
 
-def sq8_requantize_invlists(pil: PackedInvLists,
-                            chunk_blocks: int = 512) -> PackedInvListsSQ8:
+def sq8_requantize_invlists(pil: PackedInvLists, chunk_blocks: int = 512,
+                            affine=None) -> PackedInvListsSQ8:
     """Re-quantize raw packed invlists to the SQ8 stream (per-dim min/max
     over the real rows, scale = vdiff / 255). Norms come from the
     DEQUANTIZED rows, so the exact re-rank holds at the storage
-    precision."""
+    precision. ``affine`` = (bias, scale), if given, replaces the min/max
+    (rows already dequantized with it get their codes back)."""
     data = pil.data
-    total, B, d = data.shape
+    total, d = data.shape[0], data.shape[2]
     dev = data.device
+    if affine is not None:
+        vmin, scale = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                       for a in affine)
+        return _sq8_encode(pil, vmin, scale, chunk_blocks)
     vmin = torch.full((d,), float("inf"), device=dev)
     vmax = torch.full((d,), float("-inf"), device=dev)
     for s in range(0, total, chunk_blocks):
@@ -458,7 +463,14 @@ def sq8_requantize_invlists(pil: PackedInvLists,
     vmin = torch.where(torch.isfinite(vmin), vmin, 0.0)
     vmax = torch.where(torch.isfinite(vmax), vmax, 1.0)
     vdiff = torch.clamp(vmax - vmin, min=1e-12)
-    scale = vdiff / 255.0
+    return _sq8_encode(pil, vmin, vdiff / 255.0, chunk_blocks)
+
+
+def _sq8_encode(pil: PackedInvLists, vmin: torch.Tensor, scale: torch.Tensor,
+                chunk_blocks: int) -> PackedInvListsSQ8:
+    data = pil.data
+    total, B, d = data.shape
+    dev = data.device
     # the reference divides by scale inside a jitted function where scale
     # is a constant, which XLA compiles to a product with its reciprocal;
     # the same product here keeps the codes byte-equal

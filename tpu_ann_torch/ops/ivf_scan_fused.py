@@ -27,10 +27,11 @@ Steps (the wrapper is plain torch around one kernel launch):
      dequantized codes), map stream positions to row ids, and flip the sign
      back for IP.
 
-The kernels keep at most KP_MAX (32) a pair. A wider kp (k above 26 at
-the default width) is served by one launch over sub-blocks of at most 32
-rows, each kept whole, from which each pair's top-kp is selected
-(`scan_pairs_wide`): the same per-pair top-kp.
+The kernels keep at most KP_MAX (64) a pair: one list entry a lane up to
+kp 32, two above (a kernel of its own, chosen by kp at launch). A wider
+kp is served by one launch over sub-blocks of at most 32 rows, each kept
+whole, from which each pair's top-kp is selected (`scan_pairs_wide`): the
+same per-pair top-kp.
 
 Unlike the reference, the per-pair top-kp is always exact: the reference's
 RW=512 lane-min reservoir (which can drop candidates) exists only because
@@ -54,9 +55,11 @@ from .ivf_scan import PackedInvLists, PackedInvListsSQ8
 
 # pairs per tile: the CUDA kernel is written for this tile (kPT in the .cu)
 PT = 128
-# largest per-pair width the CUDA kernel keeps (one list entry per lane); a
-# wider kp scans sub-blocks of at most KP_MAX rows (`scan_pairs_wide`)
-KP_MAX = 32
+# per-pair widths the CUDA kernels keep: KP_LANE with one list entry a
+# lane (K4's limit), KP_MAX with two; a wider kp scans sub-blocks of at
+# most KP_LANE rows (`scan_pairs_wide`)
+KP_LANE = 32
+KP_MAX = 64
 # kernel launches made by `scan_pairs` (one per call on a CUDA tensor):
 # K3 on a bf16 stream, K3-SQ8 on a uint8 one
 LAUNCHES = 0
@@ -258,8 +261,8 @@ def scan_pairs(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
     """Per-pair exact top-kp: for CUDA tensors one launch of the CUDA
     kernel of the stream's type (K3 on bf16 rows, K3-SQ8 on uint8 codes),
     over the plan itself or, for kp above KP_MAX, over its sub-blocks
-    (`scan_pairs_wide`); for CPU tensors the plain version. Returns (dist,
-    pos) of shape (npairs_pad, kp)."""
+    (`scan_pairs_wide`, no launch when no pair is real); for CPU tensors
+    the plain version. Returns (dist, pos) of shape (npairs_pad, kp)."""
     if xq_bf16.device.type == "cpu":
         return scan_pairs_reference(xq_bf16, qn, plan, invlists, kp,
                                     similarity)
@@ -336,15 +339,16 @@ def _launch(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
 
 def sub_block_rows(B: int) -> int:
     """Rows of the sub-blocks `scan_pairs_wide` cuts lists of block size B
-    into: B's largest divisor up to KP_MAX."""
-    return max(r for r in range(1, KP_MAX + 1) if B % r == 0)
+    into: B's largest divisor up to KP_LANE (the one-entry-a-lane
+    kernel)."""
+    return max(r for r in range(1, KP_LANE + 1) if B % r == 0)
 
 
 def scan_pairs_wide(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
                     invlists, kp: int, similarity: bool, pair_fn):
-    """Per-pair exact top-kp for any kp from ONE call of ``pair_fn`` (the
-    kernel's `_launch`, or `scan_pairs_reference`), which keeps at most
-    KP_MAX a pair: each pair's range is cut into sub-blocks of r =
+    """Per-pair exact top-kp for any kp from at most ONE call of
+    ``pair_fn`` (the kernel's `_launch`, or `scan_pairs_reference`), none
+    when no pair has a row: each pair's range is cut into sub-blocks of r =
     `sub_block_rows` rows, a sub-pair each that keeps all its rows; the
     sub-pairs, sorted by sub-block so that the pairs of one list share its
     reads, form a plan of their own. Each pair's top-kp is then taken from
@@ -364,6 +368,10 @@ def scan_pairs_wide(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
     parent = torch.repeat_interleave(torch.arange(npp, device=dev), n)
     ns = parent.shape[0]
     sub = ps[parent] + torch.arange(ns, device=dev) - first[parent]
+    out_d = torch.full((npp, kp), float("inf"), device=dev)
+    out_p = torch.full((npp, kp), -1, dtype=torch.int32, device=dev)
+    if ns == 0:
+        return out_d, out_p
     order = torch.argsort(sub, stable=True)
     ss = sub[order]
     splan = _tiled(order, ss, ss + 1, plan.pair_q.long()[parent[order]], PT,
@@ -373,8 +381,6 @@ def scan_pairs_wide(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
     cp = torch.empty((ns, r), dtype=sp.dtype, device=dev)
     cd[order] = sd[:ns]                # back to pair-major, stream order
     cp[order] = sp[:ns]
-    out_d = torch.full((npp, kp), float("inf"), device=dev)
-    out_p = torch.full((npp, kp), -1, dtype=torch.int32, device=dev)
     # pairs in groups whose candidates stay under _PLAIN_BUDGET / 4
     step = max(_PLAIN_BUDGET // (4 * r), 1)
     ends_h = ends.cpu().numpy()

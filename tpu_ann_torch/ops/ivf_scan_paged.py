@@ -61,7 +61,7 @@ import torch
 from . import distances as D
 from . import topk as TK
 from .ivf_scan_fused import (
-    KP_MAX,
+    KP_LANE,
     PT,
     PairPlan,
     default_kp,
@@ -433,8 +433,8 @@ def scan_window(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
     if window.data_bf16.shape[2] != dp or dp % 8:
         raise ValueError(f"ivf_scan_paged: the queries' width {dp} must be "
                          f"the window's and a multiple of 8")
-    if not 1 <= kp <= KP_MAX:
-        raise ValueError(f"ivf_scan_paged: kp must be in [1, {KP_MAX}] "
+    if not 1 <= kp <= KP_LANE:
+        raise ValueError(f"ivf_scan_paged: kp must be in [1, {KP_LANE}] "
                          f"(got {kp})")
     if plan.pair_q.shape[0] != plan.ntiles * PT:
         raise ValueError(f"ivf_scan_paged: plan must be tiled by PT={PT}")

@@ -13,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..models.flat import IndexFlat
-from ..models.hnsw import IndexHNSWFlat
+from ..models.hnsw import (IndexHNSW2Level, IndexHNSWFlat, IndexHNSWPQ,
+                           IndexHNSWSQ)
 from ..models.ivf import IndexIVFFlat
 from ..models.ivf_hnsw import IndexIVFHNSW
 from ..models.ivf_pq import (IndexIVFPQ, IndexIVFPQR,
@@ -74,25 +75,75 @@ def hnsw_from_reference(state: dict, device="cuda") -> IndexHNSWFlat:
                              the HNSWGraph's arrays and scalars
       coarse_assign          optional: the build's coarse assignment (the
                              spatial order of the fused tiles)"""
-    meta, arrays = _hnsw_file(state)
-    index = iio.load_index(meta, arrays, device=device)
-    ca = state.get("coarse_assign")
-    index._coarse_assign = None if ca is None else np.asarray(ca, np.int64)
-    return index
+    return iio.load_index(*_hnsw_file(state), device=device)
 
 
-def _hnsw_file(state: dict):
-    meta = {"tag": "IHNf", "d": int(state["d"]),
+def _hnsw_file(state: dict, tag: str = "IHNf", ntotal=None):
+    meta = {"tag": tag, "d": int(state["d"]),
             "metric": int(state["metric"]), "M": int(state["M"]),
-            "ntotal": len(state["xb"]), "has_graph": True,
-            "entry": int(state["entry"]),
+            "ntotal": len(state["xb"]) if ntotal is None else ntotal,
+            "has_graph": True, "entry": int(state["entry"]),
             "max_level": int(state["max_level"])}
     defaults = {"efSearch": 16, "efConstruction": 40}
     for key, v in defaults.items():
         meta[key] = int(state.get(key, v))
     arrays = {name: state[name] for name in (
-        "xb", "neighbors0", "upper_ids", "upper_neighbors", "levels")}
+        "neighbors0", "upper_ids", "upper_neighbors", "levels")}
+    if "xb" in state:
+        arrays["xb"] = state["xb"]
+    if state.get("coarse_assign") is not None:
+        arrays["coarse_assign"] = np.asarray(state["coarse_assign"],
+                                             np.int64)
     return meta, arrays
+
+
+def hnsw_sq_from_reference(state: dict, device="cuda") -> IndexHNSWSQ:
+    """A port `IndexHNSWSQ` that searches the graph of a `tpu_ann` one:
+    the keys of `hnsw_from_reference` plus ``qtype`` ("bfloat16",
+    "float16" or "sq8"); ``xb`` holds the f32 rows of its storage (for an
+    "sq8" index whose raw rows are dropped, the dequantized rows, as its
+    index file holds)."""
+    meta, arrays = _hnsw_file(state, "IHNs")
+    meta["qtype"] = state["qtype"]
+    return iio.load_index(meta, arrays, device=device)
+
+
+def hnsw_pq_from_reference(state: dict, device="cuda") -> IndexHNSWPQ:
+    """A port `IndexHNSWPQ` from a `tpu_ann` one's arrays: the graph keys
+    of `hnsw_from_reference` (no ``xb``), pq_m, nbits, ``codes`` (ntotal,
+    pq_m) uint8 and ``pq_centroids`` (pq_m, ksub, dsub). Its PQ tiles are
+    laid out at the first search."""
+    meta, arrays = _hnsw_file(state, "IHNq", len(state["codes"]))
+    meta.update(pq_m=int(state["pq_m"]), nbits=int(state.get("nbits", 8)),
+                is_trained=True)
+    arrays.update(codes=np.asarray(state["codes"], np.uint8),
+                  pq_centroids=np.asarray(state["pq_centroids"], np.float32))
+    return iio.load_index(meta, arrays, device=device)
+
+
+def hnsw_2level_from_reference(state: dict,
+                               device="cuda") -> IndexHNSW2Level:
+    """A port `IndexHNSW2Level` from a `tpu_ann` one's arrays: the keys of
+    `hnsw_from_reference` (``xb`` the decoded rows its storage holds) plus
+    its codec's: nlist, pq_m, nbits, ``q1_vectors`` (nlist, d) the coarse
+    centroids, ``pq_centroids``, ``list_ids`` (ntotal,) and ``codes``
+    (ntotal, pq_m)."""
+    meta, arrays = _hnsw_file(state, "IHN2")
+    meta["is_trained"] = True
+    d, metric, nlist = int(state["d"]), int(state["metric"]), \
+        int(state["nlist"])
+    codec_m = {"tag": "Ix2L", "d": d, "ntotal": len(state["codes"]),
+               "nlist": nlist, "M": int(state["pq_m"]),
+               "nbits": int(state.get("nbits", 8)), "is_trained": True}
+    codec_a = {"pq_centroids": np.asarray(state["pq_centroids"], np.float32),
+               "list_ids": np.asarray(state["list_ids"], np.int32),
+               "codes": np.asarray(state["codes"], np.uint8)}
+    iio._flatten("q1", {"tag": "IxFl", "d": d, "metric": metric,
+                        "ntotal": nlist},
+                 {"xb": np.asarray(state["q1_vectors"], np.float32)},
+                 codec_m, codec_a)
+    iio._flatten("codec", codec_m, codec_a, meta, arrays)
+    return iio.load_index(meta, arrays, device=device)
 
 
 def ivf_hnsw_from_reference(state: dict, device="cuda") -> IndexIVFHNSW:
@@ -100,12 +151,8 @@ def ivf_hnsw_from_reference(state: dict, device="cuda") -> IndexIVFHNSW:
     `ivf_flat_from_reference` without ``vectors``, plus ``quantizer``, the
     `hnsw_from_reference` state of its HNSW quantizer (whose storage holds
     the centroids)."""
-    index = _load_ivf("IwHn", state, _hnsw_file(state["quantizer"]),
-                      _raw_lists(state), device)
-    ca = state["quantizer"].get("coarse_assign")
-    if ca is not None:
-        index.quantizer._coarse_assign = np.asarray(ca, np.int64)
-    return index
+    return _load_ivf("IwHn", state, _hnsw_file(state["quantizer"]),
+                     _raw_lists(state), device)
 
 
 def _raw_lists(state: dict) -> dict:

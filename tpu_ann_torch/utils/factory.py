@@ -5,6 +5,9 @@ for the index classes the port has:
   Flat                          IndexFlat
   SQ8, SQ6, SQ4, SQfp16, SQbf16 IndexScalarQuantizer
   HNSW<M>, HNSW<M>,Flat         IndexHNSWFlat (M defaults to 32)
+  HNSW<M>,SQ8|SQfp16|SQbf16     IndexHNSWSQ ("sq8" / float16 / bfloat16)
+  HNSW<M>,PQ<m>[x<b>]           IndexHNSWPQ
+  HNSW<M>,<n>+PQ<m>             IndexHNSW2Level (Index2Layer codes)
   IVF<n>,Flat                   IndexIVFFlat over an IndexFlat quantizer
   IVF<n>_HNSW<M>,Flat           IndexIVFHNSW
   IVF<n>,SQ8|SQ6|SQ4|SQfp16|SQbf16, IVF<n>_HNSW<M>,SQ...
@@ -33,7 +36,8 @@ import re
 
 from ..models.base import Index
 from ..models.flat import IndexFlat
-from ..models.hnsw import IndexHNSW, IndexHNSWFlat
+from ..models.hnsw import (IndexHNSW, IndexHNSW2Level, IndexHNSWFlat,
+                           IndexHNSWPQ, IndexHNSWSQ)
 from ..models.ivf import IndexIVF, IndexIVFFlat, IndexIVFFlatDedup
 from ..models.ivf_hnsw import IndexIVFHNSW
 from ..models.ivf_pq import IndexIVFScalarQuantizer
@@ -47,6 +51,7 @@ _SQ_TYPES = {"SQ8": SQ.QT_8BIT, "SQ6": SQ.QT_6BIT, "SQ4": SQ.QT_4BIT,
              "SQfp16": SQ.QT_FP16, "SQbf16": SQ.QT_BF16}
 _SQ_NAMES = {v: k for k, v in _SQ_TYPES.items()}
 _SQ_BITS = {"SQ8": 8, "SQ6": 6, "SQ4": 4, "SQfp16": 16, "SQbf16": 16}
+_HNSW_SQ = {"SQ8": "sq8", "SQfp16": "float16", "SQbf16": "bfloat16"}
 
 # the reference's other tokens (regex), by the ROADMAP queue 1 item that
 # ports their classes
@@ -139,13 +144,18 @@ def _container(d: int, head: str, code, metric: int, device) -> Index:
                               int(m.group(2) or 8), metric, device=device)
         raise _refusal(code)
     if m := re.fullmatch(r"HNSW(\d+)?", head):
+        # parse_IndexHNSW's storage codes (index_factory.cpp:443-490)
+        hm = int(m.group(1) or 32)
         if code in (None, "Flat"):
-            return IndexHNSWFlat(d, int(m.group(1) or 32), metric,
-                                 device=device)
-        if re.fullmatch(r"PQ\d+(x\d+)?|SQfp16|SQbf16|SQ8|\d+\+PQ\d+", code):
-            raise NotImplementedError(
-                f"index_factory: HNSW storage {code!r} is not ported yet "
-                "(ROADMAP queue 1, item 7 (the rest of HNSW))")
+            return IndexHNSWFlat(d, hm, metric, device=device)
+        if mm := re.fullmatch(r"PQ(\d+)(?:x(\d+))?", code):
+            return IndexHNSWPQ(d, int(mm.group(1)), hm,
+                               int(mm.group(2) or 8), metric, device=device)
+        if code in _HNSW_SQ:
+            return IndexHNSWSQ(d, _HNSW_SQ[code], hm, metric, device=device)
+        if mm := re.fullmatch(r"(\d+)\+PQ(\d+)", code):
+            return IndexHNSW2Level(d, int(mm.group(1)), int(mm.group(2)), hm,
+                                   metric=metric, device=device)
         raise _refusal(code)
     if code is not None:
         raise _refusal(code)
@@ -219,6 +229,15 @@ def reverse_index_factory(index) -> str:
             # class
             return f"{prefix},FlatDedup"
         return f"{prefix},Flat"
+    if isinstance(index, IndexHNSWPQ):
+        return f"HNSW{get_hnsw_M(index)},PQ{index.pq_m}x{index.nbits}"
+    if isinstance(index, IndexHNSWSQ):
+        name = {v: k for k, v in _HNSW_SQ.items()}[index.storage_dtype]
+        return f"HNSW{get_hnsw_M(index)},{name}"
+    if isinstance(index, IndexHNSW2Level):
+        # the reference returns "HNSW<M>", which re-parses to another class
+        c = index.codec
+        return f"HNSW{get_hnsw_M(index)},{c.nlist}+PQ{c.M}"
     if isinstance(index, IndexHNSW):
         return f"HNSW{get_hnsw_M(index)}"
     if isinstance(index, IndexPQ):

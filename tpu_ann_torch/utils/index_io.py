@@ -216,12 +216,19 @@ def _load_flat1d(meta, arrays, device):
     return idx
 
 
-def _dump_hnsw(index):
-    meta = {"tag": "IHNf", "d": index.d, "metric": index.metric_type,
+def _hnsw_meta(index, tag: str) -> dict:
+    return {"tag": tag, "d": index.d, "metric": index.metric_type,
             "ntotal": index.ntotal, "M": index.hnsw.M,
             "efConstruction": index.hnsw.efConstruction,
             "efSearch": index.hnsw.efSearch}
-    arrays = {"xb": index._vectors()}
+
+
+def _graph_arrays(index, meta: dict, arrays: dict) -> None:
+    """The graph's scalars and arrays (reference `_graph_meta_arrays`,
+    :159-171). The port also writes the build's coarse assignment
+    (``coarse_assign``) and the fused tiles' order (``tile_order``, their
+    position -> id map), which the reference neither writes nor reads, so
+    that a reopened index lays out the same tiles."""
     g = index.graph
     meta["has_graph"] = g is not None
     if g is not None:
@@ -229,25 +236,23 @@ def _dump_hnsw(index):
         meta["entry"] = int(g.entry)
         arrays.update(neighbors0=g.neighbors0, upper_ids=g.upper_ids,
                       upper_neighbors=g.upper_neighbors, levels=g.levels)
-    return meta, arrays
+    ca = index._coarse_assign
+    if ca is not None and len(ca) == index.ntotal:
+        arrays["coarse_assign"] = np.asarray(ca, np.int64)
+    ftg = index._tiles_fused
+    if ftg is not None:
+        arrays["tile_order"] = ftg.orig_ids[:ftg.n].long()
+    elif index._tile_order is not None:
+        arrays["tile_order"] = index._tile_order
 
 
-def _load_hnsw(meta, arrays, device):
-    """The reference's `_load_hnsw` / `_restore_graph` (:143-188); the
-    graph's entry is an int here, a jnp.int32 scalar there. Neither package
-    writes the build's coarse assignment, so the fused tiles of a reopened
-    index take their spatial order from a fresh k-means."""
-    from ..models.hnsw import IndexHNSWFlat
+def _restore_graph(idx, meta, arrays, device) -> None:
+    """The reference's `_restore_graph` (:174-188); the graph's entry is an
+    int here, a jnp.int32 scalar there. Without ``tile_order`` (a file of
+    the reference's) the fused tiles of the reopened index take their
+    spatial order from ``coarse_assign``, or else from a fresh k-means."""
     from ..ops.hnsw import HNSWGraph
 
-    idx = IndexHNSWFlat(int(meta["d"]), int(meta["M"]), int(meta["metric"]),
-                        device=device)
-    idx.hnsw.efConstruction = int(meta["efConstruction"])
-    idx.hnsw.efSearch = int(meta["efSearch"])
-    if meta["ntotal"]:
-        # the storage only: no graph build
-        idx.storage.add(np.asarray(arrays["xb"]))
-        idx.ntotal = idx.storage.ntotal
     if meta.get("has_graph"):
         def up(name):
             return to_tensor(arrays[name], device, np.int32)
@@ -257,7 +262,162 @@ def _load_hnsw(meta, arrays, device):
             upper_neighbors=up("upper_neighbors"), levels=up("levels"),
             entry=int(meta["entry"]), max_level=int(meta["max_level"]))
         idx._built_n = idx.ntotal
+    if "coarse_assign" in arrays:
+        idx._coarse_assign = np.array(arrays["coarse_assign"], np.int64)
+    if "tile_order" in arrays:
+        idx._tile_order = np.array(arrays["tile_order"], np.int64)
+
+
+def _hnsw_shell(idx, meta, arrays, device):
+    """The knobs, the storage rows (no graph build) and the graph."""
+    idx.hnsw.efConstruction = int(meta["efConstruction"])
+    idx.hnsw.efSearch = int(meta["efSearch"])
+    if meta["ntotal"] and "xb" in arrays:
+        idx.storage.add(np.asarray(arrays["xb"]))
+        idx.ntotal = idx.storage.ntotal
+    _restore_graph(idx, meta, arrays, device)
     return idx
+
+
+def _dump_hnsw(index):
+    meta = _hnsw_meta(index, "IHNf")
+    arrays = {"xb": index._vectors()}
+    _graph_arrays(index, meta, arrays)
+    return meta, arrays
+
+
+def _load_hnsw(meta, arrays, device):
+    """The reference's `_load_hnsw` (:143-156)."""
+    from ..models.hnsw import IndexHNSWFlat
+
+    idx = IndexHNSWFlat(int(meta["d"]), int(meta["M"]), int(meta["metric"]),
+                        device=device)
+    return _hnsw_shell(idx, meta, arrays, device)
+
+
+def _dump_hnswsq(index):
+    """IHNs (reference :191-209): IHNf's arrays and the qtype. Once the
+    "sq8" tiles dropped the raw rows, ``xb`` holds the dequantized rows
+    (the storage precision is the index's), and the port adds the tiles'
+    affine as ``sq8_bias`` / ``sq8_scale``, which with ``tile_order`` give
+    a reopened index the same tiles and codes."""
+    meta, arrays = _dump_hnsw(index)
+    meta.update(tag="IHNs", qtype=index.storage_dtype)
+    if index.storage_dtype == "sq8" and index._storage_dropped():
+        il = index._tiles_fused.il
+        arrays.update(sq8_bias=il.sq_bias, sq8_scale=il.sq_scale)
+    return meta, arrays
+
+
+def _load_hnswsq(meta, arrays, device):
+    from ..models.hnsw import IndexHNSWSQ
+
+    idx = IndexHNSWSQ(int(meta["d"]), meta["qtype"], int(meta["M"]),
+                      int(meta["metric"]), device=device)
+    if "sq8_bias" in arrays:
+        idx._sq8_affine = (_f32_or_none(arrays, "sq8_bias"),
+                           _f32_or_none(arrays, "sq8_scale"))
+    return _hnsw_shell(idx, meta, arrays, device)
+
+
+def _dump_hnswpq(index):
+    """IHNq (reference :212-226): the codes, the PQ codebook and the graph.
+    The port adds the PQ tiles' layout (``tile_order``, and ``tile_cent``,
+    the tiles' centroids of the raw rows, which the file does not hold),
+    so that a reopened index searches the same tiles."""
+    meta = _hnsw_meta(index, "IHNq")
+    meta.update(pq_m=index.pq_m, nbits=index.nbits,
+                is_trained=index.is_trained)
+    arrays = {"codes": index._codes}
+    if index.pq is not None:
+        arrays["pq_centroids"] = index.pq.centroids
+    _graph_arrays(index, meta, arrays)
+    pt = index._ptiles
+    if pt is not None:
+        arrays.update(tile_order=pt.orig_ids[:pt.n].long(),
+                      tile_cent=pt.cent)
+    elif index._tile_layout is not None:
+        arrays.update(tile_order=index._tile_layout[0],
+                      tile_cent=index._tile_layout[1])
+    return meta, arrays
+
+
+def _load_hnswpq(meta, arrays, device):
+    """The reference's `_load_hnswpq` (:229-248): the storage keeps no
+    rows (the codes are the index), and the tiles are built at the first
+    search."""
+    from ..models.hnsw import IndexHNSWPQ
+
+    idx = IndexHNSWPQ(int(meta["d"]), int(meta["pq_m"]), int(meta["M"]),
+                      int(meta["nbits"]), int(meta["metric"]), device=device)
+    idx.hnsw.efConstruction = int(meta["efConstruction"])
+    idx.hnsw.efSearch = int(meta["efSearch"])
+    if "pq_centroids" in arrays:
+        idx._set_codec(np.array(arrays["pq_centroids"], np.float32))
+    idx.is_trained = bool(meta["is_trained"])
+    idx._codes = to_tensor(arrays["codes"], device, np.uint8).reshape(
+        -1, idx.pq_m)
+    idx.ntotal = int(meta["ntotal"])
+    _restore_graph(idx, meta, arrays, device)
+    if "tile_cent" in arrays:
+        idx._tile_layout = (idx._tile_order,
+                            np.array(arrays["tile_cent"], np.float32))
+    return idx
+
+
+def _dump_2layer(index):
+    """Ix2L (reference :1173-1185): the quantizer, nested, the PQ codebook,
+    the list ids and the codes."""
+    meta = {"tag": "Ix2L", "d": index.d, "ntotal": index.ntotal,
+            "nlist": index.nlist, "M": index.M, "nbits": index.nbits,
+            "is_trained": index.is_trained}
+    arrays: dict = {}
+    _flatten("q1", *dump_index(index.q1), meta, arrays)
+    if index.pq is not None:
+        arrays["pq_centroids"] = index.pq.centroids
+    if index.ntotal:
+        arrays.update(list_ids=index._list_ids, codes=index._codes)
+    return meta, arrays
+
+
+def _load_2layer(meta, arrays, device):
+    from ..models.extra import Index2Layer
+
+    idx = Index2Layer(load_index(*_sub("q1", meta, arrays), device=device),
+                      int(meta["nlist"]), int(meta["M"]), int(meta["nbits"]))
+    if "pq_centroids" in arrays:
+        idx._set_codec(np.array(arrays["pq_centroids"], np.float32))
+    idx.is_trained = bool(meta["is_trained"])
+    if "codes" in arrays:
+        idx._list_ids = to_tensor(arrays["list_ids"], device, np.int32)
+        idx._codes = to_tensor(arrays["codes"], device, np.uint8)
+        idx.ntotal = int(meta["ntotal"])
+    return idx
+
+
+def _dump_hnsw2level(index):
+    """IHN2 (reference :1410-1423): the codec nested, the decoded rows the
+    graph holds, and the graph."""
+    meta = _hnsw_meta(index, "IHN2")
+    meta["is_trained"] = index.is_trained
+    arrays: dict = {}
+    _flatten("codec", *dump_index(index.codec), meta, arrays)
+    if index.ntotal:
+        arrays["xb"] = index._vectors()
+    _graph_arrays(index, meta, arrays)
+    return meta, arrays
+
+
+def _load_hnsw2level(meta, arrays, device):
+    from ..models.hnsw import IndexHNSW2Level
+
+    codec = load_index(*_sub("codec", meta, arrays), device=device)
+    idx = IndexHNSW2Level(int(meta["d"]), codec.nlist, codec.M,
+                          int(meta["M"]), codec.nbits, int(meta["metric"]),
+                          device=device)
+    idx.codec = codec
+    idx.is_trained = bool(meta["is_trained"])
+    return _hnsw_shell(idx, meta, arrays, device)
 
 
 def _dump_ivf_common(index):
@@ -656,6 +816,10 @@ _register("IndexFlatIP", "IxFl", _dump_flat, _load_flat)
 _register("IndexFlat1D", "IxF1", _dump_flat1d, _load_flat1d)
 _register("IndexHNSW", "IHNf", _dump_hnsw, _load_hnsw)
 _register("IndexHNSWFlat", "IHNf", _dump_hnsw, _load_hnsw)
+_register("IndexHNSWSQ", "IHNs", _dump_hnswsq, _load_hnswsq)
+_register("IndexHNSWPQ", "IHNq", _dump_hnswpq, _load_hnswpq)
+_register("IndexHNSW2Level", "IHN2", _dump_hnsw2level, _load_hnsw2level)
+_register("Index2Layer", "Ix2L", _dump_2layer, _load_2layer)
 _register("IndexIVF", "IwFl", _dump_ivfflat, _load_ivfflat)
 _register("IndexIVFFlat", "IwFl", _dump_ivfflat, _load_ivfflat)
 _register("IndexIVFFlatDedup", "IwFD", _dump_ivfdedup, _load_ivfdedup)
@@ -674,12 +838,11 @@ _register("IndexRefineSQ8Tier", "IxRT", _dump_refine_sq8_tier,
 # the reference's other tags, by the ROADMAP queue 1 item that ports their
 # classes
 _ITEMS = {
-    "item 7 (the rest of HNSW)": ("IHNs", "IHNq", "IHN2"),
     "item 8 (index API breadth: idmap, transforms)": ("IxMp", "IxM2",
                                                       "IxPT"),
     "item 9 (the remaining codecs and indexes)": (
         "IxRQ", "IwRQ", "IxCQ", "IxQN", "IxLt", "IxLs", "IxMM", "IxMI",
-        "Ix2L", "IxSV", "IxRn", "IxNS", "IxNP", "IxNQ", "IxND", "IwSH",
+        "IxSV", "IxRn", "IxNS", "IxNP", "IxNQ", "IxND", "IwSH",
         "IwIQ", "BxFl", "BwFl", "BxHN", "BxHs", "BxMH", "BxFF"),
     "item 10 (sharding)": ("IxSh", "IxRp"),
 }

@@ -257,13 +257,58 @@ Phases, one line each; any failure raises and exits non-zero:
      median exact 10th-NN distance: every hit inside the radius at its
      f32 distance (rtol 1e-5), a subset of the brute-force range set
      (share printed).
+  18. the index API breadth on phase 3's data and quantizer: (a)
+     "PCA64,IVF4096,Flat": recall@10 at nprobe 16 / 32 / 64 >= C_pca x
+     phase 3's - 0.01 (C_pca: exact f32 search in the PCA-64 space
+     against the 128-d ground truth), (D, I) bit-equal to an
+     IndexIVFFlat built directly over vt.apply(x) on the same centroids,
+     one K3 launch a search; K3 at d 64 (10k q, nprobe 32) against its
+     plain version (rtol 1e-5, positions up to near-ties) and timed; (b)
+     "OPQ16_64,IVF4096,PQ16" (faiss's OPQ-IVF-PQ deployment): OPQ
+     training seconds, recall >= C x phase 3's - 0.01 (C: exact f32 over
+     the decoded, rotated rows), one K3 launch a search (bf16 cache) and
+     one K3-SQ8 launch with the "sq8" cache (recall within 0.01), and
+     IVF4096,PQ16 without OPQ printed beside it; (c) "IDMap2,IVF4096,Flat"
+     over phase 3's quantizer with random int64 ids above 2^32: search
+     equal to the sub-index's mapped through id_map, a selector over 10%
+     of the external ids at nprobe 4096 equal to exact search over those
+     rows, 100k ids removed then equal to a fresh IDMap2 over the
+     survivors, 100k rows added under new ids (no id repeats, each found
+     back at distance 0), reconstruct by external id, an IxM2 file
+     reopened bit-equal; (d) IndexShards of 4 exact IndexFlat filled by
+     two adds of 500k equal to an IndexFlat over the 1M rows in their
+     order (the ids follow the adds; 1000 rows searched for themselves
+     come back under their positions), and IndexReplicas of (c)'s sub-index and a
+     clone bit-equal to it; (e) ParameterSpace.explore over IVF4096,Flat
+     (nprobe 1..2048, the recalls at 16 / 32 / 64 equal to phase 3's) and
+     over phase 9's IVFHNSW15625 in quantizer mode (nprobe 8..128, cut
+     from 1..4096, x efSearch 16..256): the Pareto points and seconds;
+     (g) SlidingIndexWindow, 10 slices of 100k, nslice 4: after each step
+     bit-equal to an IVF-Flat over the live slices; (h) IndexFlat(128, m)
+     over the 1M rows for the nine extra metrics (Lp with p 3,
+     NaNEuclidean with 1% NaNs), 256 queries: QPS and peak device memory,
+     the timed search's first 32 queries and a selector run over the first
+     100k rows, whose ids equal an f64 evaluation on the card written
+     here apart from ops/extra_distances (f64_extra: torch.cdist, products
+     of magnitudes and NaN masks, a loop over the dimensions), ties within
+     rtol 1e-5 (1e-4 for JensenShannon); (f) ClusterManager.balance, one
+     round, on phase 9's index after phase 17 with max_cell_size the
+     9th-largest list: nlist grows by the splits, the sizes sum to ntotal,
+     every row in exactly one list, each split list's rows in both its
+     parts (each at least 5% of them), recall@10 at nprobe 32 within 0.01 of before; each
+     split's sizes, the largest list after the round with where its rows
+     were before, the imbalance and the seconds a split. Phase 18 launches
+     K3 and K3-SQ8 only; its count leaves out the launches of what a path
+     is held against (the direct IVF, IVF4096,PQ16, K3 against its plain
+     version, the sub-index searched alone, fresh IDMap2 and window IVFs,
+     the index a file is held against), printed apart.
 The last two lines are the kernels' JSON record (each with its time,
 its plain version's, the card's bound for the same work and, where one
 torch call computes the same function, that call's time; K3, K3-SQ8 and
 K4 add their time and bound at the main path's 10k queries, K3 its time
-at IVFPQR's kp 46 (phase 16e) and at the quantizer's kp 64 (phase 17j),
-each kernel its phase-16 and phase-17 launches, and K3 has a second
-record at batch 1)
+at IVFPQR's kp 46 (phase 16e), at the quantizer's kp 64 (phase 17j) and
+at d 64 (phase 18a), each kernel its phase-16, phase-17 and phase-18
+launches, and K3 has a second record at batch 1)
 and {"ok": true, ...}.
 """
 
@@ -650,7 +695,7 @@ def main() -> None:
     variant_records = variant_phases(flat_index, xb, xq, gt, refine_rec, dev)
     del flat_index
     torch.cuda.empty_cache()
-    # every file of phases 7-14 and 16 lives here; removed at the end
+    # every file of phases 7-14, 16 and 18 lives here; removed at the end
     with tempfile.TemporaryDirectory(prefix="tpu_ann_smoke_") as tmp:
         paged, k4 = paged_phases(xb, xt, xq, gt, dev, tmp)
         hidx, hnsw_auto = ivf_hnsw_phase(xb, xt, xq, gt, dev)
@@ -663,9 +708,14 @@ def main() -> None:
                                      xt, xq, gt, results, dev, tmp)
         hnsw_launches, kp64 = hnsw_rest_phase(hidx, hnsw_auto, xb, xt, xq,
                                               gt, dev, tmp)
+        breadth_launches, k3_d64 = breadth_phase(quant3, hidx, xb, xt, xq,
+                                                 gt, results, dev, tmp)
         del hidx
     k3["launches_pq"] = pq_launches.get("ivf_scan_fused", 0)
     k3["launches_hnsw"] = hnsw_launches.get("ivf_scan_fused", 0)
+    k3["launches_breadth"] = breadth_launches.get("ivf_scan_fused", 0)
+    # K3 at d 64 (phase 18a: PCA64,IVF4096,Flat, 10k q, nprobe 32)
+    k3.update(k3_d64)
     # K3 at the IVFHNSW quantizer's kp 64 (phase 17j: the hop-0 scan of one
     # 8192-query chunk at nprobe 64), and its plain version
     k3.update(kp64_ms=kp64["ms"], kp64_plain_ms=kp64["plain_ms"],
@@ -678,6 +728,8 @@ def main() -> None:
               kp46_max_abs_err=wide["max_abs_err"])
     sq_records[0]["launches_pq"] = pq_launches.get("ivf_scan_sq8", 0)
     sq_records[0]["launches_hnsw"] = hnsw_launches.get("ivf_scan_sq8", 0)
+    sq_records[0]["launches_breadth"] = breadth_launches.get("ivf_scan_sq8",
+                                                             0)
     print(json.dumps({"kernels": [k3, *sq_records, *flat_records,
                                   *variant_records, k4, b2, k3_b1]}),
           flush=True)
@@ -1545,19 +1597,26 @@ def device_profile(fn, top: int = 4, kernel: str = "") -> dict:
     return out
 
 
+# traces device_ms took again (each repeats its 2 x reps calls of fn)
+PROFILE_RETRIES = 0
+
+
 def device_ms(fn, reps: int = 20, kernel: str = "") -> float:
     """Mean device time of a call of fn over reps calls under
     torch.profiler: the launches of the kernels whose name holds
     ``kernel``, or without it every device event (None where the profiler
     saw none: not measured). A trace that holds none of the kernel's
     launches (the profiler now and then returns one without them) is
-    taken again, up to three times in all; then it raises."""
+    taken again, up to three times in all (counted in PROFILE_RETRIES);
+    then it raises."""
+    global PROFILE_RETRIES
     if kernel:
         for _ in range(3):
             prof = device_profile(lambda: [fn() for _ in range(reps)],
                                   kernel=kernel)
             if prof["launches_ms"]:
                 return sum(prof["launches_ms"]) / reps
+            PROFILE_RETRIES += 1
         raise AssertionError(f"the profiler saw no {kernel} launch")
     prof = device_profile(lambda: [fn() for _ in range(reps)])
     busy = prof["device_busy_ms"]
@@ -1938,6 +1997,7 @@ def row_copy_phase(xb, dev) -> dict:
     khz = B2.sm_clock_khz()
     rows_out, b2_err = {}, 0.0
     reset_counts()
+    retries0 = PROFILE_RETRIES
     inputs = {}
     for nr in B2_ROWS:
         rows = torch.from_numpy(np.random.RandomState(0).randint(
@@ -1962,6 +2022,7 @@ def row_copy_phase(xb, dev) -> dict:
             **bound(nr * D * 4 + nr * 4 + 16 * D * 4 + D * 4, 0.0)}
         rows_out[nr]["out"] = (out, xor)
     launches = counts()
+    retried = PROFILE_RETRIES - retries0
     # the same count of rows, consecutive: what random rows cost the copies
     seq = torch.arange(B2_ROWS[-1], dtype=torch.int32, device=dev)
     rows_out[B2_ROWS[-1]]["consecutive_rows"] = {
@@ -1979,13 +2040,15 @@ def row_copy_phase(xb, dev) -> dict:
         b2_err = max(b2_err, max_abs_err(ref, out))
         r["plain_ms"] = host_ms(lambda: B2.row_copy_probe_reference(
             xb_dev, inputs[nr], 16), 3)
-    # per NR: 5 warm-up and 5 profiled calls, 6 event-timed, 1 checked
-    if launches["row_copy_probe"] != len(B2_ROWS) * 17:
-        raise AssertionError(f"B2 launches {launches}")
+    # per NR: 5 warm-up and 5 profiled calls, 6 event-timed, 1 checked; a
+    # trace device_ms took again repeated its 10 calls
+    if launches["row_copy_probe"] != len(B2_ROWS) * 17 + 10 * retried:
+        raise AssertionError(f"B2 launches {launches}, {retried} traces "
+                             f"taken again")
     phase("row_copy_probe", ns=16, dp=D, nb=NB, sm_clock_khz=khz,
           slots_equal=True, xor_equal=True,
           calls={str(nr): r for nr, r in rows_out.items()},
-          launches=launches)
+          launches=launches, traces_taken_again=retried)
     last = rows_out[65536]
     del xb_dev
     return {
@@ -2834,11 +2897,12 @@ def exact_over_lists(lists, xr, probes, dev):
 
 
 def rows_by_id(lists, n: int, dev) -> torch.Tensor:
-    """(n, D) the rows of a raw layout in stored-id order."""
+    """(n, d) the rows of a raw layout in stored-id order."""
     ids = lists.ids.view(-1).long()
     ok = ids >= 0
-    out = torch.zeros((n, D), device=dev)
-    out[ids[ok]] = lists.data.view(-1, D)[ok].float()
+    d = lists.data.shape[-1]
+    out = torch.zeros((n, d), device=dev)
+    out[ids[ok]] = lists.data.view(-1, d)[ok].float()
     return out
 
 
@@ -3774,6 +3838,587 @@ def hnsw_rest_phase(hidx, hnsw_auto, xb, xt, xq, gt, dev, tmp) -> dict:
     phase("hnsw_rest", seconds=time.perf_counter() - t_phase, launches=got,
           comparison_launches=cmp, kp64=wide)
     return got, wide
+
+
+# -- phase 18: the index API breadth -------------------------------------------
+
+# extra metrics of phase 18h: (name, metric, metric_arg, rtol of the f32
+# search against the f64 evaluation). JensenShannon sums terms of both
+# signs (x log(x / m)), whose f32 rounding is relative to the terms, not to
+# the small sum: 1e-4 there
+EXTRA = (("L1", 2, 0.0, 1e-5), ("Linf", 3, 0.0, 1e-5),
+         ("Lp3", 4, 3.0, 1e-5), ("Canberra", 20, 0.0, 1e-5),
+         ("BrayCurtis", 21, 0.0, 1e-5), ("JensenShannon", 22, 0.0, 1e-4),
+         ("Jaccard", 23, 0.0, 1e-5), ("NaNEuclidean", 24, 0.0, 1e-5),
+         ("AbsInnerProduct", 25, 0.0, 1e-5))
+EXTRA_NQ, EXTRA_NB64, EXTRA_NQ64 = 256, 100_000, 32
+# 18f: the least share of a split list's rows each of its two parts holds
+SPLIT_MIN_SHARE = 0.05
+
+
+def exact_recall(xq_dev, rows_dev, gt) -> float:
+    """recall@10 of exact f32 search of xq over rows (device tensors)."""
+    _, I = TD.knn(xq_dev, rows_dev, K)
+    return T.recall_k_at_k(I.cpu().numpy(), gt, K)
+
+
+def ivf_searches(idx, xq, gt, name, want, nprobes=(16, 32, 64)) -> dict:
+    """One warm-up and one timed search a nprobe, each launching ``want``;
+    {nprobe: (recall, qps, (D, I))}."""
+    out = {}
+    for nprobe in nprobes:
+        p = T.SearchParametersIVF(nprobe=nprobe)
+        before = counts()
+        idx.search(xq, K, params=p)
+        (Dv, Iv), s = timed(lambda: idx.search(xq, K, params=p), warm=lambda:
+                            None)
+        expect_launches(f"{name} nprobe={nprobe}", before,
+                        {k: 2 * v for k, v in want.items()})
+        out[nprobe] = (T.recall_k_at_k(Iv, gt, K), len(xq) / s, (Dv, Iv))
+    return out
+
+
+def same_topk_within(name, D64, I64, Dv, Iv, rtol) -> None:
+    """Ids equal up to ties, where a tie is a run of the f64 reference's
+    distances within rtol of each other (the f32 search may order those
+    either way; the run at the cut may differ), and the f32 distances
+    within rtol of the f64 ones."""
+    for r in range(len(D64)):
+        row, start = D64[r], 0
+        for i in range(1, len(row) + 1):
+            if i < len(row) and abs(row[i] - row[start]) <= \
+                    rtol * max(abs(row[start]), 1e-30):
+                continue
+            if i < len(row) and sorted(I64[r, start:i]) != \
+                    sorted(Iv[r, start:i]):
+                raise AssertionError(f"{name} row {r}: ids {Iv[r]} vs the "
+                                     f"f64 evaluation's {I64[r]}")
+            start = i
+    fin = np.isfinite(D64)
+    if not np.allclose(Dv[fin], D64[fin], rtol=rtol, atol=0):
+        raise AssertionError(f"{name}: distances beyond rtol {rtol} of f64")
+
+
+def breadth_transforms(quant3, xb, xt, xq, gt, flat_rec, dev, cmp) -> dict:
+    """18a PCA64,IVF4096,Flat and 18b OPQ16_64,IVF4096,PQ16 (beside
+    IVF4096,PQ16). Returns K3 at d 64 (10k q, nprobe 32) for the kernels
+    line; the launches of the direct IVF, of IVF4096,PQ16 and of K3's
+    comparison with its plain version go to ``cmp``."""
+    xq_dev = torch.from_numpy(xq).to(dev)
+    k3 = {"ivf_scan_fused": 1}
+
+    # -- 18a. PCA64,IVF4096,Flat ----------------------------------------------
+    A = T.index_factory(D, f"PCA64,IVF{NLIST},Flat", device=dev)
+    vt, ivf = A.chain[0], A.index
+    (_, t_train) = timed(lambda: A.train(xt), warm=lambda: None)
+    (_, t_add) = timed(lambda: A.add(xb), warm=lambda: None)
+    x64 = vt.apply(torch.from_numpy(xb).to(dev))
+    q64 = vt.apply(xq_dev)
+    c_pca = exact_recall(q64, x64, gt)
+    # the same centroids, an IndexIVFFlat over vt.apply(x) built directly
+    q_direct = T.IndexFlat(64, device=dev)
+    q_direct.add(ivf.quantizer.vectors.cpu().numpy())
+    B = T.IndexIVFFlat(q_direct, 64, NLIST, device=dev)
+    B.quantizer_trains_alone = 1
+    B.train(x64[:1000].cpu().numpy())
+    B.add(vt.apply(xb))
+    del x64
+    res_a = ivf_searches(A, xq, gt, "PCA64,IVF4096,Flat", k3)
+    res_b = uncounted(lambda: ivf_searches(B, vt.apply(xq), gt,
+                                           "direct IVF over PCA64", k3), cmp)
+    for n, (rec, _, out) in res_a.items():
+        floor = c_pca * flat_rec[n] - 0.01
+        if rec < floor:
+            raise AssertionError(f"PCA64 nprobe={n}: recall@10 {rec} < "
+                                 f"{floor}")
+        for a, b in zip(out, res_b[n][2]):
+            assert_equal(f"PCA64 nprobe={n} vs the direct IVF",
+                         torch.from_numpy(a), torch.from_numpy(b))
+    # K3 at d 64: 10k queries, nprobe 32, against its plain version
+    il = ivf.invlists
+    _, probes = ivf._coarse_search_device(q64, 32)
+    plan = F.plan_pairs(probes, il)
+    kp = F.default_kp(K)
+    qn, q16 = TD.l2_norms(q64), q64.to(torch.bfloat16)
+
+    def k3_at_d64() -> dict:
+        d1, p1 = F.scan_pairs(q16, qn, plan, il, kp, False)
+        d0, p0 = F.scan_pairs_reference(q16, qn, plan, il, kp, False)
+        err = assert_close_pairs("K3 at d 64", d0, p0, d1, p1)
+        return {"d64_max_abs_err": err,
+                "d64_ms": cuda_ms(lambda: F.scan_pairs(q16, qn, plan, il, kp,
+                                                       False), 10),
+                "d64_plain_ms": host_ms(lambda: F.scan_pairs_reference(
+                    q16, qn, plan, il, kp, False), 1),
+                "d64_bound_ms": bound(*pair_scan_work(
+                    plan, il.ids, il.block_size, 64, kp, 0,
+                    il.nblocks))["bound_ms"]}
+
+    k3_d64 = uncounted(k3_at_d64, cmp)
+    phase("breadth_pca", train_s=t_train, add_s=t_add, codec_recall=c_pca,
+          searches={n: {"recall_at_10": r[0], "qps": r[1],
+                        "floor": c_pca * flat_rec[n] - 0.01}
+                    for n, r in res_a.items()},
+          equal_to_direct_ivf=True, k3_launches_per_search=1, **k3_d64)
+    del A, B, res_a, res_b, il, plan
+    torch.cuda.empty_cache()
+
+    # -- 18b. OPQ16_64,IVF4096,PQ16 (faiss's OPQ-IVF-PQ deployment) ----------
+    O = T.index_factory(D, f"OPQ16_64,IVF{NLIST},PQ16", device=dev)
+    opq, ivfpq = O.chain[0], O.index
+    (_, t_opq) = timed(lambda: opq.train(xt), warm=lambda: None)
+    (_, t_train) = timed(lambda: O.train(xt), warm=lambda: None)
+    (_, t_add) = timed(lambda: O.add(xb), warm=lambda: None)
+    f32 = ivfpq._decode_lists(torch.float32)
+    C = exact_recall(opq.apply(xq_dev), rows_by_id(f32, NB, dev), gt)
+    del f32
+    floors = {n: C * flat_rec[n] - 0.01 for n in (16, 32, 64)}
+    res_o = pq_searches(O, xq, gt, "OPQ16_64,IVF4096,PQ16", k3,
+                        floors=floors)
+    ivfpq.decoded_cache_dtype = "sq8"
+    ivfpq._decoded = None
+    res_o8 = pq_searches(O, xq, gt, "OPQ16_64,IVF4096,PQ16 sq8 cache",
+                         {"ivf_scan_sq8": 1})
+    for n, r in res_o8.items():
+        if abs(r["recall_at_10"] - res_o[n]["recall_at_10"]) > 0.01:
+            raise AssertionError(f"OPQ sq8 cache nprobe={n}: recall "
+                                 f"{r['recall_at_10']} vs bf16's "
+                                 f"{res_o[n]['recall_at_10']}")
+    del O, ivfpq
+    torch.cuda.empty_cache()
+    P16, t16_train, t16_add = ivf_pq_over(quant3, 16, 8, xt, xb,
+                                          np.arange(NB), dev)
+    f32 = P16._decode_lists(torch.float32)
+    C16 = exact_recall(xq_dev, rows_by_id(f32, NB, dev), gt)
+    del f32
+    res_p = uncounted(lambda: pq_searches(P16, xq, gt, "IVF4096,PQ16", k3),
+                      cmp)
+    phase("breadth_opq", opq_train_s=t_opq, train_s=t_train, add_s=t_add,
+          codec_recall=C, searches=res_o, sq8_cache=res_o8,
+          without_opq={"train_s": t16_train, "add_s": t16_add,
+                       "codec_recall": C16, "searches": res_p})
+    del P16
+    torch.cuda.empty_cache()
+    return k3_d64
+
+
+def unique_ids(n: int, seed: int) -> np.ndarray:
+    """n distinct random int64 ids above 2^32."""
+    rs = np.random.RandomState(seed)
+    ids = np.unique(rs.randint(0, 1 << 60, size=n + n // 8,
+                               dtype=np.int64))
+    return (rs.permutation(ids)[:n] + (1 << 32)).astype(np.int64)
+
+
+def breadth_idmap(quant3, xb, xt, xq, gt, dev, tmp, cmp) -> None:
+    """18c IDMap2,IVF4096,Flat with random external ids; 18d IndexShards
+    and IndexReplicas. The launches of the indexes they are held against
+    (the sub-index searched alone, a fresh IDMap2, the index a file is
+    held against) go to ``cmp``."""
+    k3 = {"ivf_scan_fused": 1}
+    p32 = T.SearchParametersIVF(nprobe=32)
+    nmore = NB // 10                     # rows removed, then added
+    ext = unique_ids(NB + nmore, 18)
+
+    def idmap2(rows, ids):
+        ivf = T.IndexIVFFlat(quant3, D, NLIST, device=dev)
+        ivf.quantizer_trains_alone = 1
+        ivf.train(xt)
+        idx = T.IndexIDMap2(ivf)
+        idx.add_with_ids(rows, ids)
+        return idx
+
+    # -- 18c. IDMap2,IVF4096,Flat ------------------------------------------
+    (M, t_add) = timed(lambda: idmap2(xb, ext[:NB]), warm=lambda: None)
+    before = counts()
+    Ds, Is = uncounted(lambda: M.index.search(xq, K, params=p32), cmp)
+    Dm, Im = M.search(xq, K, params=p32)
+    expect_launches("IDMap2 search", before, {"ivf_scan_fused": 2})
+    if not (np.array_equal(Dm, Ds) and
+            np.array_equal(Im, np.where(Is >= 0, M.id_map[Is], -1))):
+        raise AssertionError("IDMap2: search differs from the sub-index's "
+                             "mapped through id_map")
+    # a selector over external ids: the query-major scan over every list
+    # equals exact search over the selected rows
+    rs = np.random.RandomState(19)
+    pick = np.sort(rs.choice(NB, NB // 10, replace=False))
+    xs = xq[:200]
+    (Dsel, Isel), t_sel = timed(lambda: M.search(
+        xs, K, params=T.SearchParametersIVF(
+            nprobe=NLIST, sel=T.IDSelectorBatch(ext[pick]))),
+        warm=lambda: None)
+    De, Ie = TD.knn(torch.from_numpy(xs).to(dev),
+                    torch.from_numpy(xb[pick]).to(dev), K)
+    assert_same_topk(De.cpu().numpy(), ext[pick][Ie.cpu().numpy()], Dsel,
+                     Isel)
+    # remove 100k external ids; a fresh IDMap2 over the survivors
+    gone = rs.choice(NB, nmore, replace=False)
+    (n_rm, t_rm) = timed(lambda: M.remove_ids(T.IDSelectorBatch(ext[gone])),
+                         warm=lambda: None)
+    if n_rm != len(gone) or M.ntotal != NB - len(gone):
+        raise AssertionError(f"IDMap2 removed {n_rm} of {len(gone)}")
+    keep = np.ones(NB, bool)
+    keep[gone] = False
+    fresh = idmap2(xb[keep], ext[:NB][keep])
+    same_search("IDMap2 after removal vs a fresh IDMap2",
+                uncounted(lambda: fresh.search(xq, K, params=p32), cmp),
+                M.search(xq, K, params=p32))
+    del fresh
+    # 100k more rows (the train slice) under new ids: no id repeats, each
+    # added row found back at distance 0 under its own id
+    new = xt[:nmore]
+    (_, t_add2) = timed(lambda: M.add_with_ids(new, ext[NB:]),
+                        warm=lambda: None)
+    live = M.id_map if M._gone is None else M.id_map[~M._gone]
+    if len(np.unique(live)) != len(live) or len(live) != M.ntotal:
+        raise AssertionError("IDMap2: external ids repeat after the add")
+    sample = rs.choice(len(new), 200, replace=False)
+    Dn, In = M.search(new[sample], 1, params=p32)
+    back = M.reconstruct_batch(In[:, 0])
+    if not ((Dn[:, 0] == 0).all() and np.array_equal(back, new[sample])):
+        raise AssertionError("IDMap2: added rows not found back")
+    rows = rs.choice(np.nonzero(keep)[0], 200, replace=False)
+    if not np.array_equal(M.reconstruct_batch(ext[rows]), xb[rows]):
+        raise AssertionError("IDMap2: reconstruct by external id differs")
+    path = os.path.join(tmp, "idmap2.tann")
+    (_, t_write) = timed(lambda: T.write_index(M, path), warm=lambda: None)
+    (R, t_read) = timed(lambda: T.read_index(path, device=dev),
+                        warm=lambda: None)
+    a = uncounted(lambda: M.search(xq, K, params=p32), cmp)
+    b = R.search(xq, K, params=p32)
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+        raise AssertionError("IxM2 file: reopened index differs")
+    nbytes = os.path.getsize(path)
+    os.remove(path)
+    del R
+    phase("breadth_idmap2", add_s=t_add, selector_nq=len(xs),
+          selector_rows=len(pick), selector_s=t_sel, removed=n_rm,
+          remove_s=t_rm, add_after_remove_s=t_add2, ntotal=M.ntotal,
+          file_bytes=nbytes, write_s=t_write, read_s=t_read,
+          bit_equal=True)
+
+    # -- 18d. IndexShards (two adds) and IndexReplicas --------------------------
+    S = T.IndexShards(D, device=dev)
+    for _ in range(4):
+        S.add_shard(T.IndexFlat(D, device=dev))
+    S.add(xb[:NB // 2])
+    S.add(xb[NB // 2:])
+    # the ids follow the order of the adds: one IndexFlat over xb as it is
+    flat = T.IndexFlat(D, device=dev)
+    flat.add(xb)
+    before = counts()
+    (Dsh, Ish), t_sh = timed(lambda: S.search(xq, K), reps=3)
+    Df, If = flat.search(xq, K)
+    expect_launches("IndexShards", before, {})
+    same_search("IndexShards (two adds) vs IndexFlat", (Df, If), (Dsh, Ish))
+    rows = np.sort(np.random.RandomState(22).choice(NB, 1000, replace=False))
+    _, Iself = S.search(xb[rows], 1)
+    if not np.array_equal(Iself[:, 0], rows):
+        raise AssertionError("IndexShards: rows searched for themselves "
+                             "come back under other ids")
+    del S, flat
+    torch.cuda.empty_cache()
+    Rp = T.IndexReplicas(D, device=dev)
+    Rp.add_replica(M.index)
+    Rp.add_replica(T.clone_index(M.index))
+    before = counts()
+    (Dr, Ir), t_rp = timed(lambda: Rp.search(xq, K, params=p32))
+    expect_launches("IndexReplicas", before, {"ivf_scan_fused": 4})
+    Dsub, Isub = uncounted(lambda: M.index.search(xq, K, params=p32), cmp)
+    if not (np.array_equal(Dr, Dsub) and np.array_equal(Ir, Isub)):
+        raise AssertionError("IndexReplicas differ from their sub-index")
+    phase("breadth_shards", shards=4, adds=2, shards_qps=NQ / t_sh,
+          equal_to_flat=True, self_search_rows=len(rows), replicas=2,
+          replicas_qps=NQ / t_rp,
+          replicas_bit_equal=True)
+
+
+def breadth_tune(quant3, hidx, xb, xt, xq, gt, flat_rec, dev, cmp) -> None:
+    """18e ParameterSpace.explore, 18g SlidingIndexWindow (18f, on phase
+    9's index, runs last: breadth_balance). The launches of the fresh IVFs
+    the window is held against go to ``cmp``."""
+    from tpu_ann_torch.utils import autotune as AT
+    from tpu_ann_torch.utils import ivflib as IL
+
+    # -- 18e. explore over IVF4096,Flat and over IVFHNSW15625 -----------------
+    ivf = ivf_over(quant3, xb, np.arange(NB), xt, dev=dev)
+    ivf.search_chunk = 2048            # bounds nprobe 2048's pair buffers
+    crit = AT.IntersectionCriterion(NQ, K)
+    crit.set_groundtruth(None, gt)
+    ps = AT.ParameterSpace()
+    ps.initialize(ivf)
+    t0 = time.perf_counter()
+    ops = ps.explore(ivf, xq, crit)
+    t_explore = time.perf_counter() - t0
+    perf = {p.key: p.perf for p in ops.all_pts}
+    for n in (16, 32, 64):
+        if perf[f"nprobe={n}"] != flat_rec[n]:
+            raise AssertionError(f"explore nprobe={n}: {perf} vs phase 3's "
+                                 f"{flat_rec[n]}")
+    pareto = [(p.key, p.perf, p.t) for p in ops.optimal_pts()]
+    del ivf
+    torch.cuda.empty_cache()
+    ef0 = hidx.quantizer.hnsw.efSearch
+    hidx.coarse_mode = "quantizer"      # efSearch reaches the graph only so
+    ph = AT.ParameterSpace()
+    ph.initialize(hidx)
+    nprobes = ph.parameter_ranges["nprobe"]
+    # depth cut: nprobe up to 128 (the grid's 4096 scans 41M pairs a search)
+    ph.parameter_ranges["nprobe"] = [n for n in nprobes if 8 <= n <= 128]
+    t0 = time.perf_counter()
+    oph = ph.explore(hidx, xq, crit)
+    t_explore_h = time.perf_counter() - t0
+    hidx.coarse_mode = "auto"
+    hidx.nprobe = 1
+    hidx.quantizer.hnsw.efSearch = ef0
+    phase("breadth_explore", ivf_points=len(ops.all_pts), ivf_pareto=pareto,
+          ivf_seconds=t_explore, ivfhnsw_grid=ph.parameter_ranges,
+          ivfhnsw_full_nprobe_range=nprobes,
+          ivfhnsw_pareto=[(p.key, p.perf, p.t) for p in oph.optimal_pts()],
+          ivfhnsw_seconds=t_explore_h)
+
+    # -- 18g. SlidingIndexWindow: 10 slices of 100k, nslice 4 -----------------
+    W = T.IndexIVFFlat(quant3, D, NLIST, device=dev)
+    W.quantizer_trains_alone = 1
+    W.train(xt)
+    W.nprobe = 32
+    win = IL.SlidingIndexWindow(W, 4)
+    step_s, sl = [], NB // 10
+    for s in range(10):
+        before = counts()
+        (_, t_step) = timed(lambda: win.step(xb[s * sl:(s + 1) * sl]),
+                            warm=lambda: None)
+        step_s.append(t_step)
+        lo = max(0, s - 3) * sl
+        fresh = ivf_over(quant3, xb[lo:(s + 1) * sl],
+                         np.arange(lo, (s + 1) * sl), xt, dev=dev)
+        fresh.nprobe = 32
+        a, b = W.search(xq, K), uncounted(lambda: fresh.search(xq, K), cmp)
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            raise AssertionError(f"SlidingIndexWindow step {s}: differs "
+                                 f"from an IVF over the live slices")
+        expect_launches(f"window step {s}", before, {"ivf_scan_fused": 2})
+    phase("breadth_window", slices=10, slice_rows=sl, nslice=4,
+          step_s=step_s, ntotal=W.ntotal, bit_equal=True)
+
+
+def breadth_balance(hidx, xq, gt, dev) -> None:
+    """18f: ClusterManager.balance, one round, on phase 9's IVFHNSW15625
+    (after phase 17, its last reader). Each split list's own rows must
+    land in both of its parts; the list that is largest after the round
+    is named, with where its rows came from."""
+    from tpu_ann_torch.utils import ivflib as IL
+
+    p32 = T.SearchParametersIVF(nprobe=32)
+    hidx.coarse_mode = "auto"
+    rec0 = T.recall_k_at_k(hidx.search(xq, K, params=p32)[1], gt, K)
+    sizes0 = hidx.list_sizes
+    assign0 = np.concatenate(hidx._assign_host)       # row -> list
+    imb0 = hidx.imbalance_factor()
+    nlist0 = hidx.nlist
+    cap = int(np.sort(sizes0)[-9])
+    cm = IL.ClusterManager(hidx, cap)
+    # one round splits the oversized lists largest first; the j-th split
+    # appends list nlist0 + j
+    split = sorted(cm.oversized_lists(), key=lambda i: -sizes0[i])
+    nsplit = len(split)
+    t0 = time.perf_counter()
+    created = cm.balance(max_rounds=1)
+    t_bal = time.perf_counter() - t0
+    sizes = hidx.list_sizes
+    assign1 = np.concatenate(hidx._assign_host)
+    if hidx.nlist != nlist0 + created or created != nsplit or \
+            hidx.quantizer.ntotal != hidx.nlist:
+        raise AssertionError(f"balance: nlist {nlist0} -> {hidx.nlist}, "
+                             f"{created} created of {nsplit} splits")
+    if sizes.sum() != hidx.ntotal or len(sizes) != hidx.nlist:
+        raise AssertionError("balance: list sizes do not sum to ntotal")
+    ids = hidx.invlists.ids[:-1].reshape(-1)
+    ids = ids[ids >= 0].long()
+    seen = torch.bincount(ids, minlength=hidx.ntotal)
+    if not bool((seen == 1).all()):
+        raise AssertionError("balance: a row is in no list or in two")
+    if not np.array_equal(np.bincount(assign1, minlength=hidx.nlist), sizes):
+        raise AssertionError("balance: host assignments disagree with the "
+                             "packed lists")
+    # each split list's own rows go to both of its parts, each part
+    # holding at least SPLIT_MIN_SHARE of them (a degenerate 2-means or a
+    # split of another list does not); the parts also take rows from
+    # other lists, which every row's exact reassignment allows
+    was_split0 = np.isin(assign0, split)
+    splits = []
+    for j, lst in enumerate(split):
+        new = nlist0 + j
+        mine = assign1[assign0 == lst]
+        into = (assign1 == lst) | (assign1 == new)
+        r = {"list": int(lst), "before": int(sizes0[lst]),
+             "after": int(sizes[lst]), "new_list": new,
+             "new_after": int(sizes[new]),
+             "rows_kept": int((mine == lst).sum()),
+             "rows_to_new": int((mine == new).sum()),
+             "rows_to_others": int(((mine != lst) & (mine != new)).sum()),
+             "rows_in_from_split": int((into & was_split0 &
+                                        (assign0 != lst)).sum()),
+             "rows_in_from_unsplit": int((into & ~was_split0).sum())}
+        splits.append(r)
+        if min(r["rows_kept"], r["rows_to_new"]) < \
+                SPLIT_MIN_SHARE * r["before"]:
+            raise AssertionError(f"balance: list {lst} was not split: "
+                                 f"{r}")
+    # the largest list after the round, and where its rows were before
+    top = int(np.argmax(sizes))
+    came = assign0[assign1 == top]
+    was_split = np.isin(came, split)
+    largest = {"list": top, "after": int(sizes[top]),
+               "before": int(sizes0[top]) if top < nlist0 else 0,
+               "split": bool(top in split or top >= nlist0),
+               "rows_from_itself": int((came == top).sum()),
+               "rows_from_split_lists": int((was_split & (came != top)).sum()),
+               "rows_from_other_lists": int((~was_split &
+                                             (came != top)).sum())}
+    # lists that no split touched and yet grew: rows can reach them only
+    # from a split list, whose centroid moved
+    grown = np.nonzero(sizes[:nlist0] > sizes0)[0]
+    grown = grown[~np.isin(grown, split)]
+    moved = assign1 != assign0
+    rec = T.recall_k_at_k(hidx.search(xq, K, params=p32)[1], gt, K)
+    if abs(rec - rec0) > 0.01:
+        raise AssertionError(f"balance: recall@10 {rec0} -> {rec}")
+    phase("breadth_balance", max_cell_size=cap, splits=nsplit,
+          nlist=[nlist0, hidx.nlist], largest=[int(sizes0.max()),
+                                               int(sizes.max())],
+          largest_after=largest, split_lists=splits,
+          unsplit_lists_grown=len(grown),
+          rows_gained_by_unsplit=int((sizes[grown] - sizes0[grown]).sum()),
+          rows_moved_from_split=int((moved & was_split0).sum()),
+          rows_moved_from_unsplit=int((moved & ~was_split0).sum()),
+          imbalance=[imb0, hidx.imbalance_factor()],
+          recall_at_10_nprobe32=[rec0, rec], seconds=t_bal,
+          seconds_a_split=t_bal / max(nsplit, 1))
+
+
+def f64_extra(name, q, b, arg) -> torch.Tensor:
+    """(nq, nb) f64 values of the extra metric ``name`` (faiss's
+    extra_distances-inl.h formulas), evaluated apart from
+    ops/extra_distances: torch.cdist for the Minkowski family and the sums
+    of |x -/+ y|, products of magnitudes and NaN masks, and a loop over the
+    dimensions for the rest."""
+    if name == "L1":
+        return torch.cdist(q, b, p=1)
+    if name == "Linf":
+        return torch.cdist(q, b, p=float("inf"))
+    if name == "Lp3":
+        return torch.cdist(q, b, p=arg) ** arg
+    if name == "AbsInnerProduct":
+        return q.abs() @ b.abs().T
+    if name == "BrayCurtis":                   # sum|x - y| / sum|x + y|
+        return torch.cdist(q, b, p=1) / torch.cdist(q, -b, p=1)
+    if name == "Jaccard":                      # x, y >= 0: min / max sums
+        l1 = torch.cdist(q, b, p=1)
+        s = q.sum(1)[:, None] + b.sum(1)[None, :]
+        return torch.where(s + l1 > 0, (s - l1) / (s + l1), 0.0)
+    if name == "NaNEuclidean":
+        mq, mb = (~q.isnan()).double(), (~b.isnan()).double()
+        q0, b0 = q.nan_to_num(0.0), b.nan_to_num(0.0)
+        present = mq @ mb.T
+        accu = (q0 * q0) @ mb.T - 2 * (q0 @ b0.T) + mq @ (b0 * b0).T
+        return torch.where(present > 0,
+                           q.shape[1] / present.clamp(min=1) * accu,
+                           float("nan"))
+    out = torch.zeros(len(q), len(b), dtype=torch.float64, device=q.device)
+    for j in range(q.shape[1]):
+        x, y = q[:, j, None], b[None, :, j]
+        if name == "Canberra":
+            den = x.abs() + y.abs()
+            out += torch.where(den > 0, (x - y).abs() / den, 0.0)
+        elif name == "JensenShannon":          # x log x + y log y - s log m
+            s = x + y
+            out += 0.5 * (torch.xlogy(x, x) + torch.xlogy(y, y)
+                          - torch.xlogy(s, s / 2))
+        else:
+            raise ValueError(f"no f64 evaluation of {name}")
+    return out
+
+
+def f64_topk(name, q, b, arg):
+    """The f64 top-k of ``q`` over ``b`` (Jaccard: the largest), (D, I)
+    as numpy."""
+    P = torch.cat([f64_extra(name, q, b[i:i + 100_000], arg)
+                   for i in range(0, len(b), 100_000)], 1)
+    order = torch.sort(P, dim=1, descending=name == "Jaccard",
+                       stable=True).indices[:, :K]
+    return (torch.gather(P, 1, order).cpu().numpy(),
+            order.cpu().numpy())
+
+
+def breadth_metrics(xb, xq, dev) -> None:
+    """18h: IndexFlat(128, m) over the 1M rows for the nine extra metrics,
+    256 queries; the ids of a selector run over the first 100k rows, and
+    of the timed 1M-row search for EXTRA_NQ64 queries, against an f64
+    evaluation written here (f64_extra)."""
+    xs = xq[:EXTRA_NQ]
+    rs = np.random.RandomState(20)
+    out = {}
+    for name, metric, arg, rtol in EXTRA:
+        xbm, xsm = xb, xs
+        if name == "NaNEuclidean":
+            xbm, xsm = xb.copy(), xs.copy()
+            xbm[rs.rand(*xbm.shape) < 0.01] = np.nan
+            xsm[rs.rand(*xsm.shape) < 0.01] = np.nan
+        idx = T.IndexFlat(D, metric, device=dev)
+        idx.metric_arg = arg
+        idx.add(xbm)
+        torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        (Dv, Iv), s = timed(lambda: idx.search(xsm, K))
+        peak = torch.cuda.max_memory_allocated()
+        expect_launches(f"extra metric {name}", before, {})
+        if not (Dv.shape == Iv.shape == (EXTRA_NQ, K) and
+                (Iv >= 0).all()):
+            raise AssertionError(f"extra metric {name}: malformed")
+        q64 = torch.from_numpy(xsm).to(dev).double()
+        b64 = torch.from_numpy(xbm).to(dev).double()
+        # the timed 1M-row search, its first EXTRA_NQ64 queries
+        D64, I64 = f64_topk(name, q64[:EXTRA_NQ64], b64, arg)
+        same_topk_within(f"extra metric {name} (1M rows)", D64, I64,
+                         Dv[:EXTRA_NQ64].astype(np.float64),
+                         Iv[:EXTRA_NQ64], rtol)
+        # the first 100k rows through a selector over the 1M
+        sel = T.SearchParameters(sel=T.IDSelectorRange(0, EXTRA_NB64))
+        Dsel, Isel = idx.search(xsm, K, params=sel)
+        D64, I64 = f64_topk(name, q64, b64[:EXTRA_NB64], arg)
+        same_topk_within(f"extra metric {name} (selector, 100k rows)", D64,
+                         I64, Dsel.astype(np.float64), Isel, rtol)
+        del b64
+        out[name] = {"qps": EXTRA_NQ / s, "peak_bytes": peak,
+                     "search_ms": s * 1e3}
+        del idx
+        torch.cuda.empty_cache()
+    phase("breadth_metrics", nb=NB, nq=EXTRA_NQ, f64_rows=EXTRA_NB64,
+          f64_nq_1m=EXTRA_NQ64, metrics=out)
+
+
+def breadth_phase(quant3, hidx, xb, xt, xq, gt, flat_rec, dev, tmp):
+    """Phase 18: the index API breadth (PCA / OPQ chains, IDMap2, shards
+    and replicas, autotune, the sliding window, ClusterManager, the extra
+    metrics) at full width. Returns the K3 / K3-SQ8 launches of its paths
+    (those of the indexes and plain versions they are held against left
+    out) and K3 at d 64."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    cmp = {}                             # comparison launches
+    k3_d64 = breadth_transforms(quant3, xb, xt, xq, gt, flat_rec, dev, cmp)
+    breadth_idmap(quant3, xb, xt, xq, gt, dev, tmp, cmp)
+    breadth_tune(quant3, hidx, xb, xt, xq, gt, flat_rec, dev, cmp)
+    breadth_metrics(xb, xq, dev)
+    breadth_balance(hidx, xq, gt, dev)
+    got = {k: v - cmp.get(k, 0) for k, v in launched().items()
+           if v != cmp.get(k, 0)}
+    if set(got) != {"ivf_scan_fused", "ivf_scan_sq8"}:
+        raise AssertionError(f"phase 18 launched {got}")
+    phase("breadth", seconds=time.perf_counter() - t_phase, launches=got,
+          comparison_launches=cmp)
+    return got, k3_d64
 
 
 if __name__ == "__main__":

@@ -80,10 +80,10 @@ def test_built_index_trains_and_searches():
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("IDMap,Flat,RFlat", "item 8"),
-    ("IDMap,Flat", "item 8"), ("PCA16,IVF64,Flat", "item 8"),
-    ("OPQ8_16,IVF64,PQ8", "item 8"), ("L2norm,Flat", "item 8"),
-    ("IDMap2,Flat", "item 8"),
+    ("IDMap,RQ4x8,RFlat", "item 9"),
+    ("IDMap,NSG32", "item 9"), ("PCA16,IVF64(RCQ2x3),Flat", "item 9"),
+    ("OPQ8_16,LSQ4x8", "item 9"), ("L2norm,LSH", "item 9"),
+    ("IDMap2,PRQ2x4x8", "item 9"),
     ("RQ4x8", "item 9"), ("NSG32", "item 9"), ("LSH", "item 9"),
     ("IVF64(RCQ2x3),Flat", "item 9"), ("ZnLattice4x10_4", "item 9")])
 def test_unported_specs_raise(spec, item):

@@ -252,7 +252,13 @@ def test_unported_entry_points_raise(data):
     for a, b in zip(t.range_search(data[1], radius),
                     j.range_search(data[1], radius)):
         np.testing.assert_array_equal(a, np.asarray(b))
-    odd = TFlat.IndexFlat(D, 3, device="cpu")          # faiss METRIC_L1
+    # faiss METRIC_Linf: an extra metric, searched as the reference does
+    # (tests/test_torch_extra_distances.py holds all nine)
+    odd = TFlat.IndexFlat(D, 3, device="cpu")
     odd.add(data[0][:10])
-    with pytest.raises(NotImplementedError):
-        odd.search(data[1], K)
+    jodd = JFlatIndex(D, 3)
+    jodd.add(data[0][:10])
+    D0, I0 = jodd.search(data[1], K)
+    D1, I1 = odd.search(data[1], K)
+    np.testing.assert_allclose(D1, np.asarray(D0), rtol=1e-6)
+    np.testing.assert_array_equal(D1 == np.inf, I1 == -1)

@@ -325,9 +325,9 @@ def test_pending_removals_cross_package(tag, writer, data, tmp_path):
     assert not ((I1 >= 100) & (I1 < 900)).any()
 
 
-@pytest.mark.parametrize("tag,item", [("IxPT", "item 8"), ("IwRQ", "item 9"),
-                                      ("IxMp", "item 8"), ("IxNS", "item 9"),
-                                      ("IxSh", "item 10")])
+@pytest.mark.parametrize("tag,item", [("IxLs", "item 9"), ("IwRQ", "item 9"),
+                                      ("IxMM", "item 9"), ("IxNS", "item 9"),
+                                      ("BxFl", "item 9")])
 def test_unported_tag_raises(tag, item, tmp_path):
     path = str(tmp_path / "x.tann")
     tio._write_container(path, {"tag": tag, "d": D}, {})
@@ -336,14 +336,14 @@ def test_unported_tag_raises(tag, item, tmp_path):
 
 
 def test_unported_tag_from_a_jax_file(data, tmp_path):
-    from tpu_ann.models.idmap import IndexIDMap
+    from tpu_ann.models.extra import IndexRowwiseMinMax
 
     xb, _, _ = data
-    idx = IndexIDMap(JFlat(D))
-    idx.add_with_ids(xb[:100], np.arange(100, 200, dtype=np.int64))
-    path = str(tmp_path / "idmap.tann")
+    idx = IndexRowwiseMinMax(JFlat(D))
+    idx.add(xb[:100])
+    path = str(tmp_path / "minmax.tann")
     jio.write_index(idx, path)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
         T.read_index(path, device="cpu")
     tio._write_container(path, {"tag": "Zzzz"}, {})
     with pytest.raises(ValueError, match="unknown index tag"):

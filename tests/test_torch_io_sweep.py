@@ -76,6 +76,20 @@ def _build(name, xt, xb, path):
         idx = T.IndexHNSW2Level(D_, 8, 4, 8, 6, device=dev)
     elif name == "Index2Layer":
         idx = T.Index2Layer(flat, 8, 4, 6)
+    elif name == "IndexPreTransform":
+        idx = T.IndexPreTransform(T.RandomRotationMatrix(D_, D_, device=dev),
+                                  flat)
+    elif name in ("IndexIDMap", "IndexIDMap2"):
+        idx = getattr(T, name)(flat)
+        idx.add_with_ids(xb, np.arange(len(xb)) * 7 + 3)
+        return idx
+    elif name in ("IndexShards", "IndexReplicas"):
+        idx = getattr(T, name)(D_, device=dev)
+        for _ in range(2):
+            (idx.add_shard if name == "IndexShards" else idx.add_replica)(
+                T.IndexFlat(D_, device=dev))
+        idx.add(xb)
+        return idx
     else:
         raise KeyError(name)
     if hasattr(idx, "cp"):

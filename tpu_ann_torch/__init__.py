@@ -42,6 +42,13 @@ Covered today:
   "sq8" cache, scans; the query-major table scan scan_invlists_pq
   otherwise), IndexIVFPQR, and IndexRefine / IndexRefineFlat /
   IndexRefineSQ8Tier;
+- the index API breadth — IndexIDMap / IndexIDMap2 (selectors by
+  external id), IndexShards / IndexReplicas (containers on one device),
+  the VectorTransform family (PCA, OPQ, random rotation, ITQ, L2norm,
+  centering, dimension remap) and IndexPreTransform, IndexFlat's extra
+  metrics (ops.extra_distances), autotune (ParameterSpace) and ivflib
+  (extract_index_ivf, replace_ivf_quantizer, SlidingIndexWindow, the
+  fork's ClusterManager);
 - the fork's workflow around them — index files in the JAX package's
   format (utils.index_io: write_index, read_index with mmap, clone,
   serialize; IndexIVFHNSW.save_to_disk / load), on-disk inverted lists and
@@ -72,6 +79,8 @@ from .models import (  # noqa: F401
     IndexHNSWFlat,
     IndexHNSWPQ,
     IndexHNSWSQ,
+    IndexIDMap,
+    IndexIDMap2,
     IndexIVF,
     IndexIVFFlat,
     IndexIVFFlatDedup,
@@ -81,11 +90,17 @@ from .models import (  # noqa: F401
     IndexIVFPQR,
     IndexIVFScalarQuantizer,
     IndexPQ,
+    IndexPreTransform,
     IndexRefine,
     IndexRefineFlat,
     IndexRefineSQ8Tier,
+    IndexReplicas,
     IndexScalarQuantizer,
+    IndexShards,
+    OPQMatrix,
+    PCAMatrix,
     QueryLatencyStats,
+    RandomRotationMatrix,
     SearchParameters,
     SearchParametersHNSW,
     SearchParametersIVF,
@@ -98,6 +113,19 @@ from .ops.distances import (  # noqa: F401
     METRIC_INNER_PRODUCT,
     METRIC_L2,
     knn,
+)
+from .ops.extra_distances import (  # noqa: F401
+    METRIC_ABS_INNER_PRODUCT,
+    METRIC_BrayCurtis,
+    METRIC_Canberra,
+    METRIC_JensenShannon,
+    METRIC_Jaccard,
+    METRIC_L1,
+    METRIC_Linf,
+    METRIC_Lp,
+    METRIC_NaNEuclidean,
+    knn_extra_metrics,
+    pairwise_extra_distances,
 )
 from .ops.flat_knn_fused import (  # noqa: F401
     flat_knn_fused,
@@ -174,21 +202,32 @@ from .ops.sq import (  # noqa: F401
     SQCodec,
     train_sq,
 )
-from .ops.topk import merge_topk, topk_with_ids  # noqa: F401
+from .ops.topk import merge_topk, merge_topk_axis, topk_with_ids  # noqa: F401,E501
 from .utils.convert import (  # noqa: F401
     flat_from_reference,
     hnsw_2level_from_reference,
     hnsw_from_reference,
     hnsw_pq_from_reference,
     hnsw_sq_from_reference,
+    idmap_from_reference,
     ivf_flat_from_reference,
     ivf_hnsw_from_reference,
     ivf_pq_from_reference,
     ivf_pqr_from_reference,
     ivf_sq_from_reference,
     pq_from_reference,
+    pretransform_from_reference,
     refine_from_reference,
+    replicas_from_reference,
+    shards_from_reference,
     sq_from_reference,
+    transform_from_reference,
+)
+from .utils.autotune import (  # noqa: F401
+    IntersectionCriterion,
+    OneRecallAtRCriterion,
+    OperatingPoints,
+    ParameterSpace,
 )
 from .utils.benchmark import per_query_latency  # noqa: F401
 from .utils.contrib import merge_indexes  # noqa: F401

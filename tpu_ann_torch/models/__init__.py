@@ -24,6 +24,12 @@ from .hnsw import (  # noqa: F401
     IndexHNSWSQ,
     SearchParametersHNSW,
 )
+from .idmap import (  # noqa: F401
+    IndexIDMap,
+    IndexIDMap2,
+    IndexReplicas,
+    IndexShards,
+)
 from .ivf import (  # noqa: F401
     IndexIVF,
     IndexIVFFlat,
@@ -55,4 +61,16 @@ from .selectors import (  # noqa: F401
     IDSelectorOr,
     IDSelectorRange,
     IDSelectorXOr,
+)
+from .transforms import (  # noqa: F401
+    CenteringTransform,
+    IndexPreTransform,
+    ITQMatrix,
+    LinearTransform,
+    NormalizationTransform,
+    OPQMatrix,
+    PCAMatrix,
+    RandomRotationMatrix,
+    RemapDimensionsTransform,
+    VectorTransform,
 )

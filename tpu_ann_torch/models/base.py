@@ -110,13 +110,19 @@ class Timer:
         return False
 
 
-def _as_f32(x) -> np.ndarray:
-    x = np.asarray(x, dtype=np.float32)
+def _as_f32(x):
+    """(n, d) float32 rows: a C-contiguous numpy array, or a contiguous
+    tensor where a tensor was given (it stays on its device)."""
+    if isinstance(x, torch.Tensor):
+        x = x.float()
+    else:
+        x = np.asarray(x, dtype=np.float32)
     if x.ndim == 1:
         x = x[None, :]
     if x.ndim != 2:
-        raise ValueError(f"expected (n, d) array, got shape {x.shape}")
-    return np.ascontiguousarray(x)
+        raise ValueError(f"expected (n, d) array, got shape {tuple(x.shape)}")
+    return x.contiguous() if isinstance(x, torch.Tensor) \
+        else np.ascontiguousarray(x)
 
 
 class Index:
@@ -129,6 +135,7 @@ class Index:
             raise ValueError("d must be positive")
         self.d = int(d)
         self.metric_type = int(metric)
+        self.metric_arg = 0.0   # Lp exponent (faiss Index::metric_arg)
         self.ntotal = 0
         self.is_trained = True
         self.device = torch.device(device)
@@ -258,7 +265,9 @@ class Index:
             raise ValueError(f"input dim {x.shape[1]} != index dim {self.d}")
         return x
 
-    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+    def _to_device(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
         if not x.flags.writeable:         # e.g. a view of a jax array
             x = x.copy()
         return torch.from_numpy(x).to(self.device)

@@ -8,7 +8,9 @@ By default search is the blocked exact f32 product + top-k of
 coarse quantizer. An index that opts into bf16 search
 (``compute_dtype="bfloat16"``, ``approx_topk=True``) on a CUDA device runs
 large searches through the fused scan of `ops.flat_knn_fused` (kernels K1
-and K2) instead.
+and K2) instead. The extra metrics (L1, Linf, Lp, ..., faiss
+MetricType.h:23-40) search through the tiled reductions of
+`ops.extra_distances`; their range search raises, as the reference's does.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops import distances as D
+from ..ops import extra_distances as XD
 from ..ops import flat_knn_fused as FK
 from .base import Index, METRIC_INNER_PRODUCT, METRIC_L2
 
@@ -152,10 +155,6 @@ class IndexFlat(Index):
         return self._search_device(xq_dev, k)
 
     def search(self, x, k: int, *, params=None):
-        if self.metric_type not in (METRIC_L2, METRIC_INNER_PRODUCT):
-            raise NotImplementedError(
-                "IndexFlat: the extra metrics are not ported yet (ROADMAP "
-                "queue 1, item 8)")
         x = self._check_input(x)
         if self.ntotal == 0:
             bad = D.worst_value(self.metric_type)
@@ -166,7 +165,15 @@ class IndexFlat(Index):
         if sel is not None:
             id_mask = torch.from_numpy(sel.make_bitmap(self.ntotal)).to(
                 self.device)
-        Dv, Iv = self._search_device(self._to_device(x), k, id_mask=id_mask)
+        if self.metric_type in XD.EXTRA_METRICS:
+            # no product form: the tiled reduction of knn_extra_metrics,
+            # which (unlike the reference :246-253) reads the selector
+            Dv, Iv = XD.knn_extra_metrics(
+                self._to_device(x), self._xb, k, self.metric_type,
+                self.metric_arg, valid_n=self.ntotal, id_mask=id_mask)
+        else:
+            Dv, Iv = self._search_device(self._to_device(x), k,
+                                         id_mask=id_mask)
         return Dv.cpu().numpy(), Iv.cpu().numpy().astype(np.int64)
 
     def range_search(self, x, radius: float):

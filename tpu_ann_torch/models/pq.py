@@ -28,11 +28,13 @@ from .base import Index
 
 
 def _lut_knn(lut: torch.Tensor, codes: torch.Tensor, k: int, metric: int,
-             valid_n: int, db_block: int = 65536, packed4: bool = False):
+             valid_n: int, db_block: int = 65536, packed4: bool = False,
+             id_mask: Optional[torch.Tensor] = None):
     """Blocked table-sum k-NN over a flat code array given per-query
     (M, ksub) tables (reference :27-61), shared by ADC (`query_tables`)
     and SDC (`sdc_query_tables`): each block's sums merge into a running
-    top-k, rows at or past ``valid_n`` get the metric's worst value, and
+    top-k, rows at or past ``valid_n`` and rows an ``id_mask`` (a
+    selector's uint8 bitmap) leaves out get the metric's worst value, and
     slots left at it get id -1."""
     nq = lut.shape[0]
     similarity = D.is_similarity_metric(metric)
@@ -46,10 +48,33 @@ def _lut_knn(lut: torch.Tensor, codes: torch.Tensor, k: int, metric: int,
             raw = PQ.unpack_codes_4bit(raw)
         dis = PQ.adc_scan_db(lut, raw)
         ids = torch.arange(b0, b0 + raw.shape[0], device=dev)
-        dis = torch.where(ids < valid_n, dis, bad)
+        ok = ids < valid_n
+        if id_mask is not None:
+            ok = ok & (id_mask[b0:b0 + raw.shape[0]] != 0)
+        dis = torch.where(ok, dis, bad)
         bd, bi = TK.merge_topk(bd, bi, dis, ids.expand(nq, -1), k,
                                similarity=similarity)
     return bd, torch.where(torch.isfinite(bd), bi, -1)
+
+
+def _sel_mask(params, n: int, device) -> Optional[torch.Tensor]:
+    """params.sel (an IDSelector) as a uint8 bitmap over the n stored rows
+    on ``device``, or None. The reference's IndexPQ and
+    IndexScalarQuantizer ignore the selector (:183, :312); faiss filters
+    their scans by it."""
+    sel = getattr(params, "sel", None) if params is not None else None
+    if sel is None:
+        return None
+    return torch.from_numpy(sel.make_bitmap(n)).to(device)
+
+
+def _kept(sel, n: int, device) -> Optional[torch.Tensor]:
+    """The bool mask of the n stored rows an IDSelector does not match, or
+    None if it matches none."""
+    hit = sel.make_bitmap(n) != 0
+    if not hit.any():
+        return None
+    return torch.from_numpy(~hit).to(device)
 
 
 def _next_pow2(n: int) -> int:
@@ -161,6 +186,7 @@ class IndexPQ(Index):
             return (np.full((len(x), k), bad, np.float32),
                     np.full((len(x), k), -1, np.int64))
         xq = self._to_device(x)
+        id_mask = _sel_mask(params, self.ntotal, self.device)
         if self.search_type == self.ST_POLYSEMOUS:
             raise NotImplementedError(
                 "IndexPQ: ST_POLYSEMOUS is not ported yet (ROADMAP queue 1, "
@@ -172,12 +198,14 @@ class IndexPQ(Index):
                                       self._sdc)
         elif self._cache_enabled():
             Dv, Iv = D.knn(xq, self._ensure_dec(), k, self.metric_type,
-                           compute_dtype="bfloat16", valid_n=self.ntotal)
+                           compute_dtype="bfloat16", valid_n=self.ntotal,
+                           id_mask=id_mask)
             return Dv.cpu().numpy(), Iv.cpu().numpy().astype(np.int64)
         else:
             lut = PQ.query_tables(xq, self._cent, self.metric_type)
         Dv, Iv = _lut_knn(lut, self._codes, k, self.metric_type,
-                          self.ntotal, packed4=self._packed4)
+                          self.ntotal, packed4=self._packed4,
+                          id_mask=id_mask)
         return Dv.cpu().numpy(), Iv.cpu().numpy().astype(np.int64)
 
     def range_search(self, x, radius: float):
@@ -198,6 +226,19 @@ class IndexPQ(Index):
         self._codes, self._capacity, self.ntotal = None, 0, 0
         self._sdc = None
         self._dec = None
+
+    def remove_ids(self, sel) -> int:
+        """Remove the rows an IDSelector matches; the rest are renumbered
+        in order (faiss IndexFlatCodes::remove_ids). The reference's
+        IndexPQ has none."""
+        keep = _kept(sel, self.ntotal, self.device)
+        if keep is None:
+            return 0
+        self._codes = self._codes[keep]
+        self._dec = None
+        removed = self.ntotal - len(self._codes)
+        self.ntotal = len(self._codes)
+        return removed
 
     # --- codec API --------------------------------------------------------
     def sa_code_size(self) -> int:
@@ -252,7 +293,8 @@ class IndexScalarQuantizer(Index):
             return (np.full((len(x), k), bad, np.float32),
                     np.full((len(x), k), -1, np.int64))
         xb = SQ.sq_decode(self._codes, self.sq)
-        Dv, Iv = D.knn(self._to_device(x), xb, k, self.metric_type)
+        Dv, Iv = D.knn(self._to_device(x), xb, k, self.metric_type,
+                       id_mask=_sel_mask(params, self.ntotal, self.device))
         return Dv.cpu().numpy(), Iv.cpu().numpy().astype(np.int64)
 
     def range_search(self, x, radius: float):
@@ -272,6 +314,17 @@ class IndexScalarQuantizer(Index):
 
     def reset(self) -> None:
         self._codes, self.ntotal = None, 0
+
+    def remove_ids(self, sel) -> int:
+        """As IndexPQ.remove_ids (the reference's IndexScalarQuantizer has
+        none)."""
+        keep = _kept(sel, self.ntotal, self.device)
+        if keep is None:
+            return 0
+        self._codes = self._codes[keep]
+        removed = self.ntotal - len(self._codes)
+        self.ntotal = len(self._codes)
+        return removed
 
     def sa_code_size(self) -> int:
         # known at construction (ScalarQuantizer.cpp set_derived_sizes)

@@ -1,10 +1,12 @@
-"""Operators: distances, k-selection, k-means, scalar quantization, packed
-invlists (raw, coded and SQ8) and the query-major scan, the fused IVF scan,
+"""Operators: distances and the extra metrics, k-selection, k-means,
+scalar quantization, packed invlists (raw, coded and SQ8) and the
+query-major scan, the fused IVF scan,
 the out-of-core paged IVF scan, the fused flat scan and its variants, the
 HNSW graph and its fused tiles, and the row-copy issue probe."""
 
 from . import (  # noqa: F401
     distances,
+    extra_distances,
     flat_knn_fused,
     hnsw,
     hnsw_tiles,

@@ -32,3 +32,15 @@ def merge_topk(d1: torch.Tensor, i1: torch.Tensor, d2: torch.Tensor,
     scores the entries of (d1, i1) come first."""
     return topk_with_ids(torch.cat([d1, d2], -1), torch.cat([i1, i2], -1), k,
                          similarity=similarity)
+
+
+def merge_topk_axis(dis: torch.Tensor, ids: torch.Tensor, k: int, *,
+                    similarity: bool = False):
+    """Merge S partial top-k sets laid out along a leading axis (reference
+    :64-81): (S, nq, kk) -> (nq, k). The merge is stable in the order
+    shard 0's entries, then shard 1's, ..., so on equal scores the lower
+    shard wins (IndexShards' heap merge, impl/ThreadedIndex-inl.h)."""
+    s, nq, kk = dis.shape
+    cd = dis.permute(1, 0, 2).reshape(nq, s * kk)
+    ci = ids.permute(1, 0, 2).reshape(nq, s * kk)
+    return topk_with_ids(cd, ci, k, similarity=similarity)

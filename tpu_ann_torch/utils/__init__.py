@@ -1,7 +1,9 @@
 """Datasets, evaluation, index files (index_io, invlists_io), the factory,
-the benchmark grid and state carried over from the JAX package."""
+the benchmark grid, autotune, ivflib and state carried over from the JAX
+package."""
 
 from . import (  # noqa: F401
+    autotune,
     benchmark,
     convert,
     datasets,
@@ -9,4 +11,5 @@ from . import (  # noqa: F401
     factory,
     index_io,
     invlists_io,
+    ivflib,
 )

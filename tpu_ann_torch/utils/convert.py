@@ -15,12 +15,14 @@ import numpy as np
 from ..models.flat import IndexFlat
 from ..models.hnsw import (IndexHNSW2Level, IndexHNSWFlat, IndexHNSWPQ,
                            IndexHNSWSQ)
+from ..models.idmap import IndexIDMap, IndexIDMap2, IndexReplicas, IndexShards
 from ..models.ivf import IndexIVFFlat
 from ..models.ivf_hnsw import IndexIVFHNSW
 from ..models.ivf_pq import (IndexIVFPQ, IndexIVFPQR,
                              IndexIVFScalarQuantizer)
 from ..models.pq import IndexPQ, IndexScalarQuantizer
 from ..models.refine import IndexRefineFlat, IndexRefineSQ8Tier
+from ..models.transforms import IndexPreTransform
 from ..ops import sq as SQ
 from ..ops.distances import METRIC_L2
 from . import index_io as iio
@@ -299,4 +301,64 @@ def refine_from_reference(state: dict, base, device="cuda"):
         idx.is_trained = True
     idx.k_factor = int(state.get("k_factor", 4))
     idx.ntotal = base.ntotal
+    return idx
+
+
+def transform_from_reference(cls_name: str, attrs: dict, device="cuda"):
+    """A port VectorTransform of class ``cls_name`` (PCAMatrix, OPQMatrix,
+    ...) from a `tpu_ann` transform's attributes (``vars(t)``: d_in,
+    d_out, A, b, is_orthonormal, mean, eigenvalues, map and the scalar
+    settings, all numpy or plain values)."""
+    from ..models import transforms as TR
+
+    cls = getattr(TR, cls_name)
+    t = cls.__new__(cls)
+    TR.VectorTransform.__init__(t, int(attrs["d_in"]), int(attrs["d_out"]),
+                                device=device)
+    t.__dict__.update({k: np.array(v) if isinstance(v, np.ndarray) else v
+                       for k, v in attrs.items() if k != "device"})
+    t.is_trained = True
+    return t
+
+
+def pretransform_from_reference(chain, index) -> IndexPreTransform:
+    """A port IndexPreTransform over ``index`` (a port index already
+    carried over) from a `tpu_ann` chain as (class name, ``vars(t)``)
+    pairs."""
+    return IndexPreTransform(*[transform_from_reference(c, a, index.device)
+                               for c, a in chain], index)
+
+
+def idmap_from_reference(state: dict, index) -> IndexIDMap:
+    """A port IndexIDMap (IndexIDMap2 if ``state["idmap2"]``) over
+    ``index`` (a port index already carried over) from a `tpu_ann` one's
+    ``id_map``."""
+    cls = IndexIDMap2 if state.get("idmap2") else IndexIDMap
+    idx = cls(index)
+    idx.id_map = np.asarray(state["id_map"], np.int64).copy()
+    idx.ntotal = index.ntotal
+    if isinstance(idx, IndexIDMap2):
+        idx.construct_rev_map()
+    return idx
+
+
+def shards_from_reference(state: dict, shards) -> IndexShards:
+    """A port IndexShards over ``shards`` (port indexes already carried
+    over, in order) with a `tpu_ann` one's d, metric and
+    successive_ids."""
+    idx = IndexShards(int(state["d"]), int(state["metric"]),
+                      successive_ids=bool(state.get("successive_ids", True)),
+                      device=shards[0].device)
+    for s in shards:
+        idx.add_shard(s)
+    return idx
+
+
+def replicas_from_reference(state: dict, replicas) -> IndexReplicas:
+    """A port IndexReplicas over ``replicas`` (port indexes already
+    carried over) with a `tpu_ann` one's d and metric."""
+    idx = IndexReplicas(int(state["d"]), int(state["metric"]),
+                        device=replicas[0].device)
+    for r in replicas:
+        idx.add_replica(r)
     return idx

@@ -23,11 +23,19 @@ for the index classes the port has:
   <any of these>,RSQ8t | Refine(SQ8Tier)
                                 IndexRefineSQ8Tier over the index
 
+  prefixes, before the container: PCA<d>, PCAR<d> (random rotation after),
+  PCAW<d> (whitened), OPQ<M>[_<d>], RR<d>, L2norm -> an IndexPreTransform
+  around the index (and its refine wrapper); IDMap, IDMap2 -> an
+  IndexIDMap / IndexIDMap2 around everything (reference :172-195, 300-313)
+
 with the same spelling as the reference. Every other token of the
 reference's grammar raises NotImplementedError naming the ROADMAP queue 1
 item that ports its class; a token the reference does not know either
-raises ValueError. `reverse_index_factory`, `get_code_size` and
-`get_hnsw_M` cover the same classes.
+(ITQ among them: the reference's factory has no ITQ prefix) raises
+ValueError. `reverse_index_factory`, `get_code_size` and `get_hnsw_M`
+cover the same classes; the reverse writes each prefix's own token back
+(the reference writes PCA<d> for PCAR / PCAW, IDMap for IDMap2, and
+raises on L2norm).
 """
 
 from __future__ import annotations
@@ -38,12 +46,15 @@ from ..models.base import Index
 from ..models.flat import IndexFlat
 from ..models.hnsw import (IndexHNSW, IndexHNSW2Level, IndexHNSWFlat,
                            IndexHNSWPQ, IndexHNSWSQ)
+from ..models.idmap import IndexIDMap, IndexIDMap2
 from ..models.ivf import IndexIVF, IndexIVFFlat, IndexIVFFlatDedup
 from ..models.ivf_hnsw import IndexIVFHNSW
 from ..models.ivf_pq import IndexIVFScalarQuantizer
 from ..models.ivf_pq import IndexIVFPQ, IndexIVFPQR
 from ..models.pq import IndexPQ, IndexScalarQuantizer
 from ..models.refine import IndexRefine, IndexRefineFlat, IndexRefineSQ8Tier
+from ..models.transforms import (IndexPreTransform, NormalizationTransform,
+                                 OPQMatrix, PCAMatrix, RandomRotationMatrix)
 from ..ops import distances as D
 from ..ops import sq as SQ
 
@@ -56,8 +67,6 @@ _HNSW_SQ = {"SQ8": "sq8", "SQfp16": "float16", "SQbf16": "bfloat16"}
 # the reference's other tokens (regex), by the ROADMAP queue 1 item that
 # ports their classes
 _UNPORTED = (
-    (r"IDMap2?|PCA[RW]?\d+|OPQ\d+(_\d+)?|RR\d+|L2norm|ITQ\d*",
-     "item 8 (index API breadth: idmap, transforms)"),
     (r"(P?RQ|P?LSQ)\d+x\d+(x\d+)?(fs(_\d+)?)?|NSG\d*|LSH\d*r?t?"
      r"|ZnLattice\d+x\d+_\d+|IVF\d+(_HNSW\d+)?\([^)]+\)",
      "item 9 (the remaining codecs and indexes)"),
@@ -80,22 +89,45 @@ _REFINE = {"RFlat": "RFlat", "Refine(Flat)": "RFlat", "RSQ8t": "RSQ8t",
            "Refine(SQ8Tier)": "RSQ8t"}
 
 
+_PREFIX = r"IDMap2?|PCA[RW]?\d+|OPQ\d+(?:_\d+)?|RR\d+|L2norm"
+
+
 def _split(spec: str):
-    """(container token, its code token, refine suffix "RFlat" / "RSQ8t"
-    or None): a prefix or a suffix token that the port lacks is refused
-    here."""
+    """(prefix tokens, container token, its code token, refine suffix
+    "RFlat" / "RSQ8t" or None): a container or a suffix token that the
+    port lacks is refused here."""
     toks = [t for t in spec.split(",") if t]
     if not toks:
         raise ValueError("empty factory spec")
     refine = _REFINE.get(toks[-1]) if len(toks) > 1 else None
     if refine:
         toks = toks[:-1]
+    prefixes = []
+    while toks and re.fullmatch(_PREFIX, toks[0]):
+        prefixes.append(toks.pop(0))
+    if not toks:
+        raise ValueError(f"index_factory({spec!r}): no index container")
     if not re.fullmatch(r"IVF\d+(_HNSW\d+)?|HNSW\d*|Flat|SQ\w+|" + _PQ,
                         toks[0]):
         raise _refusal(toks[0])
     if len(toks) > 2:
         raise _refusal(toks[2])
-    return toks[0], toks[1] if len(toks) > 1 else None, refine
+    return prefixes, toks[0], toks[1] if len(toks) > 1 else None, refine
+
+
+def _transform(tok: str, d: int, device):
+    """The VectorTransform of a prefix token over d input dimensions
+    (reference :46-62)."""
+    if m := re.fullmatch(r"PCA([RW]?)(\d+)", tok):
+        return PCAMatrix(d, int(m.group(2)),
+                         eigen_power=-0.5 if m.group(1) == "W" else 0.0,
+                         random_rotation=m.group(1) == "R", device=device)
+    if m := re.fullmatch(r"OPQ(\d+)(?:_(\d+))?", tok):
+        return OPQMatrix(d, int(m.group(1)), int(m.group(2) or 0),
+                         device=device)
+    if m := re.fullmatch(r"RR(\d+)", tok):
+        return RandomRotationMatrix(d, int(m.group(1)), device=device)
+    return NormalizationTransform(d, device=device)          # L2norm
 
 
 def _refined(index: Index, refine) -> Index:
@@ -108,9 +140,20 @@ def _refined(index: Index, refine) -> Index:
 
 def index_factory(d: int, spec: str, metric: int = D.METRIC_L2, *,
                   device="cuda") -> Index:
-    """Build an index on ``device`` from a faiss-style factory string."""
-    head, code, refine = _split(spec)
-    return _refined(_container(d, head, code, metric, device), refine)
+    """Build an index on ``device`` from a faiss-style factory string:
+    the transforms wrap the index and its refine, IDMap wraps it all."""
+    prefixes, head, code, refine = _split(spec)
+    chain, idmap = [], None
+    for tok in prefixes:
+        if tok in ("IDMap", "IDMap2"):
+            idmap = IndexIDMap2 if tok == "IDMap2" else IndexIDMap
+        else:
+            chain.append(_transform(tok, d, device))
+            d = chain[-1].d_out
+    index = _refined(_container(d, head, code, metric, device), refine)
+    if chain:
+        index = IndexPreTransform(*chain, index)
+    return idmap(index) if idmap else index
 
 
 def _container(d: int, head: str, code, metric: int, device) -> Index:
@@ -173,9 +216,15 @@ def _container(d: int, head: str, code, metric: int, device) -> Index:
 def get_code_size(d: int, spec: str) -> int:
     """Per-vector storage bytes implied by a factory string
     (contrib/factory_tools.py:get_code_size role): a refine suffix adds
-    its rows (4 d bytes for RFlat, d for RSQ8t)."""
-    head, code, refine = _split(spec)
+    its rows (4 d bytes for RFlat, d for RSQ8t), IDMap its 8-byte ids,
+    and a transform that changes d the code's width."""
+    prefixes, head, code, refine = _split(spec)
     size = {None: 0, "RFlat": 4 * d, "RSQ8t": d}[refine]
+    for tok in prefixes:
+        if tok in ("IDMap", "IDMap2"):
+            size += 8
+        elif m := re.fullmatch(r"(?:PCA[RW]?|OPQ\d+_|RR)(\d+)", tok):
+            d = int(m.group(1))
     if re.fullmatch(r"IVF(\d+)(?:_HNSW(\d+))?", head):
         return size + _code_bytes(d, code or "Flat")
     if m := re.fullmatch(r"HNSW(\d+)?", head):
@@ -207,6 +256,12 @@ def get_hnsw_M(index) -> int:
 def reverse_index_factory(index) -> str:
     """A factory string that re-parses to the same index class and layout
     (contrib/factory_tools.py:reverse_index_factory role)."""
+    if isinstance(index, IndexIDMap):
+        tok = "IDMap2" if isinstance(index, IndexIDMap2) else "IDMap"
+        return f"{tok},{reverse_index_factory(index.index)}"
+    if isinstance(index, IndexPreTransform):
+        return ",".join([_transform_token(vt) for vt in index.chain]
+                        + [reverse_index_factory(index.index)])
     if isinstance(index, IndexRefine):
         if isinstance(index.refine_index, IndexFlat):
             return reverse_index_factory(index.base_index) + ",RFlat"
@@ -247,3 +302,19 @@ def reverse_index_factory(index) -> str:
     if isinstance(index, IndexFlat):
         return "Flat"
     raise ValueError(f"cannot reverse {type(index).__name__}")
+
+
+def _transform_token(vt) -> str:
+    if isinstance(vt, OPQMatrix):
+        return f"OPQ{vt.M}_{vt.d_out}" if vt.d_out != vt.d_in \
+            else f"OPQ{vt.M}"
+    if isinstance(vt, PCAMatrix):
+        kind = {(0.0, False): "", (0.0, True): "R", (-0.5, False): "W"}.get(
+            (vt.eigen_power, vt.random_rotation))
+        if kind is not None:
+            return f"PCA{kind}{vt.d_out}"
+    if isinstance(vt, RandomRotationMatrix):
+        return f"RR{vt.d_out}"
+    if isinstance(vt, NormalizationTransform) and vt.norm == 2.0:
+        return "L2norm"
+    raise ValueError(f"cannot reverse transform {type(vt).__name__}")

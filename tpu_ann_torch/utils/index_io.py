@@ -801,6 +801,160 @@ def _load_ivf_paged(meta, arrays, device):
     return idx
 
 
+# --- composites: transforms, id maps, shards, replicas (reference :620-684,
+#     1530-1580) ----------------------------------------------------------
+
+def _dump_pretransform(index):
+    """IxPT: the reference's keys for each linear transform (vt<i>_A,
+    vt<i>_b, vt<i>_din / dout / ortho) plus two the reference ignores:
+    ``vt<i>_params`` (the transform's scalar settings) and the arrays
+    vt<i>_mean / _eigenvalues / _map, so that the port reopens the same
+    classes. A chain with a non-linear transform (L2norm) is a file only
+    the port reads."""
+    from ..models.transforms import LinearTransform
+
+    meta = {"tag": "IxPT", "d": index.d, "metric": index.metric_type,
+            "ntotal": index.ntotal, "nchain": len(index.chain),
+            "chain_types": [type(t).__name__ for t in index.chain]}
+    arrays: dict = {}
+    for i, t in enumerate(index.chain):
+        meta[f"vt{i}_din"], meta[f"vt{i}_dout"] = t.d_in, t.d_out
+        if isinstance(t, LinearTransform):
+            arrays[f"vt{i}_A"] = np.asarray(t.A, np.float32)
+            if t.b is not None:
+                arrays[f"vt{i}_b"] = np.asarray(t.b, np.float32)
+            meta[f"vt{i}_ortho"] = bool(t.is_orthonormal)
+        meta[f"vt{i}_params"] = {
+            k: v for k, v in vars(t).items()
+            if isinstance(v, (bool, int, float, str))
+            and k not in ("d_in", "d_out", "is_trained", "is_orthonormal")}
+        for name in ("mean", "eigenvalues", "map"):
+            if getattr(t, name, None) is not None:
+                arrays[f"vt{i}_{name}"] = np.asarray(getattr(t, name))
+    _flatten("sub", *dump_index(index.index), meta, arrays)
+    return meta, arrays
+
+
+def _load_vt(i: int, meta, arrays, device):
+    """Transform i of an IxPT file: its class with its settings from a
+    port file, a LinearTransform from a reference file (as the reference
+    reloads every transform)."""
+    from ..models import transforms as TR
+
+    params = meta.get(f"vt{i}_params")
+    cls = TR.LinearTransform if params is None \
+        else getattr(TR, meta["chain_types"][i])
+    t = cls.__new__(cls)
+    TR.VectorTransform.__init__(t, int(meta[f"vt{i}_din"]),
+                                int(meta[f"vt{i}_dout"]), device=device)
+    if isinstance(t, TR.LinearTransform):
+        t.A = np.array(arrays[f"vt{i}_A"], np.float32)
+        t.b = _f32_or_none(arrays, f"vt{i}_b")
+        t.is_orthonormal = bool(meta[f"vt{i}_ortho"])
+    t.__dict__.update(params or {})
+    for name in ("mean", "eigenvalues", "map"):
+        if f"vt{i}_{name}" in arrays:
+            setattr(t, name, np.array(arrays[f"vt{i}_{name}"]))
+    t.is_trained = True
+    return t
+
+
+def _load_pretransform(meta, arrays, device):
+    from ..models.transforms import IndexPreTransform
+
+    chain = [_load_vt(i, meta, arrays, device)
+             for i in range(int(meta["nchain"]))]
+    idx = IndexPreTransform(*chain, load_index(*_sub("sub", meta, arrays),
+                                               device=device))
+    idx.ntotal = int(meta["ntotal"])
+    idx.is_trained = True
+    return idx
+
+
+def _dump_idmap(index):
+    """IxMp / IxM2: the id map and the sub-index; ``gone`` (a key the
+    reference ignores) marks the internal ids removed from a sub-index
+    that keeps its ids."""
+    from ..models.idmap import IndexIDMap2
+
+    meta = {"tag": "IxM2" if isinstance(index, IndexIDMap2) else "IxMp",
+            "d": index.d, "metric": index.metric_type,
+            "ntotal": index.ntotal}
+    arrays = {"id_map": np.asarray(index.id_map, np.int64)}
+    if index._gone is not None:
+        arrays["gone"] = index._gone
+    _flatten("sub", *dump_index(index.index), meta, arrays)
+    return meta, arrays
+
+
+def _load_idmap(meta, arrays, device):
+    from ..models.idmap import IndexIDMap, IndexIDMap2
+
+    cls = IndexIDMap2 if meta["tag"] == "IxM2" else IndexIDMap
+    idx = cls(load_index(*_sub("sub", meta, arrays), device=device))
+    idx.id_map = np.array(arrays["id_map"], np.int64)
+    if "gone" in arrays:
+        idx._gone = np.array(arrays["gone"], bool)
+    idx.ntotal = int(meta["ntotal"])
+    if isinstance(idx, IndexIDMap2):
+        idx.construct_rev_map()
+    return idx
+
+
+def _dump_shards(index):
+    """IxSh: ``id_bases`` holds the ntotal of the shards before each shard,
+    the one base a shard the reference reads (right after a single add);
+    ``id_runs``, which the reference ignores, holds the port's runs of ids,
+    one an add."""
+    sizes = [s.ntotal for s in index.shard_indexes]
+    meta = {"tag": "IxSh", "d": index.d, "metric": index.metric_type,
+            "ntotal": index.ntotal, "nshard": index.count,
+            "successive_ids": bool(index.successive_ids),
+            "id_bases": [int(b) for b in np.cumsum([0] + sizes)[:-1]],
+            "id_runs": [[[int(v) for v in r] for r in runs]
+                        for runs in index.id_runs]}
+    arrays: dict = {}
+    for i, sub in enumerate(index.shard_indexes):
+        _flatten(f"shard{i}", *dump_index(sub), meta, arrays)
+    return meta, arrays
+
+
+def _load_shards(meta, arrays, device):
+    from ..models.idmap import IndexShards
+
+    idx = IndexShards(int(meta["d"]), int(meta["metric"]),
+                      successive_ids=bool(meta["successive_ids"]),
+                      device=device)
+    for i in range(int(meta["nshard"])):
+        idx.add_shard(load_index(*_sub(f"shard{i}", meta, arrays),
+                                 device=device))
+    if "id_runs" in meta:              # a port file; else the bases above
+        idx.id_runs = [[tuple(r) for r in runs] for runs in meta["id_runs"]]
+    idx.is_trained = True
+    return idx
+
+
+def _dump_replicas(index):
+    meta = {"tag": "IxRp", "d": index.d, "metric": index.metric_type,
+            "ntotal": index.ntotal, "nrep": len(index.replicas)}
+    arrays: dict = {}
+    for i, sub in enumerate(index.replicas):
+        _flatten(f"rep{i}", *dump_index(sub), meta, arrays)
+    return meta, arrays
+
+
+def _load_replicas(meta, arrays, device):
+    from ..models.idmap import IndexReplicas
+
+    idx = IndexReplicas(int(meta["d"]), int(meta["metric"]), device=device)
+    for i in range(int(meta["nrep"])):
+        idx.add_replica(load_index(*_sub(f"rep{i}", meta, arrays),
+                                   device=device))
+    idx.ntotal = int(meta["ntotal"])
+    idx.is_trained = True
+    return idx
+
+
 _DUMPERS: dict = {}
 _LOADERS: dict = {}
 
@@ -834,17 +988,20 @@ _register("IndexRefine", "IxRF", _dump_refine, _load_refine)
 _register("IndexRefineFlat", "IxRF", _dump_refine, _load_refine)
 _register("IndexRefineSQ8Tier", "IxRT", _dump_refine_sq8_tier,
           _load_refine_sq8_tier)
+_register("IndexPreTransform", "IxPT", _dump_pretransform,
+          _load_pretransform)
+_register("IndexIDMap", "IxMp", _dump_idmap, _load_idmap)
+_register("IndexIDMap2", "IxM2", _dump_idmap, _load_idmap)
+_register("IndexShards", "IxSh", _dump_shards, _load_shards)
+_register("IndexReplicas", "IxRp", _dump_replicas, _load_replicas)
 
 # the reference's other tags, by the ROADMAP queue 1 item that ports their
 # classes
 _ITEMS = {
-    "item 8 (index API breadth: idmap, transforms)": ("IxMp", "IxM2",
-                                                      "IxPT"),
     "item 9 (the remaining codecs and indexes)": (
         "IxRQ", "IwRQ", "IxCQ", "IxQN", "IxLt", "IxLs", "IxMM", "IxMI",
         "IxSV", "IxRn", "IxNS", "IxNP", "IxNQ", "IxND", "IwSH",
         "IwIQ", "BxFl", "BwFl", "BxHN", "BxHs", "BxMH", "BxFF"),
-    "item 10 (sharding)": ("IxSh", "IxRp"),
 }
 _UNPORTED = {tag: item for item, tags in _ITEMS.items() for tag in tags}
 

@@ -9,6 +9,8 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
                                          # queries on random integer data
     python3 chip_smoke.py --k2-batches   # only K2's device times at 1 to
                                          # 10k rows of a random reservoir
+    python3 chip_smoke.py --phase19      # only phase 19 (the codecs), on
+                                         # phase 3's data and quantizer
 
 Phases, one line each; any failure raises and exits non-zero:
   1. device  — a CUDA device is required; nvidia-smi's name and power limit.
@@ -302,13 +304,50 @@ Phases, one line each; any failure raises and exits non-zero:
      is held against (the direct IVF, IVF4096,PQ16, K3 against its plain
      version, the sub-index searched alone, fresh IDMap2 and window IVFs,
      the index a file is held against), printed apart.
+  19. the codecs on phase 3's data and quantizer (quantizer_trains_alone
+     = 1): (a) IVF4096,RQ16x8: train / add seconds, C (exact f32 over the
+     decoded rows), recall@10 at nprobe 16 / 32 / 64 through the bf16
+     decoded cache (one K3 launch a search) >= C x IVF-Flat's - 0.01, the
+     "sq8" cache (K3-SQ8) within 0.01 of it, the table scan (no kernel) on
+     1000 queries >= the bf16 cache's - 0.01 on the same queries,
+     search_stats and search_preassigned equal to search bit for bit, K3
+     and K3-SQ8 at 10k q, nprobe 32 on these caches held against their
+     plain versions (rtol 1e-5, positions up to near-ties) with their
+     CUDA-event times; (b) IVF4096,LSQ16x8 / PRQ2x8x8 / PLSQ2x8x8: train
+     and add seconds, the residual MSE (LSQ's at most RQ16x8's), C and
+     recall@10 at nprobe 32 >= C x IVF-Flat's - 0.01; (c)
+     IVF65536(RCQ2x8),Flat in the beam route and with the 65,536
+     centroids enumerated, and IVF65536(LSCQ2x8),Flat (enumerated), at
+     nprobe 64 / 256: coarse fidelity against the exact top-nprobe lists,
+     quantization_us, recall@10 (the beam's within 0.02 of the
+     enumeration's), and K3 on the 1-2-block lists (10k q, nprobe 64)
+     against its plain version; (d) flat RQ16x8 over the 1M rows: recall
+     on 1000 queries within 0.002 of C, sa_encode / sa_decode equal to
+     the stored codes and their decode, range_search on 100 queries equal
+     to brute force on the decoded rows (rows within rtol 1e-5 of the
+     radius either way); (e) IndexPQ PQ32 with polysemous training
+     (POLY_ITERS annealing steps a sub-quantizer): ST_POLYSEMOUS with the
+     filter off equal to ST_PQ's table scan bit for bit, then at the
+     Hamming quantiles 1 / 5 / 30% of a sample the pass share, recall@10
+     and QPS beside ST_PQ's (faster than it at the 1% share), the pass
+     count growing, every distance ST_PQ's ADC of its id; (f) IndexQINCo(128, K 256, L 2, M 8, h 256) with
+     QINCo.random's weights: encode / decode seconds, search of 1000
+     queries (recall = C within 0.002), the card's codes on 2000 rows
+     equal to the host's on >= 99.5%, the state dict round trip exact;
+     (g) ZnLattice16x10_6 over LATTICE_NB rows (host encode), recall =
+     C within 0.002; (h) IxRQ, IwRQ, IxCQ, IxQN and IxLt files reopened
+     with mmap, each search bit for bit the original's. Phase 19 launches
+     K3 and K3-SQ8 only; its count leaves out the comparison launches.
 The last two lines are the kernels' JSON record (each with its time,
-its plain version's, the card's bound for the same work and, where one
+its plain version's, the card's bound for the same work (a scan of
+lists: the valid rows it needs, each read once, not their blocks'
+padding; the RCQ lists' padded-block bound printed beside) and, where one
 torch call computes the same function, that call's time; K3, K3-SQ8 and
 K4 add their time and bound at the main path's 10k queries, K3 its time
 at IVFPQR's kp 46 (phase 16e), at the quantizer's kp 64 (phase 17j) and
-at d 64 (phase 18a), each kernel its phase-16, phase-17 and phase-18
-launches, and K3 has a second record at batch 1)
+at d 64 (phase 18a), on the IVF-RQ cache and the 65,536-list RCQ lists
+(phase 19a / c; K3-SQ8 on the "sq8" RQ cache), each kernel its
+phase-16 to phase-19 launches, and K3 has a second record at batch 1)
 and {"ok": true, ...}.
 """
 
@@ -333,9 +372,13 @@ from tpu_ann_torch.ops import ivf_scan_fused as F
 from tpu_ann_torch.ops import hnsw as HN
 from tpu_ann_torch.ops import hnsw_tiles as HT
 from tpu_ann_torch.ops import ivf_scan_paged as P
+from tpu_ann_torch.ops import hamming as HM
 from tpu_ann_torch.ops import pq as PQ
+from tpu_ann_torch.ops import qinco as QC
+from tpu_ann_torch.ops import rq as RQ
 from tpu_ann_torch.ops import row_copy_probe as B2
 from tpu_ann_torch.ops import sq as SQ
+from tpu_ann_torch.utils import index_io as IIO
 from tpu_ann_torch.utils.benchmark import per_query_report
 
 # recall@10 floors at nprobe 16 / 32 / 64: the JAX package's benchmark
@@ -451,28 +494,32 @@ def bound(nbytes: float, flops: float) -> dict:
 
 
 def pair_scan_work(plan, ids, B, d, kp, lo, hi, ta=0, tb=None,
-                   running=False, elem_bytes=2):
+                   running=False, elem_bytes=2, padded=False):
     """Bytes and bf16 products the per-pair scan of tiles [ta, tb) needs
     over stream blocks [lo, hi): every valid row of a pair's clamped range
-    scored against its query, each needed block read once (``elem_bytes``
-    a stream element: 2 for bf16, 1 for SQ8 codes, plus 8 B of id and norm
-    a row), the queries, the plan and the (pairs, kp) result written once
-    (and, ``running``, read once). ``ids`` (nblocks, B) are the blocks
-    [lo, hi) of the stream."""
+    scored against its query, each valid row of a needed block read once
+    (``elem_bytes`` a stream element: 2 for bf16, 1 for SQ8 codes, plus 8 B
+    of id and norm a row), the queries, the plan and the (pairs, kp) result
+    written once (and, ``running``, read once). ``padded`` counts every
+    slot of a needed block instead, padding included: the layout's cost,
+    not the work's. ``ids`` (nblocks, B) are the blocks [lo, hi) of the
+    stream."""
     tb = plan.ntiles if tb is None else tb
     sl = slice(ta * F.PT, tb * F.PT)
     ps = plan.pstart[sl].long().clamp(lo, hi) - lo
     pe = plan.pend[sl].long().clamp(lo, hi) - lo
+    valid = (ids[:hi - lo] >= 0).sum(1)
     csum = torch.zeros(hi - lo + 1, dtype=torch.long, device=ids.device)
-    csum[1:] = torch.cumsum((ids[:hi - lo] >= 0).sum(1), 0)
+    csum[1:] = torch.cumsum(valid, 0)
     rows = int((csum[pe] - csum[ps]).sum())
     mark = torch.zeros(hi - lo + 1, dtype=torch.long, device=ids.device)
     mark.index_add_(0, ps, torch.ones_like(ps))
     mark.index_add_(0, pe, -torch.ones_like(pe))
-    blocks = int((torch.cumsum(mark, 0) > 0).sum())
+    need = torch.cumsum(mark, 0)[:hi - lo] > 0
+    read = int(need.sum()) * B if padded else int(valid[need].sum())
     npairs = ps.numel()
     nq = int(plan.pair_q.max()) + 1
-    nbytes = (blocks * B * (elem_bytes * d + 8) + nq * (2 * d + 4)
+    nbytes = (read * (elem_bytes * d + 8) + nq * (2 * d + 4)
               + npairs * 12
               + npairs * kp * 8 * (2 if running else 1))
     return nbytes, 2.0 * rows * d
@@ -504,8 +551,9 @@ def assert_same_topk(D0, I0, D1, I1) -> None:
                 raise AssertionError(f"row {r}: ids differ: {I0[r]} {I1[r]}")
 
 
-def main() -> None:
-    # -- 1. device --------------------------------------------------------
+def require_gpu() -> torch.device:
+    """Exit non-zero without a CUDA device; print the card's name and power
+    limit as nvidia-smi gives them."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     smi = subprocess.run(
@@ -513,7 +561,12 @@ def main() -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    dev = torch.device("cuda")
+    return torch.device("cuda")
+
+
+def main() -> None:
+    # -- 1. device --------------------------------------------------------
+    dev = require_gpu()
     kind = torch.cuda.get_device_name(0)
     phase("device", kind=kind, count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda)
@@ -711,9 +764,19 @@ def main() -> None:
         breadth_launches, k3_d64 = breadth_phase(quant3, hidx, xb, xt, xq,
                                                  gt, results, dev, tmp)
         del hidx
+        torch.cuda.empty_cache()
+        codec_launches, codec_k = codecs_phase(quant3, xb, xt, xq, gt,
+                                               results, dev, tmp)
     k3["launches_pq"] = pq_launches.get("ivf_scan_fused", 0)
     k3["launches_hnsw"] = hnsw_launches.get("ivf_scan_fused", 0)
     k3["launches_breadth"] = breadth_launches.get("ivf_scan_fused", 0)
+    k3["launches_codecs"] = codec_launches.get("ivf_scan_fused", 0)
+    # K3 on the IVF-RQ16x8 bf16 cache (phase 19a, 10k q, nprobe 32) and on
+    # the 1-2-block lists of IVF65536(RCQ2x8) (19c, 10k q, nprobe 64)
+    for key, rec in (("rq", codec_k["k3_rq"]), ("rcq", codec_k["k3_rcq"])):
+        k3.update({f"{key}_{f}": rec[f] for f in
+                   ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by",
+                    "padded_bound_ms")})
     # K3 at d 64 (phase 18a: PCA64,IVF4096,Flat, 10k q, nprobe 32)
     k3.update(k3_d64)
     # K3 at the IVFHNSW quantizer's kp 64 (phase 17j: the hop-0 scan of one
@@ -730,6 +793,11 @@ def main() -> None:
     sq_records[0]["launches_hnsw"] = hnsw_launches.get("ivf_scan_sq8", 0)
     sq_records[0]["launches_breadth"] = breadth_launches.get("ivf_scan_sq8",
                                                              0)
+    sq_records[0]["launches_codecs"] = codec_launches.get("ivf_scan_sq8", 0)
+    # K3-SQ8 on the IVF-RQ16x8 "sq8" cache (phase 19a, 10k q, nprobe 32)
+    sq_records[0].update({f"rq_{f}": codec_k["k3sq8_rq"][f] for f in
+                          ("ms", "plain_ms", "max_abs_err", "bound_ms",
+                           "bound_by")})
     print(json.dumps({"kernels": [k3, *sq_records, *flat_records,
                                   *variant_records, k4, b2, k3_b1]}),
           flush=True)
@@ -1259,14 +1327,7 @@ def k1_batches() -> None:
     128 base of random integers in [0, 64) (seed 0), built from this
     checkout's sources. Run it from another tree's root (a copy of this
     script there) to time that tree's kernels on the same inputs."""
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
-    dev = torch.device("cuda")
+    dev = require_gpu()
     gen = torch.Generator(device=dev).manual_seed(0)
     xb = torch.randint(0, 64, (NB, D), generator=gen, device=dev).float()
     xq = torch.randint(0, 64, (NQ, D), generator=gen, device=dev).float()
@@ -1285,14 +1346,7 @@ def k2_batches() -> None:
     and torch.topk's device times (profiler). Uses only the wrappers'
     public calls, so from a copy in another tree's root it times that
     tree's K2 on the same inputs."""
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
-    dev = torch.device("cuda")
+    dev = require_gpu()
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
     for W, k in ((2048, 10), (1024, 40)):
@@ -4421,13 +4475,489 @@ def breadth_phase(quant3, hidx, xb, xt, xq, gt, flat_rec, dev, tmp):
     return got, k3_d64
 
 
+# -- phase 19: the codecs -------------------------------------------------------
+
+# queries of the table scan, flat RQ, polysemous, QINCo and lattice checks
+CODEC_NQ = 1000
+# LSQ's training rounds (the reference's default)
+LSQ_TRAIN_ITERS = 8
+# annealing steps a sub-quantizer of polysemous training (the reference's
+# default is 20000: 32 sub-quantizers take ~2 min on the host at that)
+POLY_ITERS = 2500
+# rows of the QINCo code check on the host
+QINCO_CPU_ROWS = 2000
+# rows the lattice encodes: its host encode of the 1M rows took 41.6 s on
+# the H100 machine's host, over the 30 s the phase allows it
+LATTICE_NB = 100_000
+# the additive coarse quantizers' codes: 2 stages of RCQ_BITS bits
+RCQ_BITS = 8
+
+
+def k3_check(name, lists, xw, probes, cmp) -> dict:
+    """K3 (a bf16 stream) or K3-SQ8 (an SQ8 stream) against its plain
+    version on one plan: the per-pair top-kp and the whole scan within
+    rtol 1e-5, positions up to near-ties (float rows); CUDA-event ms, the
+    plain version's ms, the bound (valid rows) and the padded blocks'
+    bound beside it. Its launches go to ``cmp``."""
+    def run():
+        kp = F.default_kp(K)
+        q16, qn = F.fold_queries(xw, lists, False)
+        plan = F.plan_pairs(probes, lists)
+        d1, p1 = F.scan_pairs(q16, qn, plan, lists, kp, False)
+        d0, p0 = F.scan_pairs_reference(q16, qn, plan, lists, kp, False)
+        err = assert_close_pairs(f"{name} per pair", d0, p0, d1, p1)
+        D1, I1, _ = F.scan_invlists_fused(xw, probes, lists, K)
+        D0, I0, _ = F.scan_invlists_fused_reference(xw, probes, lists, K)
+        err_scan = assert_close_pairs(f"{name} scan", D0, I0, D1, I1)
+        ms = cuda_ms(lambda: F.scan_pairs(q16, qn, plan, lists, kp, False),
+                     10)
+        plain = host_ms(lambda: F.scan_pairs_reference(q16, qn, plan, lists,
+                                                       kp, False), 1)
+        work = (plan, lists.ids, lists.block_size, D, kp, 0, lists.nblocks)
+        eb = 1 if isinstance(lists, T.PackedInvListsSQ8) else 2
+        return {"nq": len(xw), "nprobe": probes.shape[1], "kp": kp,
+                "max_abs_err": err, "scan_max_abs_err": err_scan, "ms": ms,
+                "plain_ms": plain,
+                **bound(*pair_scan_work(*work, elem_bytes=eb)),
+                "padded_bound_ms": bound(*pair_scan_work(
+                    *work, elem_bytes=eb, padded=True))["bound_ms"]}
+    return uncounted(run, cmp)
+
+
+def residual_mse(idx, xt) -> float:
+    """MSE of an IVF codec on the residuals of 20k training rows."""
+    x = xt[:20000]
+    a = torch.as_tensor(idx._assign(x)).to(idx.device)
+    r = torch.from_numpy(x).to(idx.device) - idx._coarse_centroids()[a]
+    rec = RQ.rq_decode(idx._encode_residuals(r), idx._books)
+    return float(((r - rec) ** 2).sum(1).mean())
+
+
+def ivf_codec(cls, shape, quant, xt, xb, ids, dev, **knobs):
+    """An IVF additive index over ``quant`` (quantizer_trains_alone=1),
+    trained on xt and holding xb; seconds of train and add."""
+    idx = cls(quant, D, quant.ntotal, *shape, device=dev)
+    idx.quantizer_trains_alone = 1
+    for k, v in knobs.items():
+        setattr(idx, k, v)
+    (_, t_train) = timed(lambda: idx.train(xt), warm=lambda: None)
+    (_, t_add) = timed(lambda: idx.add_with_ids(xb, ids), warm=lambda: None)
+    return idx, t_train, t_add
+
+
+def codec_c(idx, xq, gt, dev) -> float:
+    """C of an IVF codec: exact f32 over all its decoded rows."""
+    f32 = idx._decode_lists(torch.float32)
+    c = codec_recall_rows(rows_by_id(f32, NB, dev), xq, gt, dev)
+    del f32
+    return c
+
+
+def codecs_ivf_rq(quant3, xb, xt, xq, gt, flat_rec, dev, cmp) -> tuple:
+    """19a: IVF4096,RQ16x8 through its bf16 cache (K3), its "sq8" cache
+    (K3-SQ8) and the table scan; the kernels held against their plain
+    versions on this cache. Returns (the index, its residual MSE, the K3
+    and K3-SQ8 records)."""
+    ids = np.arange(NB, dtype=np.int64)
+    A, t_train, t_add = ivf_codec(T.IndexIVFResidualQuantizer, (16, 8),
+                                  quant3, xt, xb, ids, dev)
+    mse = residual_mse(A, xt)
+    C = codec_c(A, xq, gt, dev)
+    floors = {n: C * flat_rec[n] - 0.01 for n in (16, 32, 64)}
+    (cache, t_cache) = timed(A._decoded_cache, warm=lambda: None)
+    res_a = pq_searches(A, xq, gt, "IVF-RQ bf16 cache",
+                        {"ivf_scan_fused": 1}, floors=floors)
+    p32 = T.SearchParametersIVF(nprobe=32)
+    Dv, Iv = A.search(xq, K, params=p32)
+    Ds, Is, _ = A.search_stats(xq, K, params=p32)
+    Dp, Ip = A.search_preassigned(xq, K, A.coarse_assign(xq, 32))
+    for what, other in (("search_stats", (Ds, Is)),
+                        ("search_preassigned", (Dp, Ip))):
+        if not (np.array_equal(other[0], Dv) and
+                np.array_equal(other[1], Iv)):
+            raise AssertionError(f"IVF-RQ {what} differs from search")
+    xw = torch.from_numpy(xq).to(dev)
+    _, probes = A._coarse_search_device(xw, 32)
+    k3 = k3_check("K3 on the IVF-RQ cache", cache, xw, probes, cmp)
+    rec_small = T.recall_k_at_k(A.search(xq[:CODEC_NQ], K, params=p32)[1],
+                                gt[:CODEC_NQ], K)
+    phase("codecs_ivf_rq", train_s=t_train, add_s=t_add, residual_mse=mse,
+          codec_recall=C, cache_build_s=t_cache,
+          cache_bytes=cache_bytes(cache), code_bytes=A.invlists.codes.nbytes,
+          searches=res_a, stats_preassigned_equal=True, k3=k3)
+    del cache
+    # the "sq8" cache: K3-SQ8, within 0.01 of the bf16 cache's recall
+    A.decoded_cache_dtype = "sq8"
+    A._lists_changed()
+    (c8, t_c8) = timed(A._decoded_cache, warm=lambda: None)
+    res_b = pq_searches(A, xq, gt, "IVF-RQ sq8 cache", {"ivf_scan_sq8": 1})
+    for n, r in res_b.items():
+        if abs(r["recall_at_10"] - res_a[n]["recall_at_10"]) > 0.01:
+            raise AssertionError(f"IVF-RQ sq8 cache nprobe={n}: recall "
+                                 f"{r['recall_at_10']} vs the bf16 cache's "
+                                 f"{res_a[n]['recall_at_10']}")
+    k3sq8 = k3_check("K3-SQ8 on the IVF-RQ sq8 cache", c8, xw, probes, cmp)
+    phase("codecs_ivf_rq_sq8", cache_build_s=t_c8, cache_bytes=cache_bytes(c8),
+          searches=res_b, k3_sq8=k3sq8)
+    del c8
+    # the table scan (no cache), 1000 queries at nprobe 32
+    A.use_decoded_cache = False
+    A._lists_changed()
+    res_c = pq_searches(A, xq[:CODEC_NQ], gt[:CODEC_NQ], "IVF-RQ table scan",
+                        {}, nprobes=(32,), floors={32: rec_small - 0.01})
+    phase("codecs_ivf_rq_table", searches=res_c,
+          bf16_cache_recall_same_queries=rec_small)
+    A.use_decoded_cache = None
+    A.decoded_cache_dtype = "bfloat16"
+    A._lists_changed()
+    return A, mse, k3, k3sq8
+
+
+def codecs_ivf_others(quant3, xb, xt, xq, gt, flat_rec, rq_mse, dev) -> None:
+    """19b: IVF4096,LSQ16x8 / PRQ2x8x8 / PLSQ2x8x8: train / encode seconds,
+    residual MSE, C and recall@10 at nprobe 32 through the bf16 cache."""
+    ids = np.arange(NB, dtype=np.int64)
+    out = {}
+    for name, cls, shape in (
+            ("LSQ16x8", T.IndexIVFLocalSearchQuantizer, (16, 8)),
+            ("PRQ2x8x8", T.IndexIVFProductResidualQuantizer, (2, 8, 8)),
+            ("PLSQ2x8x8", T.IndexIVFProductLocalSearchQuantizer, (2, 8, 8))):
+        knobs = {"train_iters": LSQ_TRAIN_ITERS} if "LSQ" in name else {}
+        idx, t_train, t_add = ivf_codec(cls, shape, quant3, xt, xb, ids, dev,
+                                        **knobs)
+        mse = residual_mse(idx, xt)
+        C = codec_c(idx, xq, gt, dev)
+        floor = C * flat_rec[32] - 0.01
+        res = pq_searches(idx, xq, gt, f"IVF-{name}", {"ivf_scan_fused": 1},
+                          nprobes=(32,), floors={32: floor})
+        out[name] = {"train_s": t_train, "add_s": t_add, "residual_mse": mse,
+                     "codec_recall": C, **res[32], **knobs}
+        if name == "LSQ16x8" and mse > rq_mse:
+            raise AssertionError(f"LSQ16x8 residual MSE {mse} > RQ16x8's "
+                                 f"{rq_mse}")
+        del idx
+        torch.cuda.empty_cache()
+    phase("codecs_ivf_aq", rq16x8_residual_mse=rq_mse, codecs=out)
+
+
+def codecs_rcq(xb, xt, xq, gt, dev, cmp):
+    """19c: IVF65536(RCQ2x8),Flat (the beam route, and the exact
+    enumeration of its 65,536 centroids) and IVF65536(LSCQ2x8),Flat (exact
+    enumeration): coarse fidelity, quantization_us, recall@10, and K3 on
+    the 1-2-block lists at 10k q, nprobe 64. Returns (the RCQ quantizer,
+    K3's record)."""
+    out, k3 = {}, None
+    xw = torch.from_numpy(xq).to(dev)
+    keep = None
+    for kind in ("RCQ", "LSCQ"):
+        nlist = 1 << (2 * RCQ_BITS)
+        idx = T.index_factory(D, f"IVF{nlist}({kind}2x{RCQ_BITS}),Flat",
+                              device=dev)
+        (_, t_train) = timed(lambda: idx.train(xt), warm=lambda: None)
+        (_, t_add) = timed(lambda: idx.add(xb), warm=lambda: None)
+        q = idx.quantizer
+        cents = q.reconstruct_device(torch.arange(nlist, device=dev))
+        r = {"nlist": nlist, "train_s": t_train, "add_s": t_add,
+             "list_blocks_max": idx._longest_list_blocks(),
+             "mean_rows_a_list": NB / nlist}
+        modes = (("beam", 4.0), ("exact", -1.0)) if kind == "RCQ" else \
+            (("exact", -1.0),)
+        for mode, bf in modes:
+            q.beam_factor = bf
+            for nprobe in (64, 256):
+                p = T.SearchParametersIVF(nprobe=nprobe)
+                _, exact = TD.knn(xw, cents, nprobe)
+                (_, I), s = timed(lambda: idx.search(xq, K, params=p))
+                _, _, st = idx.search_stats(xq, K, params=p)
+                probes = idx.coarse_assign(xq, nprobe)
+                ex = exact.cpu().numpy()
+                fid = float(np.mean([len(set(a) & set(b)) / nprobe
+                                     for a, b in zip(ex, probes)]))
+                r[f"{mode}_nprobe{nprobe}"] = {
+                    "recall_at_10": T.recall_k_at_k(I, gt, K),
+                    "qps": NQ / s, "quantization_us": st.quantization_us,
+                    "list_scan_us": st.list_scan_us, "coarse_fidelity": fid}
+                if mode == "exact" and fid < 0.999:
+                    raise AssertionError(f"{kind} exact enumeration "
+                                         f"fidelity {fid}")
+        if kind == "RCQ":
+            for nprobe in (64, 256):
+                b, e = (r[f"{m}_nprobe{nprobe}"]["recall_at_10"]
+                        for m in ("beam", "exact"))
+                if b < e - 0.02:
+                    raise AssertionError(f"RCQ beam recall {b} vs the "
+                                         f"enumeration's {e}")
+            q.beam_factor = 4.0
+            _, probes = idx._coarse_search_device(xw, 64)
+            k3 = k3_check("K3 on the 65536-list RCQ lists", idx.invlists,
+                          xw, probes, cmp)
+            r["k3"] = k3
+            keep = q
+        out[kind] = r
+        del idx, cents
+        torch.cuda.empty_cache()
+    phase("codecs_rcq", **out)
+    return keep, k3
+
+
+def codecs_flat_rq(xb, xt, xq, gt, dev):
+    """19d: the flat IndexResidualQuantizer RQ16x8 over 1M rows: recall on
+    1000 queries within 0.002 of C, the sa_encode / sa_decode round trip,
+    range_search on 100 queries against brute force on the decoded rows."""
+    R = T.IndexResidualQuantizer(D, 16, 8, device=dev)
+    (_, t_train) = timed(lambda: R.train(xt), warm=lambda: None)
+    (_, t_add) = timed(lambda: R.add(xb), warm=lambda: None)
+    rows = RQ.rq_decode(R._codes, R._books)
+    xs, gs = xq[:CODEC_NQ], gt[:CODEC_NQ]
+    C = codec_recall_rows(rows, xs, gs, dev)
+    (_, Iv), s = timed(lambda: R.search(xs, K))
+    rec = T.recall_k_at_k(Iv, gs, K)
+    if abs(rec - C) > 0.002:
+        raise AssertionError(f"flat RQ recall {rec} vs C {C}")
+    codes = R.sa_encode(xb[:CODEC_NQ])
+    want = RQ.with_norms(R._codes[:CODEC_NQ],
+                         rows[:CODEC_NQ]).cpu().numpy()
+    if not np.array_equal(codes, want):
+        raise AssertionError("flat RQ sa_encode differs from the stored "
+                             "codes")
+    if not np.array_equal(R.sa_decode(codes), rows[:CODEC_NQ].cpu().numpy()):
+        raise AssertionError("flat RQ sa_decode differs from the decode")
+    xr = xq[:100]
+    qd = torch.from_numpy(xr).to(dev)
+    dis = torch.cdist(qd.double(), rows.double()) ** 2
+    radius = float(torch.sort(dis, dim=1).values[:, 20].median())
+    lims, Dr, Ir = R.range_search(xr, radius)
+    for qi in range(len(xr)):
+        got = set(Ir[lims[qi]:lims[qi + 1]].tolist())
+        sure = set(torch.nonzero(dis[qi] < radius * (1 - 1e-5))[:, 0]
+                   .tolist())
+        maybe = set(torch.nonzero(dis[qi] < radius * (1 + 1e-5))[:, 0]
+                    .tolist())
+        if not sure <= got <= maybe:
+            raise AssertionError(f"flat RQ range query {qi}: hits differ "
+                                 "from brute force")
+    phase("codecs_flat_rq", train_s=t_train, add_s=t_add, codec_recall=C,
+          recall_at_10=rec, qps=len(xs) / s, sa_round_trip=True,
+          range_radius=radius, range_hits=int(lims[-1]))
+    return R
+
+
+def codecs_polysemous(xb, xt, xq, gt, dev) -> None:
+    """19e: IndexPQ PQ32 with polysemous training: ST_POLYSEMOUS with the
+    filter off equals ST_PQ's table scan bit for bit; at three thresholds
+    the pass share, recall@10, QPS and QPS over ST_PQ's (above 1 at the
+    ~1% share: only the pairs that pass are scored); every distance is
+    ST_PQ's ADC distance of its id."""
+    P = T.IndexPQ(D, 32, 8, device=dev)
+    P.do_polysemous_training = True
+    P.polysemous_iters = POLY_ITERS
+    P.use_decoded_cache = False
+    (_, t_train) = timed(lambda: P.train(xt), warm=lambda: None)
+    P.add(xb)
+    xs, gs = xq[:CODEC_NQ], gt[:CODEC_NQ]
+    (D_pq, I_pq), s_pq = timed(lambda: P.search(xs, K), 3)
+    P.search_type = P.ST_POLYSEMOUS
+    D0, I0 = P.search(xs, K)
+    if not (np.array_equal(D0, D_pq) and np.array_equal(I0, I_pq)):
+        raise AssertionError("ST_POLYSEMOUS with the filter off differs "
+                             "from ST_PQ")
+    # thresholds at Hamming quantiles of a sample of (query, code) pairs;
+    # the card's distances (an f16 product of bits) equal the host's
+    qc = PQ.pq_encode(torch.from_numpy(xs[:100]).to(dev), P._cent)
+    ham = HM.hamming_distances(qc, P._codes[:100_000])
+    if not torch.equal(ham.cpu(), HM.hamming_distances(
+            qc.cpu(), P._codes[:100_000].cpu())):
+        raise AssertionError("Hamming distances on the card differ from "
+                             "the host's")
+    ham = ham.float().view(-1)
+    hts = [int(torch.quantile(ham, f)) for f in (0.01, 0.05, 0.3)]
+    lut = PQ.query_tables(torch.from_numpy(xs).to(dev), P._cent)
+    out, last = {}, 0
+    for ht in hts:
+        P.polysemous_ht = ht
+        (Dv, Iv), s = timed(lambda: P.search(xs, K), 3)
+        share = P.last_hamming_pass / (len(xs) * NB)
+        if P.last_hamming_pass <= last:
+            raise AssertionError(f"polysemous ht {ht}: pass count "
+                                 f"{P.last_hamming_pass} <= {last}")
+        last = P.last_hamming_pass
+        # ST_PQ's ADC of each returned id, its sub-quantizers added in
+        # adc_scan_db's order
+        ok = Iv >= 0
+        cl = P._codes[torch.from_numpy(np.maximum(Iv, 0)).to(dev)].long()
+        adc = torch.zeros(Iv.shape, device=dev)
+        for m in range(P.M):
+            adc += torch.gather(lut[:, m, :], 1, cl[:, :, m])
+        if not np.array_equal(adc.cpu().numpy()[ok], Dv[ok]):
+            raise AssertionError(f"polysemous ht {ht}: distances differ "
+                                 "from ST_PQ's ADC")
+        out[ht] = {"pass_share": share, "recall_at_10":
+                   T.recall_k_at_k(Iv, gs, K), "qps": len(xs) / s,
+                   "qps_over_st_pq": s_pq / s}
+    # the filter must save the ADC of what it rejects: at the ~1% share
+    # the search beats ST_PQ's dense scan
+    if out[hts[0]]["qps_over_st_pq"] <= 1.0:
+        raise AssertionError(f"polysemous at a {out[hts[0]]['pass_share']} "
+                             f"pass share is no faster than ST_PQ: "
+                             f"{out[hts[0]]['qps']} vs {len(xs) / s_pq} QPS")
+    phase("codecs_polysemous", M=32, nbits=8, polysemous_iters=POLY_ITERS,
+          anneal_train_s=t_train, st_pq_qps=len(xs) / s_pq,
+          st_pq_recall_at_10=T.recall_k_at_k(I_pq, gs, K),
+          filter_off_equal=True, thresholds=out)
+
+
+def codecs_qinco(xb, xq, gt, dev):
+    """19f: IndexQINCo(d 128, K 256, L 2, M 8, h 256) with the reference's
+    random weights: encode the 1M rows, decode, search 1000 queries; the
+    card's codes on 2000 rows against the host's; the state dict round
+    trip. Returns the index."""
+    Qi = T.IndexQINCo(D, 256, 2, 8, 256, device=dev)
+    (_, t_enc) = timed(lambda: Qi.add(xb), warm=lambda: None)
+    (rows, t_dec) = timed(lambda: Qi._decode_packed(Qi._codes),
+                          warm=lambda: None)
+    xs, gs = xq[:CODEC_NQ], gt[:CODEC_NQ]
+    (Dv, Iv), s = timed(lambda: Qi.search(xs, K))
+    C = codec_recall_rows(rows, xs, gs, dev)
+    if not (np.isfinite(Dv).all() and (Iv >= 0).all()):
+        raise AssertionError("QINCo search: malformed")
+    rec = T.recall_k_at_k(Iv, gs, K)
+    if abs(rec - C) > 0.002:
+        raise AssertionError(f"QINCo recall {rec} vs C {C}")
+    del rows
+    cpu_net = T.QINCo.random(D, 256, 2, 8, 256)
+    host = QC.encode_chunked(cpu_net, xb[:QINCO_CPU_ROWS]).numpy()
+    card = QC.encode_chunked(Qi.qinco, xb[:QINCO_CPU_ROWS]).cpu().numpy()
+    same = float((host == card).all(1).mean())
+    if same < 0.995:
+        raise AssertionError(f"QINCo codes: card equals host on {same}")
+    other = T.QINCo(D, 256, 2, 8, 256).to(dev)
+    other.load_state_dict(Qi.qinco.state_dict())
+    if not all(torch.equal(a, b) for a, b in zip(
+            other.state_dict().values(), Qi.qinco.state_dict().values())):
+        raise AssertionError("QINCo state dict round trip differs")
+    phase("codecs_qinco", K=256, L=2, M=8, h=256, code_bytes=Qi.sa_code_size(),
+          encode_s=t_enc, encode_rows_a_s=NB / t_enc, decode_s=t_dec,
+          codec_recall=C, recall_at_10=rec, qps=len(xs) / s,
+          card_equals_host_rows=same, state_dict_round_trip=True)
+    return Qi
+
+
+def codecs_lattice(xb, xq, dev):
+    """19g: ZnLattice16x10_6 (IndexLattice, dsq 8, r2 10) over LATTICE_NB
+    rows: the host encode, then the search, exact f32 over the decoded
+    rows: recall@10 against the exact neighbours among those rows equal to
+    C up to ties. Returns the index."""
+    Lt = T.index_factory(D, "ZnLattice16x10_6", device=dev)
+    Lt.train(xb[:LATTICE_NB])
+    (_, t_enc) = timed(lambda: Lt.add(xb[:LATTICE_NB]), warm=lambda: None)
+    xs = xq[:CODEC_NQ]
+    qd = torch.from_numpy(xs).to(dev)
+    _, g = TD.knn(qd, torch.from_numpy(xb[:LATTICE_NB]).to(dev), K)
+    gs = g.cpu().numpy()
+    rows = Lt._decode_packed(Lt._codes)
+    C = codec_recall_rows(rows, xs, gs, dev)
+    (Dv, Iv), s = timed(lambda: Lt.search(xs, K))
+    rec = T.recall_k_at_k(Iv, gs, K)
+    if abs(rec - C) > 0.002:
+        raise AssertionError(f"lattice recall {rec} vs C {C}")
+    phase("codecs_lattice", nsq=16, r2=10, scale_nbit=6, rows=LATTICE_NB,
+          nv=Lt.zn.nv, code_bytes=Lt.sa_code_size(), encode_s=t_enc,
+          encode_rows_a_s=LATTICE_NB / t_enc, codec_recall=C,
+          recall_at_10=rec, qps=len(xs) / s)
+    return Lt
+
+
+def codecs_files(named, xq, dev, tmp) -> None:
+    """19h: each index written (IxRQ, IwRQ, IxCQ, IxQN, IxLt) and reopened
+    with mmap returns the original's (D, I) bit for bit."""
+    xs = xq[:CODEC_NQ]
+    out = {}
+    for tag, idx in named.items():
+        path = os.path.join(tmp, f"codec_{tag}.tann")
+        (_, t_w) = timed(lambda: T.write_index(idx, path), warm=lambda: None)
+        (other, t_r) = timed(lambda: T.read_index(path, mmap=True,
+                                                   device=dev),
+                             warm=lambda: None)
+        if IIO._read_container(path)[0]["tag"] != tag:
+            raise AssertionError(f"{tag}: the file's tag differs")
+        a, b = idx.search(xs, K), other.search(xs, K)
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            raise AssertionError(f"{tag}: the reopened index's search "
+                                 "differs")
+        out[tag] = {"file_bytes": os.path.getsize(path), "write_s": t_w,
+                    "read_mmap_s": t_r}
+        del other
+        os.remove(path)
+    phase("codecs_files", bit_equal=True, files=out)
+
+
+def codecs_phase(quant3, xb, xt, xq, gt, flat_rec, dev, tmp):
+    """Phase 19: the codecs at full width on phase 3's data and quantizer:
+    the IVF additive codes (K3, K3-SQ8), the RCQ / LSCQ coarse quantizers
+    over 65,536 lists (K3), flat RQ, polysemous PQ, QINCo, the lattice and
+    their files. Returns the K3 / K3-SQ8 launches of its paths (the
+    comparison launches left out) and the kernels' records."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    cmp = {}
+    A, rq_mse, k3_rq, k3sq8_rq = codecs_ivf_rq(quant3, xb, xt, xq, gt,
+                                               flat_rec, dev, cmp)
+    codecs_ivf_others(quant3, xb, xt, xq, gt, flat_rec, rq_mse, dev)
+    rcq, k3_rcq = codecs_rcq(xb, xt, xq, gt, dev, cmp)
+    R = codecs_flat_rq(xb, xt, xq, gt, dev)
+    codecs_polysemous(xb, xt, xq, gt, dev)
+    Qi = codecs_qinco(xb, xq, gt, dev)
+    Lt = codecs_lattice(xb, xq, dev)
+    codecs_files({"IxRQ": R, "IwRQ": A, "IxCQ": rcq, "IxQN": Qi,
+                  "IxLt": Lt}, xq, dev, tmp)
+    del A, R, Qi, Lt, rcq
+    torch.cuda.empty_cache()
+    got = {k: v - cmp.get(k, 0) for k, v in launched().items()
+           if v != cmp.get(k, 0)}
+    if set(got) != {"ivf_scan_fused", "ivf_scan_sq8"}:
+        raise AssertionError(f"phase 19 launched {got}")
+    phase("codecs", seconds=time.perf_counter() - t_phase, launches=got,
+          comparison_launches=cmp)
+    return got, {"k3_rq": k3_rq, "k3sq8_rq": k3sq8_rq, "k3_rcq": k3_rcq}
+
+
+def codecs_alone() -> None:
+    """--phase19: phase 19 alone, as the whole run drives it: K3 and K3-SQ8
+    built, phase 3's data, ground truth and IVF4096,Flat (its quantizer,
+    and its recalls at nprobe 16 / 32 / 64 for the floors), then
+    codecs_phase. Its phase lines only: no kernels line, no ok line."""
+    dev = require_gpu()
+    kernels.load_libraries(("ivf_scan_fused", "ivf_scan_sq8"))
+    allx = T.sift_surrogate(NB + NT + NQ, seed=123, **T.SIFT1M_CALIBRATED)
+    xb, xt, xq = allx[:NB], allx[NB:NB + NT], allx[NB + NT:]
+    flat = T.IndexFlat(D, device=dev)
+    flat.add(xb)
+    _, gt = flat.search(xq, K)
+    del flat
+    index = T.make_ivf_flat(D, NLIST, device=dev)
+    index.cp.niter = 10
+    index.train(xt)
+    index.add(xb)
+    rec = {n: T.recall_k_at_k(index.search(
+        xq, K, params=T.SearchParametersIVF(nprobe=n))[1], gt, K)
+        for n in (16, 32, 64)}
+    phase("ivf_flat", recall_at_10=rec)
+    quant3 = index.quantizer
+    del index
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="tpu_ann_smoke_") as tmp:
+        codecs_phase(quant3, xb, xt, xq, gt, rec, dev, tmp)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--k1-batches"]:
         k1_batches()
     elif sys.argv[1:] == ["--k2-batches"]:
         k2_batches()
+    elif sys.argv[1:] == ["--phase19"]:
+        codecs_alone()
     elif sys.argv[1:]:
         raise SystemExit("usage: chip_smoke.py [--k1-batches | "
-                         "--k2-batches]")
+                         "--k2-batches | --phase19]")
     else:
         main()

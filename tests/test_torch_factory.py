@@ -1,9 +1,9 @@
 """Port parity: tpu_ann_torch.utils.factory against the JAX package's
 factory, for the index classes the port has: the same class and
 parameters per spec, reverse_index_factory round trips, get_code_size and
-get_hnsw_M agree, and every other token of the reference's grammar raises
-NotImplementedError naming its ROADMAP item (a token neither package knows
-raises ValueError)."""
+get_hnsw_M agree, and every other token of the reference's grammar (NSG,
+LSH) raises NotImplementedError naming its ROADMAP item (a token neither
+package knows raises ValueError)."""
 
 import pytest
 
@@ -23,6 +23,11 @@ PORTED = ["Flat", "SQ8", "SQ6", "SQ4", "SQfp16", "SQbf16", "HNSW32",
           "PQ8,Refine(SQ8Tier)", "IVF64_HNSW16,PQ8+4,RFlat",
           "IVF64,Flat,RFlat", "IVF64,PQ4x4fs", "HNSW32,SQ8", "HNSW16,SQfp16",
           "HNSW8,SQbf16", "HNSW32,PQ8", "HNSW16,PQ8x6", "HNSW32,PQ8,RFlat"]
+# the additive codes and coarse quantizers are L2 only (ST_norm_float)
+PORTED_L2 = ["RQ4x6", "LSQ4x8", "PRQ2x2x8", "PLSQ4x2x6", "IVF64,RQ4x6",
+             "IVF64_HNSW8,LSQ2x8", "IVF64,PRQ2x4x8", "IVF64,PLSQ2x2x4",
+             "IVF64(RCQ2x3),RQ4x4", "IVF64(LSCQ3x2),PQ8",
+             "IVF64(RCQ2x3),SQ8", "IVF256(RCQ2x4),PRQ2x2x6,RFlat"]
 
 
 def _params(idx) -> dict:
@@ -47,6 +52,22 @@ def _params(idx) -> dict:
 @pytest.mark.parametrize("metric", [T.METRIC_L2, T.METRIC_INNER_PRODUCT])
 @pytest.mark.parametrize("spec", PORTED)
 def test_same_class_and_parameters(spec, metric):
+    _same_class_and_parameters(spec, metric)
+
+
+@pytest.mark.parametrize("spec", PORTED_L2)
+def test_same_class_and_parameters_l2(spec):
+    """The additive codes, flat and IVF (the IVF over a coarse quantizer
+    trains it alone), and their reverse specs."""
+    _same_class_and_parameters(spec, T.METRIC_L2)
+    t = TF.index_factory(D, spec, device="cpu")
+    rev = TF.reverse_index_factory(t)
+    assert _params(TF.index_factory(D, rev, device="cpu")) == _params(t)
+    if "(" in spec:
+        assert getattr(t, "base_index", t).quantizer_trains_alone == 1
+
+
+def _same_class_and_parameters(spec, metric):
     t = TF.index_factory(D, spec, metric, device="cpu")
     j = JF.index_factory(D, spec, metric)
     assert _params(t) == _params(j)
@@ -79,6 +100,13 @@ def test_built_index_trains_and_searches():
     assert (I[:, 0] == np.arange(5)).all()
 
 
+def _inner(idx):
+    """The index under IDMap / IndexPreTransform wrappers."""
+    while hasattr(idx, "index"):
+        idx = idx.index
+    return idx
+
+
 @pytest.mark.parametrize("spec,item", [
     ("IDMap,RQ4x8,RFlat", "item 9"),
     ("IDMap,NSG32", "item 9"), ("PCA16,IVF64(RCQ2x3),Flat", "item 9"),
@@ -87,9 +115,32 @@ def test_built_index_trains_and_searches():
     ("RQ4x8", "item 9"), ("NSG32", "item 9"), ("LSH", "item 9"),
     ("IVF64(RCQ2x3),Flat", "item 9"), ("ZnLattice4x10_4", "item 9")])
 def test_unported_specs_raise(spec, item):
-    JF.index_factory(D, spec)         # a spec of the reference's grammar
-    with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
-        TF.index_factory(D, spec, device="cpu")
+    """The NSG and LSH tokens stay refused, naming their ROADMAP item;
+    the additive, coarse and lattice specs build the reference's classes,
+    wrapper for wrapper, with the same parameters and code size, and
+    reverse to themselves."""
+    j = JF.index_factory(D, spec)     # a spec of the reference's grammar
+    if "NSG" in spec or "LSH" in spec:
+        with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
+            TF.index_factory(D, spec, device="cpu")
+        return
+    t = TF.index_factory(D, spec, device="cpu")
+    a, b = t, j
+    while True:
+        assert type(a).__name__ == type(b).__name__
+        if not hasattr(b, "index"):
+            break
+        a, b = a.index, b.index
+    assert _params(a) == _params(b)
+    while hasattr(b, "base_index"):          # a refine wrapper's codec
+        a, b = a.base_index, b.base_index
+    assert a.sa_code_size() == b.sa_code_size()
+    if hasattr(b, "quantizer"):
+        assert (a.quantizer.M, a.quantizer.nbits, a.quantizer_trains_alone) \
+            == (b.quantizer.M, b.quantizer.nbits, b.quantizer_trains_alone)
+    assert TF.reverse_index_factory(t) == spec
+    assert _params(_inner(TF.index_factory(D, spec, device="cpu"))) == \
+        _params(_inner(t))
 
 
 @pytest.mark.parametrize("metric", [T.METRIC_L2, T.METRIC_INNER_PRODUCT])

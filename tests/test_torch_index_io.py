@@ -325,7 +325,7 @@ def test_pending_removals_cross_package(tag, writer, data, tmp_path):
     assert not ((I1 >= 100) & (I1 < 900)).any()
 
 
-@pytest.mark.parametrize("tag,item", [("IxLs", "item 9"), ("IwRQ", "item 9"),
+@pytest.mark.parametrize("tag,item", [("IxLs", "item 9"), ("IwSH", "item 9"),
                                       ("IxMM", "item 9"), ("IxNS", "item 9"),
                                       ("BxFl", "item 9")])
 def test_unported_tag_raises(tag, item, tmp_path):
@@ -333,6 +333,57 @@ def test_unported_tag_raises(tag, item, tmp_path):
     tio._write_container(path, {"tag": tag, "d": D}, {})
     with pytest.raises(NotImplementedError, match=item):
         T.read_index(path, device="cpu")
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_ivf_rq_file_both_directions(data, writer, tmp_path):
+    """IwRQ: an IVF-RQ file written by either package reopens in the other
+    (mmap) with the same code lists, codebooks and quantizer, and searches
+    alike through the table scan (integer data: exact up to ties)."""
+    import jax.numpy as jnp
+
+    from tpu_ann.models.rq import IndexIVFResidualQuantizer as JIVFRQ
+
+    xb, xt, xq = data
+    path = str(tmp_path / "ivfrq.tann")
+    cent = xt[:NLIST]
+    j = JIVFRQ(JFlat(D), D, NLIST, 3, 6)
+    j.quantizer.add(cent)
+    j.quantizer_trains_alone = 1
+    j.max_list_scan_factor = 0
+    j.use_decoded_cache = False
+    j.train(xt)
+    books = np.round(np.asarray(j.rq.codebooks)).astype(np.float32)
+    j.rq.codebooks, j._books = books, jnp.asarray(books)
+    j.add(xb)
+    if writer == "jax":
+        jio.write_index(j, path)
+        other = T.read_index(path, mmap=True, device="cpu")
+        jidx, tidx = j, other
+    else:
+        t = T.IndexIVFResidualQuantizer(T.IndexFlat(D, device="cpu"), D,
+                                        NLIST, 3, 6, device="cpu")
+        t.quantizer.add(cent)
+        t.quantizer_trains_alone = 1
+        t._set_codec(books)
+        t.is_trained = True
+        t.add(xb)
+        tio.write_index(t, path)
+        other = jio.read_index(path, mmap=True)
+        other.max_list_scan_factor = 0
+        jidx, tidx = other, t
+    meta, _ = tio._read_container(path)
+    assert meta["tag"] == "IwRQ" and meta["cls"] == "IndexIVFResidualQuantizer"
+    assert other.ntotal == N
+    np.testing.assert_array_equal(np.asarray(jidx.rq.codebooks),
+                                  tidx.rq.codebooks)
+    np.testing.assert_array_equal(np.asarray(jidx.invlists.codes),
+                                  tidx.invlists.codes.numpy())
+    jidx.use_decoded_cache = tidx.use_decoded_cache = False
+    jidx.nprobe = tidx.nprobe = NPROBE
+    D0, I0 = jidx.search(xq, K)
+    D1, I1 = tidx.search(xq, K)
+    assert_topk_equal(D0, I0, D1, I1, rtol=1e-5)
 
 
 def test_unported_tag_from_a_jax_file(data, tmp_path):

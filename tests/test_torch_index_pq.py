@@ -117,11 +117,26 @@ def test_train_add_and_refusals(data):
     one.add(xb)
     for a, b in zip(t.search(xq, K), one.search(xq, K)):
         np.testing.assert_array_equal(a, b)
+    # ST_POLYSEMOUS with the filter off (ht 0) equals the table scan of
+    # ST_PQ, and do_polysemous_training permutes the trained codebook
+    t.use_decoded_cache = False
+    D_pq, I_pq = t.search(xq, K)
     t.search_type = t.ST_POLYSEMOUS
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t.search(xq, K)
-    t.do_polysemous_training = True
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t.train(xt)
+    D_p, I_p = t.search(xq, K)
+    np.testing.assert_array_equal(D_p, D_pq)
+    np.testing.assert_array_equal(I_p, I_pq)
+    assert t.last_hamming_pass == len(xq) * t.ntotal
+    t.polysemous_ht = 24
+    D_h, I_h = t.search(xq, K)
+    assert 0 < t.last_hamming_pass < len(xq) * t.ntotal
+    poly = TPQIndex(D, 8, 8, device="cpu")
+    poly.do_polysemous_training = True
+    poly.polysemous_iters = 300
+    poly.train(xt)
+    plain = TPQIndex(D, 8, 8, device="cpu")
+    plain.train(xt)
+    a, b = poly.pq.centroids, plain.pq.centroids
+    assert not np.array_equal(a, b)
+    np.testing.assert_array_equal(np.sort(a, axis=1), np.sort(b, axis=1))
     t.reset()
     assert t.ntotal == 0 and t._dec is None

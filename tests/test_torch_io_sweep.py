@@ -3,8 +3,9 @@ every index class the port registers round-trips through write_index /
 read_index (and read_index(mmap=True)) and searches identically after the
 reload, on the CPU (the HNSW storages on their tile routes); every index
 class the port exports is registered;
-and the PQ / refine files (IxPQ, IwPQ, IwPR, IxRF, IxRT) that one package
-writes, the other reads and searches alike."""
+and the PQ / refine files (IxPQ, IwPQ, IwPR, IxRF, IxRT) and the codec
+files (IxRQ, IwRQ, IxCQ, IxQN, IxLt) that one package writes, the other
+reads and searches alike."""
 
 import os
 
@@ -13,6 +14,7 @@ import pytest
 
 import tpu_ann_torch as T
 from tpu_ann_torch.utils import index_io
+from torch_parity import assert_topk_equal
 
 D_, NB, NQ, NT = 32, 600, 20, 800
 
@@ -83,6 +85,32 @@ def _build(name, xt, xb, path):
         idx = getattr(T, name)(flat)
         idx.add_with_ids(xb, np.arange(len(xb)) * 7 + 3)
         return idx
+    elif name in _AQ:
+        # a random codec of 6-bit stages stands in for training (the
+        # k-means and ICM passes are tested in test_torch_rq.py)
+        books = np.random.RandomState(1).randn(
+            4 if "Product" in name else 3, 64, D_).astype(np.float32) * 0.4
+        if "IVF" in name:
+            flat.add(xt[:8])
+            shape = (2, 2) if "Product" in name else (3,)
+            idx = getattr(T, name)(flat, D_, 8, *shape, 6, device=dev)
+            idx.quantizer_trains_alone = 1
+            idx.nprobe = 4
+        elif name.endswith("CoarseQuantizer"):
+            idx = getattr(T, name)(D_, 2, 3, device=dev)
+            idx.set_codebooks(books[:2, :8])
+            return idx              # a virtual database: nothing to add
+        else:
+            shape = (2, 2) if "Product" in name else (3,)
+            idx = getattr(T, name)(D_, *shape, 6, device=dev)
+        idx._set_codec(books)
+        idx.is_trained = True
+        idx.add(xb)
+        return idx
+    elif name == "IndexQINCo":
+        idx = T.IndexQINCo(D_, 16, 1, 3, 16, device=dev)
+    elif name == "IndexLattice":
+        idx = T.IndexLattice(D_, 4, 4, 6, device=dev)
     elif name in ("IndexShards", "IndexReplicas"):
         idx = getattr(T, name)(D_, device=dev)
         for _ in range(2):
@@ -102,6 +130,8 @@ def _build(name, xt, xb, path):
 
 
 _ALL = sorted(index_io._DUMPERS)
+_AQ = [n for n in _ALL if n.endswith(("Quantizer", "QuantizerR"))
+       and ("Residual" in n or "LocalSearch" in n or "Additive" in n)]
 
 
 def test_every_model_class_is_registered():
@@ -139,11 +169,18 @@ def test_roundtrip(name, mmap, data, tmp_path):
 # -- the PQ / refine tags across the two packages -----------------------------
 
 CROSS = {"IxPQ": "IndexPQ", "IwPQ": "IndexIVFPQ", "IwPR": "IndexIVFPQR",
-         "IxRF": "IndexRefineFlat", "IxRT": "IndexRefineSQ8Tier"}
+         "IxRF": "IndexRefineFlat", "IxRT": "IndexRefineSQ8Tier",
+         "IxRQ": "IndexResidualQuantizer",
+         "IwRQ": "IndexIVFResidualQuantizer",
+         "IxCQ": "ResidualCoarseQuantizer", "IxQN": "IndexQINCo",
+         "IxLt": "IndexLattice"}
 
 
 def _jax_build(name, xt, xb):
     from tpu_ann import models as JM
+    from tpu_ann.models import lattice as JL
+    from tpu_ann.models import qinco as JQ
+    from tpu_ann.models import rq as JRQ
     from tpu_ann.models.flat import IndexFlat as JFlat
 
     if name == "IndexPQ":
@@ -154,8 +191,22 @@ def _jax_build(name, xt, xb):
         idx = JM.IndexIVFPQR(JFlat(D_), D_, 8, 4, 6, 4, 6)
     elif name == "IndexRefineFlat":
         idx = JM.IndexRefineFlat(JM.IndexPQ(D_, 4, 6))
-    else:
+    elif name == "IndexRefineSQ8Tier":
         idx = JM.IndexRefineSQ8Tier(JM.IndexPQ(D_, 4, 6))
+    elif name == "IndexResidualQuantizer":
+        idx = JRQ.IndexResidualQuantizer(D_, 3, 6)
+    elif name == "IndexIVFResidualQuantizer":
+        idx = JRQ.IndexIVFResidualQuantizer(JFlat(D_), D_, 8, 3, 6)
+    elif name == "ResidualCoarseQuantizer":
+        idx = JRQ.ResidualCoarseQuantizer(D_, 2, 3)
+        idx.train(xt)
+        return idx
+    elif name == "IndexQINCo":
+        idx = JQ.IndexQINCo(D_, 16, 1, 3, 16)
+        idx.add(xb)
+        return idx
+    else:
+        idx = JL.IndexLattice(D_, 4, 4, 6)
     if hasattr(idx, "cp"):
         idx.cp.niter = 4
     if hasattr(idx, "nprobe"):
@@ -169,8 +220,8 @@ def _jax_build(name, xt, xb):
 @pytest.mark.parametrize("writer", ["jax", "port"])
 @pytest.mark.parametrize("tag", sorted(CROSS))
 def test_pq_refine_files_cross_packages(tag, writer, data, tmp_path):
-    """A file one package writes, the other reads: the same class, codes
-    and codebooks, and the same search (ids overlapping >= 0.95, the
+    """A file one package writes, the other reads (the codec tags too):
+    the same class, codes and codebooks, and the same search (ids overlapping >= 0.95, the
     distances of common ids within rtol 1e-5: the JAX index scans its
     decoded cache query-major on the CPU, the port through K3's plain
     version, and each rounds its own way near a tie)."""
@@ -191,11 +242,15 @@ def test_pq_refine_files_cross_packages(tag, writer, data, tmp_path):
         jidx, tidx = dst, src
     assert index_io._read_container(p)[0]["tag"] == tag
     assert type(dst).__name__ == type(src).__name__
-    assert dst.ntotal == src.ntotal == NB
+    assert dst.ntotal == src.ntotal == (64 if tag == "IxCQ" else NB)
     if hasattr(jidx, "max_list_scan_factor"):
         jidx.max_list_scan_factor = 0
     D0, I0 = jidx.search(xq, 10)
     D1, I1 = tidx.search(xq, 10)
+    if tag in ("IxQN", "IxLt", "IxCQ"):
+        # small codebooks decode many rows alike: ids equal up to ties
+        assert_topk_equal(D0, I0, D1, I1, rtol=1e-5, atol=1e-5)
+        return
     ov = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(I0, I1)])
     assert ov >= 0.95, ov
     for q in range(NQ):

@@ -49,6 +49,13 @@ Covered today:
   metrics (ops.extra_distances), autotune (ParameterSpace) and ivflib
   (extract_index_ivf, replace_ivf_quantizer, SlidingIndexWindow, the
   fork's ClusterManager);
+- the codecs — the additive quantizers (ops.rq, ops.lsq: RQ, LSQ and
+  their products) as flat indexes and as IVF codes, whose decoded cache
+  K3 / K3-SQ8 scan, and as coarse quantizers (ResidualCoarseQuantizer,
+  LocalSearchCoarseQuantizer); IndexQINCo (ops.qinco, nn.Modules that load
+  the reference's state dicts), IndexLattice (ops.lattice), and IndexPQ's
+  polysemous training and Hamming-filtered search (ops.hamming,
+  ops.polysemous);
 - the fork's workflow around them — index files in the JAX package's
   format (utils.index_io: write_index, read_index with mmap, clone,
   serialize; IndexIVFHNSW.save_to_disk / load), on-disk inverted lists and
@@ -74,6 +81,7 @@ from .models import (  # noqa: F401
     IndexFlatIP,
     IndexFlatL2,
     Index2Layer,
+    IndexAdditiveQuantizer,
     IndexHNSW,
     IndexHNSW2Level,
     IndexHNSWFlat,
@@ -86,21 +94,33 @@ from .models import (  # noqa: F401
     IndexIVFFlatDedup,
     IndexIVFFlatPaged,
     IndexIVFHNSW,
+    IndexIVFLocalSearchQuantizer,
+    IndexIVFProductLocalSearchQuantizer,
+    IndexIVFProductResidualQuantizer,
+    IndexIVFResidualQuantizer,
     IndexIVFPQ,
     IndexIVFPQR,
     IndexIVFScalarQuantizer,
+    IndexLattice,
+    IndexLocalSearchQuantizer,
     IndexPQ,
     IndexPreTransform,
+    IndexProductLocalSearchQuantizer,
+    IndexProductResidualQuantizer,
+    IndexQINCo,
     IndexRefine,
     IndexRefineFlat,
     IndexRefineSQ8Tier,
     IndexReplicas,
+    IndexResidualQuantizer,
     IndexScalarQuantizer,
     IndexShards,
+    LocalSearchCoarseQuantizer,
     OPQMatrix,
     PCAMatrix,
     QueryLatencyStats,
     RandomRotationMatrix,
+    ResidualCoarseQuantizer,
     SearchParameters,
     SearchParametersHNSW,
     SearchParametersIVF,
@@ -180,6 +200,8 @@ from .ops.ivf_scan_paged import (  # noqa: F401
 )
 from .ops.kmeans import ClusteringParameters, kmeans  # noqa: F401
 from .ops.pq import PQCodec, train_pq  # noqa: F401
+from .ops.qinco import QINCo, QINCoStep  # noqa: F401
+from .ops.rq import RQCodec, train_rq  # noqa: F401
 from .ops.range_search import (  # noqa: F401
     RangeSearchResult,
     csr_from_hits,
@@ -204,6 +226,8 @@ from .ops.sq import (  # noqa: F401
 )
 from .ops.topk import merge_topk, merge_topk_axis, topk_with_ids  # noqa: F401,E501
 from .utils.convert import (  # noqa: F401
+    aq_from_reference,
+    coarse_aq_from_reference,
     flat_from_reference,
     hnsw_2level_from_reference,
     hnsw_from_reference,
@@ -213,10 +237,13 @@ from .utils.convert import (  # noqa: F401
     ivf_flat_from_reference,
     ivf_hnsw_from_reference,
     ivf_pq_from_reference,
+    ivf_aq_from_reference,
     ivf_pqr_from_reference,
     ivf_sq_from_reference,
+    lattice_from_reference,
     pq_from_reference,
     pretransform_from_reference,
+    qinco_from_reference,
     refine_from_reference,
     replicas_from_reference,
     shards_from_reference,

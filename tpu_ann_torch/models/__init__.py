@@ -44,11 +44,26 @@ from .ivf_pq import (  # noqa: F401
     IndexIVFPQR,
     IndexIVFScalarQuantizer,
 )
+from .lattice import IndexLattice  # noqa: F401
 from .pq import IndexPQ, IndexScalarQuantizer  # noqa: F401
+from .qinco import IndexQINCo  # noqa: F401
 from .refine import (  # noqa: F401
     IndexRefine,
     IndexRefineFlat,
     IndexRefineSQ8Tier,
+)
+from .rq import (  # noqa: F401
+    IndexAdditiveQuantizer,
+    IndexIVFLocalSearchQuantizer,
+    IndexIVFProductLocalSearchQuantizer,
+    IndexIVFProductResidualQuantizer,
+    IndexIVFResidualQuantizer,
+    IndexLocalSearchQuantizer,
+    IndexProductLocalSearchQuantizer,
+    IndexProductResidualQuantizer,
+    IndexResidualQuantizer,
+    LocalSearchCoarseQuantizer,
+    ResidualCoarseQuantizer,
 )
 from .selectors import (  # noqa: F401
     IDSelector,

@@ -50,15 +50,85 @@ _CACHE_DTYPES = {"bfloat16": (torch.bfloat16, 2),
                  "sq8": (torch.bfloat16, 1)}
 
 
-class IndexIVFPQ(IndexIVF):
-    """IVF with PQ-coded residual invlists (faiss IndexIVFPQ).
-
-    ``use_decoded_cache`` None (auto) caches an 8-bit codec (ksub > 16)
+class DecodedCacheIVF(IndexIVF):
+    """An IVF over 8-bit code lists with a "decoded cache" (reference
+    models/ivf_pq.py:106-172, models/rq.py:299-331): the codes decoded once
+    into a raw layout the fused scan reads, rows rounded to bf16 / f32 (K3)
+    or requantized to the SQ8 stream (K3-SQ8) for ``decoded_cache_dtype``
+    "sq8". ``use_decoded_cache`` None (auto) caches a codec with ksub > 16
     when (nblocks + 1) * block_size * d * item size bytes fit
-    ``decoded_cache_max_bytes`` (reference :106-115), True / False force
-    it; ``decoded_cache_dtype`` is "bfloat16", "float32" or "sq8". The
-    cache is derived state: dropped whenever the lists change, rebuilt at
-    the next search, never written to a file."""
+    ``decoded_cache_max_bytes``; True / False force it. The cache is
+    derived state: dropped whenever the lists change (the port's
+    remove_ids / update_vectors edit them in place, and an SQ8 cache's
+    affine spans the rows), rebuilt at the next search, never written to a
+    file. Subclasses give ``nbits``, ``_decode_lists(dtype)`` and
+    ``_table_scan``, the route without a cache."""
+
+    def _cache_init(self) -> None:
+        self.use_decoded_cache: Optional[bool] = None
+        self.decoded_cache_max_bytes: int = 8 << 30
+        self.decoded_cache_dtype = "bfloat16"
+        self._decoded = None
+
+    def _lists_changed(self) -> None:
+        super()._lists_changed()
+        self._decoded = None
+
+    def _cache_enabled(self) -> bool:
+        if self.use_decoded_cache is not None:
+            return bool(self.use_decoded_cache)
+        if self.invlists is None or (1 << self.nbits) <= 16:
+            return False
+        isize = _CACHE_DTYPES[self.decoded_cache_dtype][1]
+        nbytes = ((self.invlists.nblocks + 1) * self.block_size * self.d
+                  * isize)
+        return nbytes <= self.decoded_cache_max_bytes
+
+    def _decoded_cache(self):
+        """The decoded cache of the current lists (None where the route has
+        none), built at first use: a PackedInvLists of the rows rounded to
+        the cache dtype (K3), or for "sq8" the SQ8 stream requantized from
+        the bf16-rounded rows (K3-SQ8), as the reference requantizes its
+        bf16 cache."""
+        if not self._cache_enabled():
+            return None
+        if self._decoded is None:
+            dtype = _CACHE_DTYPES[self.decoded_cache_dtype][0]
+            dec = self._decode_lists(dtype)
+            if self.decoded_cache_dtype == "sq8":
+                dec = ivf_scan.sq8_requantize_invlists(dec)
+            self._decoded = dec
+        return self._decoded
+
+    def _ready(self) -> None:
+        super()._ready()
+        self._decoded_cache()
+
+    def _scan_probes(self, xq_dev: torch.Tensor, probes: torch.Tensor,
+                     k: int, mnb: Optional[int] = None, id_mask=None):
+        """With a decoded cache: one fused scan (K3, or K3-SQ8 for "sq8"),
+        or the query-major `scan_invlists` over the cache where the base
+        class's rule picks it; without: the subclass's table scan."""
+        dl = self._decoded_cache()
+        if dl is not None and not self._query_major(mnb, id_mask):
+            Dv, Iv, _ = scan_invlists_fused(xq_dev, probes, dl, k,
+                                            self.metric_type)
+            return Dv, Iv, None
+        mnb = mnb or self._default_capped_mnb()
+        if dl is not None:
+            return ivf_scan.scan_invlists(xq_dev, probes, dl, k,
+                                          self.metric_type, max_nblocks=mnb,
+                                          id_mask=id_mask)
+        return self._table_scan(xq_dev, probes, k, mnb, id_mask)
+
+    def reset(self) -> None:
+        super().reset()
+        self._decoded = None
+
+
+class IndexIVFPQ(DecodedCacheIVF):
+    """IVF with PQ-coded residual invlists (faiss IndexIVFPQ); the decoded
+    cache of `DecodedCacheIVF`, "bfloat16", "float32" or "sq8"."""
 
     def __init__(self, quantizer, d: int, nlist: int, M: int,
                  nbits: int = 8, metric: int = D.METRIC_L2,
@@ -70,10 +140,7 @@ class IndexIVFPQ(IndexIVF):
         self.pq: Optional[PQ.PQCodec] = None
         self._cent: Optional[torch.Tensor] = None
         self.by_residual = True
-        self.use_decoded_cache: Optional[bool] = None
-        self.decoded_cache_max_bytes: int = 8 << 30
-        self.decoded_cache_dtype = "bfloat16"
-        self._decoded = None
+        self._cache_init()
 
     def _set_codec(self, centroids: np.ndarray) -> None:
         self.pq = PQ.PQCodec(centroids=np.asarray(centroids, np.float32),
@@ -82,9 +149,6 @@ class IndexIVFPQ(IndexIVF):
 
     def _residual(self) -> bool:
         return self.by_residual and self.metric_type == D.METRIC_L2
-
-    def _coarse_centroids(self) -> torch.Tensor:
-        return self._centroid_table().float()
 
     # --- training ---------------------------------------------------------
     def _residuals(self, x, assign) -> torch.Tensor:
@@ -125,67 +189,16 @@ class IndexIVFPQ(IndexIVF):
                                            self.block_size,
                                            device=self.device)
 
-    def _lists_changed(self) -> None:
-        super()._lists_changed()
-        # the reference keys its cache on the invlists object; the port's
-        # remove_ids / update_vectors edit the lists in place, so the cache
-        # goes with every change (an SQ8 cache's affine spans the rows)
-        self._decoded = None
-
     # --- decoded cache ----------------------------------------------------
-    def _cache_enabled(self) -> bool:
-        if self.use_decoded_cache is not None:
-            return bool(self.use_decoded_cache)
-        if self.invlists is None or (1 << self.nbits) <= 16:
-            return False
-        isize = _CACHE_DTYPES[self.decoded_cache_dtype][1]
-        nbytes = ((self.invlists.nblocks + 1) * self.block_size * self.d
-                  * isize)
-        return nbytes <= self.decoded_cache_max_bytes
-
     def _decode_lists(self, dtype) -> ivf_scan.PackedInvLists:
         return ivf_scan.decode_code_invlists(
             self.invlists, self._cent,
             self._coarse_centroids() if self._residual() else None,
             packed4=self.nbits == 4, dtype=dtype)
 
-    def _decoded_cache(self):
-        """The decoded cache of the current lists (None where the route has
-        none), built at first use: a PackedInvLists of the rows rounded to
-        the cache dtype (K3), or for "sq8" the SQ8 stream requantized from
-        the bf16-rounded rows (K3-SQ8), as the reference requantizes its
-        bf16 cache."""
-        if not self._cache_enabled():
-            return None
-        if self._decoded is None:
-            dtype = _CACHE_DTYPES[self.decoded_cache_dtype][0]
-            dec = self._decode_lists(dtype)
-            if self.decoded_cache_dtype == "sq8":
-                dec = ivf_scan.sq8_requantize_invlists(dec)
-            self._decoded = dec
-        return self._decoded
-
-    def _ready(self) -> None:
-        super()._ready()
-        self._decoded_cache()
-
     # --- search -----------------------------------------------------------
-    def _scan_probes(self, xq_dev: torch.Tensor, probes: torch.Tensor,
-                     k: int, mnb: Optional[int] = None, id_mask=None):
-        """With a decoded cache: one fused scan (K3, or K3-SQ8 for "sq8"),
-        or the query-major `scan_invlists` over the cache where the base
-        class's rule picks it; without: `scan_invlists_pq` (reference
-        :139-172)."""
-        dl = self._decoded_cache()
-        if dl is not None and not self._query_major(mnb, id_mask):
-            Dv, Iv, _ = scan_invlists_fused(xq_dev, probes, dl, k,
-                                            self.metric_type)
-            return Dv, Iv, None
-        mnb = mnb or self._default_capped_mnb()
-        if dl is not None:
-            return ivf_scan.scan_invlists(xq_dev, probes, dl, k,
-                                          self.metric_type, max_nblocks=mnb,
-                                          id_mask=id_mask)
+    def _table_scan(self, xq_dev, probes, k, mnb, id_mask):
+        """`scan_invlists_pq` (reference :139-172)."""
         return ivf_scan.scan_invlists_pq(
             xq_dev, probes, self.invlists, self._cent,
             self._coarse_centroids() if self._residual() else None, k,
@@ -217,10 +230,6 @@ class IndexIVFPQ(IndexIVF):
                 torch.as_tensor(np.asarray(listno, np.int64),
                                 device=self.device)]
         return x.cpu().numpy()
-
-    def reset(self) -> None:
-        super().reset()
-        self._decoded = None
 
 
 class IndexIVFPQR(IndexIVFPQ):

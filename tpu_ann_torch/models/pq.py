@@ -7,7 +7,10 @@
 with the blocked bf16 k-NN product of `ops.distances.knn` (a plain product
 outside any kernel in the reference too); otherwise ST_PQ and ST_SDC sum
 per-query look-up tables over the codes (`ops.pq.adc_scan_db`, plain torch
-as the reference's XLA). `IndexScalarQuantizer` decodes its codes with
+as the reference's XLA). ST_POLYSEMOUS filters the codes by their Hamming
+distance to the query's code and sums only those that pass
+(`ops.polysemous`), after ``do_polysemous_training`` permuted the
+codebook. `IndexScalarQuantizer` decodes its codes with
 the codec (`ops.sq.sq_decode`) and runs the exact blocked k-NN on the
 decoded rows. A range search of either takes the blocked radius scan of
 `ops.range_search` over decoded rows.
@@ -24,6 +27,7 @@ from ..ops import distances as D
 from ..ops import pq as PQ
 from ..ops import sq as SQ
 from ..ops import topk as TK
+from ..ops.polysemous import optimize_pq_for_hamming, polysemous_knn
 from .base import Index
 
 
@@ -84,9 +88,13 @@ def _next_pow2(n: int) -> int:
 class IndexPQ(Index):
     """faiss IndexPQ(d, M, nbits): flat PQ codes, ADC search.
 
-    ``search_type``: ST_PQ (asymmetric, default) or ST_SDC (the encoded
-    query's symmetric tables). ST_POLYSEMOUS and ``do_polysemous_training``
-    wait for the polysemous codec (ROADMAP queue 1, item 9)."""
+    ``search_type``: ST_PQ (asymmetric, default), ST_SDC (the encoded
+    query's symmetric tables) or ST_POLYSEMOUS (L2: the Hamming filter on
+    codes at ``polysemous_ht`` before ADC, `ops.polysemous`; 0 means
+    M * nbits + 1, the filter off; ``last_hamming_pass`` counts the
+    (query, code) pairs that passed the last such search).
+    ``do_polysemous_training`` permutes the trained centroids for Hamming
+    (``polysemous_iters`` annealing steps a sub-quantizer)."""
 
     ST_PQ = 0
     ST_POLYSEMOUS = 1
@@ -107,6 +115,8 @@ class IndexPQ(Index):
         self.search_type = self.ST_PQ
         self.do_polysemous_training = False
         self.polysemous_ht = 0
+        self.polysemous_iters = 20000
+        self.last_hamming_pass = 0
         self._sdc: Optional[torch.Tensor] = None
         # the decoded cache: None = auto (on for ksub > 16 when capacity * d
         # * 2 bytes fit decoded_cache_max_bytes, reference :161-167);
@@ -124,13 +134,13 @@ class IndexPQ(Index):
         self.is_trained = True
 
     def train(self, x) -> None:
-        if self.do_polysemous_training:
-            raise NotImplementedError(
-                "IndexPQ: polysemous training is not ported yet (ROADMAP "
-                "queue 1, item 9)")
         x = self._check_input(x)
-        self._set_codec(PQ.train_pq(x, self.M, self.nbits,
-                                    device=self.device).centroids)
+        cents = PQ.train_pq(x, self.M, self.nbits,
+                            device=self.device).centroids
+        if self.do_polysemous_training:
+            cents = optimize_pq_for_hamming(cents,
+                                            n_iter=self.polysemous_iters)
+        self._set_codec(cents)
 
     @property
     def _packed4(self) -> bool:
@@ -188,9 +198,15 @@ class IndexPQ(Index):
         xq = self._to_device(x)
         id_mask = _sel_mask(params, self.ntotal, self.device)
         if self.search_type == self.ST_POLYSEMOUS:
-            raise NotImplementedError(
-                "IndexPQ: ST_POLYSEMOUS is not ported yet (ROADMAP queue 1, "
-                "item 9)")
+            if self.is_similarity:
+                raise ValueError("IndexPQ: ST_POLYSEMOUS is L2 only")
+            # 0 maps to M * nbits + 1: every code passes (IndexPQ.cpp:330)
+            ht = self.polysemous_ht or (self.M * self.nbits + 1)
+            Dv, Iv, npass = polysemous_knn(
+                xq, self._codes, self._cent, k, ht, self.ntotal,
+                packed4=self._packed4, id_mask=id_mask)
+            self.last_hamming_pass = int(npass.sum())
+            return Dv.cpu().numpy(), Iv.cpu().numpy()
         if self.search_type == self.ST_SDC:
             if self._sdc is None:
                 self._sdc = PQ.sdc_tables(self._cent)

@@ -226,12 +226,18 @@ def ivf_sq_from_reference(state: dict,
 def pq_from_reference(state: dict, device="cuda") -> IndexPQ:
     """A port `IndexPQ` from a `tpu_ann` one's arrays, as numpy: d, M,
     nbits, metric, centroids (M, ksub, dsub) and codes (ntotal, code
-    width) uint8."""
+    width) uint8; optionally search_type, polysemous_ht and
+    do_polysemous_training (a polysemous index's centroids are already
+    permuted)."""
     codes = np.asarray(state["codes"], np.uint8)
     meta = {"tag": "IxPQ", "d": int(state["d"]), "M": int(state["M"]),
             "nbits": int(state["nbits"]),
             "metric": int(state.get("metric", METRIC_L2)),
-            "ntotal": len(codes)}
+            "ntotal": len(codes),
+            "search_type": int(state.get("search_type", 0)),
+            "polysemous_ht": int(state.get("polysemous_ht", 0)),
+            "do_polysemous_training": bool(
+                state.get("do_polysemous_training", False))}
     return iio.load_index(meta, {"centroids": state["centroids"],
                                  "codes": codes}, device=device)
 
@@ -362,3 +368,102 @@ def replicas_from_reference(state: dict, replicas) -> IndexReplicas:
     for r in replicas:
         idx.add_replica(r)
     return idx
+
+
+# --- the additive quantizers, QINCo and the lattice -------------------------
+
+_AQ_KEYS = ("beam_size", "train_iters", "icm_iters", "nperts", "lambd",
+            "nsplits", "Msub")
+
+
+def _aq_meta(state: dict) -> dict:
+    return {"cls": state["cls"], "d": int(state["d"]),
+            "metric": int(state.get("metric", METRIC_L2)),
+            "M": int(state["M"]), "nbits": int(state["nbits"]),
+            **{k: state[k] for k in _AQ_KEYS if k in state}}
+
+
+def coarse_aq_from_reference(state: dict, device="cuda"):
+    """A port ResidualCoarseQuantizer / LocalSearchCoarseQuantizer from a
+    `tpu_ann` one: cls (its class name), d, M, nbits, beam_factor and
+    codebooks (M, ksub, d)."""
+    return iio.load_index(*_coarse_file(state), device=device)
+
+
+def _coarse_file(state: dict):
+    meta = {"tag": "IxCQ", "cls": state["cls"], "d": int(state["d"]),
+            "metric": int(state.get("metric", METRIC_L2)),
+            "M": int(state["M"]), "nbits": int(state["nbits"]),
+            "beam_factor": float(state["beam_factor"]), "is_trained": True}
+    return meta, {"codebooks": np.asarray(state["codebooks"], np.float32)}
+
+
+def aq_from_reference(state: dict, device="cuda"):
+    """A port flat additive index (IndexResidualQuantizer,
+    IndexLocalSearchQuantizer, IndexProduct...) from a `tpu_ann` one: cls,
+    d, M (the stages, nsplits * Msub for a product), nbits, codebooks
+    (M, ksub, d), codes (ntotal, M) uint8, norms (ntotal,) f32, and
+    nsplits / Msub for a product, the LSQ knobs if set."""
+    codes = np.asarray(state["codes"], np.uint8)
+    meta = {"tag": "IxRQ", "ntotal": len(codes), "is_trained": True,
+            **_aq_meta(state)}
+    arrays = {"codebooks": np.asarray(state["codebooks"], np.float32)}
+    if len(codes):
+        arrays.update(codes=codes,
+                      norms=np.asarray(state["norms"], np.float32))
+    return iio.load_index(meta, arrays, device=device)
+
+
+def ivf_aq_from_reference(state: dict, device="cuda"):
+    """A search-only port IVF additive index (IndexIVFResidualQuantizer and
+    its family) from a `tpu_ann` one: the keys of `ivf_flat_from_reference`
+    with ``codes`` ((nblocks+1, B, M + 4) uint8, the packed payload lists)
+    in place of data and norms, plus cls, M, nbits, codebooks, and either
+    ``vectors`` (an IndexFlat quantizer's centroids) or ``coarse`` (the
+    `coarse_aq_from_reference` state of an additive coarse quantizer)."""
+    d, nlist = int(state["d"]), int(state["nlist"])
+    if "coarse" in state:
+        quantizer = _coarse_file(state["coarse"])
+    else:
+        quantizer = ({"tag": "IxFl", "d": d, "metric": int(state["metric"]),
+                      "ntotal": nlist},
+                     {"xb": np.asarray(state["vectors"], np.float32)})
+    lists = {"il_data": np.asarray(state["codes"], np.uint8),
+             "il_ids": state["ids"],
+             "codebooks": np.asarray(state["codebooks"], np.float32)}
+    meta = _aq_meta(state)
+    meta.pop("d")
+    meta.pop("metric")
+    return _load_ivf("IwRQ", state, quantizer, lists, device, **meta)
+
+
+def qinco_from_reference(state: dict, device="cuda"):
+    """A port IndexQINCo from a `tpu_ann` one: d, K, L, M, h, metric, the
+    packed ``codes`` (ntotal, code size) uint8, and its QINCoParams as
+    numpy: ``codebook0`` (K, d) and ``steps``, one dict a step with
+    codebook, w_cb, w_xh, b, ffn_w1, ffn_w2 (the reference's layout)."""
+    codes = np.asarray(state["codes"], np.uint8)
+    meta = {"tag": "IxQN", "d": int(state["d"]),
+            "metric": int(state.get("metric", METRIC_L2)),
+            "ntotal": len(codes), "K": int(state["K"]), "L": int(state["L"]),
+            "M": int(state["M"]), "h": int(state["h"])}
+    arrays = {"codes": codes, "codebook0": state["codebook0"]}
+    for i, st in enumerate(state["steps"]):
+        for name, v in st.items():
+            arrays[f"step{i}/{name}"] = np.asarray(v, np.float32)
+    return iio.load_index(meta, arrays, device=device)
+
+
+def lattice_from_reference(state: dict, device="cuda"):
+    """A port IndexLattice from a `tpu_ann` one: d, nsq, scale_nbit, r2,
+    metric, ``trained`` (2, nsq) f32 and the packed ``codes``."""
+    codes = np.asarray(state["codes"], np.uint8)
+    meta = {"tag": "IxLt", "d": int(state["d"]),
+            "metric": int(state.get("metric", METRIC_L2)),
+            "ntotal": len(codes), "nsq": int(state["nsq"]),
+            "scale_nbit": int(state["scale_nbit"]), "r2": int(state["r2"]),
+            "is_trained": True}
+    return iio.load_index(meta, {"codes": codes,
+                                 "trained": np.asarray(state["trained"],
+                                                       np.float32)},
+                          device=device)

@@ -18,6 +18,17 @@ for the index classes the port has:
   IVF<n>[_HNSW<M>],PQ<m>[x<b>][fs[_n]|np]
                                 IndexIVFPQ (PQ<m>x4fs: 4-bit codes)
   IVF<n>[_HNSW<M>],PQ<m>+<m'>   IndexIVFPQR (8-bit base and refine PQ)
+  RQ<M>x<b>, LSQ<M>x<b>        IndexResidualQuantizer / IndexLocalSearchQuantizer
+  PRQ<n>x<M>x<b>, PLSQ<n>x<M>x<b>
+                                IndexProductResidualQuantizer / ...LocalSearch...
+  ZnLattice<nsq>x<r2>_<sb>      IndexLattice
+  IVF<n>[_HNSW<M>],RQ<M>x<b> | LSQ... | PRQ... | PLSQ...
+                                IndexIVFResidualQuantizer and its family
+  IVF<n>(RCQ<M>x<b> | LSCQ<M>x<b>),<code>
+                                an IVF of any code above over a
+                                ResidualCoarseQuantizer /
+                                LocalSearchCoarseQuantizer (ksub^M == n,
+                                quantizer_trains_alone = 1)
   <any of these>,RFlat | Refine(Flat)
                                 IndexRefineFlat over the index
   <any of these>,RSQ8t | Refine(SQ8Tier)
@@ -29,8 +40,8 @@ for the index classes the port has:
   IndexIDMap / IndexIDMap2 around everything (reference :172-195, 300-313)
 
 with the same spelling as the reference. Every other token of the
-reference's grammar raises NotImplementedError naming the ROADMAP queue 1
-item that ports its class; a token the reference does not know either
+reference's grammar (NSG, LSH) raises NotImplementedError naming the
+ROADMAP queue 1 item that ports its class; a token the reference does not know either
 (ITQ among them: the reference's factory has no ITQ prefix) raises
 ValueError. `reverse_index_factory`, `get_code_size` and `get_hnsw_M`
 cover the same classes; the reverse writes each prefix's own token back
@@ -51,8 +62,17 @@ from ..models.ivf import IndexIVF, IndexIVFFlat, IndexIVFFlatDedup
 from ..models.ivf_hnsw import IndexIVFHNSW
 from ..models.ivf_pq import IndexIVFScalarQuantizer
 from ..models.ivf_pq import IndexIVFPQ, IndexIVFPQR
+from ..models.lattice import IndexLattice
 from ..models.pq import IndexPQ, IndexScalarQuantizer
 from ..models.refine import IndexRefine, IndexRefineFlat, IndexRefineSQ8Tier
+from ..models.rq import (AdditiveCoarseQuantizer, IndexIVFLocalSearchQuantizer,
+                         IndexIVFProductLocalSearchQuantizer,
+                         IndexIVFProductResidualQuantizer,
+                         IndexIVFResidualQuantizer, IndexLocalSearchQuantizer,
+                         IndexProductLocalSearchQuantizer,
+                         IndexProductResidualQuantizer,
+                         IndexResidualQuantizer, LocalSearchCoarseQuantizer,
+                         ResidualCoarseQuantizer)
 from ..models.transforms import (IndexPreTransform, NormalizationTransform,
                                  OPQMatrix, PCAMatrix, RandomRotationMatrix)
 from ..ops import distances as D
@@ -67,10 +87,12 @@ _HNSW_SQ = {"SQ8": "sq8", "SQfp16": "float16", "SQbf16": "bfloat16"}
 # the reference's other tokens (regex), by the ROADMAP queue 1 item that
 # ports their classes
 _UNPORTED = (
-    (r"(P?RQ|P?LSQ)\d+x\d+(x\d+)?(fs(_\d+)?)?|NSG\d*|LSH\d*r?t?"
-     r"|ZnLattice\d+x\d+_\d+|IVF\d+(_HNSW\d+)?\([^)]+\)",
-     "item 9 (the remaining codecs and indexes)"),
+    (r"NSG\d*|LSH\d*r?t?", "item 9 (the remaining codecs and indexes)"),
 )
+_AQ = r"(RQ|LSQ)(\d+)x(\d+)(?:fs(?:_\d+)?)?"
+_PAQ = r"(PRQ|PLSQ)(\d+)x(\d+)x(\d+)"
+_LATTICE = r"ZnLattice(\d+)x(\d+)_(\d+)"
+_IVF = r"IVF(\d+)(?:_HNSW(\d+)|\((RCQ|LSCQ)(\d+)x(\d+)\))?"
 
 
 def _refusal(tok: str) -> Exception:
@@ -107,8 +129,8 @@ def _split(spec: str):
         prefixes.append(toks.pop(0))
     if not toks:
         raise ValueError(f"index_factory({spec!r}): no index container")
-    if not re.fullmatch(r"IVF\d+(_HNSW\d+)?|HNSW\d*|Flat|SQ\w+|" + _PQ,
-                        toks[0]):
+    if not re.fullmatch(r"HNSW\d*|Flat|SQ\w+|" + "|".join(
+            (_PQ, _IVF, _AQ, _PAQ, _LATTICE)), toks[0]):
         raise _refusal(toks[0])
     if len(toks) > 2:
         raise _refusal(toks[2])
@@ -156,36 +178,45 @@ def index_factory(d: int, spec: str, metric: int = D.METRIC_L2, *,
     return idmap(index) if idmap else index
 
 
+def _coarse(kind: str, M: int, nbits: int, d: int, nlist: int, metric: int,
+            device) -> Index:
+    """The parenthesized coarse quantizer RCQ<M>x<b> / LSCQ<M>x<b>, whose
+    ksub^M centroids must number nlist (reference :66-82)."""
+    if (1 << (M * nbits)) != nlist:
+        raise ValueError(
+            f"index_factory: {kind}{M}x{nbits} yields {1 << (M * nbits)} "
+            f"centroids, but nlist={nlist}")
+    cls = ResidualCoarseQuantizer if kind == "RCQ" else \
+        LocalSearchCoarseQuantizer
+    return cls(d, M, nbits, metric, device=device)
+
+
 def _container(d: int, head: str, code, metric: int, device) -> Index:
-    if m := re.fullmatch(r"IVF(\d+)(?:_HNSW(\d+))?", head):
+    if m := re.fullmatch(_IVF, head):
         code = code or "Flat"
         nlist, hnsw_m = int(m.group(1)), int(m.group(2) or 0)
+        coarse = m.group(3)
         if code == "Flat":
             if hnsw_m:
                 return IndexIVFHNSW(d, nlist, metric, M=hnsw_m,
                                     device=device)
-            return IndexIVFFlat(IndexFlat(d, metric, device=device), d,
-                                nlist, metric, device=device)
         if code == "FlatDedup":
             # over an IndexFlat quantizer whatever the prefix, as the
             # reference builds it
             return IndexIVFFlatDedup(IndexFlat(d, metric, device=device), d,
                                      nlist, metric, device=device)
-        quant = IndexHNSWFlat(d, hnsw_m, metric, device=device) \
-            if hnsw_m else IndexFlat(d, metric, device=device)
-        if code in _SQ_TYPES:
-            return IndexIVFScalarQuantizer(quant, d, nlist, _SQ_TYPES[code],
-                                           metric, device=device)
-        if m := re.fullmatch(r"PQ(\d+)\+(\d+)", code):
-            # IVFPQR: the base PQ and a refinement PQ, 8 bits each
-            return IndexIVFPQR(quant, d, nlist, int(m.group(1)), 8,
-                               int(m.group(2)), 8, metric, device=device)
-        if m := re.fullmatch(_PQ, code):
-            # "fs" is the 4-bit packed layout, "np" no polysemous training
-            # (neither package trains it here)
-            return IndexIVFPQ(quant, d, nlist, int(m.group(1)),
-                              int(m.group(2) or 8), metric, device=device)
-        raise _refusal(code)
+        if hnsw_m:
+            quant = IndexHNSWFlat(d, hnsw_m, metric, device=device)
+        elif coarse:
+            quant = _coarse(coarse, int(m.group(4)), int(m.group(5)), d,
+                            nlist, metric, device)
+        else:
+            quant = IndexFlat(d, metric, device=device)
+        index = _ivf_code(quant, d, nlist, code, metric, device)
+        if coarse:
+            # the virtual quantizer trains alone (reference :84-154)
+            index.quantizer_trains_alone = 1
+        return index
     if m := re.fullmatch(r"HNSW(\d+)?", head):
         # parse_IndexHNSW's storage codes (index_factory.cpp:443-490)
         hm = int(m.group(1) or 32)
@@ -210,7 +241,51 @@ def _container(d: int, head: str, code, metric: int, device) -> Index:
     if m := re.fullmatch(_PQ, head):
         return IndexPQ(d, int(m.group(1)), int(m.group(2) or 8), metric,
                        device=device)
+    if m := re.fullmatch(_AQ, head):
+        cls = IndexResidualQuantizer if m.group(1) == "RQ" else \
+            IndexLocalSearchQuantizer
+        return cls(d, int(m.group(2)), int(m.group(3)), metric,
+                   device=device)
+    if m := re.fullmatch(_PAQ, head):
+        cls = IndexProductResidualQuantizer if m.group(1) == "PRQ" else \
+            IndexProductLocalSearchQuantizer
+        return cls(d, int(m.group(2)), int(m.group(3)), int(m.group(4)),
+                   metric, device=device)
+    if m := re.fullmatch(_LATTICE, head):
+        # index_factory.cpp:554 "ZnLattice<nsq>x<r2>_<scale_nbit>"
+        return IndexLattice(d, int(m.group(1)), int(m.group(3)),
+                            int(m.group(2)), metric, device=device)
     raise _refusal(head)
+
+
+def _ivf_code(quant: Index, d: int, nlist: int, code: str, metric: int,
+              device) -> IndexIVF:
+    """The IVF index of code token ``code`` over ``quant``."""
+    if code == "Flat":
+        return IndexIVFFlat(quant, d, nlist, metric, device=device)
+    if code in _SQ_TYPES:
+        return IndexIVFScalarQuantizer(quant, d, nlist, _SQ_TYPES[code],
+                                       metric, device=device)
+    if m := re.fullmatch(r"PQ(\d+)\+(\d+)", code):
+        # IVFPQR: the base PQ and a refinement PQ, 8 bits each
+        return IndexIVFPQR(quant, d, nlist, int(m.group(1)), 8,
+                           int(m.group(2)), 8, metric, device=device)
+    if m := re.fullmatch(_PQ, code):
+        # "fs" is the 4-bit packed layout, "np" no polysemous training
+        # (neither package trains it here)
+        return IndexIVFPQ(quant, d, nlist, int(m.group(1)),
+                          int(m.group(2) or 8), metric, device=device)
+    if m := re.fullmatch(_AQ, code):
+        cls = IndexIVFResidualQuantizer if m.group(1) == "RQ" else \
+            IndexIVFLocalSearchQuantizer
+        return cls(quant, d, nlist, int(m.group(2)), int(m.group(3)),
+                   metric, device=device)
+    if m := re.fullmatch(_PAQ, code):
+        cls = IndexIVFProductResidualQuantizer if m.group(1) == "PRQ" \
+            else IndexIVFProductLocalSearchQuantizer
+        return cls(quant, d, nlist, int(m.group(2)), int(m.group(3)),
+                   int(m.group(4)), metric, device=device)
+    raise _refusal(code)
 
 
 def get_code_size(d: int, spec: str) -> int:
@@ -225,7 +300,7 @@ def get_code_size(d: int, spec: str) -> int:
             size += 8
         elif m := re.fullmatch(r"(?:PCA[RW]?|OPQ\d+_|RR)(\d+)", tok):
             d = int(m.group(1))
-    if re.fullmatch(r"IVF(\d+)(?:_HNSW(\d+))?", head):
+    if re.fullmatch(_IVF, head):
         return size + _code_bytes(d, code or "Flat")
     if m := re.fullmatch(r"HNSW(\d+)?", head):
         links = 4 * 2 * int(m.group(1) or 32)   # ~2M int32 level-0 edges
@@ -244,6 +319,11 @@ def _code_bytes(d: int, code: str) -> int:
         return int(m.group(1)) + int(m.group(2))
     if m := re.fullmatch(r"PQ(\d+)(?:x(\d+))?(?:fs(?:_\d+)?)?", code):
         return (int(m.group(1)) * int(m.group(2) or 8) + 7) // 8
+    if m := re.fullmatch(_AQ, code):
+        # a byte a stage and the f32 norm (ST_norm_float)
+        return int(m.group(2)) + 4
+    if m := re.fullmatch(_PAQ, code):
+        return int(m.group(2)) * int(m.group(3)) + 4
     raise _refusal(code)
 
 
@@ -270,8 +350,13 @@ def reverse_index_factory(index) -> str:
         return reverse_index_factory(index.base_index) + ",RSQ8t"
     if isinstance(index, IndexIVF):
         prefix = f"IVF{index.nlist}"
-        if isinstance(index.quantizer, IndexHNSW):
-            prefix += f"_HNSW{get_hnsw_M(index.quantizer)}"
+        q = index.quantizer
+        if isinstance(q, IndexHNSW):
+            prefix += f"_HNSW{get_hnsw_M(q)}"
+        elif isinstance(q, AdditiveCoarseQuantizer):
+            kind = "LSCQ" if isinstance(q, LocalSearchCoarseQuantizer) \
+                else "RCQ"
+            prefix += f"({kind}{q.M}x{q.nbits})"
         if isinstance(index, IndexIVFPQR):
             return f"{prefix},PQ{index.M}+{index.M_refine}"
         if isinstance(index, IndexIVFPQ):
@@ -279,6 +364,8 @@ def reverse_index_factory(index) -> str:
             return f"{prefix},PQ{index.M}x{index.nbits}{suffix}"
         if isinstance(index, IndexIVFScalarQuantizer):
             return f"{prefix},{_SQ_NAMES[index.qtype]}"
+        if isinstance(index, IndexIVFResidualQuantizer):
+            return f"{prefix},{_aq_token(index)}"
         if isinstance(index, IndexIVFFlatDedup):
             # the reference returns ",Flat", which re-parses to another
             # class
@@ -297,11 +384,25 @@ def reverse_index_factory(index) -> str:
         return f"HNSW{get_hnsw_M(index)}"
     if isinstance(index, IndexPQ):
         return f"PQ{index.M}x{index.nbits}"
+    if isinstance(index, IndexResidualQuantizer):
+        return _aq_token(index)
+    if isinstance(index, IndexLattice):
+        # the reference cannot reverse IndexLattice
+        return f"ZnLattice{index.nsq}x{index.zn.r2}_{index.scale_nbit}"
     if isinstance(index, IndexScalarQuantizer):
         return _SQ_NAMES[index.qtype]
     if isinstance(index, IndexFlat):
         return "Flat"
     raise ValueError(f"cannot reverse {type(index).__name__}")
+
+
+def _aq_token(index) -> str:
+    """RQ<M>x<b>, LSQ..., PRQ<n>x<M>x<b> or PLSQ... of an additive index,
+    flat or IVF."""
+    kind = "LSQ" if "LocalSearch" in type(index).__name__ else "RQ"
+    if hasattr(index, "nsplits"):
+        return f"P{kind}{index.nsplits}x{index.Msub}x{index.nbits}"
+    return f"{kind}{index.M}x{index.nbits}"
 
 
 def _transform_token(vt) -> str:

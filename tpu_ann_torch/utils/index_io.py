@@ -636,9 +636,14 @@ def _load_ivfsq(meta, arrays, device):
 
 
 def _dump_pq(index):
-    """IxPQ (reference :499-527): the codebook and the stored codes."""
+    """IxPQ (reference :499-527): the codebook (a polysemous index's
+    permuted one) and the stored codes; the port adds its search type and
+    polysemous threshold, which the reference's loader ignores."""
     return ({"tag": "IxPQ", "d": index.d, "metric": index.metric_type,
-             "ntotal": index.ntotal, "M": index.M, "nbits": index.nbits},
+             "ntotal": index.ntotal, "M": index.M, "nbits": index.nbits,
+             "search_type": index.search_type,
+             "polysemous_ht": index.polysemous_ht,
+             "do_polysemous_training": index.do_polysemous_training},
             {"centroids": index.pq.centroids,
              "codes": index._codes if index.ntotal
              else np.zeros((0, 0), np.uint8)})
@@ -650,6 +655,10 @@ def _load_pq(meta, arrays, device):
     idx = IndexPQ(int(meta["d"]), int(meta["M"]), int(meta["nbits"]),
                   int(meta["metric"]), device=device)
     idx._set_codec(arrays["centroids"])
+    idx.search_type = int(meta.get("search_type", idx.ST_PQ))
+    idx.polysemous_ht = int(meta.get("polysemous_ht", 0))
+    idx.do_polysemous_training = bool(meta.get("do_polysemous_training",
+                                               False))
     if meta["ntotal"]:
         idx._codes = to_tensor(arrays["codes"], device, np.uint8)
         idx._capacity = idx._codes.shape[0]
@@ -959,6 +968,195 @@ _DUMPERS: dict = {}
 _LOADERS: dict = {}
 
 
+# --- the additive quantizers, QINCo and the lattice (reference :735-790,
+#     :820-900, :1578-1623) -------------------------------------------------
+
+_AQ_SCALARS = ("train_iters", "icm_iters", "nperts", "lambd", "nsplits",
+               "Msub")
+
+
+def _aq_meta(index) -> dict:
+    m = {"M": index.M, "nbits": index.nbits, "beam_size": index.beam_size}
+    for f in _AQ_SCALARS:
+        if hasattr(index, f):
+            m[f] = getattr(index, f)
+    return m
+
+
+def _aq_restore(idx, meta, arrays) -> None:
+    for f in ("beam_size", "train_iters", "icm_iters", "nperts", "lambd"):
+        if f in meta:
+            setattr(idx, f, meta[f])
+    if "codebooks" in arrays:
+        idx._set_codec(np.asarray(arrays["codebooks"], np.float32))
+
+
+def _aq_class(name: str):
+    from ..models import rq as RQM
+
+    if name not in RQM.__dict__ or not name.startswith(
+            ("Index", "Residual", "LocalSearch")):
+        raise ValueError(f"unknown additive quantizer class {name!r}")
+    return getattr(RQM, name)
+
+
+def _dump_rq(index):
+    """IxRQ: the codebooks, the (n, M) stage codes and their norms."""
+    meta = {"tag": "IxRQ", "cls": type(index).__name__, "d": index.d,
+            "metric": index.metric_type, "ntotal": index.ntotal,
+            "is_trained": index.is_trained, **_aq_meta(index)}
+    arrays = {}
+    if index.rq is not None:
+        arrays["codebooks"] = index.rq.codebooks
+    if index.ntotal:
+        arrays.update(codes=index._codes, norms=index._norms)
+    return meta, arrays
+
+
+def _load_rq(meta, arrays, device):
+    cls = _aq_class(meta["cls"])
+    d, metric = int(meta["d"]), int(meta["metric"])
+    if "nsplits" in meta:
+        idx = cls(d, int(meta["nsplits"]), int(meta["Msub"]),
+                  int(meta["nbits"]), metric, device=device)
+    else:
+        idx = cls(d, int(meta["M"]), int(meta["nbits"]), metric,
+                  device=device)
+    _aq_restore(idx, meta, arrays)
+    if "codes" in arrays:
+        idx._codes = to_tensor(arrays["codes"], device, np.uint8)
+        idx._norms = to_tensor(arrays["norms"], device, np.float32)
+        idx.ntotal = int(meta["ntotal"])
+    return idx
+
+
+def _dump_ivfrq(index):
+    """IwRQ: the IVF arrays (code lists of stage bytes and norms), the
+    codebooks and the class. The decoded cache is never written."""
+    meta, arrays = _dump_ivf_common(index)
+    meta.update(tag="IwRQ", cls=type(index).__name__, **_aq_meta(index))
+    if index.rq is not None:
+        arrays["codebooks"] = index.rq.codebooks
+    return meta, arrays
+
+
+def _load_ivfrq(meta, arrays, device):
+    from ..models.flat import IndexFlat
+
+    cls = _aq_class(meta["cls"])
+    d, metric = int(meta["d"]), int(meta["metric"])
+    q = IndexFlat(d, metric, device=device)    # replaced by the file's
+    shape = ((int(meta["nsplits"]), int(meta["Msub"])) if "nsplits" in meta
+             else (int(meta["M"]),))
+    idx = cls(q, d, int(meta["nlist"]), *shape, int(meta["nbits"]), metric,
+              int(meta["block_size"]), device=device)
+    _aq_restore(idx, meta, arrays)
+    return _restore_ivf_common(idx, meta, arrays, device)
+
+
+def _dump_coarse_aq(index):
+    """IxCQ: an additive coarse quantizer's codebooks and beam factor."""
+    meta = {"tag": "IxCQ", "cls": type(index).__name__, "d": index.d,
+            "metric": index.metric_type, "M": index.M,
+            "nbits": index.nbits, "beam_factor": index.beam_factor,
+            "is_trained": index.is_trained}
+    arrays = {}
+    if index.rq is not None:
+        arrays["codebooks"] = index.rq.codebooks
+    return meta, arrays
+
+
+def _load_coarse_aq(meta, arrays, device):
+    cls = _aq_class(meta["cls"])
+    idx = cls(int(meta["d"]), int(meta["M"]), int(meta["nbits"]),
+              int(meta["metric"]), device=device)
+    idx.beam_factor = float(meta["beam_factor"])
+    if "codebooks" in arrays:
+        idx.set_codebooks(np.asarray(arrays["codebooks"], np.float32))
+    return idx
+
+
+# IxQN arrays of a step, in the reference's layout: right factors of
+# MLPconcat's two halves, its bias, and (L, d, h) / (L, h, d) FFN weights
+_QINCO_STEP = ("codebook", "w_cb", "w_xh", "b", "ffn_w1", "ffn_w2")
+
+
+def _dump_qinco(index):
+    """IxQN: the packed codes and the weights in the reference's layout."""
+    meta = {"tag": "IxQN", "d": index.d, "metric": index.metric_type,
+            "ntotal": index.ntotal, "K": index.K, "L": index.L,
+            "M": index.M, "h": index.h, "nbits": index.nbits}
+    net = index.qinco
+    arrays = {"codes": index._codes,
+              "codebook0": net.codebook0.weight.detach()}
+    for i, st in enumerate(net.steps):
+        w_cb, w_xh = st._weights()
+        blocks = st.residual_blocks
+        vals = (st.codebook.weight, w_cb, w_xh, st.MLPconcat.bias,
+                torch.stack([b.linear1.weight.T for b in blocks])
+                if len(blocks) else torch.zeros((0, index.d, index.h)),
+                torch.stack([b.linear2.weight.T for b in blocks])
+                if len(blocks) else torch.zeros((0, index.h, index.d)))
+        for name, v in zip(_QINCO_STEP, vals):
+            arrays[f"step{i}/{name}"] = v.detach()
+    return meta, arrays
+
+
+def _load_qinco(meta, arrays, device):
+    from ..models.qinco import IndexQINCo
+    from ..ops.qinco import QINCo
+
+    d, L = int(meta["d"]), int(meta["L"])
+    state = {"codebook0.weight": np.asarray(arrays["codebook0"])}
+    for i in range(int(meta["M"]) - 1):
+        a = {n: np.asarray(arrays[f"step{i}/{n}"], np.float32)
+             for n in _QINCO_STEP}
+        state[f"steps.{i}.codebook.weight"] = a["codebook"]
+        state[f"steps.{i}.MLPconcat.weight"] = np.concatenate(
+            [a["w_cb"].T, a["w_xh"].T], axis=1)
+        state[f"steps.{i}.MLPconcat.bias"] = a["b"]
+        for j in range(L):
+            state[f"steps.{i}.residual_blocks.{j}.linear1.weight"] = \
+                a["ffn_w1"][j].T
+            state[f"steps.{i}.residual_blocks.{j}.linear2.weight"] = \
+                a["ffn_w2"][j].T
+    net = QINCo(d, int(meta["K"]), L, int(meta["M"]), int(meta["h"]))
+    net.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v,
+                                                                  np.float32))
+                         for k, v in state.items()})
+    idx = IndexQINCo(d, int(meta["K"]), L, int(meta["M"]), int(meta["h"]),
+                     int(meta["metric"]), net, device=device)
+    idx._codes = to_tensor(arrays["codes"], device, np.uint8)
+    idx.ntotal = int(meta["ntotal"])
+    return idx
+
+
+def _dump_lattice(index):
+    """IxLt: the packed codes and the trained norm range."""
+    meta = {"tag": "IxLt", "d": index.d, "metric": index.metric_type,
+            "ntotal": index.ntotal, "nsq": index.nsq,
+            "scale_nbit": index.scale_nbit, "r2": index.zn.r2,
+            "is_trained": index.is_trained}
+    arrays = {"codes": index._codes}
+    if index.trained is not None:
+        arrays["trained"] = index.trained
+    return meta, arrays
+
+
+def _load_lattice(meta, arrays, device):
+    from ..models.lattice import IndexLattice
+
+    idx = IndexLattice(int(meta["d"]), int(meta["nsq"]),
+                       int(meta["scale_nbit"]), int(meta["r2"]),
+                       int(meta["metric"]), device=device)
+    if "trained" in arrays:
+        idx.trained = np.array(arrays["trained"], np.float32)
+    idx.is_trained = bool(meta["is_trained"])
+    idx._codes = to_tensor(arrays["codes"], device, np.uint8)
+    idx.ntotal = int(meta["ntotal"])
+    return idx
+
+
 def _register(cls_name: str, tag: str, dump, load) -> None:
     _DUMPERS[cls_name] = dump
     _LOADERS[tag] = load
@@ -994,12 +1192,25 @@ _register("IndexIDMap", "IxMp", _dump_idmap, _load_idmap)
 _register("IndexIDMap2", "IxM2", _dump_idmap, _load_idmap)
 _register("IndexShards", "IxSh", _dump_shards, _load_shards)
 _register("IndexReplicas", "IxRp", _dump_replicas, _load_replicas)
+for _cls in ("IndexResidualQuantizer", "IndexAdditiveQuantizer",
+             "IndexLocalSearchQuantizer",
+             "IndexProductResidualQuantizer",
+             "IndexProductLocalSearchQuantizer"):
+    _register(_cls, "IxRQ", _dump_rq, _load_rq)
+for _cls in ("IndexIVFResidualQuantizer", "IndexIVFLocalSearchQuantizer",
+             "IndexIVFProductResidualQuantizer",
+             "IndexIVFProductLocalSearchQuantizer"):
+    _register(_cls, "IwRQ", _dump_ivfrq, _load_ivfrq)
+for _cls in ("ResidualCoarseQuantizer", "LocalSearchCoarseQuantizer"):
+    _register(_cls, "IxCQ", _dump_coarse_aq, _load_coarse_aq)
+_register("IndexQINCo", "IxQN", _dump_qinco, _load_qinco)
+_register("IndexLattice", "IxLt", _dump_lattice, _load_lattice)
 
 # the reference's other tags, by the ROADMAP queue 1 item that ports their
 # classes
 _ITEMS = {
     "item 9 (the remaining codecs and indexes)": (
-        "IxRQ", "IwRQ", "IxCQ", "IxQN", "IxLt", "IxLs", "IxMM", "IxMI",
+        "IxLs", "IxMM", "IxMI",
         "IxSV", "IxRn", "IxNS", "IxNP", "IxNQ", "IxND", "IwSH",
         "IwIQ", "BxFl", "BwFl", "BxHN", "BxHs", "BxMH", "BxFF"),
 }

@@ -11,6 +11,8 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
                                          # 10k rows of a random reservoir
     python3 chip_smoke.py --phase19      # only phase 19 (the codecs), on
                                          # phase 3's data and quantizer
+    python3 chip_smoke.py --phase20      # only phase 20 (the index
+                                         # families), likewise
 
 Phases, one line each; any failure raises and exits non-zero:
   1. device  — a CUDA device is required; nvidia-smi's name and power limit.
@@ -338,6 +340,40 @@ Phases, one line each; any failure raises and exits non-zero:
      C within 0.002; (h) IxRQ, IwRQ, IxCQ, IxQN and IxLt files reopened
      with mmap, each search bit for bit the original's. Phase 19 launches
      K3 and K3-SQ8 only; its count leaves out the comparison launches.
+  20. the index families on phase 3's data and quantizer: (a) LSH256rt
+     trained on the train rows encodes the base and the queries (encode
+     rate, LSH's recall@10, the card's codes equal to the host's on >=
+     99.5% of 10k rows); (b) IndexBinaryFlat over the 1M codes (QPS; its
+     distances on 1000 queries equal a popcount-table route; range search
+     on 100 queries equal to brute force) and IndexBinaryFromFloat(IndexFlat
+     (256), scan_mode "fused") through K1 + K2 on the 0/1 rows (every
+     returned distance its id's Hamming distance, tie-aware recall >=
+     FROM_FLOAT_FLOOR: the reservoir drops one of two best rows sharing a
+     lane), K1 at d 256 held against its plain version; (c) BIVF4096
+     (train, add, tie-aware recall and QPS at nprobe 16 / 32 / 64, not
+     falling; nprobe 4096 equal to the flat index) and BIVF4096_HNSW32 at
+     nprobe 32 (its share of the flat quantizer's lists, recall, QPS); (d)
+     BHNSW32 (build, recall and QPS at efSearch 64 / 128 through K3 on
+     256-wide bf16 tiles, K3 held against its plain version there); (e)
+     BHash16 / BHash8x16 at nflip 0 / 1 / 2 (candidates growing, each set
+     holding the last, every distance the flat index's, recall, QPS); (f)
+     NSG32,Flat over NSG_NB rows (NN-descent and prune seconds, the k-NN
+     graph's recall on a 10k-row sample, the share of rows reachable from
+     the medoid, recall and QPS at efSearch 16 / 32 / 64 / 128, not
+     falling, the card's beam equal to the CPU's on 200 queries), then at
+     100k rows IndexNNDescentFlat(K 32), NSG32,PQ32 and NSG32,SQ8, each
+     coded one equal to an IndexNSGFlat over its decoded rows; (g)
+     IndexIVFSpectralHash(nbit 128) over phase 3's quantizer at period 10 /
+     100 and thresholds global / centroid / median (recall, QPS; its entry
+     points equal, a half selector equal to a search of the kept rows) and
+     IndexIVFIndependentQuantizer (phase 3's quantizer, PCA64, IVF4096,Flat
+     payload through K3 at d 64) above C x IVF-Flat - 0.01; (h)
+     IndexRowwiseMinMax over IVF4096,SQ8 (K3-SQ8; recall in the normalized
+     space, reconstruct within one SQ8 step), MultiIndexQuantizer(128, 2,
+     10) at k 64 equal to the enumeration of its 2^20 cells, and
+     IndexSplitVectors over two IndexFlat(64) equal to IndexFlat(128); (i)
+     the 17 files (BxFl ... IwIQ) reopened with mmap, each search bit for
+     bit the original's. Phase 20 launches K1, K2, K3 and K3-SQ8.
 The last two lines are the kernels' JSON record (each with its time,
 its plain version's, the card's bound for the same work (a scan of
 lists: the valid rows it needs, each read once, not their blocks'
@@ -346,9 +382,9 @@ torch call computes the same function, that call's time; K3, K3-SQ8 and
 K4 add their time and bound at the main path's 10k queries, K3 its time
 at IVFPQR's kp 46 (phase 16e), at the quantizer's kp 64 (phase 17j) and
 at d 64 (phase 18a), on the IVF-RQ cache and the 65,536-list RCQ lists
-(phase 19a / c; K3-SQ8 on the "sq8" RQ cache), each kernel its
-phase-16 to phase-19 launches, and K3 has a second record at batch 1)
-and {"ok": true, ...}.
+(phase 19a / c; K3-SQ8 on the "sq8" RQ cache), K3 and K1 at d 256
+(phase 20d / b), each kernel its phase-16 to phase-20 launches, and K3
+has a second record at batch 1) and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -373,6 +409,7 @@ from tpu_ann_torch.ops import hnsw as HN
 from tpu_ann_torch.ops import hnsw_tiles as HT
 from tpu_ann_torch.ops import ivf_scan_paged as P
 from tpu_ann_torch.ops import hamming as HM
+from tpu_ann_torch.ops import nndescent as ND
 from tpu_ann_torch.ops import pq as PQ
 from tpu_ann_torch.ops import qinco as QC
 from tpu_ann_torch.ops import rq as RQ
@@ -767,10 +804,22 @@ def main() -> None:
         torch.cuda.empty_cache()
         codec_launches, codec_k = codecs_phase(quant3, xb, xt, xq, gt,
                                                results, dev, tmp)
+        family_launches, family_k = families_phase(quant3, xb, xt, xq, gt,
+                                                   results, dev, tmp)
     k3["launches_pq"] = pq_launches.get("ivf_scan_fused", 0)
     k3["launches_hnsw"] = hnsw_launches.get("ivf_scan_fused", 0)
     k3["launches_breadth"] = breadth_launches.get("ivf_scan_fused", 0)
     k3["launches_codecs"] = codec_launches.get("ivf_scan_fused", 0)
+    k3["launches_families"] = family_launches.get("ivf_scan_fused", 0)
+    # K3 at d 256 (phase 20d: BHNSW32's bf16 tiles of 0/1 rows, 1024 q x
+    # 32 tiles) and K1 at d 256 (20b: IndexBinaryFromFloat's 0/1 rows,
+    # 1024 q x 1M, W 2048)
+    k3.update({f"d256_{f}": family_k["k3_d256"][f] for f in
+               ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")})
+    flat_records[0].update(family_k["k1_d256"])
+    for rec, name in ((flat_records[0], "flat_knn_fused"),
+                      (flat_records[1], "reservoir_topk")):
+        rec["launches_families"] = family_launches.get(name, 0)
     # K3 on the IVF-RQ16x8 bf16 cache (phase 19a, 10k q, nprobe 32) and on
     # the 1-2-block lists of IVF65536(RCQ2x8) (19c, 10k q, nprobe 64)
     for key, rec in (("rq", codec_k["k3_rq"]), ("rcq", codec_k["k3_rcq"])):
@@ -794,10 +843,14 @@ def main() -> None:
     sq_records[0]["launches_breadth"] = breadth_launches.get("ivf_scan_sq8",
                                                              0)
     sq_records[0]["launches_codecs"] = codec_launches.get("ivf_scan_sq8", 0)
+    sq_records[0]["launches_families"] = family_launches.get("ivf_scan_sq8",
+                                                             0)
     # K3-SQ8 on the IVF-RQ16x8 "sq8" cache (phase 19a, 10k q, nprobe 32)
     sq_records[0].update({f"rq_{f}": codec_k["k3sq8_rq"][f] for f in
                           ("ms", "plain_ms", "max_abs_err", "bound_ms",
                            "bound_by")})
+    phase("profiler", traces_taken_again=PROFILE_RETRIES,
+          event_timed_kernels=PROFILE_FALLBACKS)
     print(json.dumps({"kernels": [k3, *sq_records, *flat_records,
                                   *variant_records, k4, b2, k3_b1]}),
           flush=True)
@@ -1653,6 +1706,9 @@ def device_profile(fn, top: int = 4, kernel: str = "") -> dict:
 
 # traces device_ms took again (each repeats its 2 x reps calls of fn)
 PROFILE_RETRIES = 0
+# kernels that device_ms timed with CUDA events (reps + 1 calls of fn)
+# after three traces held none of their launches
+PROFILE_FALLBACKS: list = []
 
 
 def device_ms(fn, reps: int = 20, kernel: str = "") -> float:
@@ -1662,7 +1718,8 @@ def device_ms(fn, reps: int = 20, kernel: str = "") -> float:
     saw none: not measured). A trace that holds none of the kernel's
     launches (the profiler now and then returns one without them) is
     taken again, up to three times in all (counted in PROFILE_RETRIES);
-    then it raises."""
+    then fn is timed with CUDA events instead (listed in
+    PROFILE_FALLBACKS, which the last phase prints)."""
     global PROFILE_RETRIES
     if kernel:
         for _ in range(3):
@@ -1671,7 +1728,8 @@ def device_ms(fn, reps: int = 20, kernel: str = "") -> float:
             if prof["launches_ms"]:
                 return sum(prof["launches_ms"]) / reps
             PROFILE_RETRIES += 1
-        raise AssertionError(f"the profiler saw no {kernel} launch")
+        PROFILE_FALLBACKS.append(kernel)
+        return cuda_ms(fn, reps)
     prof = device_profile(lambda: [fn() for _ in range(reps)])
     busy = prof["device_busy_ms"]
     return None if busy is None else busy / reps
@@ -1983,7 +2041,12 @@ def graph_phase(dev) -> None:
             prof = device_profile(call, kernel="ivf_scan_fused_kernel")
             if len(prof["launches_ms"]) == 1 + hops:
                 break
-        if len(prof["launches_ms"]) != 1 + hops:
+        if not prof["launches_ms"]:
+            # three traces without a launch: the counts above stand, the
+            # launch times are not measured (as device_ms records it)
+            PROFILE_FALLBACKS.append(f"ivf_scan_fused_kernel hops={hops}")
+            prof["launches_ms"] = None
+        elif len(prof["launches_ms"]) != 1 + hops:
             raise AssertionError(f"tile search hops={hops}: profiled K3 "
                                  f"launches {prof['launches_ms']}")
         rows[hops] = {"recall_at_10": T.recall_k_at_k(I, gt, K), "ms": ms,
@@ -2051,7 +2114,7 @@ def row_copy_phase(xb, dev) -> dict:
     khz = B2.sm_clock_khz()
     rows_out, b2_err = {}, 0.0
     reset_counts()
-    retries0 = PROFILE_RETRIES
+    retries0, fallbacks0 = PROFILE_RETRIES, len(PROFILE_FALLBACKS)
     inputs = {}
     for nr in B2_ROWS:
         rows = torch.from_numpy(np.random.RandomState(0).randint(
@@ -2077,6 +2140,7 @@ def row_copy_phase(xb, dev) -> dict:
         rows_out[nr]["out"] = (out, xor)
     launches = counts()
     retried = PROFILE_RETRIES - retries0
+    fell_back = len(PROFILE_FALLBACKS) - fallbacks0
     # the same count of rows, consecutive: what random rows cost the copies
     seq = torch.arange(B2_ROWS[-1], dtype=torch.int32, device=dev)
     rows_out[B2_ROWS[-1]]["consecutive_rows"] = {
@@ -2095,10 +2159,12 @@ def row_copy_phase(xb, dev) -> dict:
         r["plain_ms"] = host_ms(lambda: B2.row_copy_probe_reference(
             xb_dev, inputs[nr], 16), 3)
     # per NR: 5 warm-up and 5 profiled calls, 6 event-timed, 1 checked; a
-    # trace device_ms took again repeated its 10 calls
-    if launches["row_copy_probe"] != len(B2_ROWS) * 17 + 10 * retried:
+    # trace device_ms took again repeated its 10 calls, and its CUDA-event
+    # timing made 6
+    if (launches["row_copy_probe"]
+            != len(B2_ROWS) * 17 + 10 * retried + 6 * fell_back):
         raise AssertionError(f"B2 launches {launches}, {retried} traces "
-                             f"taken again")
+                             f"taken again, {fell_back} event-timed")
     phase("row_copy_probe", ns=16, dp=D, nb=NB, sm_clock_khz=khz,
           slots_equal=True, xor_equal=True,
           calls={str(nr): r for nr, r in rows_out.items()},
@@ -4513,7 +4579,8 @@ def k3_check(name, lists, xw, probes, cmp) -> dict:
                      10)
         plain = host_ms(lambda: F.scan_pairs_reference(q16, qn, plan, lists,
                                                        kp, False), 1)
-        work = (plan, lists.ids, lists.block_size, D, kp, 0, lists.nblocks)
+        work = (plan, lists.ids, lists.block_size, xw.shape[1], kp, 0,
+                lists.nblocks)
         eb = 1 if isinstance(lists, T.PackedInvListsSQ8) else 2
         return {"nq": len(xw), "nprobe": probes.shape[1], "kp": kp,
                 "max_abs_err": err, "scan_max_abs_err": err_scan, "ms": ms,
@@ -4928,6 +4995,562 @@ def codecs_alone() -> None:
     codecs_phase. Its phase lines only: no kernels line, no ok line."""
     dev = require_gpu()
     kernels.load_libraries(("ivf_scan_fused", "ivf_scan_sq8"))
+    quant3, xb, xt, xq, gt, rec = phase3_setup(dev)
+    with tempfile.TemporaryDirectory(prefix="tpu_ann_smoke_") as tmp:
+        codecs_phase(quant3, xb, xt, xq, gt, rec, dev, tmp)
+
+
+# -- phase 20: the index families ------------------------------------------
+
+# queries of the bit-for-bit checks of phase 20
+FAM_NQ = 1000
+# rows of the Flat NSG (the plan's fallback is 250k rows, with the ground
+# truth recomputed, if NN-descent and the prune take over 150 s at 1M)
+NSG_NB = 1_000_000
+# rows of the NN-descent index and the coded NSGs
+NSG_CODED_NB = 100_000
+LSH_BITS = 256
+# tie-aware recall@10 floor of IndexBinaryFromFloat's fused route (K1's
+# lane-min reservoir drops one of two best rows that share a lane; ties
+# at the k-th Hamming distance usually fill the slot): no reference value
+FROM_FLOAT_FLOOR = 0.99
+
+
+def expect_kernels(name, got: dict, want: set) -> dict:
+    """``got`` (launches by kernel) if it launched exactly the kernels
+    ``want``, else raise."""
+    if set(got) != want:
+        raise AssertionError(f"{name} launched {got}, expected {want}")
+    return got
+
+
+def popcount_table_dists(cq, codes, chunk: int = 8192):
+    """(nq, nb) int32 Hamming distances of codes ``cq`` to ``codes`` by a
+    second exact route: the XOR's bytes looked up in a 256-entry popcount
+    table, in database chunks."""
+    table = torch.tensor([bin(v).count("1") for v in range(256)],
+                         dtype=torch.int32, device=cq.device)
+    out = torch.empty((len(cq), len(codes)), dtype=torch.int32,
+                      device=cq.device)
+    for b0 in range(0, len(codes), chunk):
+        x = torch.bitwise_xor(cq[:, None, :], codes[None, b0:b0 + chunk])
+        out[:, b0:b0 + chunk] = table[x.int()].sum(-1, dtype=torch.int32)
+    return out
+
+
+def binary_recall(Iv, cq, codes, kth) -> float:
+    """Tie-aware recall@k of binary results: a returned id counts when its
+    Hamming distance is at most the exact k-th distance ``kth`` (nq,)."""
+    I = torch.as_tensor(np.asarray(Iv), device=codes.device)
+    dis = HM.hamming_rows(cq[:, None, :], codes[I.clamp(min=0)])
+    ok = (I >= 0) & (dis <= kth[:, None])
+    return float(ok.float().mean())
+
+
+def qps_of(fn, nq: int, reps: int = 2):
+    """(fn()'s result, queries a second: nq over the median wall time)."""
+    out, t = timed(fn, reps)
+    return out, nq / t
+
+
+def families_binary(xb, xt, xq, gt, dev, cmp, files) -> dict:
+    """20a-e: LSH256rt codes, IndexBinaryFlat and IndexBinaryFromFloat
+    (K1 + K2 on 0/1 rows), BIVF4096 (and _HNSW32), BHNSW32 (K3 on 256-wide
+    bf16 tiles), BHash16 / BHash8x16. Returns the K1 and K3 records at d
+    256."""
+    nbits = LSH_BITS
+    # (a) the codes
+    lsh = T.IndexLSH(D, nbits, rotate_data=True, train_thresholds=True,
+                     device=dev)
+    (_, t_train) = timed(lambda: lsh.train(xt), warm=lambda: None)
+    (_, t_add) = timed(lambda: lsh.add(xb), warm=lambda: None)
+    codes = lsh._bin.codes
+    cq = lsh.encode_device(xq)
+    ct = lsh.encode_device(xt)
+    (res, lsh_qps) = qps_of(lambda: lsh.search(xq, K), NQ)
+    lsh_rec = T.recall_k_at_k(res[1], gt, K)
+    cpu = T.IndexLSH(D, nbits, True, True, device="cpu")
+    cpu.thresholds = lsh.thresholds
+    same = float((cpu.sa_encode(xb[:10000]) ==
+                  codes[:10000].cpu().numpy()).all(1).mean())
+    if same < 0.995:
+        raise AssertionError(f"LSH: the card's codes equal the host's on "
+                             f"{same} of 10k rows (< 0.995)")
+    bflat = T.IndexBinaryFlat(nbits, device=dev)
+    bflat.add(codes)
+    (gtb, flat_qps) = qps_of(lambda: bflat.search_device(cq, K), NQ)
+    Db, Ib = (t.cpu().numpy() for t in gtb)
+    kth = gtb[0][:, K - 1]
+    phase("families_lsh", train_s=t_train, add_s=t_add,
+          encode_rows_per_s=NB / t_add, recall_at_10=lsh_rec, qps=lsh_qps,
+          card_equals_host=same)
+    files.update(IxLs=lsh, BxFl=bflat)
+
+    # (b) the flat index against a second exact route, its range search,
+    # and IndexBinaryFromFloat through K1 + K2
+    ref = popcount_table_dists(cq[:FAM_NQ], codes)
+    d_ref = torch.sort(ref, dim=1).values[:, :K]
+    assert_equal("IndexBinaryFlat vs the popcount table", d_ref,
+                 gtb[0][:FAM_NQ])
+    radius = int(np.median(Db[:100, K - 1]))
+    lims, rd, ri = bflat.range_search(cq[:100], radius)
+    hq, hi = torch.nonzero(ref[:100] < radius, as_tuple=True)
+    if not (np.array_equal(ri, hi.cpu().numpy()) and np.array_equal(
+            np.diff(lims), torch.bincount(hq, minlength=100).cpu().numpy())
+            and np.array_equal(rd, ref[:100][hq, hi].cpu().numpy())):
+        raise AssertionError("IndexBinaryFlat.range_search differs from "
+                             "brute force")
+    del ref
+    fl = T.IndexFlat(nbits, device=dev)
+    fl.scan_mode = "fused"
+    bff = T.IndexBinaryFromFloat(fl)
+    bff.add(codes)
+    before = counts()
+    (out_ff, ff_qps) = qps_of(lambda: bff.search(cq, K), NQ)
+    got = expect_kernels("IndexBinaryFromFloat", launched(before),
+                         {"flat_knn_fused", "reservoir_topk"})
+    # the reservoir keeps one row a lane (K1), so two of a query's best
+    # rows that share a lane lose one: the route's scores are exact, its
+    # selection is not (recall floor FROM_FLOAT_FLOOR)
+    If = torch.as_tensor(out_ff[1], device=dev)
+    d_ff = HM.hamming_rows(cq[:, None, :], codes[If.clamp(min=0)])
+    if not np.array_equal(d_ff.cpu().numpy(), out_ff[0]):
+        raise AssertionError("IndexBinaryFromFloat returned a distance "
+                             "that is not its id's Hamming distance")
+    ff_rec = binary_recall(out_ff[1], cq, codes, kth)
+    ff_rows = float((out_ff[0] == Db).all(1).mean())
+    if ff_rec < FROM_FLOAT_FLOOR:
+        raise AssertionError(f"IndexBinaryFromFloat recall {ff_rec} < "
+                             f"{FROM_FLOAT_FLOOR}")
+    data, bias = fl._fused_packed
+    xw = HM.unpack_bits(cq[:1024])
+    qv = torch.zeros((len(xw), data.shape[-1]), device=dev)
+    qv[:, :nbits] = -2.0 * xw
+    qv = qv.to(torch.bfloat16)
+
+    def k1():
+        v1, p1 = FK.flat_reservoir(qv, data, bias, 2048)
+        v0, p0 = FK.flat_reservoir_reference(qv, data, bias, 2048)
+        assert_equal("K1 at d 256 values", v0, v1)
+        assert_equal("K1 at d 256 positions", p0, p1)
+        return {"d256_ms": cuda_ms(
+                    lambda: FK.flat_reservoir(qv, data, bias, 2048), 5),
+                "d256_plain_ms": host_ms(
+                    lambda: FK.flat_reservoir_reference(qv, data, bias,
+                                                        2048), 2),
+                "d256_max_abs_err": max_abs_err(v0, v1),
+                **{f"d256_{k}": v for k, v in bound(
+                    data.numel() * 2 + bias.numel() * 4 + qv.numel() * 2
+                    + v1.numel() * 8,
+                    2.0 * len(qv) * bff.ntotal * nbits).items()}}
+    k1_rec = uncounted(k1, cmp)
+    phase("families_flat", flat_qps=flat_qps, from_float_qps=ff_qps,
+          table_route_equal=True, range_radius=radius,
+          range_hits=int(lims[-1]), range_equal=True,
+          from_float_launches=got, from_float_distances_exact=True,
+          from_float_recall=ff_rec, from_float_rows_equal_flat=ff_rows,
+          k1=k1_rec)
+    files["BxFF"] = bff
+
+    # (c) BIVF4096, then its HNSW32 quantizer
+    bivf = T.IndexBinaryIVF(None, nbits, NLIST, device=dev)
+    (_, t_btrain) = timed(lambda: bivf.train(ct), warm=lambda: None)
+    (_, t_badd) = timed(lambda: (bivf.add(codes), bivf._ready()),
+                        warm=lambda: None)
+    ivf_rec = {}
+    for nprobe in (16, 32, 64):
+        bivf.nprobe = nprobe
+        (res, qps) = qps_of(lambda: bivf.search(cq, K), NQ)
+        ivf_rec[nprobe] = {"recall": binary_recall(res[1], cq, codes, kth),
+                           "qps": qps}
+    bivf.nprobe = NLIST
+    Dall, _ = bivf.search(cq[:FAM_NQ], K)
+    if not np.array_equal(Dall, Db[:FAM_NQ]):
+        raise AssertionError("BIVF4096 at nprobe 4096 differs from the "
+                             "flat index")
+    r = [ivf_rec[n]["recall"] for n in (16, 32, 64)]
+    if not r[0] <= r[1] <= r[2]:
+        raise AssertionError(f"BIVF4096 recall falls with nprobe: {r}")
+    bivf.nprobe = 32
+    bh = T.IndexBinaryIVF(T.IndexBinaryHNSW(nbits, 32, device=dev), nbits,
+                          NLIST, device=dev)
+    bh.quantizer.add(bivf.quantizer.codes)
+    bh.is_trained = True
+    bh.nprobe = 32
+    bh.add(codes)
+    (res, bh_qps) = qps_of(lambda: bh.search(cq, K), NQ)
+    pf, ph = bivf._probes(cq), bh._probes(cq)
+    share = float((pf[:, :, None] == ph[:, None, :]).any(2).float().mean())
+    phase("families_bivf", train_s=t_btrain, add_s=t_badd,
+          by_nprobe=ivf_rec, nprobe4096_equal=True, hnsw32_probe_share=share,
+          hnsw32_recall=binary_recall(res[1], cq, codes, kth),
+          hnsw32_qps=bh_qps)
+    files["BwFl"] = bivf
+    del bh
+
+    # (d) BHNSW32 over the codes, its fused tiles through K3 at d 256
+    bhn = T.IndexBinaryHNSW(nbits, 32, device=dev)
+    (_, t_build) = timed(lambda: bhn.add(codes), warm=lambda: None)
+    hn = {}
+    for ef in (64, 128):
+        p = T.SearchParametersHNSW(efSearch=ef)
+        before = counts()
+        (res, qps) = qps_of(lambda: bhn.search(cq, K, params=p), NQ)
+        hn[ef] = {"recall": binary_recall(res[1], cq, codes, kth),
+                  "qps": qps, "launches": expect_kernels(
+                      "BHNSW32", launched(before), {"ivf_scan_fused"})}
+    ftg = bhn.index._tiles_fused
+    if ftg.il.data_bf16.shape[-1] != nbits:
+        raise AssertionError("BHNSW32's tiles are not 256 wide")
+    _, probes = TD.knn(xw, ftg.cent, 32)
+    k3_rec = k3_check("K3 on the 256-wide binary tiles", ftg.il, xw, probes,
+                      cmp)
+    phase("families_bhnsw", build_s=t_build, by_efsearch=hn, k3=k3_rec)
+    files["BxHN"] = bhn
+
+    # (e) the hash tables
+    hashes = {}
+    for spec in ("BHash16", "BHash8x16"):
+        idx = T.index_binary_factory(nbits, spec, device=dev)
+        idx.add(codes)
+        prev, out = None, {}
+        for nflip in (0, 1, 2):
+            idx.nflip = nflip
+            (res, qps) = qps_of(lambda: idx.search_stats(cq, K), NQ)
+            Dh, Ih, st = res
+            I = torch.as_tensor(Ih, device=dev)
+            dh = HM.hamming_rows(cq[:, None, :], codes[I.clamp(min=0)])
+            if not np.array_equal(np.where(Ih >= 0, dh.cpu().numpy(),
+                                           32767), Dh):
+                raise AssertionError(f"{spec}: a returned distance differs "
+                                     "from the flat index's")
+            keys = torch.cat([(q + q0) * NB + ids for q0, _, q, ids, _ in
+                              idx._candidates(cq[:FAM_NQ])])
+            if prev is not None and not bool(torch.isin(prev, keys).all()):
+                raise AssertionError(f"{spec}: nflip {nflip}'s candidates "
+                                     "do not hold nflip - 1's")
+            prev = keys
+            out[nflip] = {"candidates": st.ndis, "qps": qps,
+                          "recall": binary_recall(Ih, cq, codes, kth)}
+        c = [out[f]["candidates"] for f in (0, 1, 2)]
+        if not c[0] < c[1] < c[2]:
+            raise AssertionError(f"{spec}: candidates do not grow: {c}")
+        hashes[spec] = out
+        files["BxHs" if spec == "BHash16" else "BxMH"] = idx
+    phase("families_hash", by_nflip=hashes, distances_equal=True,
+          candidates_nested=True)
+    return {"k1_d256": k1_rec, "k3_d256": k3_rec}
+
+
+def nsg_recall_sample(knn_graph, xb_dev, nsample: int = 10_000) -> float:
+    """Recall of an NN-descent graph (``IndexNSGFlat.build``'s) against
+    the exact GK nearest rows of a sample of rows."""
+    rs = np.random.RandomState(0)
+    rows = torch.from_numpy(rs.choice(len(xb_dev), min(nsample, len(xb_dev)),
+                                      replace=False)).to(xb_dev.device)
+    gk = knn_graph.shape[1]
+    _, ex = TD.knn(xb_dev[rows], xb_dev, gk + 1)
+    ex = ex[:, 1:]
+    g = knn_graph[rows].long()
+    return float((g[:, :, None] == ex[:, None, :]).any(2).float().mean())
+
+
+def families_nsg(xb, xt, xq, gt, dev, cmp, files) -> None:
+    """20f: NSG32,Flat over NSG_NB rows (its build steps, the NN-descent
+    graph's recall on a sample, the reachable share, recall and QPS by
+    efSearch, the card's beam against the CPU's), then at NSG_CODED_NB
+    rows IndexNNDescentFlat(K 32), NSG32,PQ32 and NSG32,SQ8, each coded
+    one equal to an IndexNSGFlat over its decoded rows."""
+    rows = xb[:NSG_NB]
+    gt_n = gt
+    if NSG_NB < NB:
+        flat = T.IndexFlat(D, device=dev)
+        flat.add(rows)
+        gt_n = flat.search(xq, K)[1]
+        del flat
+    nsg = T.index_factory(D, "NSG32,Flat", device=dev)
+    knn_g = nsg.build(rows)
+    xb_dev = nsg.storage.vectors
+    knn_rec = nsg_recall_sample(knn_g, xb_dev)
+    del knn_g
+    reach = ND.reachable_share(nsg.graph, nsg.medoid)
+    by_ef, recs = {}, []
+    for ef in (16, 32, 64, 128):
+        p = T.SearchParametersHNSW(efSearch=ef)
+        (res, qps) = qps_of(lambda: nsg.search(xq, K, params=p), NQ)
+        by_ef[ef] = {"recall": T.recall_k_at_k(res[1], gt_n, K), "qps": qps}
+        recs.append(by_ef[ef]["recall"])
+    if recs != sorted(recs):
+        raise AssertionError(f"NSG recall falls with efSearch: {recs}")
+    q200 = torch.from_numpy(xq[:200]).to(dev)
+    Dg, Ig = nsg.search_device(q200, K)
+    Dc, Ic, _ = HN.beam_search_level0(
+        xb_dev.cpu(), nsg.graph.cpu(), q200.cpu(),
+        torch.full((200, 1), nsg.medoid, dtype=torch.int32),
+        ef=max(nsg.efSearch, K), k=K)
+    same_topk_within("NSG beam card vs CPU", Dc.numpy(), Ic.long().numpy(),
+                     Dg.cpu().numpy(), Ig.cpu().numpy(), 1e-5)
+    phase("families_nsg", nb=len(rows), gk=nsg.GK, r=nsg.R,
+          nn_descent_s=nsg.build_seconds["nn_descent"],
+          prune_s=nsg.build_seconds["prune"], knn_graph_recall=knn_rec,
+          reachable_share=reach, by_efsearch=by_ef, card_equals_cpu=True)
+    files["IxNS"] = nsg
+
+    sub, out = xb[:NSG_CODED_NB], {}
+    flat = T.IndexFlat(D, device=dev)
+    flat.add(sub)
+    gt_s = flat.search(xq[:FAM_NQ], K)[1]
+    del flat
+    nnd = T.IndexNNDescentFlat(D, 32, device=dev)
+    (_, t_nnd) = timed(lambda: nnd.add(sub), warm=lambda: None)
+    nnd.efSearch = 64
+    (res, qps) = qps_of(lambda: nnd.search(xq[:FAM_NQ], K), FAM_NQ)
+    out["nndescent"] = {"build_s": t_nnd, "qps": qps,
+                        "recall": T.recall_k_at_k(res[1], gt_s, K)}
+    files["IxND"] = nnd
+    for spec, tag in (("NSG32,PQ32", "IxNP"), ("NSG32,SQ8", "IxNQ")):
+        idx = T.index_factory(D, spec, device=dev)
+        idx.train(xt)
+        (_, t_add) = timed(lambda: idx.add(sub), warm=lambda: None)
+        twin = T.IndexNSGFlat(D, 32, device=dev)
+        twin.add(idx.storage.vectors)
+        idx.efSearch = twin.efSearch = 64
+        a, b = idx.search(xq[:FAM_NQ], K), twin.search(xq[:FAM_NQ], K)
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            raise AssertionError(f"{spec} differs from an NSG over its "
+                                 "decoded rows")
+        out[spec] = {"add_s": t_add, "recall": T.recall_k_at_k(a[1], gt_s,
+                                                                K)}
+        files[tag] = idx
+    phase("families_nsg_coded", nb=NSG_CODED_NB, by_index=out,
+          decoded_twin_equal=True)
+
+
+def families_ivf(quant3, xb, xt, xq, gt, flat_rec, dev, files) -> None:
+    """20g: IndexIVFSpectralHash(nbit 128) over phase 3's quantizer at
+    period 10 and 100, thresholds global / centroid / median; its entry
+    points equal and a half selector equal to a search of the kept rows;
+    IndexIVFIndependentQuantizer (phase 3's quantizer, PCA64, an
+    IVF4096,Flat payload: K3 at d 64) against C x IVF-Flat - 0.01."""
+    out = {}
+    for period in (10.0, 100.0):
+        for tt in ("global", "centroid", "median"):
+            idx = T.IndexIVFSpectralHash(quant3, D, NLIST, 128, period,
+                                         device=dev)
+            idx.quantizer_trains_alone = 1
+            idx.threshold_type = tt
+            idx.train(xt)
+            (_, t_add) = timed(lambda: idx.add(xb), warm=lambda: None)
+            rec = {}
+            for nprobe in (16, 32, 64):
+                p = T.SearchParametersIVF(nprobe=nprobe)
+                (res, qps) = qps_of(lambda: idx.search(xq, K, params=p), NQ)
+                rec[nprobe] = {"recall": T.recall_k_at_k(res[1], gt, K),
+                               "qps": qps}
+            out[f"p{period:g}_{tt}"] = {"add_s": t_add, "by_nprobe": rec}
+            if period == 10.0 and tt == "global":
+                sh = idx
+            else:
+                del idx
+    xs = xq[:FAM_NQ]
+    p = T.SearchParametersIVF(nprobe=32)
+    a = sh.search(xs, K, params=p)
+    b = sh.search_stats(xs, K, params=p)[:2]
+    c = sh.search_preassigned(xs, K, sh.coarse_assign(xs, 32))
+    for name, o in (("search_stats", b), ("search_preassigned", c)):
+        if not (np.array_equal(a[0], o[0]) and np.array_equal(a[1], o[1])):
+            raise AssertionError(f"spectral hash: {name} differs from "
+                                 "search")
+    half = NB // 2
+    sel = T.SearchParametersIVF(nprobe=32, sel=T.IDSelectorRange(0, half))
+    a = sh.search(xs, K, params=sel)
+    kept = T.IndexIVFSpectralHash(quant3, D, NLIST, 128, device=dev)
+    kept.quantizer_trains_alone = 1
+    kept.vt, kept.trained, kept.is_trained = sh.vt, sh.trained, True
+    kept.add(xb[:half])
+    b = kept.search(xs, K, params=p)
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+        raise AssertionError("spectral hash: the half selector differs from "
+                             "a search of the kept rows")
+    del kept
+    files["IwSH"] = sh
+
+    pca = T.PCAMatrix(D, 64, device=dev)
+    payload = T.IndexIVFFlat(T.IndexFlat(64, device=dev), 64, NLIST,
+                             device=dev)
+    iq = T.IndexIVFIndependentQuantizer(quant3, payload, pca)
+    (_, t_train) = timed(lambda: iq.train(xt), warm=lambda: None)
+    (_, t_add) = timed(lambda: iq.add(xb), warm=lambda: None)
+    fl = T.IndexFlat(64, device=dev)
+    fl.add(pca.apply(xb))
+    C = T.recall_k_at_k(fl.search(pca.apply(xq), K)[1], gt, K)
+    del fl
+    rec = {}
+    for nprobe in (16, 32, 64):
+        iq.nprobe = nprobe
+        before = counts()
+        (res, qps) = qps_of(lambda: iq.search(xq, K), NQ)
+        got = expect_kernels("the independent quantizer", launched(before),
+                             {"ivf_scan_fused"})
+        r = T.recall_k_at_k(res[1], gt, K)
+        rec[nprobe] = {"recall": r, "qps": qps, "launches": got,
+                       "floor": C * flat_rec[nprobe] - 0.01}
+        if r < rec[nprobe]["floor"]:
+            raise AssertionError(f"independent quantizer recall {r} < "
+                                 f"{rec[nprobe]['floor']} at {nprobe}")
+    iq.nprobe = 32
+    phase("families_ivf", spectral_hash=out, entry_points_equal=True,
+          selector_equal=True, independent={"train_s": t_train,
+                                            "add_s": t_add, "C": C,
+                                            "by_nprobe": rec})
+    files["IwIQ"] = iq
+
+
+def families_extra(xb, xt, xq, dev, files) -> None:
+    """20h: IndexRowwiseMinMax over IVF4096,SQ8 (K3-SQ8), the IMI at 1M
+    cells against the enumeration, IndexSplitVectors against
+    IndexFlat(128)."""
+    mm = T.IndexRowwiseMinMax(T.IndexIVFScalarQuantizer(
+        T.IndexFlat(D, device=dev), D, NLIST, T.QT_8BIT, device=dev))
+    mm.train(xt)
+    mm.add(xb)
+    xn_b, _, _ = mm._normalize(xb)
+    xn_q = mm._normalize(xq)[0]
+    fl = T.IndexFlat(D, device=dev)
+    fl.add(xn_b)
+    gt_n = fl.search(xn_q, K)[1]
+    del fl
+    rec = {}
+    for nprobe in (16, 32, 64):
+        p = T.SearchParametersIVF(nprobe=nprobe)
+        before = counts()
+        (res, qps) = qps_of(lambda: mm.search(xq, K, params=p), NQ)
+        expect_kernels("RowwiseMinMax", launched(before), {"ivf_scan_sq8"})
+        rec[nprobe] = {"recall": T.recall_k_at_k(res[1], gt_n, K),
+                       "qps": qps}
+    mm.index.nprobe = 32
+    sq = mm.index.sq
+    worst = 0.0
+    for key in (0, 1, NB // 2, NB - 1):
+        err = np.abs(mm.reconstruct(key) - xb[key])
+        step = float(mm._scales[key]) * sq.vdiff / 256.0
+        worst = max(worst, float((err / step).max()))
+    if worst > 1.0 + 1e-4:
+        raise AssertionError(f"RowwiseMinMax reconstruct off by {worst} "
+                             "SQ8 steps")
+    files["IxMM"] = mm
+
+    imi = T.MultiIndexQuantizer(D, 2, 10, device=dev)
+    (_, t_imi) = timed(lambda: imi.train(xt), warm=lambda: None)
+    (res, imi_qps) = qps_of(lambda: imi.search(xq, 64), NQ)
+    worst_rel = 0.0
+    for q0 in range(0, NQ, 500):
+        tabs = imi.tables(xq[q0:q0 + 500])
+        full = (tabs[:, 0, :, None] + tabs[:, 1, None, :]).reshape(
+            len(tabs), -1)
+        ref = torch.topk(full, 64, dim=1, largest=False).values.cpu().numpy()
+        got = res[0][q0:q0 + 500]
+        worst_rel = max(worst_rel, float(np.max(
+            np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30))))
+    if worst_rel > 1e-5:
+        raise AssertionError(f"IMI differs from the enumeration: {worst_rel}")
+    files["IxMI"] = imi
+
+    sub = xb[:100_000]
+    sv = T.IndexSplitVectors(D, device=dev)
+    for _ in range(2):
+        sv.add_sub_index(T.IndexFlat(64, device=dev))
+    sv.add(sub)
+    fl = T.IndexFlat(D, device=dev)
+    fl.add(sub)
+    (a, sv_qps) = qps_of(lambda: sv.search(xq[:FAM_NQ], K), FAM_NQ)
+    b = fl.search(xq[:FAM_NQ], K)
+    same_topk_within("IndexSplitVectors vs IndexFlat", b[0], b[1], a[0],
+                     a[1], 1e-5)
+    files["IxSV"] = sv
+    files["IxRn"] = T.IndexRandom(D, NB, device=dev)
+    phase("families_extra", minmax={"by_nprobe": rec,
+                                    "reconstruct_steps": worst},
+          imi={"train_s": t_imi, "cells": imi.ntotal, "qps_k64": imi_qps,
+               "max_rel_err": worst_rel},
+          split_vectors={"qps": sv_qps, "equal": True})
+
+
+def families_files(files, xq, cq, dev, tmp) -> None:
+    """20i: each of the 17 tags written and reopened with mmap returns the
+    original's (D, I) bit for bit on FAM_NQ queries."""
+    out = {}
+    for tag, idx in sorted(files.items()):
+        path = os.path.join(tmp, f"fam_{tag}.tann")
+        q = cq[:FAM_NQ].cpu().numpy() if tag.startswith("B") \
+            else xq[:FAM_NQ]
+        (_, t_w) = timed(lambda: T.write_index(idx, path), warm=lambda: None)
+        (other, t_r) = timed(lambda: T.read_index(path, mmap=True,
+                                                   device=dev),
+                             warm=lambda: None)
+        if IIO._read_container(path)[0]["tag"] != tag:
+            raise AssertionError(f"{tag}: the file's tag differs")
+        if hasattr(idx, "hnsw"):
+            other.hnsw.__dict__.update(idx.hnsw.__dict__)
+        if tag == "BxFF":         # the fused scan's opt-in is not stored
+            other.index.scan_mode = idx.index.scan_mode
+        for name in ("nprobe", "efSearch"):
+            if hasattr(idx, name):
+                setattr(other, name, getattr(idx, name))
+        a, b = idx.search(q, K), other.search(q, K)
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            raise AssertionError(f"{tag}: the reopened index's search "
+                                 "differs")
+        out[tag] = {"file_bytes": os.path.getsize(path), "write_s": t_w,
+                    "read_mmap_s": t_r}
+        del other
+        os.remove(path)
+    if len(out) != 17:
+        raise AssertionError(f"phase 20 wrote {len(out)} of the 17 tags")
+    phase("families_files", bit_equal=True, files=out)
+
+
+def families_phase(quant3, xb, xt, xq, gt, flat_rec, dev, tmp):
+    """Phase 20: the index families at full width on phase 3's data and
+    quantizer. Returns the launches of its paths (the comparison launches
+    left out) and the K1 / K3 records at d 256."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    cmp, files = {}, {}
+    recs = families_binary(xb, xt, xq, gt, dev, cmp, files)
+    t_bin = time.perf_counter() - t_phase
+    families_nsg(xb, xt, xq, gt, dev, cmp, files)
+    families_ivf(quant3, xb, xt, xq, gt, flat_rec, dev, files)
+    families_extra(xb, xt, xq, dev, files)
+    cq = files["IxLs"].encode_device(xq[:FAM_NQ])
+    families_files(files, xq, cq, dev, tmp)
+    files.clear()
+    torch.cuda.empty_cache()
+    got = {k: v - cmp.get(k, 0) for k, v in launched().items()
+           if v != cmp.get(k, 0)}
+    expect_kernels("phase 20", got, {"ivf_scan_fused", "ivf_scan_sq8",
+                                     "flat_knn_fused", "reservoir_topk"})
+    phase("families", seconds=time.perf_counter() - t_phase,
+          binary_s=t_bin, launches=got, comparison_launches=cmp)
+    return got, recs
+
+
+def families_alone() -> None:
+    """--phase20: phase 20 alone, as the whole run drives it: K1, K2, K3
+    and K3-SQ8 built, phase 3's data, ground truth and IVF4096,Flat (its
+    quantizer and recalls at nprobe 16 / 32 / 64), then families_phase.
+    Its phase lines only: no kernels line, no ok line."""
+    dev = require_gpu()
+    kernels.load_libraries(("ivf_scan_fused", "ivf_scan_sq8",
+                            "flat_knn_fused", "reservoir_topk"))
+    quant3, xb, xt, xq, gt, rec = phase3_setup(dev)
+    with tempfile.TemporaryDirectory(prefix="tpu_ann_smoke_") as tmp:
+        families_phase(quant3, xb, xt, xq, gt, rec, dev, tmp)
+
+
+def phase3_setup(dev):
+    """Phase 3's data, exact ground truth and IVF4096,Flat: (its
+    quantizer, xb, xt, xq, gt, its recall@10 at nprobe 16 / 32 / 64)."""
     allx = T.sift_surrogate(NB + NT + NQ, seed=123, **T.SIFT1M_CALIBRATED)
     xb, xt, xq = allx[:NB], allx[NB:NB + NT], allx[NB + NT:]
     flat = T.IndexFlat(D, device=dev)
@@ -4945,8 +5568,7 @@ def codecs_alone() -> None:
     quant3 = index.quantizer
     del index
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="tpu_ann_smoke_") as tmp:
-        codecs_phase(quant3, xb, xt, xq, gt, rec, dev, tmp)
+    return quant3, xb, xt, xq, gt, rec
 
 
 if __name__ == "__main__":
@@ -4956,8 +5578,10 @@ if __name__ == "__main__":
         k2_batches()
     elif sys.argv[1:] == ["--phase19"]:
         codecs_alone()
+    elif sys.argv[1:] == ["--phase20"]:
+        families_alone()
     elif sys.argv[1:]:
         raise SystemExit("usage: chip_smoke.py [--k1-batches | "
-                         "--k2-batches | --phase19]")
+                         "--k2-batches | --phase19 | --phase20]")
     else:
         main()

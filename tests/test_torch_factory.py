@@ -1,9 +1,8 @@
 """Port parity: tpu_ann_torch.utils.factory against the JAX package's
-factory, for the index classes the port has: the same class and
-parameters per spec, reverse_index_factory round trips, get_code_size and
-get_hnsw_M agree, and every other token of the reference's grammar (NSG,
-LSH) raises NotImplementedError naming its ROADMAP item (a token neither
-package knows raises ValueError)."""
+factory: the same class and parameters per spec, every token of the
+reference's grammar included (NSG, LSH), reverse_index_factory round
+trips, get_code_size and get_hnsw_M agree, and a token neither package
+knows raises ValueError. The binary factory is in test_torch_binary.py."""
 
 import pytest
 
@@ -35,7 +34,7 @@ def _params(idx) -> dict:
            "metric": idx.metric_type}
     for name in ("nlist", "qtype", "block_size", "M", "nbits",
                  "M_refine", "nbits_refine", "k_factor", "storage_dtype",
-                 "pq_m"):
+                 "pq_m", "R", "GK", "rotate_data", "train_thresholds"):
         if hasattr(idx, name):
             out[name] = getattr(idx, name)
     if "PQ" in out["class"] and hasattr(idx, "nlist"):
@@ -115,15 +114,14 @@ def _inner(idx):
     ("RQ4x8", "item 9"), ("NSG32", "item 9"), ("LSH", "item 9"),
     ("IVF64(RCQ2x3),Flat", "item 9"), ("ZnLattice4x10_4", "item 9")])
 def test_unported_specs_raise(spec, item):
-    """The NSG and LSH tokens stay refused, naming their ROADMAP item;
-    the additive, coarse and lattice specs build the reference's classes,
-    wrapper for wrapper, with the same parameters and code size, and
-    reverse to themselves."""
+    """No longer a refusal test: it keeps the name it had while the port
+    refused these specs, and now checks that they build. The specs that
+    ROADMAP queue 1's ``item`` ported: the
+    NSG, LSH, additive, coarse and lattice specs build the reference's
+    classes, wrapper for wrapper, with the same parameters and code size,
+    and reverse to themselves (LSH's nbits written out: "LSH" reverses to
+    "LSH32")."""
     j = JF.index_factory(D, spec)     # a spec of the reference's grammar
-    if "NSG" in spec or "LSH" in spec:
-        with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
-            TF.index_factory(D, spec, device="cpu")
-        return
     t = TF.index_factory(D, spec, device="cpu")
     a, b = t, j
     while True:
@@ -134,11 +132,12 @@ def test_unported_specs_raise(spec, item):
     assert _params(a) == _params(b)
     while hasattr(b, "base_index"):          # a refine wrapper's codec
         a, b = a.base_index, b.base_index
-    assert a.sa_code_size() == b.sa_code_size()
+    if "NSG" not in spec:                     # a flat NSG has no codec
+        assert a.sa_code_size() == b.sa_code_size()
     if hasattr(b, "quantizer"):
         assert (a.quantizer.M, a.quantizer.nbits, a.quantizer_trains_alone) \
             == (b.quantizer.M, b.quantizer.nbits, b.quantizer_trains_alone)
-    assert TF.reverse_index_factory(t) == spec
+    assert TF.reverse_index_factory(t) == spec.replace("LSH", f"LSH{D}")
     assert _params(_inner(TF.index_factory(D, spec, device="cpu"))) == \
         _params(_inner(t))
 
@@ -229,3 +228,27 @@ def test_namesake_pq_factory_builds_and_searches():
     idx.nprobe = 16
     _, I = idx.search(x[:20], 1)
     assert (I[:, 0] == np.arange(20)).mean() >= 0.9
+
+
+@pytest.mark.parametrize("spec", ["NSG16,Flat", "NSG24,PQ8", "NSG16,PQ8x6",
+                                  "NSG16,SQ8", "NSG,SQfp16", "LSH64r",
+                                  "LSH20rt", "LSHt", "PCA16,LSH32r"])
+def test_nsg_and_lsh_specs(spec):
+    """NSG<R>[,Flat | PQ<m>[x<b>] | SQ...] and LSH[nbits][r][t] (nbits
+    rounded up to whole bytes) build the reference's classes with its
+    parameters; the port's reverse re-parses to the same index, and
+    get_code_size counts an NSG's R edges and LSH's bytes."""
+    j, t = JF.index_factory(D, spec), TF.index_factory(D, spec,
+                                                       device="cpu")
+    assert _params(_inner(t)) == _params(_inner(j))
+    rev = TF.reverse_index_factory(t)
+    assert _params(_inner(TF.index_factory(D, rev, device="cpu"))) == \
+        _params(_inner(t))
+    inner = _inner(t)
+    if "LSH" in spec:
+        assert TF.get_code_size(D, spec) == JF.get_code_size(D, spec) == \
+            inner.nbits // 8
+    else:
+        assert TF.get_code_size(D, spec) == 4 * inner.R + (
+            inner.sa_code_size() if hasattr(inner, "pq_m") or hasattr(
+                inner, "qtype") else 4 * D)

@@ -11,8 +11,10 @@ reservoir: there the ids overlap >= 0.99 and a shared id carries the same
 distance (as tests/test_torch_ivf_paged.py holds the directories).
 
 Also: mmap reopens, clone_index, serialize_index / deserialize_index, a
-bf16 array through the container with no ml_dtypes loaded, unported tags,
-and IndexIVFHNSW's disk lifecycle."""
+bf16 array through the container with no ml_dtypes loaded, five of the
+tags ROADMAP item 9 ported in both directions (the rest in
+test_torch_io_sweep.py), an unknown tag, and IndexIVFHNSW's disk
+lifecycle."""
 
 import os
 import subprocess
@@ -325,14 +327,78 @@ def test_pending_removals_cross_package(tag, writer, data, tmp_path):
     assert not ((I1 >= 100) & (I1 < 900)).any()
 
 
+def _family_pair(tag, data):
+    """(the JAX index, the port's) of a tag that ROADMAP queue 1's item 9
+    ported, over the same data: the port's IVF spectral hash takes the
+    reference's quantizer and projection."""
+    from tpu_ann.models import binary as JB
+    from tpu_ann.models import extra as JX
+    from tpu_ann.models import nsg as JN
+    from tpu_ann.models.ivf_extra import IndexIVFSpectralHash as JSH
+
+    xb, xt, _ = data
+    if tag == "BxFl":
+        j, t = JB.IndexBinaryFlat(D), T.IndexBinaryFlat(D, device="cpu")
+        for idx in (j, t):
+            idx.add(np.packbits(xb > 128, axis=1)[:, :D // 8])
+        return j, t
+    if tag == "IxLs":
+        j, t = JX.IndexLSH(D, 64, True, True), T.IndexLSH(D, 64, True, True,
+                                                            device="cpu")
+    elif tag == "IxMM":
+        j = JX.IndexRowwiseMinMax(JFlat(D))
+        t = T.IndexRowwiseMinMax(T.IndexFlat(D, device="cpu"))
+    elif tag == "IxNS":
+        j, t = JN.IndexNSGFlat(D, 8), T.IndexNSGFlat(D, 8, device="cpu")
+        j.nnd_iters = t.nnd_iters = 2
+    else:
+        j = JSH(JFlat(D), D, NLIST, 32)
+        j.cp.niter = 3
+        j.train(xt)
+        q = T.IndexFlat(D, device="cpu")
+        q.add(np.asarray(j.quantizer.vectors))
+        t = T.IndexIVFSpectralHash(q, D, NLIST, 32, device="cpu")
+        t.quantizer_trains_alone = 1
+        t.vt.A, t.vt.is_trained = np.asarray(j.vt.A), True
+        j.nprobe = t.nprobe = NPROBE
+        j.max_list_scan_factor = 0
+    for idx in (j, t):
+        idx.train(xt)
+        idx.add(xb[:1000])
+    return j, t
+
+
 @pytest.mark.parametrize("tag,item", [("IxLs", "item 9"), ("IwSH", "item 9"),
                                       ("IxMM", "item 9"), ("IxNS", "item 9"),
                                       ("BxFl", "item 9")])
-def test_unported_tag_raises(tag, item, tmp_path):
-    path = str(tmp_path / "x.tann")
-    tio._write_container(path, {"tag": tag, "d": D}, {})
-    with pytest.raises(NotImplementedError, match=item):
-        T.read_index(path, device="cpu")
+def test_unported_tag_raises(tag, item, data, tmp_path):
+    """No longer a refusal test: it keeps the name it had while the port
+    refused these tags, and now checks round trips. The tags that ROADMAP
+    queue 1's ``item`` ported round-trip in both directions: the JAX index's file reopens in the
+    port (mmap) and the port's in the JAX package, each searching as the
+    index that wrote it: distances within rtol 1e-5, ids up to ties;
+    IxMM's rows are normalized to [0, 1], whose norm expansion (norms ~10)
+    the two packages round apart by up to ~1e-5: atol 2e-5 there."""
+    j, t = _family_pair(tag, data)
+    xq = data[2]
+    if tag == "BxFl":
+        xq = np.packbits(xq > 128, axis=1)[:, :D // 8]
+    for writer, reader in ((j, "port"), (t, "jax")):
+        path = str(tmp_path / f"{tag}_{reader}.tann")
+        if reader == "port":
+            jio.write_index(writer, path)
+            other = T.read_index(path, mmap=True, device="cpu")
+        else:
+            tio.write_index(writer, path)
+            other = jio.read_index(path)
+            if hasattr(other, "max_list_scan_factor"):
+                other.max_list_scan_factor = 0
+        assert tio._read_container(path)[0]["tag"] == tag
+        assert type(other).__name__ == type(writer).__name__
+        D0, I0 = writer.search(xq, K)
+        D1, I1 = other.search(xq, K)
+        assert_topk_equal(D0, I0, D1, I1, rtol=1e-5,
+                          atol=2e-5 if tag == "IxMM" else 0.0)
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
@@ -387,15 +453,24 @@ def test_ivf_rq_file_both_directions(data, writer, tmp_path):
 
 
 def test_unported_tag_from_a_jax_file(data, tmp_path):
+    """No longer a refusal test (the name is kept from when the port
+    refused this tag): a JAX IndexRowwiseMinMax file reopens in the
+    port and searches alike (atol 2e-5: the normalized rows' norm
+    expansion, as in test_unported_tag_raises); an unknown tag still
+    raises ValueError."""
     from tpu_ann.models.extra import IndexRowwiseMinMax
 
-    xb, _, _ = data
+    xb, _, xq = data
     idx = IndexRowwiseMinMax(JFlat(D))
     idx.add(xb[:100])
     path = str(tmp_path / "minmax.tann")
     jio.write_index(idx, path)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        T.read_index(path, device="cpu")
+    other = T.read_index(path, device="cpu")
+    assert isinstance(other, T.IndexRowwiseMinMax) and other.ntotal == 100
+    assert_topk_equal(*idx.search(xq, K), *other.search(xq, K), rtol=1e-5,
+                      atol=2e-5)
+    np.testing.assert_allclose(other.reconstruct(7), idx.reconstruct(7),
+                               rtol=1e-6)
     tio._write_container(path, {"tag": "Zzzz"}, {})
     with pytest.raises(ValueError, match="unknown index tag"):
         T.read_index(path, device="cpu")

@@ -3,9 +3,10 @@ every index class the port registers round-trips through write_index /
 read_index (and read_index(mmap=True)) and searches identically after the
 reload, on the CPU (the HNSW storages on their tile routes); every index
 class the port exports is registered;
-and the PQ / refine files (IxPQ, IwPQ, IwPR, IxRF, IxRT) and the codec
-files (IxRQ, IwRQ, IxCQ, IxQN, IxLt) that one package writes, the other
-reads and searches alike."""
+and the PQ / refine files (IxPQ, IwPQ, IwPR, IxRF, IxRT), the codec files
+(IxRQ, IwRQ, IxCQ, IxQN, IxLt) and the 17 files of the binary, graph,
+long-tail and IVF-coupling indexes (BxFl ... IwIQ) that one package
+writes, the other reads and searches alike."""
 
 import os
 
@@ -111,6 +112,8 @@ def _build(name, xt, xb, path):
         idx = T.IndexQINCo(D_, 16, 1, 3, 16, device=dev)
     elif name == "IndexLattice":
         idx = T.IndexLattice(D_, 4, 4, 6, device=dev)
+    elif name in _FAMILIES:
+        return _build_family(name, xt, xb)
     elif name in ("IndexShards", "IndexReplicas"):
         idx = getattr(T, name)(D_, device=dev)
         for _ in range(2):
@@ -127,6 +130,96 @@ def _build(name, xt, xb, path):
     idx.train(xt)
     idx.add(xb)
     return idx
+
+
+def _codes(x):
+    """Binary codes of float rows: their signs, D_ / 8 bytes a row."""
+    return np.packbits(x > 0, axis=1)[:, :D_ // 8]
+
+
+def _build_family(name, xt, xb):
+    """The binary, graph, long-tail and IVF-coupling indexes (the JAX
+    sweep's instances)."""
+    dev = "cpu"
+    codes = _codes(xb)
+    if name == "IndexBinaryFlat":
+        idx = T.IndexBinaryFlat(D_, device=dev)
+    elif name == "IndexBinaryIVF":
+        idx = T.IndexBinaryIVF(None, D_, 4, device=dev)
+        idx.cp.niter = 4
+        idx.train(codes[:NT // 2])
+    elif name == "IndexBinaryHNSW":
+        idx = T.IndexBinaryHNSW(D_, 8, device=dev)
+        codes = codes[:200]
+    elif name == "IndexBinaryHash":
+        idx = T.IndexBinaryHash(D_, 8, device=dev)
+    elif name == "IndexBinaryMultiHash":
+        idx = T.IndexBinaryMultiHash(D_, 2, 8, device=dev)
+    elif name == "IndexBinaryFromFloat":
+        idx = T.IndexBinaryFromFloat(T.IndexFlat(D_, device=dev))
+    if name.startswith("IndexBinary"):
+        idx.add(codes)
+        return idx
+    if name == "MultiIndexQuantizer":
+        idx = T.MultiIndexQuantizer(D_, 2, 4, device=dev)
+        idx.train(xt)
+        return idx
+    if name == "IndexRandom":
+        return T.IndexRandom(D_, 100, device=dev)
+    if name == "IndexSplitVectors":
+        idx = T.IndexSplitVectors(D_, device=dev)
+        for _ in range(2):
+            idx.add_sub_index(T.IndexFlat(D_ // 2, device=dev))
+        idx.add(xb[:100])
+        return idx
+    if name == "IndexLSH":
+        idx = T.IndexLSH(D_, 16, device=dev)
+    elif name == "IndexRowwiseMinMax":
+        idx = T.IndexRowwiseMinMax(T.IndexFlat(D_, device=dev))
+    elif name == "IndexNSGFlat":
+        idx = T.IndexNSGFlat(D_, 8, device=dev)
+    elif name == "IndexNNDescentFlat":
+        idx = T.IndexNNDescentFlat(D_, 8, device=dev)
+    elif name == "IndexNSGPQ":
+        idx = T.IndexNSGPQ(D_, 4, 8, device=dev)
+    elif name == "IndexNSGSQ":
+        idx = T.IndexNSGSQ(D_, R=8, device=dev)
+    elif name == "IndexIVFSpectralHash":
+        idx = T.IndexIVFSpectralHash(T.IndexFlat(D_, device=dev), D_, 8, 16,
+                                     device=dev)
+        idx.cp.niter = 4
+    else:
+        payload = T.IndexIVFFlat(T.IndexFlat(16, device=dev), 16, 8,
+                                 device=dev)
+        payload.cp.niter = 4
+        idx = T.IndexIVFIndependentQuantizer(
+            T.IndexFlat(D_, device=dev), payload, T.PCAMatrix(D_, 16,
+                                                              device=dev))
+    if hasattr(idx, "nnd_iters"):
+        idx.nnd_iters = 3
+    if not idx.is_trained:
+        idx.train(xt)
+    idx.add(xb)
+    return idx
+
+
+_FAMILY_TAGS = {"BxFl": "IndexBinaryFlat", "BwFl": "IndexBinaryIVF",
+                "BxHN": "IndexBinaryHNSW", "BxHs": "IndexBinaryHash",
+                "BxMH": "IndexBinaryMultiHash",
+                "BxFF": "IndexBinaryFromFloat", "IxLs": "IndexLSH",
+                "IxMM": "IndexRowwiseMinMax", "IxMI": "MultiIndexQuantizer",
+                "IxSV": "IndexSplitVectors", "IxRn": "IndexRandom",
+                "IxNS": "IndexNSGFlat", "IxNP": "IndexNSGPQ",
+                "IxNQ": "IndexNSGSQ", "IxND": "IndexNNDescentFlat",
+                "IwSH": "IndexIVFSpectralHash",
+                "IwIQ": "IndexIVFIndependentQuantizer"}
+_FAMILIES = set(_FAMILY_TAGS.values())
+
+
+def _queries(name, xq):
+    if name == "IndexFlat1D":
+        return xq[:, :1].copy()
+    return _codes(xq) if name.startswith("IndexBinary") else xq
 
 
 _ALL = sorted(index_io._DUMPERS)
@@ -153,11 +246,11 @@ def test_roundtrip(name, mmap, data, tmp_path):
     p = os.path.join(tmp_path, f"{name}.tann")
     index_io.write_index(idx, p)
     idx2 = index_io.read_index(p, mmap=mmap, device="cpu")
-    assert idx2.metric_type == idx.metric_type
+    assert getattr(idx2, "metric_type", 0) == getattr(idx, "metric_type", 0)
     assert idx2.ntotal == idx.ntotal
     if hasattr(idx, "hnsw"):             # search knobs are not in the file
         idx2.hnsw.__dict__.update(idx.hnsw.__dict__)
-    q = xq[:, :1].copy() if name == "IndexFlat1D" else xq
+    q = _queries(name, xq)
     D1, I1 = idx.search(q, 4)
     D2, I2 = idx2.search(q, 4)
     np.testing.assert_array_equal(I1, I2)
@@ -258,3 +351,59 @@ def test_pq_refine_files_cross_packages(tag, writer, data, tmp_path):
         for i, dd in zip(I1[q], D1[q]):
             if i in m0:
                 np.testing.assert_allclose(dd, m0[i], rtol=1e-5)
+
+
+# -- the 17 tags of the binary, graph, long-tail and IVF-coupling indexes
+#    across the two packages ------------------------------------------------
+
+_EXACT = {"BxFl", "BwFl", "BxHN", "BxHs", "BxMH", "BxFF", "IxLs", "IwSH",
+          "IxRn"}
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("tag", sorted(_FAMILY_TAGS))
+def test_family_files_cross_packages(tag, writer, data, tmp_path):
+    """A file one package writes, the other reads (mmap on the port's
+    side) as the same class, and both search it alike: the Hamming codes
+    and IxRn bit for bit, ids up to ties; the float ones with ids
+    overlapping >= 0.95 and a shared id's distance within rtol 1e-5 (the
+    f32 products of the two packages round apart near a tie); the IMI's
+    codebook bit for bit (its reference search is not exact)."""
+    from test_io_sweep import _build as jax_build
+    from tpu_ann.utils import index_io as jio
+
+    xt, xb, xq = data
+    name = _FAMILY_TAGS[tag]
+    p = str(tmp_path / f"{tag}.tann")
+    if writer == "jax":
+        src = jax_build(name, xt, xb)
+        jio.write_index(src, p)
+        dst = index_io.read_index(p, mmap=True, device="cpu")
+        jidx, tidx = src, dst
+    else:
+        src = _build(name, xt, xb, None)
+        index_io.write_index(src, p)
+        dst = jio.read_index(p)
+        jidx, tidx = dst, src
+    assert index_io._read_container(p)[0]["tag"] == tag
+    assert type(dst).__name__ == type(src).__name__
+    assert dst.ntotal == src.ntotal
+    if tag == "IxMI":
+        np.testing.assert_array_equal(tidx.pq.centroids,
+                                      np.asarray(jidx.pq.centroids))
+        return
+    if hasattr(jidx, "max_list_scan_factor"):
+        jidx.max_list_scan_factor = 0
+    q = _queries(name, xq)
+    D0, I0 = jidx.search(q, 10)
+    D1, I1 = tidx.search(q, 10)
+    if tag in _EXACT:
+        assert_topk_equal(D0, I0, D1, I1)
+        return
+    ov = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(I0, I1)])
+    assert ov >= 0.95, ov
+    for r in range(len(q)):
+        m0 = dict(zip(I0[r], D0[r]))
+        for i, dd in zip(I1[r], D1[r]):
+            if i in m0:
+                np.testing.assert_allclose(dd, m0[i], rtol=1e-5, atol=1e-5)

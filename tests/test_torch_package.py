@@ -88,3 +88,25 @@ def test_default_device_is_cuda_without_fallback(tmp_path):
             sq.add(np.zeros((2, 8), np.float32))
     assert T.IndexFlat(8, device="cpu").device.type == "cpu"
     assert T.IndexIVFFlatPaged(8, 4, path, device="cpu").device.type == "cpu"
+
+
+def test_public_names_of_the_reference():
+    """Every public name of tpu_ann (read from its __init__.py with ast,
+    so no JAX loads) is a name of tpu_ann_torch, but the two of ROADMAP
+    queue 1's item 11 (the tooling)."""
+    import ast
+
+    import tpu_ann_torch
+
+    with open(os.path.join(ROOT, "tpu_ann", "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets
+                      if isinstance(t, ast.Name)}
+    public = {n for n in names if not n.startswith("_") or n == "__version__"}
+    missing = {n for n in public if not hasattr(tpu_ann_torch, n)}
+    assert missing == {"InterruptCallback", "TimeoutGuard"}

@@ -65,7 +65,6 @@ Covered today:
 """
 
 from .models import (  # noqa: F401
-    Index,
     IDSelector,
     IDSelectorAll,
     IDSelectorAnd,
@@ -76,12 +75,20 @@ from .models import (  # noqa: F401
     IDSelectorOr,
     IDSelectorRange,
     IDSelectorXOr,
+    Index,
+    Index2Layer,
+    IndexAdditiveQuantizer,
+    IndexBinary,
+    IndexBinaryFlat,
+    IndexBinaryFromFloat,
+    IndexBinaryHNSW,
+    IndexBinaryHash,
+    IndexBinaryIVF,
+    IndexBinaryMultiHash,
     IndexFlat,
     IndexFlat1D,
     IndexFlatIP,
     IndexFlatL2,
-    Index2Layer,
-    IndexAdditiveQuantizer,
     IndexHNSW,
     IndexHNSW2Level,
     IndexHNSWFlat,
@@ -94,28 +101,39 @@ from .models import (  # noqa: F401
     IndexIVFFlatDedup,
     IndexIVFFlatPaged,
     IndexIVFHNSW,
+    IndexIVFIndependentQuantizer,
     IndexIVFLocalSearchQuantizer,
+    IndexIVFPQ,
+    IndexIVFPQR,
     IndexIVFProductLocalSearchQuantizer,
     IndexIVFProductResidualQuantizer,
     IndexIVFResidualQuantizer,
-    IndexIVFPQ,
-    IndexIVFPQR,
     IndexIVFScalarQuantizer,
+    IndexIVFSpectralHash,
+    IndexLSH,
     IndexLattice,
     IndexLocalSearchQuantizer,
+    IndexNNDescentFlat,
+    IndexNSGFlat,
+    IndexNSGPQ,
+    IndexNSGSQ,
     IndexPQ,
     IndexPreTransform,
     IndexProductLocalSearchQuantizer,
     IndexProductResidualQuantizer,
     IndexQINCo,
+    IndexRandom,
     IndexRefine,
     IndexRefineFlat,
     IndexRefineSQ8Tier,
     IndexReplicas,
     IndexResidualQuantizer,
+    IndexRowwiseMinMax,
     IndexScalarQuantizer,
     IndexShards,
+    IndexSplitVectors,
     LocalSearchCoarseQuantizer,
+    MultiIndexQuantizer,
     OPQMatrix,
     PCAMatrix,
     QueryLatencyStats,
@@ -128,11 +146,16 @@ from .models import (  # noqa: F401
     Timer,
     indexIVF_stats,
     make_ivf_flat,
+    make_ivf_pq,
 )
+from .models.qinco import IndexNeuralNetCodec  # noqa: F401
 from .ops.distances import (  # noqa: F401
     METRIC_INNER_PRODUCT,
     METRIC_L2,
     knn,
+    knn_inner_product,
+    knn_l2sqr,
+    pairwise_distances,
 )
 from .ops.extra_distances import (  # noqa: F401
     METRIC_ABS_INNER_PRODUCT,
@@ -198,7 +221,14 @@ from .ops.ivf_scan_paged import (  # noqa: F401
     open_paged_invlists,
     scan_invlists_paged,
 )
-from .ops.kmeans import ClusteringParameters, kmeans  # noqa: F401
+from .ops.kmeans import (  # noqa: F401
+    ClusteringParameters,
+    Kmeans,
+    kmeans,
+    kmeans1d,
+    progressive_dim_clustering,
+)
+from .ops.nndescent import build_nsg, nn_descent  # noqa: F401
 from .ops.pq import PQCodec, train_pq  # noqa: F401
 from .ops.qinco import QINCo, QINCoStep  # noqa: F401
 from .ops.rq import RQCodec, train_rq  # noqa: F401
@@ -227,6 +257,20 @@ from .ops.sq import (  # noqa: F401
 from .ops.topk import merge_topk, merge_topk_axis, topk_with_ids  # noqa: F401,E501
 from .utils.convert import (  # noqa: F401
     aq_from_reference,
+    binary_flat_from_reference,
+    binary_from_float_from_reference,
+    binary_hash_from_reference,
+    binary_hnsw_from_reference,
+    binary_ivf_from_reference,
+    imi_from_reference,
+    ivf_independent_from_reference,
+    ivf_spectral_hash_from_reference,
+    lsh_from_reference,
+    nnd_from_reference,
+    nsg_from_reference,
+    random_from_reference,
+    rowwise_minmax_from_reference,
+    split_vectors_from_reference,
     coarse_aq_from_reference,
     flat_from_reference,
     hnsw_2level_from_reference,
@@ -257,7 +301,7 @@ from .utils.autotune import (  # noqa: F401
     ParameterSpace,
 )
 from .utils.benchmark import per_query_latency  # noqa: F401
-from .utils.contrib import merge_indexes  # noqa: F401
+from .utils.contrib import add_preassigned, merge_indexes  # noqa: F401
 from .utils.datasets import (  # noqa: F401
     SIFT1M_CALIBRATED,
     SyntheticDataset,
@@ -270,6 +314,7 @@ from .utils.evaluation import (  # noqa: F401
 )
 from .utils.factory import (  # noqa: F401
     get_code_size,
+    index_binary_factory,
     index_factory,
     reverse_index_factory,
 )
@@ -285,3 +330,5 @@ from .utils.invlists_io import (  # noqa: F401
     OnDiskInvertedLists,
     merge_ondisk,
 )
+
+__version__ = "0.1.0"

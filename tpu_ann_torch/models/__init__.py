@@ -14,7 +14,23 @@ from .flat import (  # noqa: F401
     IndexFlatIP,
     IndexFlatL2,
 )
-from .extra import Index2Layer  # noqa: F401
+from .binary import (  # noqa: F401
+    IndexBinary,
+    IndexBinaryFlat,
+    IndexBinaryFromFloat,
+    IndexBinaryHash,
+    IndexBinaryHNSW,
+    IndexBinaryIVF,
+    IndexBinaryMultiHash,
+)
+from .extra import (  # noqa: F401
+    Index2Layer,
+    IndexLSH,
+    IndexRandom,
+    IndexRowwiseMinMax,
+    IndexSplitVectors,
+    MultiIndexQuantizer,
+)
 from .hnsw import (  # noqa: F401
     HNSWParams,
     IndexHNSW,
@@ -37,14 +53,25 @@ from .ivf import (  # noqa: F401
     SearchParametersIVF,
     make_ivf_flat,
 )
+from .ivf_extra import (  # noqa: F401
+    IndexIVFIndependentQuantizer,
+    IndexIVFSpectralHash,
+)
 from .ivf_hnsw import IndexIVFHNSW  # noqa: F401
 from .ivf_paged import IndexIVFFlatPaged  # noqa: F401
 from .ivf_pq import (  # noqa: F401
     IndexIVFPQ,
     IndexIVFPQR,
     IndexIVFScalarQuantizer,
+    make_ivf_pq,
 )
 from .lattice import IndexLattice  # noqa: F401
+from .nsg import (  # noqa: F401
+    IndexNNDescentFlat,
+    IndexNSGFlat,
+    IndexNSGPQ,
+    IndexNSGSQ,
+)
 from .pq import IndexPQ, IndexScalarQuantizer  # noqa: F401
 from .qinco import IndexQINCo  # noqa: F401
 from .refine import (  # noqa: F401

@@ -446,3 +446,12 @@ class IndexIVFScalarQuantizer(IndexIVF):
     def reset(self) -> None:
         super().reset()
         self._sq8 = self._sq8_for = None
+
+
+def make_ivf_pq(d: int, nlist: int, M: int, nbits: int = 8,
+                metric: int = D.METRIC_L2, *, device="cuda") -> IndexIVFPQ:
+    """IVF-PQ over a flat coarse quantizer (= factory "IVFx,PQMxN")."""
+    from .flat import IndexFlat
+
+    return IndexIVFPQ(IndexFlat(d, metric, device=device), d, nlist, M,
+                      nbits, metric, device=device)

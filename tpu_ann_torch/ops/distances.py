@@ -180,3 +180,13 @@ def knn(
         best_d = torch.clamp(best_d, min=0.0)
     best_i = torch.where(torch.isfinite(best_d), best_i, -1)
     return best_d, best_i
+
+
+def knn_l2sqr(xq, xb, k, **kw):
+    """`knn` with METRIC_L2 (faiss knn_L2sqr)."""
+    return knn(xq, xb, k, METRIC_L2, **kw)
+
+
+def knn_inner_product(xq, xb, k, **kw):
+    """`knn` with METRIC_INNER_PRODUCT (faiss knn_inner_product)."""
+    return knn(xq, xb, k, METRIC_INNER_PRODUCT, **kw)

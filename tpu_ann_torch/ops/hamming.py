@@ -5,7 +5,9 @@ Binary vectors are uint8 code rows (d bits = d / 8 bytes, least
 significant bit first, faiss's IndexBinary convention). The distance is
 popcount(xor), computed exactly as |a| + |b| - 2 |a AND b| with one
 product of the 0/1 bit matrices: the same integers as the reference's ±1
-bf16 product, without its TPU tile padding.
+bf16 product, without its TPU tile padding. Where each query meets its own
+rows (an inverted list's blocks, a hash bucket's candidates) the distance
+is the popcount of the XOR, byte by byte (`popcount_u8`, `hamming_rows`).
 """
 
 from __future__ import annotations
@@ -52,6 +54,22 @@ def knn_hamming(xq: torch.Tensor, xb: torch.Tensor, k: int, *,
         ids = torch.arange(b0, b1, device=dev).expand(nq, -1)
         bd, bi = TK.merge_topk(bd, bi, dis, ids, k)
     return bd, torch.where(bd < big, bi, -1)
+
+
+def popcount_u8(x: torch.Tensor) -> torch.Tensor:
+    """Bits set in each byte of a uint8 tensor (uint8 out), by the SWAR
+    steps on the bytes themselves: no table, no widening."""
+    x = x - ((x >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    return (x + (x >> 4)) & 0x0F
+
+
+def hamming_rows(q: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Hamming distances of query bytes ``q`` (..., nbytes) to the code rows
+    ``codes`` (..., nbytes) they broadcast against: int32 popcount(q XOR
+    c) summed over the bytes."""
+    return popcount_u8(torch.bitwise_xor(codes, q)).sum(-1,
+                                                        dtype=torch.int32)
 
 
 def pack_bits(x01: torch.Tensor) -> torch.Tensor:

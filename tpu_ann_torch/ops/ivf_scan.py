@@ -32,9 +32,11 @@ graph build uses it for its kNN candidates, and IVF searches with an
 IDSelector or a max_codes cap take it. `scan_invlists_sq` is the same scan
 over SQ code lists (dequantized per chunk), `scan_invlists_pq` over PQ
 code lists (the ADC table summed per code), and
-`decode_code_invlists_generic` / `decode_code_invlists` decode code lists
-into a raw layout (the IVF-SQ and IVF-PQ range searches', and IVFPQ's
-decoded cache, which the fused scan streams).
+`scan_invlists_hash` over spectral-hash code lists (a Hamming score
+against each list's thresholds), and `decode_code_invlists_generic` /
+`decode_code_invlists` decode code lists into a raw layout (the IVF-SQ
+and IVF-PQ range searches', and IVFPQ's decoded cache, which the fused
+scan streams).
 """
 
 from __future__ import annotations
@@ -213,6 +215,20 @@ def _compact_block_table(probes, list_block_start, list_nblocks,
     buffer.scatter_(1, pos.reshape(nq, -1), torch.where(
         valid, bid, NB).reshape(nq, -1))
     return buffer[:, :W], total
+
+
+def block_lists(invlists) -> torch.Tensor:
+    """(nblocks + 1,) int64: the list that owns each block (lists own
+    contiguous block runs in id order; the dummy block and any tail take
+    list 0, their ids are -1)."""
+    dev = invlists.list_block_start.device
+    runs = torch.repeat_interleave(
+        torch.arange(invlists.nlist, device=dev),
+        invlists.list_nblocks.long())
+    out = torch.zeros(invlists.nblocks + 1, dtype=torch.long, device=dev)
+    out[:len(runs)] = runs
+    return out
+
 
 
 # f32 elements of gathered rows per chunk of the query-major scan (bounds
@@ -540,13 +556,7 @@ def decode_code_invlists_generic(invlists: PackedCodeInvLists, decode_rows,
     if coarse_centroids is not None:
         cent = torch.as_tensor(coarse_centroids, dtype=torch.float32,
                                device=dev)
-        # lists own contiguous block runs in id order; padding blocks
-        # (ids -1) take list 0
-        runs = torch.repeat_interleave(
-            torch.arange(invlists.nlist, device=dev),
-            invlists.list_nblocks.long())
-        block2list = torch.zeros(total, dtype=torch.long, device=dev)
-        block2list[:len(runs)] = runs
+        block2list = block_lists(invlists)
     data = torch.empty((total, B, d), dtype=dtype, device=dev)
     norms = torch.empty((total, B), dtype=torch.float32, device=dev)
     for s in range(0, total, chunk_blocks):
@@ -605,18 +615,12 @@ def scan_invlists_pq(xq: torch.Tensor, probes: torch.Tensor,
     gather. Same arguments and returns as `scan_invlists`."""
     similarity = D.is_similarity_metric(metric)
     M, ksub, dsub = pq_centroids.shape
-    NB = invlists.nblocks
     dev = invlists.codes.device
     use_residual = by_residual and not similarity
     if use_residual:
         cent = torch.as_tensor(coarse_centroids, dtype=torch.float32,
                                device=dev)
-        runs = torch.repeat_interleave(
-            torch.arange(invlists.nlist, device=dev),
-            invlists.list_nblocks.long())
-        # the dummy block (and any tail) takes list 0; its ids are -1
-        block2list = torch.zeros(NB + 1, dtype=torch.long, device=dev)
-        block2list[:len(runs)] = runs
+        block2list = block_lists(invlists)
     moffs = torch.arange(M, device=dev) * ksub
 
     def score(q, bids):
@@ -637,5 +641,45 @@ def scan_invlists_pq(xq: torch.Tensor, probes: torch.Tensor,
         return dis, invlists.ids[bids]
 
     return _scan_compacted(xq, probes, invlists, score, k, similarity,
+                           max_nblocks=max_nblocks,
+                           chunk_blocks=chunk_blocks, id_mask=id_mask)
+
+
+def hash_bits(z: torch.Tensor, thresholds: torch.Tensor,
+              period: float) -> torch.Tensor:
+    """Spectral-hash bits of projections ``z`` against ``thresholds`` (the
+    same shape, or broadcast): floor((z - c) * (2 / period)) & 1, in f32
+    in the reference's order of operations (binarize_with_freq,
+    IndexIVFSpectralHash.cpp:144; a different rounding flips the bits
+    that sit on a boundary). Returns int32 0/1."""
+    freq = torch.tensor(2.0 / period, dtype=torch.float32, device=z.device)
+    return torch.floor((z.float() - thresholds) * freq).to(torch.int32) & 1
+
+
+def scan_invlists_hash(zq: torch.Tensor, probes: torch.Tensor,
+                       invlists: PackedCodeInvLists, trained: torch.Tensor,
+                       period: float, k: int, *, max_nblocks: int,
+                       chunk_blocks: int = 8, id_mask=None):
+    """Hamming scan of spectral-hash code lists (IndexIVFSpectralHash's
+    IVFScanner; reference :972-1080) on `_scan_compacted`'s loop: each
+    query's projection ``zq`` (nq, nbit) is binarized against the
+    thresholds ``trained`` (nlist, nbit) of the list that owns each probed
+    block (`block_lists`), packed, and compared to the stored codes by the
+    popcount of the XOR: the same integers as the reference's ±1 bf16
+    product, as f32 distances. ``id_mask`` and ``ndis`` as in
+    `scan_invlists`. Returns (D (nq, k) f32, I (nq, k) int32, ndis)."""
+    from . import hamming as H
+
+    owner = block_lists(invlists)
+
+    def score(q, bids):
+        bits = hash_bits(q[:, None, :], trained[owner[bids]], period)
+        qb = H.pack_bits(bits.view(-1, bits.shape[-1])).view(
+            bids.shape + (-1,))
+        codes = invlists.codes[bids]                  # (qt, cb, B, bytes)
+        return (H.hamming_rows(qb[:, :, None, :], codes).float(),
+                invlists.ids[bids])
+
+    return _scan_compacted(zq.float(), probes, invlists, score, k, False,
                            max_nblocks=max_nblocks,
                            chunk_blocks=chunk_blocks, id_mask=id_mask)

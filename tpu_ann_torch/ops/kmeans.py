@@ -167,3 +167,122 @@ def kmeans(
         if better:
             best = (obj, cent.cpu().numpy(), stats)
     return best[1], best[2]
+
+
+def progressive_dim_clustering(
+    x,
+    k: int,
+    params: Optional[ClusteringParameters] = None,
+    metric: int = D.METRIC_L2,
+    levels: int = 4,
+    *,
+    device="cuda",
+) -> Tuple[np.ndarray, list]:
+    """ProgressiveDimClustering (faiss/Clustering.h:174; reference
+    :259-296): k-means on nested prefixes of the PCA-rotated rows (host
+    numpy, as the reference), each level started from the last level's
+    centroids padded with zeros; the centroids are rotated back."""
+    cp = params or ClusteringParameters()
+    x = np.ascontiguousarray(x, np.float32)
+    n, d = x.shape
+    mean = x.mean(axis=0)
+    xc = x - mean
+    w, v = np.linalg.eigh((xc.T @ xc) / n)
+    rot = v[:, np.argsort(-w)].astype(np.float32)
+    xr = xc @ rot
+    dims = [max(1, d >> (levels - 1 - i)) for i in range(levels)]
+    dims[-1] = d
+    cent: Optional[np.ndarray] = None
+    stats: list = []
+    for dd in dims:
+        init = None
+        if cent is not None:
+            init = np.zeros((k, dd), np.float32)
+            init[:, :cent.shape[1]] = cent
+        cent, st = kmeans(np.ascontiguousarray(xr[:, :dd]), k, cp, metric,
+                          init_centroids=init, device=device)
+        stats.extend(st)
+    return (cent @ rot.T + mean).astype(np.float32), stats
+
+
+class Kmeans:
+    """The object wrapper of faiss.Kmeans (python/extra_wrappers.py:443;
+    reference :299-328): ``Kmeans(d, k, niter=..., ...)`` takes the
+    ClusteringParameters fields and ``metric``; ``gpu`` is accepted and
+    ignored, the device is ``device``."""
+
+    def __init__(self, d: int, k: int, *, device="cuda", **kwargs):
+        self.d, self.k = d, k
+        self.device = device
+        kwargs.pop("gpu", None)
+        self.metric = kwargs.pop("metric", D.METRIC_L2)
+        self.cp = ClusteringParameters(
+            **{f.name: kwargs.pop(f.name) for f in
+               dataclasses.fields(ClusteringParameters) if f.name in kwargs})
+        if kwargs:
+            raise TypeError(f"unknown Kmeans args: {sorted(kwargs)}")
+        self.centroids: Optional[np.ndarray] = None
+        self.obj: Optional[np.ndarray] = None
+        self.iteration_stats: list = []
+
+    def train(self, x, init_centroids=None) -> float:
+        self.centroids, self.iteration_stats = kmeans(
+            x, self.k, self.cp, self.metric, init_centroids=init_centroids,
+            device=self.device)
+        self.obj = np.array([s.obj for s in self.iteration_stats])
+        return float(self.obj[-1]) if len(self.obj) else 0.0
+
+    def assign(self, x):
+        """(distance, centroid) of each row's nearest centroid, numpy."""
+        xq = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+            self.device)
+        dis, ids = D.knn(xq, torch.from_numpy(self.centroids).to(
+            self.device), 1, self.metric)
+        return dis[:, 0].cpu().numpy(), ids[:, 0].cpu().numpy()
+
+
+def kmeans1d(x: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact 1-D k-means (faiss impl/kmeans1d.{h,cpp}; reference
+    :331-381): the O(n k) dynamic program over the sorted values with
+    prefix sums, a host copy of the reference's. Returns (centroids (k,)
+    f32, assignment (n,) int64)."""
+    x = np.asarray(x, np.float64).ravel()
+    n = len(x)
+    if n < k:
+        raise ValueError(f"n={n} < k={k}")
+    order = np.argsort(x)
+    xs = x[order]
+    ps = np.concatenate([[0.0], np.cumsum(xs)])
+    ps2 = np.concatenate([[0.0], np.cumsum(xs * xs)])
+
+    def seg_cost(i, j):
+        s = ps[j] - ps[i]
+        return ps2[j] - ps2[i] - s * s / (j - i)
+
+    dp = np.full((k + 1, n + 1), np.inf)
+    arg = np.zeros((k + 1, n + 1), np.int64)
+    dp[0, 0] = 0.0
+    for c in range(1, k + 1):
+        for j in range(c, n - (k - c) + 1):
+            best, bi = np.inf, c - 1
+            for i in range(c - 1, j):
+                v = dp[c - 1, i] + seg_cost(i, j)
+                if v < best:
+                    best, bi = v, i
+            dp[c, j] = best
+            arg[c, j] = bi
+    bounds = [n]
+    j = n
+    for c in range(k, 0, -1):
+        j = int(arg[c, j])
+        bounds.append(j)
+    bounds = bounds[::-1]
+    cent = np.zeros(k, np.float32)
+    assign_sorted = np.zeros(n, np.int64)
+    for c in range(k):
+        i, j = bounds[c], bounds[c + 1]
+        cent[c] = xs[i:j].mean()
+        assign_sorted[i:j] = c
+    assign = np.zeros(n, np.int64)
+    assign[order] = assign_sorted
+    return cent, assign

@@ -208,13 +208,7 @@ def scan_invlists_rq(xq: torch.Tensor, probes: torch.Tensor,
     M, ksub, d = books.shape
     dev = invlists.codes.device
     cent = coarse_centroids.float()
-    runs = torch.repeat_interleave(
-        torch.arange(invlists.nlist, device=dev),
-        invlists.list_nblocks.long())
-    # the dummy block (and any tail) takes list 0; its ids are -1
-    block2list = torch.zeros(invlists.nblocks + 1, dtype=torch.long,
-                             device=dev)
-    block2list[:len(runs)] = runs
+    block2list = ivf_scan.block_lists(invlists)
     moffs = torch.arange(M, device=dev) * ksub
 
     def score(q, bids):

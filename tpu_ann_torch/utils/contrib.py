@@ -1,5 +1,6 @@
 """Contrib helpers — the part of `tpu_ann/utils/contrib.py` that the IVF
-API, ivflib and the index files need: `merge_indexes`, the inspect tools
+API, ivflib and the index files need: `merge_indexes`, `add_preassigned`,
+the inspect tools
 `get_invlist` / `get_invlist_sizes`, and `get_linear_transform` /
 `make_LinearTransform_matrix` (the rest of that module is tooling, ROADMAP
 queue 1 item 11)."""
@@ -29,6 +30,20 @@ def merge_indexes(dst, srcs) -> None:
                               src._assign_host):
             dst._append_chunk(xs, ids, a)
     dst._repack()
+
+
+def add_preassigned(index_ivf, x: np.ndarray, a: np.ndarray,
+                    ids: Optional[np.ndarray] = None) -> None:
+    """Add rows with their coarse assignment given (contrib/ivf_tools.py
+    add_preassigned; reference :157-169): the chunk keeps ``a`` as its
+    cached assignment, so the repack assigns nothing."""
+    x = np.ascontiguousarray(x, np.float32)
+    if ids is None:
+        ids = np.arange(index_ivf.ntotal, index_ivf.ntotal + len(x),
+                        dtype=np.int64)
+    index_ivf._append_chunk(x.copy(), np.asarray(ids, np.int64).copy(),
+                            np.asarray(a, np.int64))
+    index_ivf._repack()
 
 
 # ---------------------------------------------------------------------------

@@ -467,3 +467,213 @@ def lattice_from_reference(state: dict, device="cuda"):
                                  "trained": np.asarray(state["trained"],
                                                        np.float32)},
                           device=device)
+
+
+# --- the binary indexes, the long-tail indexes, the graph indexes and the
+#     IVF couplings -----------------------------------------------------------
+
+def binary_flat_from_reference(state: dict, device="cuda"):
+    """A port IndexBinaryFlat from a `tpu_ann` one: d and ``codes``
+    (ntotal, d / 8) uint8."""
+    codes = np.asarray(state["codes"], np.uint8)
+    return iio.load_index({"tag": "BxFl", "d": int(state["d"]),
+                           "ntotal": len(codes)},
+                          {"codes": codes} if len(codes) else {},
+                          device=device)
+
+
+def binary_ivf_from_reference(state: dict, quantizer, device="cuda"):
+    """A port IndexBinaryIVF over ``quantizer`` (a port binary index
+    already carried over: the reference's binary centroids) from a
+    `tpu_ann` one's d, nlist, nprobe and host store ``codes`` (n, d / 8),
+    ``ids`` (n,); its lists are packed at the first search, by the
+    carried quantizer's assignment."""
+    from ..models.binary import IndexBinaryIVF
+
+    idx = IndexBinaryIVF(quantizer, int(state["d"]), int(state["nlist"]),
+                         device=device)
+    idx.nprobe = int(state.get("nprobe", 1))
+    idx.is_trained = True
+    codes = np.asarray(state["codes"], np.uint8)
+    if len(codes):
+        idx._codes_host = [codes.copy()]
+        idx._ids_host = [np.asarray(state["ids"], np.int64).copy()]
+        idx.ntotal = len(codes)
+        idx._dirty = True
+    return idx
+
+
+def binary_hnsw_from_reference(state: dict, device="cuda"):
+    """A port IndexBinaryHNSW that searches the graph of a `tpu_ann` one:
+    d, ``codes`` (ntotal, d / 8) and ``hnsw``, the `hnsw_sq_from_reference`
+    state of its bf16 IndexHNSWSQ over the unpacked bits."""
+    codes = np.asarray(state["codes"], np.uint8)
+    meta = {"tag": "BxHN", "d": int(state["d"]), "ntotal": len(codes)}
+    arrays = {"codes": codes}
+    sub_m, sub_a = _hnsw_file({**state["hnsw"], "qtype": "bfloat16"},
+                              "IHNs")
+    sub_m["qtype"] = "bfloat16"
+    iio._flatten("sub", sub_m, sub_a, meta, arrays)
+    return iio.load_index(meta, arrays, device=device)
+
+
+def binary_hash_from_reference(state: dict, device="cuda"):
+    """A port IndexBinaryHash (IndexBinaryMultiHash when ``nhash`` is
+    given) from a `tpu_ann` one: d, b, nflip, [nhash,] and ``codes``; the
+    tables are rebuilt from the codes."""
+    codes = np.asarray(state["codes"], np.uint8)
+    meta = {"tag": "BxMH" if "nhash" in state else "BxHs",
+            "d": int(state["d"]), "ntotal": len(codes),
+            "b": int(state["b"]), "nflip": int(state.get("nflip", 1))}
+    if "nhash" in state:
+        meta["nhash"] = int(state["nhash"])
+    return iio.load_index(meta, {"codes": codes} if len(codes) else {},
+                          device=device)
+
+
+def binary_from_float_from_reference(index):
+    """A port IndexBinaryFromFloat over ``index`` (the float index already
+    carried over, holding the unpacked 0/1 rows)."""
+    from ..models.binary import IndexBinaryFromFloat
+
+    idx = IndexBinaryFromFloat(index)
+    idx.ntotal = index.ntotal
+    return idx
+
+
+def lsh_from_reference(state: dict, device="cuda"):
+    """A port IndexLSH from a `tpu_ann` one: d, nbits, rotate_data,
+    train_thresholds, ``P`` (d, nbits), ``thresholds`` (nbits,) and
+    ``codes`` (ntotal, nbits / 8)."""
+    codes = np.asarray(state["codes"], np.uint8)
+    meta = {"tag": "IxLs", "d": int(state["d"]), "ntotal": len(codes),
+            "nbits": int(state["nbits"]),
+            "rotate_data": bool(state["rotate_data"]),
+            "train_thresholds": bool(state["train_thresholds"]),
+            "is_trained": True}
+    arrays = {"P": np.asarray(state["P"], np.float32),
+              "thresholds": np.asarray(state["thresholds"], np.float32)}
+    if len(codes):
+        arrays["codes"] = codes
+    return iio.load_index(meta, arrays, device=device)
+
+
+def rowwise_minmax_from_reference(state: dict, index):
+    """A port IndexRowwiseMinMax over ``index`` (the sub-index already
+    carried over) with a `tpu_ann` one's ``mins`` and ``scales``
+    (ntotal,)."""
+    from ..models.extra import IndexRowwiseMinMax
+
+    idx = IndexRowwiseMinMax(index)
+    idx._mins = iio.to_tensor(state["mins"], index.device, np.float32)
+    idx._scales = iio.to_tensor(state["scales"], index.device, np.float32)
+    idx.ntotal = index.ntotal
+    idx.is_trained = True
+    return idx
+
+
+def imi_from_reference(state: dict, device="cuda"):
+    """A port MultiIndexQuantizer from a `tpu_ann` one: d, M, nbits and
+    ``centroids`` (M, ksub, d / M)."""
+    return iio.load_index(
+        {"tag": "IxMI", "d": int(state["d"]), "M": int(state["M"]),
+         "nbits": int(state["nbits"]), "ntotal": 0, "is_trained": True},
+        {"centroids": np.asarray(state["centroids"], np.float32)},
+        device=device)
+
+
+def split_vectors_from_reference(d: int, subs):
+    """A port IndexSplitVectors of width d over ``subs`` (the sub-indexes
+    already carried over, in order)."""
+    from ..models.extra import IndexSplitVectors
+
+    idx = IndexSplitVectors(d, device=subs[0].device)
+    for s in subs:
+        idx.add_sub_index(s)
+    idx.ntotal = subs[0].ntotal
+    return idx
+
+
+def random_from_reference(state: dict, device="cuda"):
+    """A port IndexRandom from a `tpu_ann` one: d, ntotal, seed."""
+    return iio.load_index({"tag": "IxRn", "d": int(state["d"]),
+                           "ntotal": int(state["ntotal"]),
+                           "seed": int(state["seed"])}, {}, device=device)
+
+
+def nsg_from_reference(state: dict, device="cuda"):
+    """A port NSG that searches the graph of a `tpu_ann` one: d, metric,
+    R, GK, efSearch, medoid, ``graph`` (ntotal, R) int32 and its storage:
+    ``xb`` (ntotal, d) for an IndexNSGFlat; ``codes`` and pq_m, nbits,
+    ``centroids`` for an IndexNSGPQ; ``codes`` and qtype, ``vmin``,
+    ``vdiff`` for an IndexNSGSQ."""
+    meta = {"tag": "IxNS", "d": int(state["d"]),
+            "metric": int(state.get("metric", METRIC_L2)),
+            "R": int(state["R"]), "GK": int(state["GK"]),
+            "efSearch": int(state.get("efSearch", 16)),
+            "medoid": int(state["medoid"])}
+    arrays = {"graph": np.asarray(state["graph"], np.int32)}
+    if "xb" in state:
+        arrays["xb"] = np.asarray(state["xb"], np.float32)
+        meta["ntotal"] = len(arrays["xb"])
+    else:
+        meta["ntotal"] = len(state["codes"])
+        meta["is_trained"] = True
+        if "centroids" in state:
+            meta.update(tag="IxNP", pq_m=int(state["pq_m"]),
+                        nbits=int(state.get("nbits", 8)))
+            arrays.update(centroids=np.asarray(state["centroids"],
+                                               np.float32),
+                          codes=np.asarray(state["codes"], np.uint8))
+        else:
+            meta.update(tag="IxNQ", qtype=int(state["qtype"]))
+            arrays["codes"] = _codes(state["codes"], int(state["qtype"]))
+            arrays.update(_codec_arrays(state, "sq_"))
+    return iio.load_index(meta, arrays, device=device)
+
+
+def nnd_from_reference(state: dict, device="cuda"):
+    """A port IndexNNDescentFlat from a `tpu_ann` one: d, metric, K,
+    efSearch, ``xb`` and ``graph`` (ntotal, K) int32."""
+    xb = np.asarray(state["xb"], np.float32)
+    return iio.load_index(
+        {"tag": "IxND", "d": int(state["d"]),
+         "metric": int(state.get("metric", METRIC_L2)), "ntotal": len(xb),
+         "K": int(state["K"]), "efSearch": int(state.get("efSearch", 16))},
+        {"xb": xb, "graph": np.asarray(state["graph"], np.int32)},
+        device=device)
+
+
+def ivf_spectral_hash_from_reference(state: dict, device="cuda"):
+    """A search-only port IndexIVFSpectralHash from a `tpu_ann` one: the
+    keys of `ivf_flat_from_reference` with ``codes`` ((nblocks+1, B, nbit /
+    8) uint8, the packed code lists) in place of data and norms, plus
+    nbit, period, threshold_type, ``trained`` (nlist, nbit) and the
+    projection's ``vt_A`` (nbit, d) (and ``vt_b`` if it has one)."""
+    quantizer = ({"tag": "IxFl", "d": int(state["d"]),
+                  "metric": int(state["metric"]),
+                  "ntotal": int(state["nlist"])},
+                 {"xb": np.asarray(state["vectors"], np.float32)})
+    lists = {"il_data": np.asarray(state["codes"], np.uint8),
+             "il_ids": state["ids"],
+             "trained": np.asarray(state["trained"], np.float32),
+             "vt_A": np.asarray(state["vt_A"], np.float32)}
+    if state.get("vt_b") is not None:
+        lists["vt_b"] = np.asarray(state["vt_b"], np.float32)
+    nbit = int(state["nbit"])
+    return _load_ivf("IwSH", state, quantizer, lists, device, nbit=nbit,
+                     period=float(state["period"]),
+                     threshold_type=state["threshold_type"],
+                     vt_din=int(state["d"]), vt_dout=nbit, vt_ortho=True)
+
+
+def ivf_independent_from_reference(quantizer, index_ivf, vt=None):
+    """A port IndexIVFIndependentQuantizer over ``quantizer`` and the
+    payload ``index_ivf`` (both already carried over; the payload holds
+    the quantizer's lists) and the transform ``vt`` (port, or None)."""
+    from ..models.ivf_extra import IndexIVFIndependentQuantizer
+
+    idx = IndexIVFIndependentQuantizer(quantizer, index_ivf, vt)
+    idx.is_trained = True
+    idx.ntotal = index_ivf.ntotal
+    return idx

@@ -34,19 +34,27 @@ for the index classes the port has:
   <any of these>,RSQ8t | Refine(SQ8Tier)
                                 IndexRefineSQ8Tier over the index
 
+  NSG<R>[,Flat | PQ<m>[x<b>] | SQ8 | SQ6 | SQ4 | SQfp16 | SQbf16]
+                                IndexNSGFlat / IndexNSGPQ / IndexNSGSQ (R
+                                defaults to 32)
+  LSH[<nbits>][r][t]            IndexLSH (nbits defaults to d, rounded up
+                                to whole bytes; r rotates, t trains the
+                                thresholds)
+
   prefixes, before the container: PCA<d>, PCAR<d> (random rotation after),
   PCAW<d> (whitened), OPQ<M>[_<d>], RR<d>, L2norm -> an IndexPreTransform
   around the index (and its refine wrapper); IDMap, IDMap2 -> an
   IndexIDMap / IndexIDMap2 around everything (reference :172-195, 300-313)
 
-with the same spelling as the reference. Every other token of the
-reference's grammar (NSG, LSH) raises NotImplementedError naming the
-ROADMAP queue 1 item that ports its class; a token the reference does not know either
-(ITQ among them: the reference's factory has no ITQ prefix) raises
-ValueError. `reverse_index_factory`, `get_code_size` and `get_hnsw_M`
+with the same spelling as the reference, whose every token the port
+builds; a token the reference does not know either (ITQ among them: the
+reference's factory has no ITQ prefix) raises ValueError.
+`index_binary_factory` builds the binary indexes (BFlat, BIVF<n>,
+BIVF<n>_HNSW<M>, BHNSW<M>, BHash<b>, BHash<nhash>x<b>; reference
+:324-352). `reverse_index_factory`, `get_code_size` and `get_hnsw_M`
 cover the same classes; the reverse writes each prefix's own token back
-(the reference writes PCA<d> for PCAR / PCAW, IDMap for IDMap2, and
-raises on L2norm).
+(the reference writes PCA<d> for PCAR / PCAW, IDMap for IDMap2, drops
+LSH's t, cannot reverse an NSG, and raises on L2norm).
 """
 
 from __future__ import annotations
@@ -54,6 +62,10 @@ from __future__ import annotations
 import re
 
 from ..models.base import Index
+from ..models.binary import (IndexBinaryFlat, IndexBinaryHash,
+                             IndexBinaryHNSW, IndexBinaryIVF,
+                             IndexBinaryMultiHash)
+from ..models.extra import IndexLSH
 from ..models.flat import IndexFlat
 from ..models.hnsw import (IndexHNSW, IndexHNSW2Level, IndexHNSWFlat,
                            IndexHNSWPQ, IndexHNSWSQ)
@@ -63,6 +75,7 @@ from ..models.ivf_hnsw import IndexIVFHNSW
 from ..models.ivf_pq import IndexIVFScalarQuantizer
 from ..models.ivf_pq import IndexIVFPQ, IndexIVFPQR
 from ..models.lattice import IndexLattice
+from ..models.nsg import IndexNSGFlat, IndexNSGPQ, IndexNSGSQ
 from ..models.pq import IndexPQ, IndexScalarQuantizer
 from ..models.refine import IndexRefine, IndexRefineFlat, IndexRefineSQ8Tier
 from ..models.rq import (AdditiveCoarseQuantizer, IndexIVFLocalSearchQuantizer,
@@ -84,25 +97,14 @@ _SQ_NAMES = {v: k for k, v in _SQ_TYPES.items()}
 _SQ_BITS = {"SQ8": 8, "SQ6": 6, "SQ4": 4, "SQfp16": 16, "SQbf16": 16}
 _HNSW_SQ = {"SQ8": "sq8", "SQfp16": "float16", "SQbf16": "bfloat16"}
 
-# the reference's other tokens (regex), by the ROADMAP queue 1 item that
-# ports their classes
-_UNPORTED = (
-    (r"NSG\d*|LSH\d*r?t?", "item 9 (the remaining codecs and indexes)"),
-)
 _AQ = r"(RQ|LSQ)(\d+)x(\d+)(?:fs(?:_\d+)?)?"
 _PAQ = r"(PRQ|PLSQ)(\d+)x(\d+)x(\d+)"
 _LATTICE = r"ZnLattice(\d+)x(\d+)_(\d+)"
 _IVF = r"IVF(\d+)(?:_HNSW(\d+)|\((RCQ|LSCQ)(\d+)x(\d+)\))?"
+_LSH = r"LSH(\d*)(r?)(t?)"
 
 
-def _refusal(tok: str) -> Exception:
-    """NotImplementedError for a token of the reference's grammar that the
-    port lacks, ValueError for one the reference does not know either."""
-    for pattern, item in _UNPORTED:
-        if re.fullmatch(pattern, tok):
-            return NotImplementedError(
-                f"index_factory: {tok!r} is not ported yet (ROADMAP queue 1, "
-                f"{item})")
+def _unknown_token(tok: str) -> ValueError:
     return ValueError(f"index_factory: unknown token {tok!r}")
 
 
@@ -116,8 +118,8 @@ _PREFIX = r"IDMap2?|PCA[RW]?\d+|OPQ\d+(?:_\d+)?|RR\d+|L2norm"
 
 def _split(spec: str):
     """(prefix tokens, container token, its code token, refine suffix
-    "RFlat" / "RSQ8t" or None): a container or a suffix token that the
-    port lacks is refused here."""
+    "RFlat" / "RSQ8t" or None): a container or a suffix token of no
+    grammar raises ValueError here."""
     toks = [t for t in spec.split(",") if t]
     if not toks:
         raise ValueError("empty factory spec")
@@ -129,11 +131,11 @@ def _split(spec: str):
         prefixes.append(toks.pop(0))
     if not toks:
         raise ValueError(f"index_factory({spec!r}): no index container")
-    if not re.fullmatch(r"HNSW\d*|Flat|SQ\w+|" + "|".join(
-            (_PQ, _IVF, _AQ, _PAQ, _LATTICE)), toks[0]):
-        raise _refusal(toks[0])
+    if not re.fullmatch(r"HNSW\d*|NSG\d*|Flat|SQ\w+|" + "|".join(
+            (_PQ, _IVF, _AQ, _PAQ, _LATTICE, _LSH)), toks[0]):
+        raise _unknown_token(toks[0])
     if len(toks) > 2:
-        raise _refusal(toks[2])
+        raise _unknown_token(toks[2])
     return prefixes, toks[0], toks[1] if len(toks) > 1 else None, refine
 
 
@@ -230,9 +232,25 @@ def _container(d: int, head: str, code, metric: int, device) -> Index:
         if mm := re.fullmatch(r"(\d+)\+PQ(\d+)", code):
             return IndexHNSW2Level(d, int(mm.group(1)), int(mm.group(2)), hm,
                                    metric=metric, device=device)
-        raise _refusal(code)
+        raise _unknown_token(code)
+    if m := re.fullmatch(r"NSG(\d+)?", head):
+        # parse_IndexNSG's storage codes (index_factory.cpp:492-516)
+        R = int(m.group(1) or 32)
+        if code in (None, "Flat"):
+            return IndexNSGFlat(d, R, metric, device=device)
+        if mm := re.fullmatch(r"PQ(\d+)(?:x(\d+))?", code):
+            return IndexNSGPQ(d, int(mm.group(1)), R, int(mm.group(2) or 8),
+                              metric, device=device)
+        if code in _SQ_TYPES:
+            return IndexNSGSQ(d, _SQ_TYPES[code], R, metric, device=device)
+        raise _unknown_token(code)
     if code is not None:
-        raise _refusal(code)
+        raise _unknown_token(code)
+    if m := re.fullmatch(_LSH, head):
+        # index_factory.cpp:545; the codes are whole bytes
+        nbits = -(-int(m.group(1) or d) // 8) * 8
+        return IndexLSH(d, nbits, rotate_data=bool(m.group(2)),
+                        train_thresholds=bool(m.group(3)), device=device)
     if head == "Flat":
         return IndexFlat(d, metric, device=device)
     if head in _SQ_TYPES:
@@ -255,7 +273,7 @@ def _container(d: int, head: str, code, metric: int, device) -> Index:
         # index_factory.cpp:554 "ZnLattice<nsq>x<r2>_<scale_nbit>"
         return IndexLattice(d, int(m.group(1)), int(m.group(3)),
                             int(m.group(2)), metric, device=device)
-    raise _refusal(head)
+    raise _unknown_token(head)
 
 
 def _ivf_code(quant: Index, d: int, nlist: int, code: str, metric: int,
@@ -285,7 +303,7 @@ def _ivf_code(quant: Index, d: int, nlist: int, code: str, metric: int,
             else IndexIVFProductLocalSearchQuantizer
         return cls(quant, d, nlist, int(m.group(2)), int(m.group(3)),
                    int(m.group(4)), metric, device=device)
-    raise _refusal(code)
+    raise _unknown_token(code)
 
 
 def get_code_size(d: int, spec: str) -> int:
@@ -305,8 +323,11 @@ def get_code_size(d: int, spec: str) -> int:
     if m := re.fullmatch(r"HNSW(\d+)?", head):
         links = 4 * 2 * int(m.group(1) or 32)   # ~2M int32 level-0 edges
         return size + links + _code_bytes(d, code or "Flat")
+    if m := re.fullmatch(r"NSG(\d+)?", head):
+        links = 4 * int(m.group(1) or 32)       # R int32 edges
+        return size + links + _code_bytes(d, code or "Flat")
     if code is not None:
-        raise _refusal(code)
+        raise _unknown_token(code)
     return size + _code_bytes(d, head)
 
 
@@ -324,7 +345,9 @@ def _code_bytes(d: int, code: str) -> int:
         return int(m.group(2)) + 4
     if m := re.fullmatch(_PAQ, code):
         return int(m.group(2)) * int(m.group(3)) + 4
-    raise _refusal(code)
+    if m := re.fullmatch(_LSH, code):
+        return -(-int(m.group(1) or d) // 8)
+    raise _unknown_token(code)
 
 
 def get_hnsw_M(index) -> int:
@@ -386,6 +409,16 @@ def reverse_index_factory(index) -> str:
         return f"PQ{index.M}x{index.nbits}"
     if isinstance(index, IndexResidualQuantizer):
         return _aq_token(index)
+    if isinstance(index, IndexLSH):
+        return (f"LSH{index.nbits}" + ("r" if index.rotate_data else "")
+                + ("t" if index.train_thresholds else ""))
+    if isinstance(index, IndexNSGFlat):
+        tok = f"NSG{index.R}"
+        if isinstance(index, IndexNSGPQ):
+            return f"{tok},PQ{index.pq_m}x{index.nbits}"
+        if isinstance(index, IndexNSGSQ):
+            return f"{tok},{_SQ_NAMES[index.qtype]}"
+        return tok
     if isinstance(index, IndexLattice):
         # the reference cannot reverse IndexLattice
         return f"ZnLattice{index.nsq}x{index.zn.r2}_{index.scale_nbit}"
@@ -419,3 +452,23 @@ def _transform_token(vt) -> str:
     if isinstance(vt, NormalizationTransform) and vt.norm == 2.0:
         return "L2norm"
     raise ValueError(f"cannot reverse transform {type(vt).__name__}")
+
+
+def index_binary_factory(d: int, spec: str, *, device="cuda"):
+    """A binary index from its factory string (index_factory.cpp:907-944
+    ``index_binary_factory``): BFlat, BIVF<n>, BIVF<n>_HNSW<M>, BHNSW<M>,
+    BHash<b>, BHash<nhash>x<b>."""
+    if m := re.fullmatch(r"BIVF(\d+)(?:_HNSW(\d+))?", spec):
+        quant = IndexBinaryHNSW(d, int(m.group(2)), device=device) \
+            if m.group(2) else IndexBinaryFlat(d, device=device)
+        return IndexBinaryIVF(quant, d, int(m.group(1)), device=device)
+    if m := re.fullmatch(r"BHNSW(\d+)", spec):
+        return IndexBinaryHNSW(d, int(m.group(1)), device=device)
+    if m := re.fullmatch(r"BHash(\d+)x(\d+)", spec):
+        return IndexBinaryMultiHash(d, int(m.group(1)), int(m.group(2)),
+                                    device=device)
+    if m := re.fullmatch(r"BHash(\d+)", spec):
+        return IndexBinaryHash(d, int(m.group(1)), device=device)
+    if spec == "BFlat":
+        return IndexBinaryFlat(d, device=device)
+    raise ValueError(f"description {spec!r} did not generate a binary index")

@@ -20,8 +20,8 @@ bf16 tensor is written under that same name.
 Every ported index type registers a dumper (index -> meta + arrays) and a
 loader (meta + arrays -> index) under the reference's four-letter tag, with
 the reference's meta keys and array names; a nested index (an IVF's coarse
-quantizer) nests under a name prefix. The tags of classes the port does not
-have yet raise NotImplementedError naming the ROADMAP item that ports them.
+quantizer) nests under a name prefix. Every tag of the reference's is
+registered; an unknown tag raises ValueError.
 """
 
 from __future__ import annotations
@@ -827,45 +827,61 @@ def _dump_pretransform(index):
             "chain_types": [type(t).__name__ for t in index.chain]}
     arrays: dict = {}
     for i, t in enumerate(index.chain):
-        meta[f"vt{i}_din"], meta[f"vt{i}_dout"] = t.d_in, t.d_out
-        if isinstance(t, LinearTransform):
-            arrays[f"vt{i}_A"] = np.asarray(t.A, np.float32)
-            if t.b is not None:
-                arrays[f"vt{i}_b"] = np.asarray(t.b, np.float32)
-            meta[f"vt{i}_ortho"] = bool(t.is_orthonormal)
-        meta[f"vt{i}_params"] = {
-            k: v for k, v in vars(t).items()
-            if isinstance(v, (bool, int, float, str))
-            and k not in ("d_in", "d_out", "is_trained", "is_orthonormal")}
-        for name in ("mean", "eigenvalues", "map"):
-            if getattr(t, name, None) is not None:
-                arrays[f"vt{i}_{name}"] = np.asarray(getattr(t, name))
+        _dump_vt_at(t, f"vt{i}", meta, arrays)
     _flatten("sub", *dump_index(index.index), meta, arrays)
     return meta, arrays
 
 
 def _load_vt(i: int, meta, arrays, device):
-    """Transform i of an IxPT file: its class with its settings from a
-    port file, a LinearTransform from a reference file (as the reference
-    reloads every transform)."""
+    """Transform i of an IxPT file."""
+    return _load_vt_at(f"vt{i}", meta["chain_types"][i]
+                       if "chain_types" in meta else None, meta, arrays,
+                       device)
+
+
+def _load_vt_at(prefix: str, cls_name, meta, arrays, device):
+    """The transform stored under ``prefix``: its class with its settings
+    from a port file (``<prefix>_params``), a LinearTransform from a
+    reference file (as the reference reloads every transform)."""
     from ..models import transforms as TR
 
-    params = meta.get(f"vt{i}_params")
-    cls = TR.LinearTransform if params is None \
-        else getattr(TR, meta["chain_types"][i])
+    params = meta.get(f"{prefix}_params")
+    cls = TR.LinearTransform if params is None else getattr(TR, cls_name)
     t = cls.__new__(cls)
-    TR.VectorTransform.__init__(t, int(meta[f"vt{i}_din"]),
-                                int(meta[f"vt{i}_dout"]), device=device)
+    TR.VectorTransform.__init__(t, int(meta[f"{prefix}_din"]),
+                                int(meta[f"{prefix}_dout"]), device=device)
     if isinstance(t, TR.LinearTransform):
-        t.A = np.array(arrays[f"vt{i}_A"], np.float32)
-        t.b = _f32_or_none(arrays, f"vt{i}_b")
-        t.is_orthonormal = bool(meta[f"vt{i}_ortho"])
+        t.A = np.array(arrays[f"{prefix}_A"], np.float32)
+        t.b = _f32_or_none(arrays, f"{prefix}_b")
+        t.is_orthonormal = bool(meta[f"{prefix}_ortho"])
     t.__dict__.update(params or {})
     for name in ("mean", "eigenvalues", "map"):
-        if f"vt{i}_{name}" in arrays:
-            setattr(t, name, np.array(arrays[f"vt{i}_{name}"]))
+        if f"{prefix}_{name}" in arrays:
+            setattr(t, name, np.array(arrays[f"{prefix}_{name}"]))
     t.is_trained = True
     return t
+
+
+def _dump_vt_at(t, prefix: str, meta: dict, arrays: dict) -> None:
+    """A transform under ``prefix``: the reference's keys (<prefix>_A, _b,
+    _din, _dout, _ortho, _cls) and, for the port, its scalar settings
+    (<prefix>_params) and arrays (_mean, _eigenvalues, _map)."""
+    from ..models.transforms import LinearTransform
+
+    meta[f"{prefix}_cls"] = type(t).__name__
+    meta[f"{prefix}_din"], meta[f"{prefix}_dout"] = t.d_in, t.d_out
+    if isinstance(t, LinearTransform):
+        arrays[f"{prefix}_A"] = np.asarray(t.A, np.float32)
+        if t.b is not None:
+            arrays[f"{prefix}_b"] = np.asarray(t.b, np.float32)
+        meta[f"{prefix}_ortho"] = bool(t.is_orthonormal)
+    meta[f"{prefix}_params"] = {
+        k: v for k, v in vars(t).items()
+        if isinstance(v, (bool, int, float, str))
+        and k not in ("d_in", "d_out", "is_trained", "is_orthonormal")}
+    for name in ("mean", "eigenvalues", "map"):
+        if getattr(t, name, None) is not None:
+            arrays[f"{prefix}_{name}"] = np.asarray(getattr(t, name))
 
 
 def _load_pretransform(meta, arrays, device):
@@ -1157,6 +1173,362 @@ def _load_lattice(meta, arrays, device):
     return idx
 
 
+# --- the binary family (reference :966-1083) --------------------------------
+
+def _dump_binflat(index):
+    meta = {"tag": "BxFl", "d": index.d, "ntotal": index.ntotal}
+    return meta, ({"codes": index.codes} if index.ntotal else {})
+
+
+def _load_binflat(meta, arrays, device):
+    from ..models.binary import IndexBinaryFlat
+
+    idx = IndexBinaryFlat(int(meta["d"]), device=device)
+    if "codes" in arrays:
+        idx.add(np.asarray(arrays["codes"]))
+    return idx
+
+
+def _dump_binivf(index):
+    """BwFl: the quantizer, nested, and the host store (codes and ids); a
+    reopened index packs its lists at its first search, as the reference
+    repacks at load."""
+    meta = {"tag": "BwFl", "d": index.d, "ntotal": index.ntotal,
+            "nlist": index.nlist, "nprobe": index.nprobe,
+            "is_trained": index.is_trained}
+    arrays: dict = {}
+    _flatten("quantizer", *dump_index(index.quantizer), meta, arrays)
+    if index.ntotal:
+        arrays["codes"] = np.concatenate(index._codes_host)
+        arrays["ids"] = np.concatenate(index._ids_host)
+    return meta, arrays
+
+
+def _load_binivf(meta, arrays, device):
+    from ..models.binary import IndexBinaryIVF
+
+    idx = IndexBinaryIVF(load_index(*_sub("quantizer", meta, arrays),
+                                    device=device),
+                         int(meta["d"]), int(meta["nlist"]), device=device)
+    idx.nprobe = int(meta["nprobe"])
+    idx.is_trained = bool(meta["is_trained"])
+    if "codes" in arrays:
+        idx._codes_host = [np.array(arrays["codes"], np.uint8)]
+        idx._ids_host = [np.array(arrays["ids"], np.int64)]
+        idx.ntotal = int(meta["ntotal"])
+        idx._dirty = True
+    return idx
+
+
+def _dump_binhnsw(index):
+    meta = {"tag": "BxHN", "d": index.d, "ntotal": index.ntotal}
+    arrays: dict = {"codes": index._codes} if index.ntotal else {}
+    _flatten("sub", *dump_index(index.index), meta, arrays)
+    return meta, arrays
+
+
+def _load_binhnsw(meta, arrays, device):
+    from ..models.binary import IndexBinaryHNSW
+
+    idx = IndexBinaryHNSW(int(meta["d"]), device=device)
+    idx.index = load_index(*_sub("sub", meta, arrays), device=device)
+    if "codes" in arrays:
+        idx._codes = to_tensor(arrays["codes"], device, np.uint8)
+    idx.ntotal = int(meta["ntotal"])
+    return idx
+
+
+def _dump_binhash(index):
+    from ..models.binary import IndexBinaryMultiHash
+
+    meta = {"d": index.d, "ntotal": index.ntotal, "b": index.b,
+            "nflip": index.nflip}
+    if isinstance(index, IndexBinaryMultiHash):
+        meta.update(tag="BxMH", nhash=index.nhash)
+    else:
+        meta["tag"] = "BxHs"
+    return meta, ({"codes": index._codes} if index.ntotal else {})
+
+
+def _load_binhash(meta, arrays, device):
+    """BxHs / BxMH: the codes; the tables are rebuilt from them."""
+    from ..models.binary import IndexBinaryHash, IndexBinaryMultiHash
+
+    if meta["tag"] == "BxMH":
+        idx = IndexBinaryMultiHash(int(meta["d"]), int(meta["nhash"]),
+                                   int(meta["b"]), device=device)
+    else:
+        idx = IndexBinaryHash(int(meta["d"]), int(meta["b"]), device=device)
+    idx.nflip = int(meta["nflip"])
+    if "codes" in arrays:
+        idx.add(np.asarray(arrays["codes"]))
+    return idx
+
+
+def _dump_binfromfloat(index):
+    meta = {"tag": "BxFF", "d": index.d, "ntotal": index.ntotal}
+    arrays: dict = {}
+    _flatten("sub", *dump_index(index.index), meta, arrays)
+    return meta, arrays
+
+
+def _load_binfromfloat(meta, arrays, device):
+    from ..models.binary import IndexBinaryFromFloat
+
+    idx = IndexBinaryFromFloat(load_index(*_sub("sub", meta, arrays),
+                                          device=device))
+    idx.ntotal = int(meta["ntotal"])
+    return idx
+
+
+# --- the long-tail float indexes (reference :1085-1256) ---------------------
+
+def _dump_lsh(index):
+    meta = {"tag": "IxLs", "d": index.d, "ntotal": index.ntotal,
+            "nbits": index.nbits, "rotate_data": bool(index.rotate_data),
+            "train_thresholds": bool(index.train_thresholds),
+            "is_trained": index.is_trained}
+    arrays = {"P": index.P, "thresholds": index.thresholds}
+    if index.ntotal:
+        arrays["codes"] = index._bin.codes
+    return meta, arrays
+
+
+def _load_lsh(meta, arrays, device):
+    from ..models.extra import IndexLSH
+
+    idx = IndexLSH(int(meta["d"]), int(meta["nbits"]),
+                   bool(meta["rotate_data"]), bool(meta["train_thresholds"]),
+                   device=device)
+    idx.P = np.array(arrays["P"], np.float32)
+    idx.thresholds = np.array(arrays["thresholds"], np.float32)
+    idx.is_trained = bool(meta["is_trained"])
+    if "codes" in arrays:
+        idx._bin.add(np.asarray(arrays["codes"]))
+        idx.ntotal = idx._bin.ntotal
+    return idx
+
+
+def _dump_minmax(index):
+    meta = {"tag": "IxMM", "d": index.d, "ntotal": index.ntotal}
+    arrays: dict = {}
+    if index.ntotal:
+        arrays.update(mins=index._mins, scales=index._scales)
+    _flatten("sub", *dump_index(index.index), meta, arrays)
+    return meta, arrays
+
+
+def _load_minmax(meta, arrays, device):
+    from ..models.extra import IndexRowwiseMinMax
+
+    idx = IndexRowwiseMinMax(load_index(*_sub("sub", meta, arrays),
+                                        device=device))
+    if "mins" in arrays:
+        idx._mins = to_tensor(arrays["mins"], device, np.float32)
+        idx._scales = to_tensor(arrays["scales"], device, np.float32)
+    idx.ntotal = int(meta["ntotal"])
+    return idx
+
+
+def _dump_imi(index):
+    meta = {"tag": "IxMI", "d": index.d, "ntotal": index.ntotal,
+            "M": index.M, "nbits": index.nbits,
+            "is_trained": index.is_trained}
+    return meta, ({"centroids": index.pq.centroids}
+                  if index.pq is not None else {})
+
+
+def _load_imi(meta, arrays, device):
+    from ..models.extra import MultiIndexQuantizer
+
+    idx = MultiIndexQuantizer(int(meta["d"]), int(meta["M"]),
+                              int(meta["nbits"]), device=device)
+    if "centroids" in arrays:
+        idx._set_codec(np.array(arrays["centroids"], np.float32))
+    return idx
+
+
+def _dump_split(index):
+    meta = {"tag": "IxSV", "d": index.d, "ntotal": index.ntotal,
+            "nsub": len(index.sub_indexes)}
+    arrays: dict = {}
+    for i, sub in enumerate(index.sub_indexes):
+        _flatten(f"sub{i}", *dump_index(sub), meta, arrays)
+    return meta, arrays
+
+
+def _load_split(meta, arrays, device):
+    from ..models.extra import IndexSplitVectors
+
+    idx = IndexSplitVectors(int(meta["d"]), device=device)
+    for i in range(int(meta["nsub"])):
+        idx.add_sub_index(load_index(*_sub(f"sub{i}", meta, arrays),
+                                     device=device))
+    idx.ntotal = int(meta["ntotal"])
+    return idx
+
+
+def _dump_random(index):
+    return ({"tag": "IxRn", "d": index.d, "ntotal": index.ntotal,
+             "seed": int(index.seed)}, {})
+
+
+def _load_random(meta, arrays, device):
+    from ..models.extra import IndexRandom
+
+    return IndexRandom(int(meta["d"]), int(meta["ntotal"]),
+                       int(meta["seed"]), device=device)
+
+
+# --- the graph indexes (reference :1259-1411) -------------------------------
+
+def _graph_meta(index, tag: str) -> dict:
+    return {"tag": tag, "d": index.d, "metric": index.metric_type,
+            "ntotal": index.ntotal, "efSearch": int(index.efSearch)}
+
+
+def _dump_nsg(index):
+    """IxNS / IxNP / IxNQ: the graph, the medoid and the storage (the
+    flat rows, or the codes and their codec)."""
+    from ..models.nsg import IndexNSGPQ, IndexNSGSQ
+
+    meta = _graph_meta(index, "IxNS")
+    meta.update(R=index.R, GK=index.GK, medoid=int(index.medoid))
+    arrays: dict = {}
+    if isinstance(index, IndexNSGPQ):
+        meta.update(tag="IxNP", pq_m=index.pq_m, nbits=index.nbits,
+                    is_trained=index.is_trained)
+        if index.pq is not None:
+            arrays["centroids"] = index.pq.centroids
+    elif isinstance(index, IndexNSGSQ):
+        meta.update(tag="IxNQ", qtype=index.qtype,
+                    is_trained=index.is_trained)
+        if index.sq is not None and index.sq.vmin is not None:
+            arrays["sq_vmin"] = np.asarray(index.sq.vmin, np.float32)
+            arrays["sq_vdiff"] = np.asarray(index.sq.vdiff, np.float32)
+    if meta["tag"] == "IxNS":
+        if index.ntotal:
+            arrays["xb"] = index.storage.vectors
+    elif index._codes is not None:
+        arrays["codes"] = index._codes
+    if index.graph is not None:
+        arrays["graph"] = index.graph
+    return meta, arrays
+
+
+def _load_nsg(meta, arrays, device):
+    from ..models import nsg as NSG
+    from ..ops.sq import SQCodec
+
+    d, R, metric = int(meta["d"]), int(meta["R"]), int(meta["metric"])
+    tag = meta["tag"]
+    if tag == "IxNP":
+        idx = NSG.IndexNSGPQ(d, int(meta["pq_m"]), R, int(meta["nbits"]),
+                             metric, device=device)
+        if "centroids" in arrays:
+            idx._set_codec(np.array(arrays["centroids"], np.float32))
+    elif tag == "IxNQ":
+        idx = NSG.IndexNSGSQ(d, int(meta["qtype"]), R, metric,
+                             device=device)
+        if "sq_vmin" in arrays:
+            idx.sq = SQCodec(qtype=idx.qtype, d=d,
+                             vmin=np.array(arrays["sq_vmin"], np.float32),
+                             vdiff=np.array(arrays["sq_vdiff"], np.float32))
+    else:
+        idx = NSG.IndexNSGFlat(d, R, metric, device=device)
+    idx.GK = int(meta["GK"])
+    idx.medoid = int(meta["medoid"])
+    if "is_trained" in meta:
+        idx.is_trained = bool(meta["is_trained"])
+    if "codes" in arrays:
+        idx._set_codes(to_tensor(arrays["codes"], device))
+    return _graph_shell(idx, meta, arrays, device)
+
+
+def _graph_shell(idx, meta, arrays, device):
+    idx.efSearch = int(meta["efSearch"])
+    if "xb" in arrays:
+        idx.storage.add(np.asarray(arrays["xb"]))
+        idx.ntotal = idx.storage.ntotal
+    if "graph" in arrays:
+        idx.graph = to_tensor(arrays["graph"], device, np.int32)
+    return idx
+
+
+def _dump_nnd(index):
+    meta = _graph_meta(index, "IxND")
+    meta["K"] = index.K
+    arrays: dict = {}
+    if index.ntotal:
+        arrays["xb"] = index.storage.vectors
+    if index.graph is not None:
+        arrays["graph"] = index.graph
+    return meta, arrays
+
+
+def _load_nnd(meta, arrays, device):
+    from ..models.nsg import IndexNNDescentFlat
+
+    idx = IndexNNDescentFlat(int(meta["d"]), int(meta["K"]),
+                             int(meta["metric"]), device=device)
+    return _graph_shell(idx, meta, arrays, device)
+
+
+# --- the IVF couplings (reference :1447-1527) -------------------------------
+
+def _dump_spectralhash(index):
+    """IwSH: the IVF arrays (the code lists), nbit, period, the threshold
+    type, the thresholds and the projection (``vt``)."""
+    meta, arrays = _dump_ivf_common(index)
+    meta.update(tag="IwSH", nbit=index.nbit, period=index.period,
+                threshold_type=index.threshold_type)
+    _dump_vt_at(index.vt, "vt", meta, arrays)
+    if index.trained is not None:
+        arrays["trained"] = np.asarray(index.trained, np.float32)
+    return meta, arrays
+
+
+def _load_spectralhash(meta, arrays, device):
+    from ..models.flat import IndexFlat
+    from ..models.ivf_extra import IndexIVFSpectralHash
+
+    d, metric = int(meta["d"]), int(meta["metric"])
+    idx = IndexIVFSpectralHash(
+        IndexFlat(d, metric, device=device), d, int(meta["nlist"]),
+        int(meta["nbit"]), float(meta["period"]), metric,
+        int(meta["block_size"]), device=device)
+    idx.threshold_type = meta["threshold_type"]
+    idx.vt = _load_vt_at("vt", meta.get("vt_cls"), meta, arrays, device)
+    if "trained" in arrays:
+        idx.trained = np.array(arrays["trained"], np.float32)
+    return _restore_ivf_common(idx, meta, arrays, device)
+
+
+def _dump_independent(index):
+    meta = {"tag": "IwIQ", "d": index.d, "metric": index.metric_type,
+            "ntotal": index.ntotal, "is_trained": index.is_trained,
+            "has_vt": index.vt is not None}
+    arrays: dict = {}
+    _flatten("quantizer", *dump_index(index.quantizer), meta, arrays)
+    _flatten("payload", *dump_index(index.index_ivf), meta, arrays)
+    if index.vt is not None:
+        _dump_vt_at(index.vt, "vt", meta, arrays)
+    return meta, arrays
+
+
+def _load_independent(meta, arrays, device):
+    from ..models.ivf_extra import IndexIVFIndependentQuantizer
+
+    vt = _load_vt_at("vt", meta.get("vt_cls"), meta, arrays, device) \
+        if meta.get("has_vt") else None
+    idx = IndexIVFIndependentQuantizer(
+        load_index(*_sub("quantizer", meta, arrays), device=device),
+        load_index(*_sub("payload", meta, arrays), device=device), vt)
+    idx.is_trained = bool(meta["is_trained"])
+    idx.ntotal = int(meta["ntotal"])
+    return idx
+
+
 def _register(cls_name: str, tag: str, dump, load) -> None:
     _DUMPERS[cls_name] = dump
     _LOADERS[tag] = load
@@ -1206,15 +1578,26 @@ for _cls in ("ResidualCoarseQuantizer", "LocalSearchCoarseQuantizer"):
 _register("IndexQINCo", "IxQN", _dump_qinco, _load_qinco)
 _register("IndexLattice", "IxLt", _dump_lattice, _load_lattice)
 
-# the reference's other tags, by the ROADMAP queue 1 item that ports their
-# classes
-_ITEMS = {
-    "item 9 (the remaining codecs and indexes)": (
-        "IxLs", "IxMM", "IxMI",
-        "IxSV", "IxRn", "IxNS", "IxNP", "IxNQ", "IxND", "IwSH",
-        "IwIQ", "BxFl", "BwFl", "BxHN", "BxHs", "BxMH", "BxFF"),
-}
-_UNPORTED = {tag: item for item, tags in _ITEMS.items() for tag in tags}
+_register("IndexBinaryFlat", "BxFl", _dump_binflat, _load_binflat)
+_register("IndexBinaryIVF", "BwFl", _dump_binivf, _load_binivf)
+_register("IndexBinaryHNSW", "BxHN", _dump_binhnsw, _load_binhnsw)
+_register("IndexBinaryHash", "BxHs", _dump_binhash, _load_binhash)
+_register("IndexBinaryMultiHash", "BxMH", _dump_binhash, _load_binhash)
+_register("IndexBinaryFromFloat", "BxFF", _dump_binfromfloat,
+          _load_binfromfloat)
+_register("IndexLSH", "IxLs", _dump_lsh, _load_lsh)
+_register("IndexRowwiseMinMax", "IxMM", _dump_minmax, _load_minmax)
+_register("MultiIndexQuantizer", "IxMI", _dump_imi, _load_imi)
+_register("IndexSplitVectors", "IxSV", _dump_split, _load_split)
+_register("IndexRandom", "IxRn", _dump_random, _load_random)
+_register("IndexNSGFlat", "IxNS", _dump_nsg, _load_nsg)
+_register("IndexNSGPQ", "IxNP", _dump_nsg, _load_nsg)
+_register("IndexNSGSQ", "IxNQ", _dump_nsg, _load_nsg)
+_register("IndexNNDescentFlat", "IxND", _dump_nnd, _load_nnd)
+_register("IndexIVFSpectralHash", "IwSH", _dump_spectralhash,
+          _load_spectralhash)
+_register("IndexIVFIndependentQuantizer", "IwIQ", _dump_independent,
+          _load_independent)
 
 
 def dump_index(index) -> Tuple[dict, dict]:
@@ -1226,10 +1609,6 @@ def dump_index(index) -> Tuple[dict, dict]:
 
 def load_index(meta: dict, arrays: dict, *, device="cuda"):
     tag = meta["tag"]
-    if tag in _UNPORTED:
-        raise NotImplementedError(
-            f"index tag {tag!r}: its class is not ported yet (ROADMAP "
-            f"queue 1, {_UNPORTED[tag]})")
     if tag not in _LOADERS:
         raise ValueError(f"unknown index tag {tag!r}")
     return _LOADERS[tag](meta, arrays, device)

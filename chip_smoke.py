@@ -13,6 +13,9 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
                                          # phase 3's data and quantizer
     python3 chip_smoke.py --phase20      # only phase 20 (the index
                                          # families), likewise
+    python3 chip_smoke.py --phase21      # only phase 21 (the sharded
+                                         # path), likewise, with phase
+                                         # 16a's IVF4096,PQ32
 
 Phases, one line each; any failure raises and exits non-zero:
   1. device  — a CUDA device is required; nvidia-smi's name and power limit.
@@ -84,10 +87,15 @@ Phases, one line each; any failure raises and exits non-zero:
      tier). Recall@10 must reach the IVF floors; (D, I) must equal K3's
      scan over a device copy of the same directory's arrays bit for bit;
      each search launches K4 once per planned call and no K3 / K1 / K2.
+     Then the search at k 27 / 58 / 100 (kp 33 / 64 / 106: K4's
+     two-entries-a-lane kernel, and 32-row sub-blocks above kp 64) of
+     1024 queries at nprobe 32: K4 launched, (D, I) equal to K3's.
   8. K4 vs its plain torch version at the path's shapes (10k queries,
      nprobe 32, the first call of each of the two default windows, the
      second merging into the first's result), and on the same window
-     padded from d=96: bit for bit; kernel and plain times.
+     padded from d=96: bit for bit; kernel and plain times. Then at kp 33 /
+     58 / 64 / 100 / 106 (1024 queries, the first two windows) bit for
+     bit, timed at kp 58 and 100.
   9. IVFHNSW path on phase 3's data (the JAX package's bench.py config
      3): IndexIVFHNSW(128, 15625, M=16), efConstruction 40 -> train on the
      train slice (k-means, then the graph over the centroids) -> add -> search
@@ -357,7 +365,8 @@ Phases, one line each; any failure raises and exits non-zero:
      256-wide bf16 tiles, K3 held against its plain version there); (e)
      BHash16 / BHash8x16 at nflip 0 / 1 / 2 (candidates growing, each set
      holding the last, every distance the flat index's, recall, QPS); (f)
-     NSG32,Flat over NSG_NB rows (NN-descent and prune seconds, the k-NN
+     NSG32,Flat over NSG_NB (250k) rows (NN-descent and prune seconds,
+     the k-NN
      graph's recall on a 10k-row sample, the share of rows reachable from
      the medoid, recall and QPS at efSearch 16 / 32 / 64 / 128, not
      falling, the card's beam equal to the CPU's on 200 queries), then at
@@ -374,6 +383,25 @@ Phases, one line each; any failure raises and exits non-zero:
      IndexSplitVectors over two IndexFlat(64) equal to IndexFlat(128); (i)
      the 17 files (BxFl ... IwIQ) reopened with mmap, each search bit for
      bit the original's. Phase 20 launches K1, K2, K3 and K3-SQ8.
+  21. the sharded path (tpu_ann_torch.parallel) on phase 3's data and
+     quantizer; the rows, queries, quantizer, assignment and phase 16a's
+     IVF4096,PQ32 codes and codebooks written as .npy files to the run's
+     temporary directory. (a) World size 1, NCCL: sharded_ivf_scan's fused
+     route (one K3 launch) equal to scan_invlists_fused over the same
+     lists bit for bit, at 10k queries and nprobe 32; sharded_knn over the
+     1M rows at 1024 queries equal to the exact ground truth (ties either
+     way); sharded_ivf_scan_pq (40 candidates) and kmeans_distributed
+     (4096 centroids, the 100k train rows, 10 iterations) for (b). (b)
+     World size 4 (2 shards x 2 replicas), gloo, the ranks spawned by
+     torch.multiprocessing, all on the card, each packing its shard's half
+     of the rows with global ids from the .npy files: every rank's result
+     equal to rank 0's; the fused route (one K3 launch a rank) equal to the
+     plain route; recall@10 at nprobe 32 at the IVF floor and within 0.001
+     of phase 3's; sharded_knn equal to the ground truth;
+     sharded_ivf_scan_pq equal to (a)'s; sharded_refine of its candidates
+     equal to IndexRefine's exact re-rank; kmeans_distributed's objective
+     within 1e-4 of (a)'s. Each function's seconds by rank, and rank 0's
+     K3 launch (5k queries, half the lists) timed beside its bound.
 The last two lines are the kernels' JSON record (each with its time,
 its plain version's, the card's bound for the same work (a scan of
 lists: the valid rows it needs, each read once, not their blocks'
@@ -383,8 +411,10 @@ K4 add their time and bound at the main path's 10k queries, K3 its time
 at IVFPQR's kp 46 (phase 16e), at the quantizer's kp 64 (phase 17j) and
 at d 64 (phase 18a), on the IVF-RQ cache and the 65,536-list RCQ lists
 (phase 19a / c; K3-SQ8 on the "sq8" RQ cache), K3 and K1 at d 256
-(phase 20d / b), each kernel its phase-16 to phase-20 launches, and K3
-has a second record at batch 1) and {"ok": true, ...}.
+(phase 20d / b), each kernel its phase-16 to phase-20 launches, K4 its
+times at kp 58 and 100 (phase 8), K3 its phase-21 launches and one
+rank's time there, and K3 has a second record at batch 1) and
+{"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -806,6 +836,8 @@ def main() -> None:
                                                results, dev, tmp)
         family_launches, family_k = families_phase(quant3, xb, xt, xq, gt,
                                                    results, dev, tmp)
+        reset_counts()
+        k3.update(sharded_phase(quant3, xb, xt, xq, gt, results, dev, tmp))
     k3["launches_pq"] = pq_launches.get("ivf_scan_fused", 0)
     k3["launches_hnsw"] = hnsw_launches.get("ivf_scan_fused", 0)
     k3["launches_breadth"] = breadth_launches.get("ivf_scan_fused", 0)
@@ -1434,6 +1466,13 @@ def pinned_gbps(dev, nbytes: int = 1 << 28) -> float:
 # (name, window_blocks, the first half of the stream resident on the
 # device): the default window, many windows with straddling tiles, and
 # the hot tier
+# K4 above 32 entries a pair (phases 7-8): the searches' k (kp 33 / 64 /
+# 106: the two-entries-a-lane kernel, and 32-row sub-blocks above 64), the
+# kp held against the plain version (timed at 58 and 100), at WIDE_NQ
+# queries and nprobe 32
+WIDE_KS = (27, 58, 100)
+WIDE_KPS = (33, 58, 64, 100, 106)
+WIDE_NQ = 1024
 PAGED_SETTINGS = (("default", 8192, False), ("w1024", 1024, False),
                   ("hot_half", 1024, True))
 
@@ -1555,9 +1594,25 @@ def paged_phases(xb, xt, xq, gt, dev, tmp):
                     f"{setting} nprobe={nprobe}: paged (D, I) differ from "
                     f"K3's in {int((Dp != D3).sum())} / "
                     f"{int((Ip != I3).sum())} entries")
+    # the search at k 27 / 58 / 100: K4's wide routes launched, (D, I)
+    # equal to K3's over the device copy
+    _, probes_w = TD.knn(xq_dev[:WIDE_NQ], idx._cent_dev, 32)
+    wide_launches = {}
+    for k in WIDE_KS:
+        before = P.LAUNCHES
+        Dp, Ip = idx.search(xq[:WIDE_NQ], k,
+                            params=T.SearchParametersIVF(nprobe=32))
+        wide_launches[k] = P.LAUNCHES - before
+        D3, I3, _ = F.scan_invlists_fused(xq_dev[:WIDE_NQ], probes_w, il, k)
+        if wide_launches[k] == 0:
+            raise AssertionError(f"the paged search at k {k} ran no K4")
+        if not (np.array_equal(Dp, D3.cpu().numpy())
+                and np.array_equal(Ip, I3.cpu().numpy())):
+            raise AssertionError(f"k {k}: paged (D, I) differ from K3's")
     del il
     torch.cuda.empty_cache()
-    phase("paged_path", launches=paged_launches, equal_to_k3=True)
+    phase("paged_path", launches=paged_launches, equal_to_k3=True,
+          wide_k_launches=wide_launches, wide_k_equal_to_k3=True)
 
     # -- 8. K4 vs its plain version at the path's shapes -------------------
     _, probes = TD.knn(xq_dev, idx._cent_dev, 32)
@@ -1622,6 +1677,9 @@ def paged_phases(xb, xt, xq, gt, dev, tmp):
         del win, d96
     phase("paged_kernel_check", nq=NQ, nprobe=32, kp=kp, ntiles=plan.ntiles,
           equal=True, d96_equal=True, max_abs_err=k4_err, calls=checks)
+    wide, k4_err = k4_wide_check(pil, probes_w, q16[:WIDE_NQ].contiguous(),
+                                 qn[:WIDE_NQ].contiguous(), W,
+                                 idx.tile_batch, dev, k4_err)
     os.remove(os.path.join(tmp, "xb.f32"))
     first = checks[0]
     return idx, {
@@ -1638,7 +1696,69 @@ def paged_phases(xb, xt, xq, gt, dev, tmp):
         "library_ms": None,
         "ms_10k": [c["ms"] for c in checks],
         "bound_ms_10k": [c["bound_ms"] for c in checks],
+        **wide,
     }
+
+
+def k4_wide_check(pil, probes, q16, qn, W, tb_batch, dev, k4_err):
+    """Phase 8's wide part: K4 at each of WIDE_KPS against its plain
+    version after each of the first two windows (WIDE_NQ queries, nprobe
+    32), and its time, its plain version's and its bound at kp 58 and 100
+    on the first window. Returns (the kernels-line fields, the largest
+    absolute error so far)."""
+    plan = F.plan_pairs(probes, pil)
+    tbs = plan.tile_bs.long().cpu().numpy()
+    tbe = tbs + plan.tile_nb.long().cpu().numpy()
+    entries = list(P._plan_windows(tbs, tbe, W, tb_batch))
+    firsts = [e for i, e in enumerate(entries)
+              if i == 0 or e[0] != entries[i - 1][0]][:2]
+    run = {kp: (torch.full((plan.ntiles * F.PT, kp), float("inf"),
+                           device=dev),
+                torch.full((plan.ntiles * F.PT, kp), -1, dtype=torch.int32,
+                           device=dev)) for kp in WIDE_KPS}
+    out, before = {}, P.LAUNCHES
+    for w0, ta, tb in firsts:
+        win = P.window_of(pil, w0, min(W, pil.nblocks - w0), dev)
+        for kp in WIDE_KPS:
+            r1 = tuple(t.clone() for t in run[kp])
+            r0 = tuple(t.clone() for t in run[kp])
+            P.scan_window(q16, qn, plan, win, w0, ta, tb, *r1, False)
+            P.scan_window_reference(q16, qn, plan, win, w0, ta, tb, *r0,
+                                    False)
+            assert_equal(f"K4 kp {kp} w0={w0} distances", r0[0], r1[0])
+            assert_equal(f"K4 kp {kp} w0={w0} positions", r0[1], r1[1])
+            k4_err = max(k4_err, max_abs_err(r0[0], r1[0]))
+            if kp in (58, 100) and w0 == firsts[0][0]:
+                cur = tuple(t.clone() for t in run[kp])
+
+                def reset():
+                    cur[0].copy_(run[kp][0])
+                    cur[1].copy_(run[kp][1])
+
+                def call():
+                    reset()
+                    P.scan_window(q16, qn, plan, win, w0, ta, tb, *cur,
+                                  False)
+
+                def plain():
+                    reset()
+                    P.scan_window_reference(q16, qn, plan, win, w0, ta, tb,
+                                            *cur, False)
+
+                copy_ms = cuda_ms(reset, 20)
+                b = bound(*pair_scan_work(plan, win.ids, win.block_size, D,
+                                          kp, w0, w0 + win.nblocks, ta, tb,
+                                          running=True))
+                out.update({f"kp{kp}_ms": cuda_ms(call, 10) - copy_ms,
+                            f"kp{kp}_plain_ms": host_ms(plain, 2) - copy_ms,
+                            f"kp{kp}_bound_ms": b["bound_ms"],
+                            f"kp{kp}_bound_by": b["bound_by"]})
+            run[kp] = r1
+        del win
+    phase("paged_kernel_wide", nq=len(q16), nprobe=probes.shape[1],
+          kps=list(WIDE_KPS), windows=[e[0] for e in firsts], equal=True,
+          launches=P.LAUNCHES - before, **out)
+    return out, k4_err
 
 
 # -- phases 9-13: the HNSW graph path, K1p, the B1 ladder and B2 -------------
@@ -3181,6 +3301,7 @@ def pq_phase(quant3, hquant, hnsw_auto, xb, xt, xq, gt, flat_rec, dev,
           codec_recall=C, cache_bytes=cache_bytes(cache),
           rule_bytes=rule, code_bytes=A.invlists.codes.nbytes,
           searches=res_a)
+    save_pq32(A, tmp)                                   # for phase 21
 
     # -- 16b. the same codes, decoded_cache_dtype "sq8": K3-SQ8 ---------------
     A.decoded_cache_dtype = "sq8"
@@ -5004,9 +5125,10 @@ def codecs_alone() -> None:
 
 # queries of the bit-for-bit checks of phase 20
 FAM_NQ = 1000
-# rows of the Flat NSG (the plan's fallback is 250k rows, with the ground
-# truth recomputed, if NN-descent and the prune take over 150 s at 1M)
-NSG_NB = 1_000_000
+# rows of the Flat NSG, with the ground truth recomputed over them: 250k,
+# the fallback planned for it, whose time pays for phase 21 (NN-descent
+# took 76-90 s at 1M)
+NSG_NB = 250_000
 # rows of the NN-descent index and the coded NSGs
 NSG_CODED_NB = 100_000
 LSH_BITS = 256
@@ -5548,6 +5670,326 @@ def families_alone() -> None:
         families_phase(quant3, xb, xt, xq, gt, rec, dev, tmp)
 
 
+# -- phase 21: the sharded path on torch.distributed --------------------------
+
+# the sizes of phase 21, handed to the ranks of 21b: the probes of the
+# scans, the queries of the exact k-NN / PQ / refine checks, the PQ
+# candidates a query that sharded_refine re-ranks to k, the queries of
+# the timed K3 launch (rank 0's replica rows), the k-means (centroids,
+# iterations, over the NT training rows) and the seconds the 4-rank world
+# may take before it is killed
+SHARD = {"k": K, "nprobe": 32, "nq_exact": 1024, "R": 40,
+         "timed_nq": 5000, "km_k": 4096, "km_iters": 10, "timeout_s": 300}
+# the ranks of 21b: 2 shards x 2 replicas
+SHARD_MESH = (2, 2)
+
+
+def save_pq32(idx, tmp) -> None:
+    """Phase 16's IVF4096,PQ32 (``idx``, its rows added under ids 0..n-1)
+    for phase 21: its codes by row id, each row's list and its codebooks,
+    as .npy files in ``tmp``."""
+    from tpu_ann_torch.ops import ivf_scan
+
+    idx._maybe_repack()
+    il = idx.invlists
+    ids = il.ids.reshape(-1).long()
+    valid = ids >= 0
+    n = int(valid.sum())
+    cw = il.codes.shape[-1]
+    codes = torch.zeros((n, cw), dtype=torch.uint8, device=ids.device)
+    codes[ids[valid]] = il.codes.reshape(-1, cw)[valid]
+    lists = ivf_scan.block_lists(il).repeat_interleave(il.block_size)
+    assign = torch.zeros(n, dtype=torch.long, device=ids.device)
+    assign[ids[valid]] = lists.to(ids.device)[valid]
+    np.save(os.path.join(tmp, "shard_pq_codes.npy"), codes.cpu().numpy())
+    np.save(os.path.join(tmp, "shard_pq_assign.npy"), assign.cpu().numpy())
+    np.save(os.path.join(tmp, "shard_pq_books.npy"),
+            np.asarray(idx.pq.centroids, np.float32))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def shard_load(tmp, name):
+    return np.load(os.path.join(tmp, f"shard_{name}.npy"), mmap_mode="r")
+
+
+def shard_rank(rank, world, port, tmp, device, cfg) -> None:
+    """One rank of phase 21b (spawned): joins the gloo world, packs its
+    shard's half of the rows (global ids) under phase 3's quantizer and of
+    phase 16's PQ32 codes, runs every sharded function on ``device`` and
+    writes its results to shard_rank<r>.npz in ``tmp`` (a failure: its
+    traceback to shard_rank<r>.err, exit 1)."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from tpu_ann_torch import parallel as PAR
+    from tpu_ann_torch.ops import ivf_scan
+
+    try:
+        torch.set_num_threads(2)
+        dev = torch.device(device)
+        PAR.initialize_multihost(f"127.0.0.1:{port}", world, rank,
+                                 backend="gloo", timeout_s=cfg["timeout_s"])
+        mesh = PAR.make_mesh(*SHARD_MESH, device=dev)
+        xb, xt = shard_load(tmp, "xb"), np.array(shard_load(tmp, "xt"))
+        nb, nlist, k = len(xb), len(shard_load(tmp, "cent")), cfg["k"]
+        half = nb // mesh.n_shards
+        lo, hi = mesh.shard * half, (mesh.shard + 1) * half
+        ids = np.arange(lo, hi)
+        il = ivf_scan.pack_invlists(np.array(xb[lo:hi]), ids,
+                                    shard_load(tmp, "assign")[lo:hi], nlist,
+                                    device=dev)
+        xb_l = torch.from_numpy(np.array(xb[lo:hi])).to(dev)
+        cent = torch.from_numpy(np.array(shard_load(tmp, "cent"))).to(dev)
+        xq = torch.from_numpy(np.array(shard_load(tmp, "xq"))).to(dev)
+        _, probes = TD.knn(xq, cent, cfg["nprobe"])
+        ne = cfg["nq_exact"]
+        pil = ivf_scan.pack_code_invlists(
+            np.array(shard_load(tmp, "pq_codes")[lo:hi]), ids,
+            shard_load(tmp, "pq_assign")[lo:hi], nlist, device=dev)
+        books = np.array(shard_load(tmp, "pq_books"))
+        secs, out = {}, {}
+
+        def run(name, fn):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dist.barrier()
+            t0 = time.perf_counter()
+            res = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            secs[name] = time.perf_counter() - t0
+            return res
+
+        reset_counts()
+        out["Df"], out["If"] = run("ivf_scan_fused", lambda: (
+            PAR.sharded_ivf_scan(xq, probes, il, k,
+                                 max_nblocks=il.max_nblocks_per_list,
+                                 mesh=mesh, fused=True)))
+        k3 = F.LAUNCHES
+        out["Dp"], out["Ip"] = run("ivf_scan_plain", lambda: (
+            PAR.sharded_ivf_scan(xq, probes, il, k,
+                                 max_nblocks=il.max_nblocks_per_list,
+                                 mesh=mesh)))
+        out["Dk"], out["Ik"] = run("knn", lambda: PAR.sharded_knn(
+            xq[:ne], xb_l, k, mesh=mesh))
+        out["Dq"], out["Iq"] = run("ivf_scan_pq", lambda: (
+            PAR.sharded_ivf_scan_pq(xq[:ne], probes[:ne], None, pil, books,
+                                    cent, cfg["R"],
+                                    max_nblocks=pil.max_nblocks_per_list,
+                                    mesh=mesh)))
+        out["Dr"], out["Ir"] = run("refine", lambda: PAR.sharded_refine(
+            xq[:ne], out["Iq"], xb_l, k, mesh=mesh))
+        km = run("kmeans_distributed", lambda: PAR.kmeans_distributed(
+            xt, cfg["km_k"], mesh=mesh, niter=cfg["km_iters"]))
+        obj = float(PAR.sharded_kmeans_iter(
+            PAR.local_rows(xt, mesh, axis="world"), km, cfg["km_k"],
+            mesh=mesh)[2])
+        timed = {}
+        if rank == 0 and dev.type == "cuda":
+            # one K3 launch of this rank's scan: its replica's queries over
+            # its shard's lists (not counted as a launch of the path)
+            q = xq[:cfg["timed_nq"]]
+            plan = F.plan_pairs(probes[:cfg["timed_nq"]], il)
+            kp = F.default_kp(k)
+            q16, qn = q.to(torch.bfloat16), TD.l2_norms(q)
+            timed = {"nq": len(q), "ms": cuda_ms(
+                lambda: F.scan_pairs(q16, qn, plan, il, kp, False), 10),
+                **bound(*pair_scan_work(plan, il.ids, il.block_size,
+                                        q.shape[1], kp, 0, il.nblocks))}
+        np.savez(os.path.join(tmp, f"shard_rank{rank}.npz"),
+                 **{n: t.cpu().numpy() for n, t in out.items()},
+                 km=km, obj=obj, k3=k3,
+                 info=json.dumps({"secs": secs, "k3_timed": timed,
+                                  "shard": mesh.shard,
+                                  "replica": mesh.replica}))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f"shard_rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def shard_world(tmp, dev, cfg) -> list:
+    """Phase 21b's world: 4 ranks spawned (torch.multiprocessing, spawn),
+    gloo, all on ``dev``, joined under cfg["timeout_s"]; a rank still
+    running then is killed. Returns each rank's results."""
+    import torch.multiprocessing as tmp_mp
+
+    ctx = tmp_mp.get_context("spawn")
+    world = SHARD_MESH[0] * SHARD_MESH[1]
+    port = free_port()
+    procs = [ctx.Process(target=shard_rank,
+                         args=(r, world, port, tmp, str(dev), cfg))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + cfg["timeout_s"]
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    errs = {r: open(os.path.join(tmp, f"shard_rank{r}.err")).read()[-3000:]
+            for r in range(world)
+            if os.path.exists(os.path.join(tmp, f"shard_rank{r}.err"))}
+    codes = [p.exitcode for p in procs]
+    if hung or codes != [0] * world:
+        raise AssertionError(f"phase 21b's world failed: exit codes {codes}, "
+                             f"killed {len(hung)}; {errs}")
+    return [dict(np.load(os.path.join(tmp, f"shard_rank{r}.npz")))
+            for r in range(world)]
+
+
+def sharded_phase(quant3, xb, xt, xq, gt, flat_rec, dev, tmp) -> dict:
+    """Phase 21: tpu_ann_torch.parallel at full width on phase 3's data and
+    quantizer. (a) World size 1 (NCCL on the card): sharded_ivf_scan's
+    fused route (K3) equal to scan_invlists_fused over the same lists bit
+    for bit, sharded_knn over the whole base equal to the exact ground
+    truth, and the PQ scan and k-means that (b) is held to. (b) World size
+    4 (2 shards x 2 replicas, gloo, every rank on the same device): fused
+    (K3 on every rank) equal to the plain sharded route, recall@10 at the
+    IVF floor, sharded_knn equal to the ground truth, sharded_ivf_scan_pq
+    equal to (a)'s, sharded_refine of its candidates equal to a
+    one-process exact re-rank, kmeans_distributed's objective within 1e-4
+    of (a)'s. Returns K3's launches and its time on one rank."""
+    import torch.distributed as dist
+
+    from tpu_ann_torch import parallel as PAR
+    from tpu_ann_torch.models.refine import _rerank
+    from tpu_ann_torch.ops import ivf_scan
+
+    t_phase = time.perf_counter()
+    cfg = SHARD
+    k, ne = cfg["k"], cfg["nq_exact"]
+    one = int(dev.type == "cuda")     # K3 launches a fused call (0: plain)
+    cent = quant3.vectors.float()
+    xb_dev = torch.from_numpy(xb).to(dev)
+    assign = TD.knn(xb_dev, cent, 1)[1][:, 0].cpu().numpy()
+    for name, a in (("xb", xb), ("xq", xq), ("xt", xt),
+                    ("cent", cent.cpu().numpy()), ("assign", assign)):
+        np.save(os.path.join(tmp, f"shard_{name}.npy"), a)
+    xq_dev = torch.from_numpy(xq).to(dev)
+    _, probes = TD.knn(xq_dev, cent, cfg["nprobe"])
+    Dg, Ig = (t.cpu().numpy() for t in TD.knn(xq_dev[:ne], xb_dev, k))
+    assert_same_topk(Dg, gt[:ne], Dg, Ig)       # phase 3's, up to ties
+    t_setup = time.perf_counter() - t_phase
+
+    # -- 21a. world size 1 ---------------------------------------------------
+    t0 = time.perf_counter()
+    PAR.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0,
+                             backend="nccl" if dev.type == "cuda"
+                             else "gloo")
+    try:
+        mesh = PAR.make_mesh(1, 1, device=dev)
+        il = ivf_scan.pack_invlists(xb, np.arange(len(xb)), assign,
+                                    len(cent), device=dev)
+        D3, I3, _ = F.scan_invlists_fused(xq_dev, probes, il, k)
+        before = F.LAUNCHES
+        D1, I1 = PAR.sharded_ivf_scan(xq_dev, probes, il, k,
+                                      max_nblocks=il.max_nblocks_per_list,
+                                      mesh=mesh, fused=True)
+        k3_world1 = F.LAUNCHES - before
+        if k3_world1 != one:
+            raise AssertionError(f"21a: {k3_world1} K3 launches")
+        if not (torch.equal(D1, D3) and torch.equal(I1, I3)):
+            raise AssertionError("21a: the sharded fused scan differs from "
+                                 "scan_invlists_fused")
+        del il
+        Dk, Ik = PAR.sharded_knn(xq_dev[:ne], xb_dev, k, mesh=mesh)
+        assert_same_topk(Dg, Ig, Dk.cpu().numpy(), Ik.cpu().numpy())
+        books = np.load(os.path.join(tmp, "shard_pq_books.npy"))
+        pil = ivf_scan.pack_code_invlists(
+            np.load(os.path.join(tmp, "shard_pq_codes.npy")),
+            np.arange(len(xb)),
+            np.load(os.path.join(tmp, "shard_pq_assign.npy")), len(cent),
+            device=dev)
+        Dq1, Iq1 = (t.cpu().numpy() for t in PAR.sharded_ivf_scan_pq(
+            xq_dev[:ne], probes[:ne], None, pil, books, cent, cfg["R"],
+            max_nblocks=pil.max_nblocks_per_list, mesh=mesh))
+        del pil
+        km1 = PAR.kmeans_distributed(xt, cfg["km_k"], mesh=mesh,
+                                     niter=cfg["km_iters"])
+        obj1 = float(PAR.sharded_kmeans_iter(xt, km1, cfg["km_k"],
+                                             mesh=mesh)[2])
+    finally:
+        dist.destroy_process_group()
+    t_world1 = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # -- 21b. world size 4 ---------------------------------------------------
+    t0 = time.perf_counter()
+    ranks = shard_world(tmp, dev, cfg)
+    t_world4 = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r, res in enumerate(ranks[1:], 1):
+        for name in ("Df", "If", "Dp", "Ip", "Dk", "Ik", "Dq", "Iq", "Dr",
+                     "Ir", "km", "obj"):
+            if not np.array_equal(res[name], r0[name]):
+                raise AssertionError(f"21b: rank {r}'s {name} differs from "
+                                     f"rank 0's")
+    launches = [int(res["k3"]) for res in ranks]
+    if launches != [one] * len(ranks):
+        raise AssertionError(f"21b: K3 launches by rank {launches}")
+    assert_same_topk(r0["Dp"], r0["Ip"], r0["Df"], r0["If"])
+    rec = T.recall_k_at_k(r0["If"], gt, k)
+    want = max(RECALL_FLOORS[cfg["nprobe"]], flat_rec[cfg["nprobe"]] - 0.001)
+    if rec < want:
+        raise AssertionError(f"21b: recall@10 {rec} < {want}")
+    assert_same_topk(Dg, Ig, r0["Dk"], r0["Ik"])
+    assert_same_topk(Dq1, Iq1, r0["Dq"], r0["Iq"])
+    cand = torch.from_numpy(r0["Iq"]).to(dev)
+    De, Ie = _rerank(xq_dev[:ne], cand, xb_dev[cand.clamp(min=0)], k,
+                     TD.METRIC_L2, diff=True)
+    assert_same_topk(De.cpu().numpy(), Ie.cpu().numpy(), r0["Dr"], r0["Ir"])
+    obj_rel = abs(float(r0["obj"]) - obj1) / abs(obj1)
+    if obj_rel > 1e-4:
+        raise AssertionError(f"21b: k-means objective {float(r0['obj'])} vs "
+                             f"world size 1's {obj1}")
+    info = [json.loads(str(res["info"])) for res in ranks]
+    timed = info[0]["k3_timed"]
+    phase("sharded", seconds=time.perf_counter() - t_phase, setup_s=t_setup,
+          world1_s=t_world1, world4_s=t_world4, mesh=list(SHARD_MESH),
+          nq=len(xq), nprobe=cfg["nprobe"], recall_at_10=rec,
+          unsharded_recall_at_10=flat_rec[cfg["nprobe"]],
+          fused_equal_plain=True, world1_equal_k3=True, knn_exact=True,
+          pq_equal_world1=True, refine_equal_exact=True,
+          kmeans_obj=float(r0["obj"]), kmeans_obj_world1=obj1,
+          kmeans_obj_rel=obj_rel,
+          k3_launches={"world1": k3_world1, "by_rank": launches},
+          seconds_by_rank=[i["secs"] for i in info],
+          coords_by_rank=[(i["replica"], i["shard"]) for i in info],
+          k3_one_rank=timed)
+    return {"launches_sharded": k3_world1 + sum(launches),
+            "sharded_ms": timed.get("ms"),
+            "sharded_bound_ms": timed.get("bound_ms"),
+            "sharded_bound_by": timed.get("bound_by")}
+
+
+def sharded_alone() -> None:
+    """--phase21: phase 21 alone: K3 built, phase 3's data, ground truth
+    and IVF4096,Flat, an IVF4096,PQ32 over its quantizer as phase 16a
+    builds it, then sharded_phase. Its phase lines only."""
+    dev = require_gpu()
+    kernels.load_libraries(("ivf_scan_fused",))
+    quant3, xb, xt, xq, gt, rec = phase3_setup(dev)
+    with tempfile.TemporaryDirectory(prefix="tpu_ann_smoke_") as tmp:
+        A = ivf_pq_over(quant3, 32, 8, xt, xb, np.arange(NB), dev)[0]
+        save_pq32(A, tmp)
+        del A
+        torch.cuda.empty_cache()
+        sharded_phase(quant3, xb, xt, xq, gt, rec, dev, tmp)
+
+
 def phase3_setup(dev):
     """Phase 3's data, exact ground truth and IVF4096,Flat: (its
     quantizer, xb, xt, xq, gt, its recall@10 at nprobe 16 / 32 / 64)."""
@@ -5580,8 +6022,11 @@ if __name__ == "__main__":
         codecs_alone()
     elif sys.argv[1:] == ["--phase20"]:
         families_alone()
+    elif sys.argv[1:] == ["--phase21"]:
+        sharded_alone()
     elif sys.argv[1:]:
         raise SystemExit("usage: chip_smoke.py [--k1-batches | "
-                         "--k2-batches | --phase19 | --phase20]")
+                         "--k2-batches | --phase19 | --phase20 | "
+                         "--phase21]")
     else:
         main()

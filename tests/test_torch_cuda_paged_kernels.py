@@ -95,7 +95,10 @@ def _k4_every_call(path, d, kp, W, metric, B=128):
         torch.cuda.synchronize()
         assert torch.equal(rd, ref[0]), (w0, ta, tb)
         assert torch.equal(rp, ref[1]), (w0, ta, tb)
-    assert P.LAUNCHES - before == len(entries)
+    if kp <= F.KP_MAX:
+        assert P.LAUNCHES - before == len(entries)
+    else:   # one launch a call that has a row to scan
+        assert 0 < P.LAUNCHES - before <= len(entries)
     assert (rp >= 0).any()
     # the same per-pair result as K3's plain version over the whole stream
     d3, p3 = F.scan_pairs_reference(q16, qn, plan, whole, kp, sim)
@@ -141,8 +144,56 @@ def test_pinned_pipeline_equals_synchronous(tmp_path, metric, W, TB):
     assert s2["windows_resident"] == s2["windows"]
 
 
-def test_k4_rejects_unsupported(tmp_path):
+@pytest.mark.parametrize("metric", [TD.METRIC_L2, TD.METRIC_INNER_PRODUCT])
+@pytest.mark.parametrize("W", [1, 3, 1024])
+@pytest.mark.parametrize("kp", [33, 58, 64, 100])
+def test_k4_wide_kp_equals_plain_every_call(tmp_path, kp, W, metric):
+    """Above 32 entries a pair: the two-entries-a-lane kernel up to kp 64,
+    the 32-row sub-blocks and their merge above."""
+    _k4_every_call(str(tmp_path / "p"), 128, kp, W, metric)
+
+
+@pytest.mark.parametrize("k", [27, 58, 100])
+def test_paged_search_at_wide_k(tmp_path, k):
+    """The paged search at k 27, 58 and 100 (kp k + 6, 2k, 2k) equals its
+    CPU path and K3 over the same content."""
     dev = _cuda()
-    pil, xq, probes = _paged(str(tmp_path / "p"), 32, n=500, nq=10)
+    pil, xq, probes = _paged(str(tmp_path / "p"), 96)
+    before = P.LAUNCHES
+    D1, I1, _ = P.scan_invlists_paged(xq, probes, pil, k, window_blocks=3,
+                                      device=dev)
+    assert P.LAUNCHES > before
+    D0, I0, _ = P.scan_invlists_paged(xq, probes, pil, k, window_blocks=3,
+                                      device="cpu")
+    il = F.PackedInvLists.from_arrays(pil.data_f32, pil.ids, pil.norms,
+                                      pil.list_block_start,
+                                      pil.list_nblocks, device=dev)
+    D3, I3, _ = F.scan_invlists_fused(torch.from_numpy(xq).to(dev),
+                                      torch.from_numpy(probes).to(dev), il, k)
+    for Dx, Ix in ((D0, I0), (D3.cpu().numpy(), I3.cpu().numpy())):
+        np.testing.assert_array_equal(D1, Dx)
+        np.testing.assert_array_equal(I1, Ix)
+
+
+def test_k4_rejects_unsupported(tmp_path):
+    """What K4 still refuses: running results of another shape than
+    (ntiles * PT, kp), a tile range outside the plan, and queries of
+    another width than the window's."""
+    dev = _cuda()
+    pil, xq, _ = _paged(str(tmp_path / "p"), 32, n=500, nq=10)
+    probes = torch.zeros((10, 2), dtype=torch.long, device=dev)
+    plan = F.plan_pairs(probes, pil)
+    win = P.upload_resident(pil, pil.nblocks, dev)
+    q16 = torch.zeros((10, pil.dp), dtype=torch.bfloat16, device=dev)
+    qn = torch.zeros(10, device=dev)
+    rd = torch.full((plan.ntiles * F.PT, 10), float("inf"), device=dev)
+    rp = torch.full(rd.shape, -1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
-        P.scan_invlists_paged(xq, probes, pil, 10, kp=33, device=dev)
+        P.scan_window(q16, qn, plan, win, 0, 0, plan.ntiles, rd[:, :5], rp,
+                      False)
+    with pytest.raises(ValueError):
+        P.scan_window(q16, qn, plan, win, 0, 0, plan.ntiles + 1, rd, rp,
+                      False)
+    with pytest.raises(ValueError):
+        P.scan_window(q16[:, :64].contiguous(), qn, plan, win, 0, 0,
+                      plan.ntiles, rd, rp, False)

@@ -259,6 +259,38 @@ def test_window_reference_merges_into_running(paged_pair):
     assert (one[1] >= 0).any()
 
 
+@pytest.mark.parametrize("metric", [L2, IP])
+@pytest.mark.parametrize("kp", [58, 100])
+def test_window_at_wide_kp_equals_fused_reference(paged_pair, kp, metric):
+    """K4 above its one-entry-a-lane width: the plain version at kp 58 and
+    100, over one window or windows cut inside lists, leaves K3's plain
+    per-pair top-kp over the whole stream, and so does the wide route
+    (`scan_window_wide`, with the plain pair function standing in for
+    the kernel's sub-block launch) after every window."""
+    xq, probes, _, tp = paged_pair
+    sim = metric == IP
+    plan = F.plan_pairs(torch.from_numpy(probes).long(), tp, 32)
+    xq_t = torch.from_numpy(xq)
+    q16 = xq_t.to(torch.bfloat16)
+    qn = torch.zeros(len(xq)) if sim else (xq_t * xq_t).sum(1)
+    whole = TP.upload_resident(tp, tp.nblocks, device="cpu")
+    d3, p3 = F.scan_pairs_reference(q16, qn, plan, whole, kp, sim)
+    assert (p3[:, kp - 1] >= 0).any()          # some pair fills kp
+    for cuts in ([0, tp.nblocks], [0, 1, 11, tp.nblocks]):
+        ref = (torch.full((plan.ntiles * 32, kp), float("inf")),
+               torch.full((plan.ntiles * 32, kp), -1, dtype=torch.int32))
+        wide = (ref[0].clone(), ref[1].clone())
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            win = whole.blocks(a, b - a)
+            TP.scan_window_reference(q16, qn, plan, win, a, 0, plan.ntiles,
+                                     *ref, sim)
+            TP.scan_window_wide(q16, qn, plan, win, a, 0, plan.ntiles,
+                                *wide, sim, F.scan_pairs_reference)
+            assert torch.equal(wide[0], ref[0]), (a, b)
+            assert torch.equal(wide[1], ref[1]), (a, b)
+        assert torch.equal(ref[0], d3) and torch.equal(ref[1], p3)
+
+
 def test_pipeline_under_thread_switching(paged_pair):
     """Many one-block windows with the interpreter switching threads as
     often as it can: the staging thread and the scan loop still hand the

@@ -1,6 +1,7 @@
-"""The PyTorch port (tpu_ann_torch) stands alone: importing it loads
-neither jax, the JAX package nor ml_dtypes (the GPU machine has none of
-them), and no source file of it refers to them."""
+"""The PyTorch port (tpu_ann_torch) stands alone: importing it, and its
+distribution layer tpu_ann_torch.parallel, loads neither jax, the JAX
+package nor ml_dtypes (the GPU machine has none of them), and no source
+file of it refers to them."""
 
 import os
 import subprocess
@@ -17,6 +18,7 @@ def test_import_loads_no_jax():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import tpu_ann_torch\n"
+        "import tpu_ann_torch.parallel\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
         "'tpu_ann', 'ml_dtypes'))\n"
@@ -48,7 +50,8 @@ def test_sources_found():
             "utils/index_io.py", "utils/invlists_io.py", "utils/factory.py",
             "utils/benchmark.py", "models/ivf_hnsw.py", "models/base.py",
             "models/ivf.py", "ops/range_search.py", "utils/contrib.py",
-            "ops/ivf_scan.py"} <= names
+            "ops/ivf_scan.py", "parallel/__init__.py", "parallel/sharded.py",
+            "utils/interrupt.py"} <= names
 
 
 @pytest.mark.parametrize("needle", ["import jax", "tpu_ann.", "ml_dtypes"])
@@ -92,8 +95,7 @@ def test_default_device_is_cuda_without_fallback(tmp_path):
 
 def test_public_names_of_the_reference():
     """Every public name of tpu_ann (read from its __init__.py with ast,
-    so no JAX loads) is a name of tpu_ann_torch, but the two of ROADMAP
-    queue 1's item 11 (the tooling)."""
+    so no JAX loads) is a name of tpu_ann_torch."""
     import ast
 
     import tpu_ann_torch
@@ -109,4 +111,4 @@ def test_public_names_of_the_reference():
                       if isinstance(t, ast.Name)}
     public = {n for n in names if not n.startswith("_") or n == "__version__"}
     missing = {n for n in public if not hasattr(tpu_ann_torch, n)}
-    assert missing == {"InterruptCallback", "TimeoutGuard"}
+    assert missing == set()

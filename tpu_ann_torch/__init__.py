@@ -325,6 +325,7 @@ from .utils.index_io import (  # noqa: F401
     serialize_index,
     write_index,
 )
+from .utils.interrupt import InterruptCallback, TimeoutGuard  # noqa: F401
 from .utils.invlists_io import (  # noqa: F401
     FileInvlistSource,
     OnDiskInvertedLists,

@@ -43,6 +43,7 @@ from ..ops import hamming as H
 from ..ops import ivf_scan
 from ..ops.kmeans import ClusteringParameters, kmeans
 from ..ops.range_search import csr_from_hits
+from ..ops.topk import chunk_starts
 from .base import SearchStats, Timer
 
 # the distance of an empty result slot (the reference's sentinel)
@@ -159,7 +160,7 @@ class IndexBinaryFlat(IndexBinary):
         """Device-in / device-out search of (nq, d / 8) uint8 codes: (D
         int32, I int64) tensors."""
         outs = [H.knn_hamming(xq[i:i + self.search_chunk], self._codes, k)
-                for i in range(0, xq.shape[0], self.search_chunk)]
+                for i in chunk_starts(xq.shape[0], self.search_chunk)]
         return (torch.cat([o[0] for o in outs]),
                 torch.cat([o[1] for o in outs]))
 
@@ -261,12 +262,16 @@ class IndexBinaryIVF(IndexBinary):
         if self._dirty:
             self._repack()
         if self.invlists is None:
-            raise RuntimeError("empty index")
+            if not self.is_trained:
+                raise RuntimeError("empty index")
+            self._repack()          # trained, no rows: the empty stream
 
     def _repack(self) -> None:
         self._dirty = False
-        codes = np.concatenate(self._codes_host)
-        ids = np.concatenate(self._ids_host)
+        codes = np.concatenate(self._codes_host) if self._codes_host \
+            else np.zeros((0, self.code_size), np.uint8)
+        ids = np.concatenate(self._ids_host) if self._ids_host \
+            else np.zeros(0, np.int64)
         _, a = self.quantizer.search_device(
             torch.from_numpy(codes).to(self.device), 1)
         il = ivf_scan.pack_code_invlists(
@@ -487,8 +492,8 @@ class _BucketTables(IndexBinary):
         hi = torch.stack([torch.searchsorted(sk[h], keys[h], right=True)
                           for h in range(self.nhash)], 1)
         base = (torch.arange(self.nhash, device=dev) * n)[None, :, None]
-        lo = (lo + base).reshape(len(xq), -1)
-        cnt = (hi + base).reshape(len(xq), -1) - lo
+        lo = (lo + base).flatten(1)
+        cnt = (hi + base).flatten(1) - lo
         per_q = cnt.sum(1).cpu().numpy()
         flat_order = order.reshape(-1)
         q0 = 0
@@ -519,7 +524,7 @@ class _BucketTables(IndexBinary):
         x = _check_codes(x, self.d)
         nq = len(x)
         with Timer(self.device) as t:
-            if self.ntotal == 0:
+            if self.ntotal == 0 or nq == 0:
                 Dv, Iv = _empty_result(nq, k)
                 ndis = 0
             else:

@@ -24,6 +24,7 @@ from ..ops import hamming as H
 from ..ops import pq as PQ
 from ..ops.kmeans import ClusteringParameters, kmeans
 from ..ops.range_search import range_search_decoded
+from ..ops.topk import chunk_starts
 from .base import Index
 from .binary import IndexBinaryFlat
 
@@ -395,7 +396,7 @@ class IndexSplitVectors(Index):
         n = self.ntotal
         chunk = max(1, self.SPLIT_BUDGET // max(n, 1))
         outs = []
-        for q0 in range(0, len(xq), chunk):
+        for q0 in chunk_starts(len(xq), chunk):
             q = xq[q0:q0 + chunk]
             total = torch.zeros((len(q), n), device=self.device)
             off = 0
@@ -407,8 +408,12 @@ class IndexSplitVectors(Index):
                                    torch.where(Iv >= 0, Dv, 0.0))
                 off += dd
             outs.append(torch.sort(total, dim=1, stable=True))
-        return (torch.cat([o[0][:, :k] for o in outs]).cpu().numpy(),
-                torch.cat([o[1][:, :k] for o in outs]).cpu().numpy())
+        Dv = torch.cat([o[0][:, :k] for o in outs])
+        Iv = torch.cat([o[1][:, :k] for o in outs])
+        if n < k:   # pad to (nq, k) with (inf, -1)
+            Dv = torch.cat([Dv, Dv.new_full((len(xq), k - n), np.inf)], 1)
+            Iv = torch.cat([Iv, Iv.new_full((len(xq), k - n), -1)], 1)
+        return Dv.cpu().numpy(), Iv.cpu().numpy()
 
     def reset(self) -> None:
         for idx in self.sub_indexes:

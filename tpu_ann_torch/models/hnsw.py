@@ -43,6 +43,7 @@ from ..ops import hnsw_tiles as HT
 from ..ops import pq as PQ
 from ..ops.ivf_scan import sq8_requantize_invlists
 from ..ops.range_search import csr_from_hits
+from ..ops.topk import chunk_starts
 from . import base
 from .base import Index, SearchStats, Timer
 from .extra import Index2Layer
@@ -371,7 +372,7 @@ class IndexHNSW(Index):
         ef, expand = self._effective(k, params)
         outs = [self._search_device_stats(xq_dev[i:i + self.search_chunk],
                                           k, ef, expand)[:2]
-                for i in range(0, xq_dev.shape[0], self.search_chunk)]
+                for i in chunk_starts(xq_dev.shape[0], self.search_chunk)]
         if len(outs) == 1:
             return outs[0]
         return (torch.cat([o[0] for o in outs]),
@@ -400,7 +401,7 @@ class IndexHNSW(Index):
             kk = ef if sel is not None else k
             xq_all = self._to_device(x)
             parts, ndis, nhops = [], 0, 0
-            for i0 in range(0, nq, self.search_chunk):
+            for i0 in chunk_starts(nq, self.search_chunk):
                 Dc, Ic, st = self._search_device_stats(
                     xq_all[i0:i0 + self.search_chunk], kk, max(ef, kk),
                     expand)
@@ -439,7 +440,7 @@ class IndexHNSW(Index):
             ef, expand = self._effective(1, None)
             kk = min(max(ef, 16), self.ntotal)
             xq_all = self._to_device(x)
-            for i0 in range(0, nq, self.search_chunk):
+            for i0 in chunk_starts(nq, self.search_chunk):
                 Dc, Ic, _ = self._search_device_stats(
                     xq_all[i0:i0 + self.search_chunk], kk, ef, expand)
                 ok = (Ic >= 0) & (Dc > radius if self.is_similarity

@@ -341,10 +341,11 @@ class IndexReplicas(Index):
         x = self._check_input(x)
         if not self.replicas:
             raise RuntimeError("no replicas")
-        per = -(-len(x) // len(self.replicas))
+        per = max(-(-len(x) // len(self.replicas)), 1)
+        # the first replica answers an empty batch too: (0, k) results
         outs = [idx.search(x[i * per:(i + 1) * per], k, params=params)
                 for i, idx in enumerate(self.replicas)
-                if len(x[i * per:(i + 1) * per])]
+                if i == 0 or len(x[i * per:(i + 1) * per])]
         return (np.concatenate([o[0] for o in outs]),
                 np.concatenate([o[1] for o in outs]))
 

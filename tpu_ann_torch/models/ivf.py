@@ -271,20 +271,20 @@ class IndexIVF(Index):
             self._xb_host, self._ids_host, self._assign_host = nx, ni, na
         self._removed_mask = None
         self._lists_changed()
-        if not self._xb_host:
-            self.invlists = None
-            self._ids_flat = None
-            self._ids_trivial = True
-            self._build_direct_map(None)
-            return
-        ids = np.concatenate(self._ids_host)
-        assign = np.concatenate(self._assign_host)
+        if self._xb_host:
+            ids = np.concatenate(self._ids_host)
+            assign = np.concatenate(self._assign_host)
+            x = np.concatenate(self._xb_host)
+        else:
+            # no rows: an empty stream, which every search answers with
+            # ids -1 and the metric's worst value, as faiss does
+            ids = assign = np.zeros(0, np.int64)
+            x = np.zeros((0, self.d), np.float32)
         n = len(ids)
         self._ids_flat = ids
         self._ids_trivial = bool(
             n == 0 or (ids[0] == 0 and ids[-1] == n - 1
                        and np.array_equal(ids, np.arange(n, dtype=np.int64))))
-        x = np.concatenate(self._xb_host)
         self.invlists = self._pack(x, np.arange(n, dtype=np.int64), assign)
         self._build_direct_map(assign)
 
@@ -482,7 +482,9 @@ class IndexIVF(Index):
     def _ready(self) -> None:
         self._maybe_repack()
         if self.invlists is None:
-            raise RuntimeError("empty index")
+            if not self.is_trained:
+                raise RuntimeError("empty index")
+            self._repack()          # trained, no rows: the empty stream
 
     def search(self, x, k: int, *,
                params: Optional[SearchParametersIVF] = None):

@@ -174,9 +174,13 @@ class IndexIVFFlatPaged(Index):
     def search_stats(self, x, k: int, *, params=None):
         """search + the QueryLatencyStats split; the scan's counters and
         times (`scan_invlists_paged`'s stats) are on ``extra``."""
-        if self.invlists is None:
+        if self.invlists is None and not self.is_trained:
             raise RuntimeError("empty index")
         x = self._check_input(x)
+        if self.invlists is None:      # trained, no rows: ids -1 (faiss)
+            return (np.full((len(x), k), D.worst_value(self.metric_type),
+                            np.float32),
+                    np.full((len(x), k), -1, np.int64), SearchStats(nq=len(x)))
         nprobe = min(getattr(params, "nprobe", 0) or self.nprobe, self.nlist)
         with Timer(self.device) as t_q:
             _, probes = D.knn(self._to_device(x), self._cent_dev, nprobe,

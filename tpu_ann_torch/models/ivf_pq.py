@@ -37,6 +37,7 @@ from ..ops import ivf_scan
 from ..ops import pq as PQ
 from ..ops import sq as SQ
 from ..ops import topk as TK
+from ..ops.topk import chunk_starts
 from ..ops.ivf_scan_fused import scan_invlists_fused
 from .ivf import IndexIVF
 
@@ -360,7 +361,7 @@ class IndexIVFScalarQuantizer(IndexIVF):
         self._sq8 = self._sq8_for = None
         codes = torch.cat([
             SQ.sq_encode(self._to_device(x[i:i + _ENCODE_ROWS]), self.sq)
-            for i in range(0, len(x), _ENCODE_ROWS)])
+            for i in chunk_starts(len(x), _ENCODE_ROWS)])
         return ivf_scan.pack_code_invlists(codes, ids, assign, self.nlist,
                                            self.block_size,
                                            device=self.device)

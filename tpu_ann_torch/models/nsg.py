@@ -28,6 +28,7 @@ from ..ops import nndescent as ND
 from ..ops import pq as PQ
 from ..ops import sq as SQ
 from ..ops.hnsw import beam_search_level0
+from ..ops.topk import chunk_starts
 from .base import Index
 from .flat import IndexFlat
 from .hnsw import IndexHNSW
@@ -53,7 +54,7 @@ class _GraphIndex(Index):
         """(D, I) tensors of a device query batch."""
         ef = max(getattr(params, "efSearch", 0) or self.efSearch, k)
         outs = []
-        for i in range(0, xq.shape[0], self.search_chunk):
+        for i in chunk_starts(xq.shape[0], self.search_chunk):
             q = xq[i:i + self.search_chunk]
             Dv, Iv, _ = beam_search_level0(
                 self.storage.vectors, self.graph, q,

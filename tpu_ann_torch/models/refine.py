@@ -31,7 +31,8 @@ def _rerank(xq: torch.Tensor, cand: torch.Tensor, vecs: torch.Tensor,
     are ``vecs`` (nq, kk, d), in full f32: IP <q, x>; L2 max(||q||^2 +
     ||x||^2 - 2 <q, x>, 0), or with ``diff`` the summed squared difference
     (the generic IndexRefine's formula). Empty slots get the metric's
-    worst value and id -1."""
+    worst value and id -1; fewer than k candidates are padded to (nq, k)
+    with such slots, as faiss does."""
     similarity = D.is_similarity_metric(metric)
     xq = xq.float()
     if similarity:
@@ -45,6 +46,12 @@ def _rerank(xq: torch.Tensor, cand: torch.Tensor, vecs: torch.Tensor,
                           + (vecs * vecs).sum(2) - 2.0 * ip, min=0.0)
     valid = cand >= 0
     dis = torch.where(valid, dis, D.worst_value(metric))
+    nq, kk = cand.shape
+    if kk < k:
+        dis = torch.cat([dis, dis.new_full((nq, k - kk),
+                                           D.worst_value(metric))], 1)
+        cand = torch.cat([cand, cand.new_full((nq, k - kk), -1)], 1)
+        valid = cand >= 0
     Dv, Iv = TK.topk_with_ids(dis, torch.where(valid, cand, -1), k,
                               similarity=similarity)
     return Dv, torch.where(torch.isfinite(Dv), Iv, -1)

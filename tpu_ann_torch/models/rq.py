@@ -40,6 +40,7 @@ from ..ops import ivf_scan
 from ..ops import lsq as LSQ
 from ..ops import rq as RQ
 from ..ops import topk as TK
+from ..ops.topk import chunk_starts
 from .base import Index
 from .ivf_pq import DecodedCacheIVF
 from .pq import _sel_mask
@@ -66,7 +67,7 @@ def _aq_knn(xq: torch.Tensor, codes: torch.Tensor, norms: torch.Tensor,
     qn = (xq * xq).sum(1)
     qb = max(1, _ADC_BUDGET // db_block)
     out_d, out_i = [], []
-    for q0 in range(0, nq, qb):
+    for q0 in chunk_starts(nq, qb):
         q1 = min(q0 + qb, nq)
         bd = torch.full((q1 - q0, k), float("inf"), device=dev)
         bi = torch.full((q1 - q0, k), -1, dtype=torch.long, device=dev)
@@ -313,7 +314,7 @@ class IndexIVFResidualQuantizer(DecodedCacheIVF):
         """(n, M + 4) uint8 device rows: the residual codes, then the norm
         of the full reconstruction (decoded residual + centroid)."""
         outs = []
-        for i in range(0, len(x), _ENCODE_ROWS):
+        for i in chunk_starts(len(x), _ENCODE_ROWS):
             cent = self._coarse_of(assign[i:i + _ENCODE_ROWS])
             codes = self._encode_residuals(
                 self._to_device(np.asarray(x[i:i + _ENCODE_ROWS],

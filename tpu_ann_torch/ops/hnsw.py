@@ -405,7 +405,11 @@ def build_graph(vectors, m: int, ef_construction: int, *,
     itself at each of its levels (upper levels in their compacted row
     space, seeded by the level above's 8 nearest), then at level 0.
     ``vectors``: (n, d) numpy array or tensor, on ``device`` (default: the
-    tensor's, else "cuda")."""
+    tensor's, else "cuda"). `InterruptCallback.check()` runs before every
+    wave."""
+    # imported here: utils/__init__ imports the models, which import this
+    from ..utils.interrupt import InterruptCallback
+
     if device is None:
         device = vectors.device if isinstance(vectors, torch.Tensor) \
             else "cuda"
@@ -437,6 +441,7 @@ def build_graph(vectors, m: int, ef_construction: int, *,
         bucket = bucket[bucket != entry]
         i0, w = 0, 32
         while i0 < len(bucket):
+            InterruptCallback.check()
             w = min(w * 2, wave_size)
             wave = torch.from_numpy(bucket[i0:i0 + w]).to(device)
             i0 += len(wave)
@@ -490,8 +495,11 @@ def extend_graph(vectors, graph: HNSWGraph, n_old: int, *, m: int,
     and wave-insert into level 0 (later waves see the earlier ones); the
     upper levels are then relinked over the merged subsets by
     `link_upper_levels`. New levels are drawn with the offset seed
-    (seed + n_old), so repeated adds stay deterministic. The reference
-    polls an interrupt callback between waves; the port has none."""
+    (seed + n_old), so repeated adds stay deterministic.
+    `InterruptCallback.check()` runs before every wave, as the
+    reference's."""
+    from ..utils.interrupt import InterruptCallback
+
     if device is None:
         device = graph.neighbors0.device
     x_dev = torch.as_tensor(vectors).to(device=device,
@@ -509,6 +517,7 @@ def extend_graph(vectors, graph: HNSWGraph, n_old: int, *, m: int,
     neighbors0 = torch.cat([graph.neighbors0, torch.full(
         (n_new, m0), -1, dtype=i32, device=device)])
     for i0 in range(0, n_new, wave_size):
+        InterruptCallback.check()
         wave = torch.arange(n_old + i0, min(n_old + i0 + wave_size, n),
                             device=device)
         xw = x_dev[wave]

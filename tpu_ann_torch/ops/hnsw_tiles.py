@@ -373,7 +373,7 @@ def _hop_tiles(bpos: torch.Tensor, nbr_pos: torch.Tensor, hist: torch.Tensor,
     nq = bpos.shape[0]
     top = bpos[:, :expand]
     okp = top >= 0
-    cand = nbr_pos[torch.where(okp, top, 0).long()].reshape(nq, -1)
+    cand = nbr_pos[torch.where(okp, top, 0).long()].flatten(1)
     cvalid = (cand >= 0) & okp.repeat_interleave(nbr_pos.shape[1], dim=1)
     ctiles = torch.where(cvalid, cand // b, -1)
     fresh = dedupe_first(ctiles, cvalid)

@@ -212,8 +212,8 @@ def _compact_block_table(probes, list_block_start, list_nblocks,
     bid = starts[:, :, None] + local
     buffer = torch.full((nq, W + 1), NB, dtype=torch.long,
                         device=probes.device)
-    buffer.scatter_(1, pos.reshape(nq, -1), torch.where(
-        valid, bid, NB).reshape(nq, -1))
+    buffer.scatter_(1, pos.reshape(nq, W), torch.where(
+        valid, bid, NB).reshape(nq, W))
     return buffer[:, :W], total
 
 

@@ -55,9 +55,9 @@ from .ivf_scan import PackedInvLists, PackedInvListsSQ8
 
 # pairs per tile: the CUDA kernel is written for this tile (kPT in the .cu)
 PT = 128
-# per-pair widths the CUDA kernels keep: KP_LANE with one list entry a
-# lane (K4's limit), KP_MAX with two; a wider kp scans sub-blocks of at
-# most KP_LANE rows (`scan_pairs_wide`)
+# per-pair widths the CUDA kernels keep (K3, K3-SQ8, K4): KP_LANE with
+# one list entry a lane, KP_MAX with two; a wider kp scans sub-blocks of
+# at most KP_LANE rows (`scan_pairs_wide`)
 KP_LANE = 32
 KP_MAX = 64
 # kernel launches made by `scan_pairs` (one per call on a CUDA tensor):

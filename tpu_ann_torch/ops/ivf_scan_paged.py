@@ -61,13 +61,14 @@ import torch
 from . import distances as D
 from . import topk as TK
 from .ivf_scan_fused import (
-    KP_LANE,
+    KP_MAX,
     PT,
     PairPlan,
     default_kp,
     merge_pairs,
     plan_pairs,
     scan_pairs_reference,
+    scan_pairs_wide,
 )
 
 # bf16 on disk, as raw bits (no numpy bf16 dtype is needed)
@@ -383,6 +384,29 @@ def scan_window_reference(xq_bf16: torch.Tensor, qn: torch.Tensor,
     run_p[sl] = mp
 
 
+def scan_window_wide(xq_bf16: torch.Tensor, qn: torch.Tensor,
+                     plan: PairPlan, window: Window, w0: int, ta: int,
+                     tb: int, run_d: torch.Tensor, run_p: torch.Tensor,
+                     similarity: bool, pair_fn) -> None:
+    """K4 for any kp: `scan_pairs_wide` over the window's rows (every range
+    clamped to the window and made window-local), its one call of
+    ``pair_fn`` scanning sub-blocks of at most KP_LANE rows, then
+    `merge_topk` of the running top-kp (first, so it wins ties) with the
+    window's. ``pair_fn`` is `_launch_fresh` (the kernel) on the card; the
+    tests give it `scan_pairs_reference`. Updates rows [ta * PT, tb * PT)
+    of run_d / run_p in place, as `scan_window_reference` does."""
+    pt = plan.pair_q.shape[0] // max(plan.ntiles, 1)
+    kp = run_d.shape[1]
+    sub = _window_plan(plan, w0, window.nblocks, ta, tb, pt)
+    nd, npos = scan_pairs_wide(xq_bf16, qn, sub, window, kp, similarity,
+                               pair_fn)
+    npos = torch.where(npos >= 0, npos + w0 * window.block_size, -1)
+    sl = slice(ta * pt, tb * pt)
+    md, mp = TK.merge_topk(run_d[sl], run_p[sl], nd, npos, kp)
+    run_d[sl] = md
+    run_p[sl] = mp
+
+
 _LIB = None
 
 
@@ -417,9 +441,10 @@ def scan_window(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
     """K4: scan tiles [ta, tb) of `plan` (global block ranges) against the
     window of blocks [w0, w0 + window.nblocks) and merge into the running
     per-pair top-kp run_d / run_p ((ntiles * PT, kp), global positions) in
-    place. The CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. ``xq_bf16`` is (nq, dp), zero-padded like the stream."""
-    global LAUNCHES
+    place. For CUDA tensors one launch of the CUDA kernel: over the plan
+    itself up to KP_MAX, over its sub-blocks above (`scan_window_wide`);
+    for CPU tensors the plain version. ``xq_bf16`` is (nq, dp),
+    zero-padded like the stream."""
     dev = xq_bf16.device
     if dev.type == "cpu":
         scan_window_reference(xq_bf16, qn, plan, window, w0, ta, tb, run_d,
@@ -427,20 +452,59 @@ def scan_window(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
         return
     if dev.type != "cuda":
         raise ValueError(f"ivf_scan_paged: unsupported device {dev}")
-    dp = xq_bf16.shape[1]
-    B = window.block_size
     kp = run_d.shape[1]
-    if window.data_bf16.shape[2] != dp or dp % 8:
-        raise ValueError(f"ivf_scan_paged: the queries' width {dp} must be "
-                         f"the window's and a multiple of 8")
-    if not 1 <= kp <= KP_LANE:
-        raise ValueError(f"ivf_scan_paged: kp must be in [1, {KP_LANE}] "
-                         f"(got {kp})")
+    if kp < 1:
+        raise ValueError(f"ivf_scan_paged: kp must be >= 1 (got {kp})")
     if plan.pair_q.shape[0] != plan.ntiles * PT:
         raise ValueError(f"ivf_scan_paged: plan must be tiled by PT={PT}")
     if not 0 <= ta <= tb <= plan.ntiles:
         raise ValueError(f"ivf_scan_paged: bad tile range [{ta}, {tb})")
-    if (w0 + window.nblocks) * B >= 2**31:
+    _check(run_d, torch.float32, "run_d", dev)
+    _check(run_p, torch.int32, "run_p", dev)
+    if run_d.shape != (plan.ntiles * PT, kp) or run_p.shape != run_d.shape:
+        raise ValueError("ivf_scan_paged: running results must be "
+                         "(ntiles * PT, kp)")
+    if tb == ta:
+        return
+    if kp > KP_MAX:
+        scan_window_wide(xq_bf16, qn, plan, window, w0, ta, tb, run_d, run_p,
+                         similarity, _launch_fresh)
+        return
+    _launch(xq_bf16, qn, plan, window, w0, window.nblocks, ta, tb, run_d,
+            run_p, similarity, window.block_size)
+
+
+def _launch_fresh(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
+                  window: Window, kp: int, similarity: bool, B: int):
+    """`scan_pairs_wide`'s pair function on the card: one K4 launch over
+    ``plan`` (window-local ranges in blocks of B rows) from empty running
+    lists. Returns (dist, pos) of shape (ntiles * PT, kp), window-local
+    positions."""
+    dev = xq_bf16.device
+    run_d = torch.full((plan.ntiles * PT, kp), float("inf"), device=dev)
+    run_p = torch.full(run_d.shape, -1, dtype=torch.int32, device=dev)
+    rows = window.nblocks * window.block_size
+    _launch(xq_bf16, qn, plan, window, 0, rows // B, 0, plan.ntiles, run_d,
+            run_p, similarity, B)
+    return run_d, run_p
+
+
+def _launch(xq_bf16, qn, plan: PairPlan, window: Window, w0: int, nwin: int,
+            ta: int, tb: int, run_d, run_p, similarity: bool, B: int):
+    """One K4 launch: tiles [ta, tb) of ``plan``, whose ranges count blocks
+    of B rows, against the window's rows as blocks [w0, w0 + nwin) of B
+    rows; kp in [1, KP_MAX]."""
+    global LAUNCHES
+    dev = xq_bf16.device
+    dp = xq_bf16.shape[1]
+    kp = run_d.shape[1]
+    if window.data_bf16.shape[2] != dp or dp % 8:
+        raise ValueError(f"ivf_scan_paged: the queries' width {dp} must be "
+                         f"the window's and a multiple of 8")
+    if not 1 <= kp <= KP_MAX:
+        raise ValueError(f"ivf_scan_paged: kp must be in [1, {KP_MAX}] "
+                         f"(got {kp})")
+    if (w0 + nwin) * B >= 2**31:
         raise ValueError("ivf_scan_paged: window exceeds int32 positions")
     _check(xq_bf16, torch.bfloat16, "xq_bf16", dev)
     _check(qn, torch.float32, "qn", dev)
@@ -449,22 +513,15 @@ def scan_window(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
     _check(window.data_bf16, torch.bfloat16, "window data", dev)
     _check(window.ids, torch.int32, "window ids", dev)
     _check(window.norms, torch.float32, "window norms", dev)
-    _check(run_d, torch.float32, "run_d", dev)
-    _check(run_p, torch.int32, "run_p", dev)
     if window.data_bf16.data_ptr() % 16 or xq_bf16.data_ptr() % 16:
         raise ValueError("ivf_scan_paged: the window and the queries must "
                          "be 16-byte aligned (16-byte row copies)")
-    if run_d.shape != (plan.ntiles * PT, kp) or run_p.shape != run_d.shape:
-        raise ValueError("ivf_scan_paged: running results must be "
-                         "(ntiles * PT, kp)")
-    if tb == ta:
-        return
     err = _lib().ivf_scan_window(
         xq_bf16.data_ptr(), qn.data_ptr(), plan.pair_q.data_ptr(),
         plan.pstart.data_ptr(), plan.pend.data_ptr(),
         plan.tile_bs.data_ptr(), plan.tile_nb.data_ptr(),
         window.data_bf16.data_ptr(), window.ids.data_ptr(),
-        window.norms.data_ptr(), w0, window.nblocks, ta, tb - ta, dp, B, kp,
+        window.norms.data_ptr(), w0, nwin, ta, tb - ta, dp, B, kp,
         int(similarity), run_d.data_ptr(), run_p.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -16,6 +16,8 @@ start from the same centroids. The split signs come from a
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
 from typing import Optional, Tuple
 
 import numpy as np
@@ -111,12 +113,24 @@ def kmeans(
     params: Optional[ClusteringParameters] = None,
     metric: int = D.METRIC_L2,
     init_centroids: Optional[np.ndarray] = None,
+    checkpoint: Optional[str] = None,
     *,
     device="cuda",
 ) -> Tuple[np.ndarray, list]:
     """Train k-means on ``device``; returns (centroids (k, d) float32
     numpy, iteration stats). nredo restarts keep the run with the best
-    final objective (min for L2, max for IP)."""
+    final objective (min for L2, max for IP).
+
+    ``checkpoint``: a file that redo 0 rewrites after every iteration
+    (atomically, through ``checkpoint + ".tmp"``) with the reference's
+    pickle, {"centroids", "iter", "key": None}; a run that finds it
+    resumes at iteration ``iter + 1`` from those centroids, its random
+    stream seeded with seed + 1000 + that iteration (the reference's
+    rule), so either package resumes from the other's file.
+    `InterruptCallback.check()` runs before every iteration."""
+    # imported here: utils/__init__ imports the models, which import this
+    from ..utils.interrupt import InterruptCallback
+
     cp = params or ClusteringParameters()
     x = np.ascontiguousarray(x, np.float32)
     n, d = x.shape
@@ -145,7 +159,19 @@ def kmeans(
         gen.manual_seed(cp.seed + 31 * redo)
         stats = []
         obj = np.inf
-        for it in range(cp.niter):
+        it0 = 0
+        if checkpoint is not None and redo == 0 and \
+                os.path.exists(checkpoint):
+            with open(checkpoint, "rb") as f:
+                st = pickle.load(f)
+            cent = torch.as_tensor(np.asarray(st["centroids"], np.float32),
+                                   device=device)
+            it0 = int(st["iter"]) + 1
+            gen.manual_seed(cp.seed + 1000 + it0)
+            if cp.verbose:
+                print(f"kmeans: resuming at iter {it0}")
+        for it in range(it0, cp.niter):
+            InterruptCallback.check()
             cent, stats_vec = _kmeans_iter(xt_dev, cent, gen, k, metric,
                                            cp.spherical)
             sv = stats_vec.cpu().numpy()        # one sync per iteration
@@ -153,6 +179,12 @@ def kmeans(
             st = ClusteringIterationStats(
                 obj=obj, imbalance_factor=float(sv[1]), nsplit=int(sv[2]))
             stats.append(st)
+            if checkpoint is not None and redo == 0:
+                tmp = checkpoint + ".tmp"
+                with open(tmp, "wb") as f:
+                    pickle.dump({"centroids": cent.cpu().numpy(),
+                                 "iter": it, "key": None}, f)
+                os.replace(tmp, checkpoint)
             if cp.verbose:
                 print(f"  iter {it}: obj={st.obj:.4g} "
                       f"imbalance={st.imbalance_factor:.3f} "

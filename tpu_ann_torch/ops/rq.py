@@ -119,7 +119,7 @@ def _chunked(x, books: torch.Tensor, fn, rows: int):
     device; outputs concatenated."""
     dev = books.device
     outs = []
-    for i in range(0, len(x), rows):
+    for i in TK.chunk_starts(len(x), rows):
         xi = x[i:i + rows]
         xi = xi.to(dev) if isinstance(xi, torch.Tensor) else \
             torch.from_numpy(np.array(xi, np.float32)).to(dev)

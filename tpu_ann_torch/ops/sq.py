@@ -120,7 +120,7 @@ def _pad_last(q: torch.Tensor, pad: int) -> torch.Tensor:
 def pack_4bit(q: torch.Tensor) -> torch.Tensor:
     """(..., d) values < 16 -> (..., ceil(d/2)) bytes, low nibble first."""
     q = _pad_last(q.to(torch.uint8), q.shape[-1] % 2)
-    q = q.reshape(q.shape[:-1] + (-1, 2))
+    q = q.reshape(q.shape[:-1] + (q.shape[-1] // 2, 2))
     return q[..., 0] | (q[..., 1] << 4)
 
 

@@ -13,6 +13,13 @@ from __future__ import annotations
 import torch
 
 
+def chunk_starts(n: int, size: int) -> range:
+    """The starts of the [i, i + size) chunks of n query rows, and one
+    empty chunk when n is 0, so that a chunked search of no queries
+    returns (0, k) results as faiss does."""
+    return range(0, max(n, 1), size)
+
+
 def topk(scores: torch.Tensor, k: int, *, similarity: bool = False):
     """Best-k along the last axis, best first. Returns (vals, idx)."""
     vals, idx = torch.sort(scores, dim=-1, descending=similarity, stable=True)

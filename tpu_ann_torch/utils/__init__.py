@@ -1,6 +1,6 @@
 """Datasets, evaluation, index files (index_io, invlists_io), the factory,
-the benchmark grid, autotune, ivflib and state carried over from the JAX
-package."""
+the benchmark grid, autotune, ivflib, cooperative cancellation (interrupt)
+and state carried over from the JAX package."""
 
 from . import (  # noqa: F401
     autotune,
@@ -10,6 +10,7 @@ from . import (  # noqa: F401
     evaluation,
     factory,
     index_io,
+    interrupt,
     invlists_io,
     ivflib,
 )

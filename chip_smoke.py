@@ -16,6 +16,8 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
     python3 chip_smoke.py --phase21      # only phase 21 (the sharded
                                          # path), likewise, with phase
                                          # 16a's IVF4096,PQ32
+    python3 chip_smoke.py --phase22      # only phase 22 (the tooling and
+                                         # serving layer), likewise
 
 Phases, one line each; any failure raises and exits non-zero:
   1. device  — a CUDA device is required; nvidia-smi's name and power limit.
@@ -349,9 +351,10 @@ Phases, one line each; any failure raises and exits non-zero:
      with mmap, each search bit for bit the original's. Phase 19 launches
      K3 and K3-SQ8 only; its count leaves out the comparison launches.
   20. the index families on phase 3's data and quantizer: (a) LSH256rt
-     trained on the train rows encodes the base and the queries (encode
-     rate, LSH's recall@10, the card's codes equal to the host's on >=
-     99.5% of 10k rows); (b) IndexBinaryFlat over the 1M codes (QPS; its
+     trained on the train rows encodes the first FAM_NB (250k) base rows
+     and the queries (encode rate, LSH's recall@10 against their exact
+     ground truth, the card's codes equal to the host's on >= 99.5% of 10k
+     rows); (b) IndexBinaryFlat over the 250k codes (QPS; its
      distances on 1000 queries equal a popcount-table route; range search
      on 100 queries equal to brute force) and IndexBinaryFromFloat(IndexFlat
      (256), scan_mode "fused") through K1 + K2 on the 0/1 rows (every
@@ -365,12 +368,12 @@ Phases, one line each; any failure raises and exits non-zero:
      256-wide bf16 tiles, K3 held against its plain version there); (e)
      BHash16 / BHash8x16 at nflip 0 / 1 / 2 (candidates growing, each set
      holding the last, every distance the flat index's, recall, QPS); (f)
-     NSG32,Flat over NSG_NB (250k) rows (NN-descent and prune seconds,
+     NSG32,Flat over NSG_NB (100k) rows (NN-descent and prune seconds,
      the k-NN
      graph's recall on a 10k-row sample, the share of rows reachable from
      the medoid, recall and QPS at efSearch 16 / 32 / 64 / 128, not
      falling, the card's beam equal to the CPU's on 200 queries), then at
-     100k rows IndexNNDescentFlat(K 32), NSG32,PQ32 and NSG32,SQ8, each
+     50k rows IndexNNDescentFlat(K 32), NSG32,PQ32 and NSG32,SQ8, each
      coded one equal to an IndexNSGFlat over its decoded rows; (g)
      IndexIVFSpectralHash(nbit 128) over phase 3's quantizer at period 10 /
      100 and thresholds global / centroid / median (recall, QPS; its entry
@@ -402,6 +405,38 @@ Phases, one line each; any failure raises and exits non-zero:
      equal to IndexRefine's exact re-rank; kmeans_distributed's objective
      within 1e-4 of (a)'s. Each function's seconds by rank, and rank 0's
      K3 launch (5k queries, half the lists) timed beside its bound.
+  22. the tooling and serving layer (tpu_ann_torch.utils: contrib,
+     client_server / rpc, offline_pipeline, bench_fw, analyzers, memory,
+     native) on phase 3's data and quantizer; every check raises. (a)
+     knn_ground_truth over the 1M rows in 100k chunks equal to phase 3's
+     exact ground truth (ties either way); kmin on a (10k, 2048) distance
+     table equal to a stable sort. (b) big_batch_search of the 10k queries
+     through an IVF4096,Flat over phase 3's quantizer (its lists), nprobe
+     32, batches of 2048: an InterruptCallback stops a depth-1 run after
+     two batches are checkpointed, a depth-3 run resumes from the
+     checkpoint, and (D, I) equal index.search's bit for bit, as does an
+     uninterrupted depth-3 run (timed); on 1024 queries the same route
+     through K3's plain version gives the same (D, I). (c) two
+     SearchServers on localhost, each an IVF4096,Flat over phase 3's
+     quantizer with 500k of the rows under global ids, behind a
+     ClientIndex: (D, I) at nprobe 32 equal to the one index's (ties
+     either way); QPS and K3's launches (two a search). (d) the offline
+     pipeline, IVF4096,Flat over the 1M rows from .npy files, 2 shards
+     added in worker processes on the card (the device read from
+     config.json): the merged index equal to one add of all rows onto the
+     same trained.tann bit for bit; a second run executes nothing; each
+     step's seconds. (e) bench_fw: a Benchmark of IVF4096,Flat at nprobe
+     16 / 32 / 64 over the same vectors as local .npy descriptors (its
+     k-means 10 iterations, as phase 3's): recall@10 at phase 3's floors;
+     a second benchmark() reuses every cached artifact (no file written,
+     no launch). (f) analyzers.report at nprobe 32 with the ground truth
+     (its recall equal to phase 3's); train_ivf_index_with_2level (nc1 64,
+     rebalanced, and batched) with recall@10 at nprobe 32 no lower than
+     phase 3's less 0.03; MemoryMonitor and EnergyMonitor (watts, or null
+     without RAPL) around one search; index_memory_bytes of phase 3's index
+     within 10% of the growth of torch.cuda.memory_allocated() across its
+     train and add; native.HAVE_NATIVE, and read_fvecs_native and
+     pack_rows_native equal to numpy on the 1M rows.
 The last two lines are the kernels' JSON record (each with its time,
 its plain version's, the card's bound for the same work (a scan of
 lists: the valid rows it needs, each read once, not their blocks'
@@ -413,7 +448,8 @@ at d 64 (phase 18a), on the IVF-RQ cache and the 65,536-list RCQ lists
 (phase 19a / c; K3-SQ8 on the "sq8" RQ cache), K3 and K1 at d 256
 (phase 20d / b), each kernel its phase-16 to phase-20 launches, K4 its
 times at kp 58 and 100 (phase 8), K3 its phase-21 launches and one
-rank's time there, and K3 has a second record at batch 1) and
+rank's time there, and its phase-22 launches (``launches_tooling``), and
+K3 has a second record at batch 1) and
 {"ok": true, ...}.
 """
 
@@ -422,6 +458,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -672,6 +710,8 @@ def main() -> None:
 
     reset_counts()
     n_search = 0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     index = T.make_ivf_flat(D, NLIST, device="cuda")
     index.cp.niter = 10
@@ -684,6 +724,7 @@ def main() -> None:
     t_add = time.perf_counter() - t0
     if F.LAUNCHES != 0:
         raise AssertionError("train/add launched the scan kernel")
+    mem3 = index_memory(index, mem0)
     phase("build_index", data_s=t_data, ground_truth_s=t_gt,
           train_s=t_train, add_s=t_add,
           imbalance=index.imbalance_factor(),
@@ -838,6 +879,8 @@ def main() -> None:
                                                    results, dev, tmp)
         reset_counts()
         k3.update(sharded_phase(quant3, xb, xt, xq, gt, results, dev, tmp))
+        k3["launches_tooling"] = tooling_phase(quant3, xb, xt, xq, gt,
+                                               results, mem3, dev, tmp)
     k3["launches_pq"] = pq_launches.get("ivf_scan_fused", 0)
     k3["launches_hnsw"] = hnsw_launches.get("ivf_scan_fused", 0)
     k3["launches_breadth"] = breadth_launches.get("ivf_scan_fused", 0)
@@ -5125,12 +5168,16 @@ def codecs_alone() -> None:
 
 # queries of the bit-for-bit checks of phase 20
 FAM_NQ = 1000
-# rows of the Flat NSG, with the ground truth recomputed over them: 250k,
-# the fallback planned for it, whose time pays for phase 21 (NN-descent
-# took 76-90 s at 1M)
-NSG_NB = 250_000
-# rows of the NN-descent index and the coded NSGs
-NSG_CODED_NB = 100_000
+# rows of the binary families (20a-e), with LSH's ground truth recomputed
+# over them: 250k, cut from 1M to pay for phase 22 (they took 48-49 s of
+# phase 20 at 1M)
+FAM_NB = 250_000
+# rows of the Flat NSG, with the ground truth recomputed over them: 100k
+# (250k paid for phase 21, 1M before it; NN-descent took 76-90 s at 1M,
+# 16.6 s at 250k)
+NSG_NB = 100_000
+# rows of the NN-descent index and the coded NSGs (100k before phase 22)
+NSG_CODED_NB = 50_000
 LSH_BITS = 256
 # tie-aware recall@10 floor of IndexBinaryFromFloat's fused route (K1's
 # lane-min reservoir drops one of two best rows that share a lane; ties
@@ -5176,11 +5223,17 @@ def qps_of(fn, nq: int, reps: int = 2):
 
 
 def families_binary(xb, xt, xq, gt, dev, cmp, files) -> dict:
-    """20a-e: LSH256rt codes, IndexBinaryFlat and IndexBinaryFromFloat
-    (K1 + K2 on 0/1 rows), BIVF4096 (and _HNSW32), BHNSW32 (K3 on 256-wide
-    bf16 tiles), BHash16 / BHash8x16. Returns the K1 and K3 records at d
-    256."""
+    """20a-e, over the first FAM_NB rows: LSH256rt codes, IndexBinaryFlat
+    and IndexBinaryFromFloat (K1 + K2 on 0/1 rows), BIVF4096 (and
+    _HNSW32), BHNSW32 (K3 on 256-wide bf16 tiles), BHash16 / BHash8x16.
+    Returns the K1 and K3 records at d 256."""
     nbits = LSH_BITS
+    xb = xb[:FAM_NB]
+    if FAM_NB < NB:
+        flat = T.IndexFlat(D, device=dev)
+        flat.add(xb)
+        gt = flat.search(xq, K)[1]
+        del flat
     # (a) the codes
     lsh = T.IndexLSH(D, nbits, rotate_data=True, train_thresholds=True,
                      device=dev)
@@ -5203,9 +5256,9 @@ def families_binary(xb, xt, xq, gt, dev, cmp, files) -> dict:
     (gtb, flat_qps) = qps_of(lambda: bflat.search_device(cq, K), NQ)
     Db, Ib = (t.cpu().numpy() for t in gtb)
     kth = gtb[0][:, K - 1]
-    phase("families_lsh", train_s=t_train, add_s=t_add,
-          encode_rows_per_s=NB / t_add, recall_at_10=lsh_rec, qps=lsh_qps,
-          card_equals_host=same)
+    phase("families_lsh", nb=len(xb), train_s=t_train, add_s=t_add,
+          encode_rows_per_s=len(xb) / t_add, recall_at_10=lsh_rec,
+          qps=lsh_qps, card_equals_host=same)
     files.update(IxLs=lsh, BxFl=bflat)
 
     # (b) the flat index against a second exact route, its range search,
@@ -5990,19 +6043,484 @@ def sharded_alone() -> None:
         sharded_phase(quant3, xb, xt, xq, gt, rec, dev, tmp)
 
 
-def phase3_setup(dev):
+# -- phase 22: the tooling and serving layer ----------------------------------
+
+# phase 22's sizes: the database chunks of knn_ground_truth, the columns of
+# the kmin table, big_batch_search's batch and depth, the queries of its
+# plain-route check, the nprobe of every search, the first-level cells of
+# the two-level clustering, the recall@10 it may lose against phase 3's,
+# and how far index_memory_bytes may be from the allocator's growth
+TOOL = {"gt_chunk": 100_000, "kmin_cols": 2048, "batch": 2048, "depth": 3,
+        "plain_nq": 1024, "nprobe": 32, "nc1": 64, "two_level_loss": 0.03,
+        "mem_rtol": 0.10}
+
+
+def index_memory(index, mem0) -> dict:
+    """The memory record of phase 3's IVF: the growth of the device's
+    allocated bytes since ``mem0`` (taken before its train and add) and
+    index_memory_bytes of the index."""
+    from tpu_ann_torch.utils.memory import index_memory_bytes
+
+    torch.cuda.synchronize()
+    return {"allocated_growth": torch.cuda.memory_allocated() - mem0,
+            "index_memory_bytes": index_memory_bytes(index)}
+
+
+def expect_k3(name, before, want) -> int:
+    got = launched(before).get("ivf_scan_fused", 0)
+    if got != want:
+        raise AssertionError(f"{name}: {got} K3 launches, expected {want}")
+    return got
+
+
+def tooling_truth(xb, xq, gt, dev) -> None:
+    """22a: knn_ground_truth over 100k-row chunks against phase 3's exact
+    ground truth (its distances recomputed exactly: integer data), and
+    kmin against a stable sort."""
+    from tpu_ann_torch.utils import contrib as C
+
+    t0 = time.perf_counter()
+    step = TOOL["gt_chunk"]
+    Dg, Ig = C.knn_ground_truth(
+        xq, (xb[i:i + step] for i in range(0, len(xb), step)), K,
+        device=dev)
+    t_gt = time.perf_counter() - t0
+    xq_dev = torch.from_numpy(xq).to(dev)
+    xb_dev = torch.from_numpy(xb).to(dev)
+    rows = xb_dev[torch.from_numpy(gt).to(dev)]
+    D3 = ((xq_dev[:, None, :] - rows) ** 2).sum(-1).cpu().numpy()
+    assert_same_topk(D3, gt, Dg, Ig)
+    table = TD.pairwise_distances(
+        xq_dev, xb_dev[:TOOL["kmin_cols"]]).cpu().numpy()
+    del rows, xb_dev
+    t0 = time.perf_counter()
+    v, i = C.kmin(table, K, device=dev)
+    t_kmin = time.perf_counter() - t0
+    order = np.argsort(table, axis=1, kind="stable")[:, :K]
+    if not (np.array_equal(i, order)
+            and np.array_equal(v, np.take_along_axis(table, order, 1))):
+        raise AssertionError("22a: kmin differs from a stable sort")
+    ties = int((np.diff(np.take_along_axis(
+        table, np.argsort(table, 1, kind="stable")[:, :K + 1], 1), axis=1)
+        == 0).sum())
+    phase("tooling_truth", nq=len(xq), nb=len(xb), chunk=step,
+          ground_truth_s=t_gt, equal_phase3_truth=True,
+          kmin_shape=list(table.shape), kmin_s=t_kmin,
+          kmin_equal_stable_sort=True, kmin_ties_in_top=ties)
+
+
+class PlainRoute:
+    """An IVF's search_device with K3's plain version in place of the
+    kernel (the coarse step, the plan and the merge are the index's)."""
+
+    def __init__(self, index):
+        self.index = index
+        self._map_ids = index._map_ids
+        self._check_input = index._check_input
+        self._to_device = index._to_device
+
+    def search_device(self, xq_dev, k):
+        nprobe, _ = self.index._effective_params(None)
+        _, probes = self.index._coarse_search_device(xq_dev, nprobe)
+        Dv, Iv, _ = F.scan_invlists_fused_reference(
+            xq_dev, probes, self.index.invlists, k, self.index.metric_type)
+        return Dv, Iv
+
+
+def tooling_batches(quant3, xb, xt, xq, gt, flat_rec, dev, tmp):
+    """22b: big_batch_search over phase 3's lists. Returns (the index, its
+    search's (D, I), K3 launches)."""
+    from tpu_ann_torch.utils import contrib as C
+    from tpu_ann_torch.utils.interrupt import (FunctionInterrupt,
+                                               InterruptCallback,
+                                               InterruptError)
+
+    one = int(dev.type == "cuda")
+    nprobe, bs, depth = TOOL["nprobe"], TOOL["batch"], TOOL["depth"]
+    nbatch = -(-len(xq) // bs)
+    before = counts()
+    index = ivf_over(quant3, xb, np.arange(len(xb)), xt, dev=dev)
+    index.nprobe = nprobe
+    Ds, Is = index.search(xq, K)
+    rec = T.recall_k_at_k(Is, gt, K)
+    if rec != flat_rec[nprobe]:
+        raise AssertionError(f"22b: recall@10 {rec} of phase 3's lists, "
+                             f"phase 3 had {flat_rec[nprobe]}")
+    ck = os.path.join(tmp, "big_batch.pkl")
+    polls = []
+    InterruptCallback.set(FunctionInterrupt(
+        lambda: polls.append(1) or len(polls) > 3))
+    try:
+        C.big_batch_search(index, xq, K, batch_size=bs, pipeline_depth=1,
+                           checkpoint_path=ck, checkpoint_freq=1)
+        raise AssertionError("22b: the interrupt did not stop the run")
+    except InterruptError:
+        pass
+    finally:
+        InterruptCallback.clear()
+    with open(ck, "rb") as f:
+        done = pickle.load(f)["done"].tolist()
+    if done != [True, True] + [False] * (nbatch - 2):
+        raise AssertionError(f"22b: checkpoint after the interrupt {done}")
+    b1 = counts()
+    t0 = time.perf_counter()
+    Dr, Ir = C.big_batch_search(index, xq, K, batch_size=bs,
+                                pipeline_depth=depth, checkpoint_path=ck)
+    t_resume = time.perf_counter() - t0
+    resumed = expect_k3("22b resume", b1, one * (nbatch - 2))
+    b2 = counts()
+    t0 = time.perf_counter()
+    Du, Iu = C.big_batch_search(index, xq, K, batch_size=bs,
+                                pipeline_depth=depth)
+    t_full = time.perf_counter() - t0
+    expect_k3("22b run", b2, one * nbatch)
+    for name, (Dv, Iv) in (("resumed", (Dr, Ir)), ("run", (Du, Iu))):
+        if not (np.array_equal(Dv, Ds) and np.array_equal(Iv, Is)):
+            raise AssertionError(f"22b: the {name} big_batch_search "
+                                 f"differs from index.search")
+    npl = TOOL["plain_nq"]
+    t0 = time.perf_counter()
+    Dp, Ip = C.big_batch_search(PlainRoute(index), xq[:npl], K,
+                                batch_size=bs, pipeline_depth=depth)
+    t_plain = time.perf_counter() - t0
+    assert_same_topk(Ds[:npl], Is[:npl], Dp, Ip)
+    n = expect_k3("22b", before, one * (1 + 3 + (nbatch - 2) + nbatch))
+    phase("tooling_batches", nq=len(xq), nprobe=nprobe, batch=bs,
+          depth=depth, batches=nbatch, recall_at_10=rec,
+          interrupted_at_poll=len(polls), done_at_interrupt=done,
+          resumed_equal_search=True, run_equal_search=True,
+          resume_s=t_resume, run_s=t_full, run_qps=len(xq) / t_full,
+          k3_launches={"resume": resumed, "run": one * nbatch,
+                       "phase": n},
+          plain_route_nq=npl, plain_route_equal=True, plain_route_s=t_plain)
+    return index, Ds, Is, n
+
+
+def tooling_serving(quant3, xb, xt, xq, Ds, Is, dev) -> int:
+    """22c: two SearchServers on localhost (500k rows each, global ids)
+    behind a ClientIndex, against the one index's (D, I)."""
+    import socket
+
+    from tpu_ann_torch.utils import client_server as CS
+    from tpu_ann_torch.utils import rpc
+
+    one = int(dev.type == "cuda")
+    nprobe, half = TOOL["nprobe"], len(xb) // 2
+    t0 = time.perf_counter()
+    shards = [ivf_over(quant3, xb[lo:lo + half], np.arange(lo, lo + half),
+                       xt, dev=dev) for lo in (0, half)]
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    old = socket.getdefaulttimeout()
+    socket.setdefaulttimeout(300.0)
+    servers, client = [], None
+    try:
+        for idx in shards:
+            srv = rpc.Server(CS.SearchServer(idx), host="127.0.0.1")
+            srv.serve_in_background()
+            servers.append(srv)
+        client = CS.ClientIndex([("127.0.0.1", s.port) for s in servers])
+        client.set_nprobe(nprobe)
+        before = counts()
+        Dc, Ic = client.search(xq, K)
+        assert_same_topk(Ds, Is, Dc, Ic)
+        times = []
+        for _ in range(TIMED_REPS):
+            t1 = time.perf_counter()
+            client.search(xq, K)
+            times.append(time.perf_counter() - t1)
+        n = expect_k3("22c", before, one * 2 * (1 + TIMED_REPS))
+        ntotal = client.ntotal
+    finally:
+        if client is not None:
+            client.close()
+        for s in servers:
+            s.shutdown()
+        socket.setdefaulttimeout(old)
+    del shards, servers
+    torch.cuda.empty_cache()
+    med = float(np.median(times))
+    phase("tooling_serving", servers=2, rows_each=half, ntotal=ntotal,
+          nq=len(xq), nprobe=nprobe, equal_one_index=True,
+          build_s=t_build, search_s=times, qps=len(xq) / med,
+          k3_launches=n, k3_launches_a_search=2 * one)
+    return n
+
+
+def tooling_pipeline(data_dir, xb, xq, dev, tmp, cmp) -> int:
+    """22d: the offline pipeline over the 1M rows in .npy files: 2 shards
+    in worker processes on the card, the merged index against one add of
+    all rows onto the same trained.tann, a second run that executes
+    nothing, each step's seconds."""
+    from tpu_ann_torch.utils.offline_pipeline import (OfflineIVFConfig,
+                                                      OfflineIVFPipeline)
+
+    one = int(dev.type == "cuda")
+    cfg = OfflineIVFConfig(
+        factory=f"IVF{NLIST},Flat", d=D, workdir=os.path.join(tmp, "offline"),
+        xt_path=os.path.join(data_dir, "xt.npy"),
+        xb_path=os.path.join(data_dir, "xb.npy"),
+        xq_path=os.path.join(data_dir, "xq.npy"),
+        gt_path=os.path.join(data_dir, "gt.npy"), nshard=2,
+        use_subprocess=True, max_workers=2, device=str(dev), k=K,
+        nprobe=TOOL["nprobe"])
+    pipe = OfflineIVFPipeline(cfg)
+    secs = {}
+
+    def timed_step(name, fn):
+        def run():
+            t0 = time.perf_counter()
+            fn()
+            secs[name] = time.perf_counter() - t0
+        return run
+
+    jobs = pipe.jobs()
+    for job in jobs:
+        job.fn = timed_step(job.name, job.fn)
+    before = counts()
+    t0 = time.perf_counter()
+    executed = pipe.runner.run(jobs)
+    t_run = time.perf_counter() - t0
+    if executed != ["train", "shard0", "shard1", "merge", "search"]:
+        raise AssertionError(f"22d: the pipeline ran {executed}")
+    n = expect_k3("22d", before, one)           # the search step
+    with open(os.path.join(cfg.workdir, "config.json")) as f:
+        if json.load(f)["device"] != str(dev):
+            raise AssertionError("22d: config.json names another device")
+    Dm = np.load(os.path.join(cfg.workdir, "search_D.npy"))
+    Im = np.load(os.path.join(cfg.workdir, "search_I.npy"))
+    t0 = time.perf_counter()
+    single = IIO.read_index(pipe.trained_path, device=dev)
+    single.add(xb)
+    single.nprobe = TOOL["nprobe"]
+    Do, Io = uncounted(lambda: single.search(xq, K), cmp)
+    t_single = time.perf_counter() - t0
+    del single
+    if not (np.array_equal(Dm, Do) and np.array_equal(Im, Io)):
+        raise AssertionError("22d: the merged index differs from one add")
+    again = OfflineIVFPipeline(cfg).run()
+    if again:
+        raise AssertionError(f"22d: a second run executed {again}")
+    nbytes = {f: os.path.getsize(os.path.join(cfg.workdir, f))
+              for f in sorted(os.listdir(cfg.workdir))
+              if f.endswith(".tann")}
+    shutil.rmtree(cfg.workdir)
+    torch.cuda.empty_cache()
+    phase("tooling_pipeline", factory=cfg.factory, nb=len(xb), nshard=2,
+          worker_processes=True, device=cfg.device, step_s=secs,
+          run_s=t_run, single_add_and_search_s=t_single,
+          merged_equal_single_add=True, second_run_executed=again,
+          knn_intersection=cfg.search_result.get("knn_intersection"),
+          file_bytes=nbytes, k3_launches=n)
+    return n
+
+
+def tooling_bench(data_dir, xq, dev) -> int:
+    """22e: a bench_fw Benchmark of IVF4096,Flat at nprobe 16 / 32 / 64
+    over local .npy descriptors, then a second benchmark() that reuses
+    every cached artifact."""
+    from tpu_ann_torch.utils import bench_fw as BF
+
+    one = int(dev.type == "cuda")
+    nprobes = [16, 32, 64]
+
+    def bench():
+        return BF.Benchmark(
+            io=BF.BenchmarkIO(path=data_dir, device=dev),
+            training_vectors=BF.DatasetDescriptor(tablename="xt"),
+            database_vectors=BF.DatasetDescriptor(tablename="xb"),
+            query_vectors=BF.DatasetDescriptor(tablename="xq"),
+            index_descs=[BF.IndexDescriptor(
+                d=D, factory=f"IVF{NLIST},Flat",
+                search_params={"nprobe": nprobes})], k=K)
+
+    bm = bench()
+    name = bm.index_descs[0].get_name()
+    before = counts()
+    t0 = time.perf_counter()
+    res = bm.benchmark()
+    t_first = time.perf_counter() - t0
+    n = expect_k3("22e", before, one * len(nprobes) * 4)
+    rows = {p: res["experiments"][f"{name}knn.nprobe={p}"] for p in nprobes}
+    for p, row in rows.items():
+        if row["recall"] < RECALL_FLOORS[p]:
+            raise AssertionError(f"22e: recall@10 {row['recall']} < "
+                                 f"{RECALL_FLOORS[p]} at nprobe {p}")
+    stamps = {f: os.path.getmtime(os.path.join(data_dir, f))
+              for f in os.listdir(data_dir)}
+    b2 = counts()
+    t0 = time.perf_counter()
+    res2 = bench().benchmark()
+    t_second = time.perf_counter() - t0
+    expect_k3("22e second run", b2, 0)
+    if {f: os.path.getmtime(os.path.join(data_dir, f))
+            for f in os.listdir(data_dir)} != stamps:
+        raise AssertionError("22e: the second run wrote a file")
+    if res2["experiments"] != res["experiments"]:
+        raise AssertionError("22e: the second run's rows differ")
+    meta = res["indices"][name]
+    phase("tooling_bench", factory=f"IVF{NLIST},Flat", nq=len(xq),
+          recall_at_10={p: r["recall"] for p, r in rows.items()},
+          floors={p: RECALL_FLOORS[p] for p in nprobes},
+          qps={p: r["qps"] for p, r in rows.items()},
+          train_s=meta["train_time"], add_s=meta["add_time"],
+          first_s=t_first, second_s=t_second, second_reused_all=True,
+          optimal=[o["key"] for o in res["optimal"]], k3_launches=n)
+    return n
+
+
+def tooling_tools(index, xb, xt, xq, gt, flat_rec, mem3, dev, tmp) -> int:
+    """22f: analyzers, two-level clustering, the memory and energy
+    monitors, index_memory_bytes and the native host helpers."""
+    from tpu_ann_torch.ops import ivf_scan
+    from tpu_ann_torch.utils import analyzers as AN
+    from tpu_ann_torch.utils import contrib as C
+    from tpu_ann_torch.utils import memory as M
+    from tpu_ann_torch.utils import native as NT
+    from tpu_ann_torch.utils.datasets import fvecs_read, fvecs_write
+
+    one = int(dev.type == "cuda")
+    nprobe = TOOL["nprobe"]
+    before = counts()
+    t0 = time.perf_counter()
+    report = AN.report(index, xq, gt, k=K, nprobe=nprobe)
+    t_report = time.perf_counter() - t0
+    att = AN.recall_attribution(index, xq, gt, K, nprobe)
+    if abs(att["recall"] - flat_rec[nprobe]) > 1e-9:
+        raise AssertionError(f"22f: the analyzers' recall {att['recall']} "
+                             f"vs phase 3's {flat_rec[nprobe]}")
+    cov = AN.probe_coverage(index, xq, nprobe)
+    two = {}
+    for mode, kw in (("rebalance", {"rebalance": True}),
+                     ("batched", {"rebalance": False, "batched": True})):
+        idx = T.make_ivf_flat(D, NLIST, device=dev)
+        t0 = time.perf_counter()
+        C.train_ivf_index_with_2level(idx, xt, nc1=TOOL["nc1"], **kw)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        idx.add(xb)
+        idx.nprobe = nprobe
+        rec = T.recall_k_at_k(idx.search(xq, K)[1], gt, K)
+        del idx
+        torch.cuda.empty_cache()
+        floor = flat_rec[nprobe] - TOOL["two_level_loss"]
+        two[mode] = {"train_s": t_train, "recall_at_10": rec,
+                     "floor": floor}
+        if rec < floor:
+            raise AssertionError(f"22f: two-level ({mode}) recall@10 {rec} "
+                                 f"< {floor}")
+    with M.EnergyMonitor() as em:
+        with M.MemoryMonitor(interval_s=0.01) as mon:
+            mon.set_phase("search")
+            index.search(xq, K)
+    n = expect_k3("22f", before, one * 5)
+    growth = mem3["allocated_growth"]
+    counted = mem3["index_memory_bytes"]["total"]
+    rel = abs(counted - growth) / max(growth, 1)
+    if dev.type == "cuda" and rel > TOOL["mem_rtol"]:
+        raise AssertionError(f"22f: index_memory_bytes {counted} vs the "
+                             f"allocator's growth {growth}")
+    if not NT.HAVE_NATIVE:
+        raise AssertionError("22f: the native library did not build")
+    fv = os.path.join(tmp, "xb.fvecs")
+    fvecs_write(fv, xb)
+    t0 = time.perf_counter()
+    xr = NT.read_fvecs_native(fv)
+    t_nat_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xn = fvecs_read(fv)
+    t_np_read = time.perf_counter() - t0
+    os.remove(fv)
+    if not (np.array_equal(xr, xb) and np.array_equal(xn, xb)):
+        raise AssertionError("22f: read_fvecs_native differs from numpy")
+    del xr, xn
+    assign = index._assign(xb)
+    ids = np.arange(len(xb))
+    B = index.block_size
+    t0 = time.perf_counter()
+    nat = NT.pack_rows_native(xb, ids, assign, NLIST, B)
+    t_nat_pack = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    order, slot, starts, nblk, nbt = ivf_scan._block_slots(
+        assign, NLIST, B, "pack")
+    data = np.zeros((nbt + 1, B, D), np.float32)
+    rid = np.full((nbt + 1, B), -1, np.int32)
+    data.reshape(-1, D)[slot] = xb[order]
+    rid.reshape(-1)[slot] = ids[order]
+    t_np_pack = time.perf_counter() - t0
+    for a, b in zip(nat, (data, rid, starts, nblk)):
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise AssertionError("22f: pack_rows_native differs from numpy")
+    del nat, data, rid
+    phase("tooling_tools", report=report.splitlines(),
+          attribution={k: att[k] for k in ("recall", "routing_loss",
+                                           "ranking_loss", "probed_frac")},
+          coverage_mean=cov["mean_ratio"], report_s=t_report,
+          two_level=two, nc1=TOOL["nc1"],
+          memory_monitor={"samples": len(mon.samples),
+                          "peak_device_bytes": mon.peak_hbm(),
+                          "peak_rss_bytes": mon.peak_rss()},
+          energy_watts=em.watts, energy_seconds=em.seconds,
+          rapl=M.rapl_available(),
+          index_memory_bytes=mem3["index_memory_bytes"],
+          allocated_growth=growth, index_memory_rel=rel,
+          native=True, read_fvecs_s={"native": t_nat_read,
+                                     "numpy": t_np_read},
+          pack_rows_s={"native": t_nat_pack, "numpy": t_np_pack},
+          native_equal_numpy=True, k3_launches=n)
+    return n
+
+
+def tooling_phase(quant3, xb, xt, xq, gt, flat_rec, mem3, dev, tmp) -> int:
+    """Phase 22: the tooling and serving layer at full width on phase 3's
+    data and quantizer (22a-f, one line each). Counts are reset before it;
+    launches that only compare (the one-add index of 22d) are left out.
+    Returns K3's launches of the phase."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    cmp: dict = {}
+    data_dir = os.path.join(tmp, "tooling")
+    os.makedirs(data_dir)
+    for name, a in (("xt", xt), ("xb", xb), ("xq", xq), ("gt", gt)):
+        np.save(os.path.join(data_dir, f"{name}.npy"), a)
+    tooling_truth(xb, xq, gt, dev)
+    index, Ds, Is, n_b = tooling_batches(quant3, xb, xt, xq, gt, flat_rec,
+                                         dev, tmp)
+    n_c = tooling_serving(quant3, xb, xt, xq, Ds, Is, dev)
+    n_d = tooling_pipeline(data_dir, xb, xq, dev, tmp, cmp)
+    n_e = tooling_bench(data_dir, xq, dev)
+    n_f = tooling_tools(index, xb, xt, xq, gt, flat_rec, mem3, dev, tmp)
+    del index
+    shutil.rmtree(data_dir)
+    torch.cuda.empty_cache()
+    got = {k: v - cmp.get(k, 0) for k, v in launched().items()}
+    k3 = got.pop("ivf_scan_fused", 0)
+    if any(got.values()) or k3 != n_b + n_c + n_d + n_e + n_f:
+        raise AssertionError(f"phase 22 launched {got}, K3 {k3}")
+    phase("tooling", seconds=time.perf_counter() - t_phase, k3_launches=k3,
+          by_step={"b": n_b, "c": n_c, "d": n_d, "e": n_e, "f": n_f},
+          comparison_launches=cmp)
+    return k3
+
+
+def phase3_setup(dev, mem=None):
     """Phase 3's data, exact ground truth and IVF4096,Flat: (its
-    quantizer, xb, xt, xq, gt, its recall@10 at nprobe 16 / 32 / 64)."""
+    quantizer, xb, xt, xq, gt, its recall@10 at nprobe 16 / 32 / 64).
+    ``mem``, a dict, gets `index_memory`'s record of the IVF."""
     allx = T.sift_surrogate(NB + NT + NQ, seed=123, **T.SIFT1M_CALIBRATED)
     xb, xt, xq = allx[:NB], allx[NB:NB + NT], allx[NB + NT:]
     flat = T.IndexFlat(D, device=dev)
     flat.add(xb)
     _, gt = flat.search(xq, K)
     del flat
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
     index = T.make_ivf_flat(D, NLIST, device=dev)
     index.cp.niter = 10
     index.train(xt)
     index.add(xb)
+    if mem is not None:
+        mem.update(index_memory(index, mem0))
     rec = {n: T.recall_k_at_k(index.search(
         xq, K, params=T.SearchParametersIVF(nprobe=n))[1], gt, K)
         for n in (16, 32, 64)}
@@ -6011,6 +6529,18 @@ def phase3_setup(dev):
     del index
     torch.cuda.empty_cache()
     return quant3, xb, xt, xq, gt, rec
+
+
+def tooling_alone() -> None:
+    """--phase22: phase 22 alone: K3 built, phase 3's data, ground truth
+    and IVF4096,Flat (its memory record), then tooling_phase. Its phase
+    lines only."""
+    dev = require_gpu()
+    kernels.load_libraries(("ivf_scan_fused",))
+    mem3 = {}
+    quant3, xb, xt, xq, gt, rec = phase3_setup(dev, mem3)
+    with tempfile.TemporaryDirectory(prefix="tpu_ann_smoke_") as tmp:
+        tooling_phase(quant3, xb, xt, xq, gt, rec, mem3, dev, tmp)
 
 
 if __name__ == "__main__":
@@ -6024,9 +6554,11 @@ if __name__ == "__main__":
         families_alone()
     elif sys.argv[1:] == ["--phase21"]:
         sharded_alone()
+    elif sys.argv[1:] == ["--phase22"]:
+        tooling_alone()
     elif sys.argv[1:]:
         raise SystemExit("usage: chip_smoke.py [--k1-batches | "
                          "--k2-batches | --phase19 | --phase20 | "
-                         "--phase21]")
+                         "--phase21 | --phase22]")
     else:
         main()

@@ -157,6 +157,27 @@ def test_imi_other_m(data, M):
     assert_topk_equal(D0, I0, D1, I1, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("M", [1, 2, 3])
+def test_imi_pads_past_its_cells(data, M):
+    """At k above the cells a search ranks (nbits 2: 4 cells at M 1, 16 at
+    M 2, and at M 3 the first two subspaces' 4 x 4 = 16), the result is
+    (nq, k) all the same: the ranked cells first, equal to the k = cells
+    search, then id -1 and +inf (faiss's contract)."""
+    xt, _, xq = data
+    d = 30 if M == 3 else D
+    t = T.MultiIndexQuantizer(d, M, 2, device="cpu")
+    t.train(xt[:, :d])
+    ranked = 4 if M == 1 else 16
+    D1, I1 = t.search(xq[:3, :d], 20)
+    assert D1.shape == I1.shape == (3, 20)
+    assert I1.dtype == np.int64 and D1.dtype == np.float32
+    D0, I0 = t.search(xq[:3, :d], ranked)
+    np.testing.assert_array_equal(D1[:, :ranked], D0)
+    np.testing.assert_array_equal(I1[:, :ranked], I0)
+    assert (I1[:, ranked:] == -1).all() and np.isposinf(D1[:, ranked:]).all()
+    assert (I0 >= 0).all() and np.isfinite(D0).all()
+
+
 def test_imi_trains(data):
     xt, _, xq = data
     t = T.MultiIndexQuantizer(D, 2, 4, device="cpu")

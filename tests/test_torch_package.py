@@ -51,7 +51,11 @@ def test_sources_found():
             "utils/benchmark.py", "models/ivf_hnsw.py", "models/base.py",
             "models/ivf.py", "ops/range_search.py", "utils/contrib.py",
             "ops/ivf_scan.py", "parallel/__init__.py", "parallel/sharded.py",
-            "utils/interrupt.py"} <= names
+            "utils/interrupt.py", "utils/memory.py", "utils/native.py",
+            "utils/rpc.py", "utils/client_server.py",
+            "utils/offline_pipeline.py", "utils/bench_fw.py",
+            "utils/analyzers.py", "utils/datasets.py",
+            "utils/evaluation.py"} <= names
 
 
 @pytest.mark.parametrize("needle", ["import jax", "tpu_ann.", "ml_dtypes"])

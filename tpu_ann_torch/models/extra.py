@@ -322,6 +322,19 @@ class MultiIndexQuantizer(Index):
                                self._cent)
 
     def search_device(self, xq: torch.Tensor, k: int):
+        """(nq, k) at every k: the slots past the cells a search ranks
+        (ksub^M at M <= 2, the first two subspaces' T * T cells past them)
+        hold id -1 and +inf, faiss's contract."""
+        out_d, out_i = self._ranked_cells(xq, k)
+        short = k - out_d.shape[1]
+        if short > 0:
+            out_d = torch.cat([out_d, out_d.new_full((len(xq), short),
+                                                     np.inf)], 1)
+            out_i = torch.cat([out_i, out_i.new_full((len(xq), short),
+                                                     -1)], 1)
+        return out_d, out_i
+
+    def _ranked_cells(self, xq: torch.Tensor, k: int):
         tabs = PQ.query_tables(xq, self._cent)
         nq, M, ksub = tabs.shape
         if M == 1:

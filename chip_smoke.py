@@ -18,6 +18,9 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
                                          # 16a's IVF4096,PQ32
     python3 chip_smoke.py --phase22      # only phase 22 (the tooling and
                                          # serving layer), likewise
+    python3 chip_smoke.py --phase23      # only phase 23 (the C handle,
+                                         # the demos and the entry
+                                         # point), likewise
 
 Phases, one line each; any failure raises and exits non-zero:
   1. device  — a CUDA device is required; nvidia-smi's name and power limit.
@@ -147,9 +150,10 @@ Phases, one line each; any failure raises and exits non-zero:
      batch-1 probes, one K3 launch a query (plus the tile launches),
      P50 / P99 / P99.9 of each phase; (c) K3 at batch 1 vs its plain
      version (device ms, bound); (d) the paged index through write_index /
-     read_index(mmap=True), (D, I) bit for bit (K4); (e) two 500k-row
-     shards over phase 3's quantizer merged by merge_ondisk and reopened
-     with mmap, equal to one index over all rows bit for bit; (f)
+     read_index(mmap=True), (D, I) bit for bit (K4); (e) the first 250k
+     rows (1M before phase 23) as two shards over phase 3's quantizer
+     merged by merge_ondisk and reopened with mmap, equal to one index
+     over the same rows bit for bit; (f)
      IVF4096,SQ8 through a file, bit for bit, and per query (K3-SQ8); (g)
      the fused IndexFlat through a file, bit for bit (K1, K2).
   15. the IVF API, on an IVF4096,Flat over phase 3's quantizer and data
@@ -245,8 +249,9 @@ Phases, one line each; any failure raises and exits non-zero:
      (IndexHNSW2Level): sa_decode(sa_encode(x)) equal to the rows the
      graph was built on, recall >= C x F - 0.01, K3 only; (i) (a), (c),
      (d) through write_index / read_index(mmap=True): (D, I) bit for bit;
-     (e) the tile beam, no launch, efSearch 64, 1000 queries: on phase
-     5's float set IndexHNSWFlat IP in "auto" and L2 forced to "beam",
+     (e) the tile beam, no launch, efSearch 64, 1000 queries: on the
+     first 250k rows of phase 5's float set (cut from 1M for phase 23)
+     IndexHNSWFlat IP in "auto" and L2 forced to "beam",
      and F forced to "beam" on the SIFT surrogate: recall >= the per-node
      beam's (hnsw_search on the same graph) - 0.01, hops, the visited
      table's bytes, and the recall from the reference's 8 entry tiles
@@ -283,11 +288,12 @@ Phases, one line each; any failure raises and exits non-zero:
      the decoded, rotated rows), one K3 launch a search (bf16 cache) and
      one K3-SQ8 launch with the "sq8" cache (recall within 0.01), and
      IVF4096,PQ16 without OPQ printed beside it; (c) "IDMap2,IVF4096,Flat"
-     over phase 3's quantizer with random int64 ids above 2^32: search
-     equal to the sub-index's mapped through id_map, a selector over 10%
-     of the external ids at nprobe 4096 equal to exact search over those
-     rows, 100k ids removed then equal to a fresh IDMap2 over the
-     survivors, 100k rows added under new ids (no id repeats, each found
+     over phase 3's quantizer and the first 250k rows (1M before phase 23)
+     with random int64 ids above 2^32: search equal to the sub-index's
+     mapped through id_map, a selector over 10% of the external ids at
+     nprobe 4096 equal to exact search over those rows, 25k ids removed
+     then equal to a fresh IDMap2 over the survivors, 25k rows added under
+     new ids (no id repeats, each found
      back at distance 0), reconstruct by external id, an IxM2 file
      reopened bit-equal; (d) IndexShards of 4 exact IndexFlat filled by
      two adds of 500k equal to an IndexFlat over the 1M rows in their
@@ -297,9 +303,10 @@ Phases, one line each; any failure raises and exits non-zero:
      (nprobe 1..2048, the recalls at 16 / 32 / 64 equal to phase 3's) and
      over phase 9's IVFHNSW15625 in quantizer mode (nprobe 8..128, cut
      from 1..4096, x efSearch 16..256): the Pareto points and seconds;
-     (g) SlidingIndexWindow, 10 slices of 100k, nslice 4: after each step
-     bit-equal to an IVF-Flat over the live slices; (h) IndexFlat(128, m)
-     over the 1M rows for the nine extra metrics (Lp with p 3,
+     (g) SlidingIndexWindow, 10 slices of 25k (100k before phase 23), nslice
+     4: after each step bit-equal to an IVF-Flat over the live slices; (h)
+     IndexFlat(128, m) over the first 250k rows (1M before phase 23) for the
+     nine extra metrics (Lp with p 3,
      NaNEuclidean with 1% NaNs), 256 queries: QPS and peak device memory,
      the timed search's first 32 queries and a selector run over the first
      100k rows, whose ids equal an f64 evaluation on the card written
@@ -307,11 +314,12 @@ Phases, one line each; any failure raises and exits non-zero:
      of magnitudes and NaN masks, a loop over the dimensions), ties within
      rtol 1e-5 (1e-4 for JensenShannon); (f) ClusterManager.balance, one
      round, on phase 9's index after phase 17 with max_cell_size the
-     9th-largest list: nlist grows by the splits, the sizes sum to ntotal,
-     every row in exactly one list, each split list's rows in both its
-     parts (each at least 5% of them), recall@10 at nprobe 32 within 0.01 of before; each
-     split's sizes, the largest list after the round with where its rows
-     were before, the imbalance and the seconds a split. Phase 18 launches
+     5th-largest list (the 9th before phase 23): nlist grows by the splits,
+     the sizes sum to ntotal, every row in exactly one list, each split
+     list's rows in both its parts (each at least 5% of them), recall@10
+     at nprobe 32 within 0.01 of before; each split's sizes, the largest
+     list after the round with where its rows were before, the imbalance
+     and the seconds a split. Phase 18 launches
      K3 and K3-SQ8 only; its count leaves out the launches of what a path
      is held against (the direct IVF, IVF4096,PQ16, K3 against its plain
      version, the sub-index searched alone, fresh IDMap2 and window IVFs,
@@ -343,8 +351,9 @@ Phases, one line each; any failure raises and exits non-zero:
      Hamming quantiles 1 / 5 / 30% of a sample the pass share, recall@10
      and QPS beside ST_PQ's (faster than it at the 1% share), the pass
      count growing, every distance ST_PQ's ADC of its id; (f) IndexQINCo(128, K 256, L 2, M 8, h 256) with
-     QINCo.random's weights: encode / decode seconds, search of 1000
-     queries (recall = C within 0.002), the card's codes on 2000 rows
+     QINCo.random's weights over the first 250k rows (1M before phase 23):
+     encode / decode seconds, search of 1000 queries (recall against those
+     rows' exact ground truth = C within 0.002), the card's codes on 2000 rows
      equal to the host's on >= 99.5%, the state dict round trip exact;
      (g) ZnLattice16x10_6 over LATTICE_NB rows (host encode), recall =
      C within 0.002; (h) IxRQ, IwRQ, IxCQ, IxQN and IxLt files reopened
@@ -437,6 +446,29 @@ Phases, one line each; any failure raises and exits non-zero:
      within 10% of the growth of torch.cuda.memory_allocated() across its
      train and add; native.HAVE_NATIVE, and read_fvecs_native and
      pack_rows_native equal to numpy on the 1M rows.
+  23. the port's own C handle, demos and entry point on phase 3's data
+     (tpu_ann_torch/capi.py, c_api/, demos/, graft_entry.py); every check
+     raises. (a) the C library and its example built with cc into
+     tpu_ann_torch/_build/ (the embed flags from this Python's sysconfig);
+     the standalone example_c (its own embedded interpreter,
+     TPU_ANN_TORCH_DEVICE=cuda) exits 0 with "C API example: OK"; then the
+     library loaded
+     here with ctypes: IVF4096,Flat through tpu_ann_index_factory, trained
+     on the 100k rows and filled with the 1M through C pointers, the 10k
+     queries searched at nprobe 16 / 32 / 64 (a warm-up and 3 timed
+     searches each, one K3 launch a search, recall@10 at the floors), the
+     same index object's Python search timed beside each C search; the
+     index written from C and read by tpu_ann_torch.read_index searches
+     the C (D, I) bit for bit; phase 3's lists written by the package and
+     read through tpu_ann_read_index search phase 3's (D, I) bit for bit.
+     (b) the eight demos at their own sizes on the card, each with its
+     asserts: the numbers each returns, seconds and launches (K3 in the
+     IVF demos 1, 2, 4 and 5, whose servers report theirs; K4 in the
+     paged demo; nothing in the sharded, RQ and QINCo demos). (c)
+     graft_entry.entry()'s step on the card against the same step over a
+     CPU copy of its index (ids equal, distances within rtol 1e-5), and
+     dryrun_multichip(4) as 2 x 2 gloo ranks on the card (every rank's
+     results equal rank 0's; K3 2 a rank, K4 at least 1 a rank).
 The last two lines are the kernels' JSON record (each with its time,
 its plain version's, the card's bound for the same work (a scan of
 lists: the valid rows it needs, each read once, not their blocks'
@@ -448,8 +480,9 @@ at d 64 (phase 18a), on the IVF-RQ cache and the 65,536-list RCQ lists
 (phase 19a / c; K3-SQ8 on the "sq8" RQ cache), K3 and K1 at d 256
 (phase 20d / b), each kernel its phase-16 to phase-20 launches, K4 its
 times at kp 58 and 100 (phase 8), K3 its phase-21 launches and one
-rank's time there, and its phase-22 launches (``launches_tooling``), and
-K3 has a second record at batch 1) and
+rank's time there, its phase-22 launches (``launches_tooling``) and its
+phase-23 launches (``launches_handles``, K4's too), and K3 has a second
+record at batch 1) and
 {"ok": true, ...}.
 """
 
@@ -469,7 +502,7 @@ import numpy as np
 import torch
 
 import tpu_ann_torch as T
-from tpu_ann_torch import kernels
+from tpu_ann_torch import capi, kernels
 from tpu_ann_torch.ops import distances as TD
 from tpu_ann_torch.ops import flat_knn_fused as FK
 from tpu_ann_torch.ops import ivf_scan_fused as F
@@ -730,7 +763,7 @@ def main() -> None:
           imbalance=index.imbalance_factor(),
           kmeans_final_obj=index.clustering_stats[-1].obj)
 
-    results, flat_out = {}, {}
+    results, flat_out, qps3 = {}, {}, {}
     for nprobe in (16, 32, 64):
         p = T.SearchParametersIVF(nprobe=nprobe)
         before = F.LAUNCHES
@@ -755,6 +788,7 @@ def main() -> None:
         med = float(np.median(times))
         results[nprobe] = rec
         flat_out[nprobe] = (Dv, Iv)
+        qps3[nprobe] = NQ / med
         phase("search", nprobe=nprobe, recall_at_10=rec,
               floor=RECALL_FLOORS[nprobe], qps=NQ / med,
               search_ms=[t * 1e3 for t in times],
@@ -881,6 +915,10 @@ def main() -> None:
         k3.update(sharded_phase(quant3, xb, xt, xq, gt, results, dev, tmp))
         k3["launches_tooling"] = tooling_phase(quant3, xb, xt, xq, gt,
                                                results, mem3, dev, tmp)
+        handles = handles_phase(quant3, xb, xt, xq, gt, results, flat_out,
+                                qps3, dev, tmp)
+    k3["launches_handles"] = handles["ivf_scan_fused"]
+    k4["launches_handles"] = handles["ivf_scan_paged"]
     k3["launches_pq"] = pq_launches.get("ivf_scan_fused", 0)
     k3["launches_hnsw"] = hnsw_launches.get("ivf_scan_fused", 0)
     k3["launches_breadth"] = breadth_launches.get("ivf_scan_fused", 0)
@@ -2353,6 +2391,9 @@ def row_copy_phase(xb, dev) -> dict:
 
 # queries of each per-query run (each query a batch-1 round trip)
 PER_QUERY_NQ = 1000
+# 14e's rows: the first 250k, two shards of 125k (cut from 1M to pay for
+# phase 23)
+MERGE_NB = 250_000
 
 
 def launched(before: dict = None) -> dict:
@@ -2618,14 +2659,15 @@ def workflow_phase(hidx, quant3, paged, xb, xt, xq, gt, dev, tmp) -> dict:
     phase("workflow_paged", **st_d, launches=got)
     os.remove(path)
 
-    # -- 14e. two shards merged on disk --------------------------------------
+    # -- 14e. two shards of the first MERGE_NB rows merged on disk ----------
     reset_counts()
-    half = len(xb) // 2
+    xm = xb[:MERGE_NB]
+    half = len(xm) // 2
     paths, t0 = [], time.perf_counter()
-    for j, (lo, hi) in enumerate(((0, half), (half, len(xb)))):
+    for j, (lo, hi) in enumerate(((0, half), (half, len(xm)))):
         shard = T.IndexIVFFlat(quant3, D, NLIST, device=dev)
         shard.is_trained = True
-        shard.add_with_ids(xb[lo:hi], np.arange(lo, hi, dtype=np.int64))
+        shard.add_with_ids(xm[lo:hi], np.arange(lo, hi, dtype=np.int64))
         paths.append(os.path.join(tmp, f"shard{j}.tann"))
         T.write_index(shard, paths[-1])
         del shard
@@ -2641,14 +2683,14 @@ def workflow_phase(hidx, quant3, paged, xb, xt, xq, gt, dev, tmp) -> dict:
     merged = T.read_index(dst, mmap=True, device=dev)
     single = T.IndexIVFFlat(quant3, D, NLIST, device=dev)
     single.is_trained = True
-    single.add(xb)
+    single.add(xm)
     p32 = T.SearchParametersIVF(nprobe=32)
     D0, I0 = single.search(xq, K, params=p32)
     D1, I1 = merged.search(xq, K, params=p32)
-    if n != len(xb) or not (np.array_equal(D0, D1) and
+    if n != len(xm) or not (np.array_equal(D0, D1) and
                             np.array_equal(I0, I1)):
         raise AssertionError("the merged file's (D, I) differ from a single "
-                             "index over all rows")
+                             "index over the same rows")
     got = launched()
     if got != {"ivf_scan_fused": 2}:
         raise AssertionError(f"the merge check launched {got}")
@@ -3658,6 +3700,9 @@ def pq_phase(quant3, hquant, hnsw_auto, xb, xt, xq, gt, flat_rec, dev,
 # queries of the beam checks (17e) and the range search (17h), and added
 # rows searched back as queries (17g)
 HNSW_NQ_SMALL = 1000
+# 17e's float-set indexes: the first 250k rows of phase 5's float set (cut
+# from 1M to pay for phase 23)
+BEAM_NB = 250_000
 HNSW_EFS = (16, 64)
 
 
@@ -3877,7 +3922,7 @@ def hnsw_rest_phase(hidx, hnsw_auto, xb, xt, xq, gt, dev, tmp) -> dict:
     # -- 17e. the tile beam on phase 5's float set: IP in "auto", L2 forced;
     # and L2 forced on F (the SIFT surrogate); no launch
     rng = np.random.default_rng(7)          # phase 5's float set
-    xb_f = xb + rng.random(xb.shape, dtype=np.float32)
+    xb_f = (xb + rng.random(xb.shape, dtype=np.float32))[:BEAM_NB]
     xq_f = (xq[:1024] + rng.random(xq[:1024].shape, dtype=np.float32)
             )[:HNSW_NQ_SMALL]
     beam = {}
@@ -4136,8 +4181,17 @@ EXTRA = (("L1", 2, 0.0, 1e-5), ("Linf", 3, 0.0, 1e-5),
          ("Jaccard", 23, 0.0, 1e-5), ("NaNEuclidean", 24, 0.0, 1e-5),
          ("AbsInnerProduct", 25, 0.0, 1e-5))
 EXTRA_NQ, EXTRA_NB64, EXTRA_NQ64 = 256, 100_000, 32
+# 18h's base: the first 250k rows (cut from 1M to pay for phase 23)
+EXTRA_NB = 250_000
+# 18g's slices: 10 of 25k rows (cut from 100k to pay for phase 23)
+WINDOW_ROWS = 25_000
+# 18c's rows: the first 250k (cut from 1M to pay for phase 23)
+IDMAP_NB = 250_000
 # 18f: the least share of a split list's rows each of its two parts holds
 SPLIT_MIN_SHARE = 0.05
+# 18f: the lists one round splits, the largest (cut from 8 to pay for
+# phase 23)
+BALANCE_SPLITS = 4
 
 
 def exact_recall(xq_dev, rows_dev, gt) -> float:
@@ -4295,14 +4349,16 @@ def unique_ids(n: int, seed: int) -> np.ndarray:
 
 
 def breadth_idmap(quant3, xb, xt, xq, gt, dev, tmp, cmp) -> None:
-    """18c IDMap2,IVF4096,Flat with random external ids; 18d IndexShards
-    and IndexReplicas. The launches of the indexes they are held against
+    """18c IDMap2,IVF4096,Flat over the first IDMAP_NB rows with random
+    external ids; 18d IndexShards and IndexReplicas. The launches of the indexes they are held against
     (the sub-index searched alone, a fresh IDMap2, the index a file is
     held against) go to ``cmp``."""
     k3 = {"ivf_scan_fused": 1}
     p32 = T.SearchParametersIVF(nprobe=32)
-    nmore = NB // 10                     # rows removed, then added
-    ext = unique_ids(NB + nmore, 18)
+    nb = min(IDMAP_NB, NB)
+    xm = xb[:nb]
+    nmore = nb // 10                     # rows removed, then added
+    ext = unique_ids(nb + nmore, 18)
 
     def idmap2(rows, ids):
         ivf = T.IndexIVFFlat(quant3, D, NLIST, device=dev)
@@ -4313,7 +4369,7 @@ def breadth_idmap(quant3, xb, xt, xq, gt, dev, tmp, cmp) -> None:
         return idx
 
     # -- 18c. IDMap2,IVF4096,Flat ------------------------------------------
-    (M, t_add) = timed(lambda: idmap2(xb, ext[:NB]), warm=lambda: None)
+    (M, t_add) = timed(lambda: idmap2(xm, ext[:nb]), warm=lambda: None)
     before = counts()
     Ds, Is = uncounted(lambda: M.index.search(xq, K, params=p32), cmp)
     Dm, Im = M.search(xq, K, params=p32)
@@ -4325,25 +4381,25 @@ def breadth_idmap(quant3, xb, xt, xq, gt, dev, tmp, cmp) -> None:
     # a selector over external ids: the query-major scan over every list
     # equals exact search over the selected rows
     rs = np.random.RandomState(19)
-    pick = np.sort(rs.choice(NB, NB // 10, replace=False))
+    pick = np.sort(rs.choice(nb, nb // 10, replace=False))
     xs = xq[:200]
     (Dsel, Isel), t_sel = timed(lambda: M.search(
         xs, K, params=T.SearchParametersIVF(
             nprobe=NLIST, sel=T.IDSelectorBatch(ext[pick]))),
         warm=lambda: None)
     De, Ie = TD.knn(torch.from_numpy(xs).to(dev),
-                    torch.from_numpy(xb[pick]).to(dev), K)
+                    torch.from_numpy(xm[pick]).to(dev), K)
     assert_same_topk(De.cpu().numpy(), ext[pick][Ie.cpu().numpy()], Dsel,
                      Isel)
     # remove 100k external ids; a fresh IDMap2 over the survivors
-    gone = rs.choice(NB, nmore, replace=False)
+    gone = rs.choice(nb, nmore, replace=False)
     (n_rm, t_rm) = timed(lambda: M.remove_ids(T.IDSelectorBatch(ext[gone])),
                          warm=lambda: None)
-    if n_rm != len(gone) or M.ntotal != NB - len(gone):
+    if n_rm != len(gone) or M.ntotal != nb - len(gone):
         raise AssertionError(f"IDMap2 removed {n_rm} of {len(gone)}")
-    keep = np.ones(NB, bool)
+    keep = np.ones(nb, bool)
     keep[gone] = False
-    fresh = idmap2(xb[keep], ext[:NB][keep])
+    fresh = idmap2(xm[keep], ext[:nb][keep])
     same_search("IDMap2 after removal vs a fresh IDMap2",
                 uncounted(lambda: fresh.search(xq, K, params=p32), cmp),
                 M.search(xq, K, params=p32))
@@ -4351,7 +4407,7 @@ def breadth_idmap(quant3, xb, xt, xq, gt, dev, tmp, cmp) -> None:
     # 100k more rows (the train slice) under new ids: no id repeats, each
     # added row found back at distance 0 under its own id
     new = xt[:nmore]
-    (_, t_add2) = timed(lambda: M.add_with_ids(new, ext[NB:]),
+    (_, t_add2) = timed(lambda: M.add_with_ids(new, ext[nb:]),
                         warm=lambda: None)
     live = M.id_map if M._gone is None else M.id_map[~M._gone]
     if len(np.unique(live)) != len(live) or len(live) != M.ntotal:
@@ -4362,7 +4418,7 @@ def breadth_idmap(quant3, xb, xt, xq, gt, dev, tmp, cmp) -> None:
     if not ((Dn[:, 0] == 0).all() and np.array_equal(back, new[sample])):
         raise AssertionError("IDMap2: added rows not found back")
     rows = rs.choice(np.nonzero(keep)[0], 200, replace=False)
-    if not np.array_equal(M.reconstruct_batch(ext[rows]), xb[rows]):
+    if not np.array_equal(M.reconstruct_batch(ext[rows]), xm[rows]):
         raise AssertionError("IDMap2: reconstruct by external id differs")
     path = os.path.join(tmp, "idmap2.tann")
     (_, t_write) = timed(lambda: T.write_index(M, path), warm=lambda: None)
@@ -4375,7 +4431,7 @@ def breadth_idmap(quant3, xb, xt, xq, gt, dev, tmp, cmp) -> None:
     nbytes = os.path.getsize(path)
     os.remove(path)
     del R
-    phase("breadth_idmap2", add_s=t_add, selector_nq=len(xs),
+    phase("breadth_idmap2", nb=nb, add_s=t_add, selector_nq=len(xs),
           selector_rows=len(pick), selector_s=t_sel, removed=n_rm,
           remove_s=t_rm, add_after_remove_s=t_add2, ntotal=M.ntotal,
           file_bytes=nbytes, write_s=t_write, read_s=t_read,
@@ -4461,13 +4517,13 @@ def breadth_tune(quant3, hidx, xb, xt, xq, gt, flat_rec, dev, cmp) -> None:
           ivfhnsw_pareto=[(p.key, p.perf, p.t) for p in oph.optimal_pts()],
           ivfhnsw_seconds=t_explore_h)
 
-    # -- 18g. SlidingIndexWindow: 10 slices of 100k, nslice 4 -----------------
+    # -- 18g. SlidingIndexWindow: 10 slices of WINDOW_ROWS, nslice 4 ---------
     W = T.IndexIVFFlat(quant3, D, NLIST, device=dev)
     W.quantizer_trains_alone = 1
     W.train(xt)
     W.nprobe = 32
     win = IL.SlidingIndexWindow(W, 4)
-    step_s, sl = [], NB // 10
+    step_s, sl = [], WINDOW_ROWS
     for s in range(10):
         before = counts()
         (_, t_step) = timed(lambda: win.step(xb[s * sl:(s + 1) * sl]),
@@ -4500,7 +4556,7 @@ def breadth_balance(hidx, xq, gt, dev) -> None:
     assign0 = np.concatenate(hidx._assign_host)       # row -> list
     imb0 = hidx.imbalance_factor()
     nlist0 = hidx.nlist
-    cap = int(np.sort(sizes0)[-9])
+    cap = int(np.sort(sizes0)[-(BALANCE_SPLITS + 1)])
     cm = IL.ClusterManager(hidx, cap)
     # one round splits the oversized lists largest first; the j-th split
     # appends list nlist0 + j
@@ -4636,10 +4692,11 @@ def f64_topk(name, q, b, arg):
 
 
 def breadth_metrics(xb, xq, dev) -> None:
-    """18h: IndexFlat(128, m) over the 1M rows for the nine extra metrics,
-    256 queries; the ids of a selector run over the first 100k rows, and
-    of the timed 1M-row search for EXTRA_NQ64 queries, against an f64
-    evaluation written here (f64_extra)."""
+    """18h: IndexFlat(128, m) over the first EXTRA_NB rows for the nine
+    extra metrics, 256 queries; the ids of a selector run over the first
+    100k rows, and of the timed search over all EXTRA_NB for EXTRA_NQ64
+    queries, against an f64 evaluation written here (f64_extra)."""
+    xb = xb[:EXTRA_NB]
     xs = xq[:EXTRA_NQ]
     rs = np.random.RandomState(20)
     out = {}
@@ -4662,12 +4719,12 @@ def breadth_metrics(xb, xq, dev) -> None:
             raise AssertionError(f"extra metric {name}: malformed")
         q64 = torch.from_numpy(xsm).to(dev).double()
         b64 = torch.from_numpy(xbm).to(dev).double()
-        # the timed 1M-row search, its first EXTRA_NQ64 queries
+        # the timed search, its first EXTRA_NQ64 queries
         D64, I64 = f64_topk(name, q64[:EXTRA_NQ64], b64, arg)
-        same_topk_within(f"extra metric {name} (1M rows)", D64, I64,
+        same_topk_within(f"extra metric {name} ({len(xb)} rows)", D64, I64,
                          Dv[:EXTRA_NQ64].astype(np.float64),
                          Iv[:EXTRA_NQ64], rtol)
-        # the first 100k rows through a selector over the 1M
+        # the first 100k rows through a selector over all of them
         sel = T.SearchParameters(sel=T.IDSelectorRange(0, EXTRA_NB64))
         Dsel, Isel = idx.search(xsm, K, params=sel)
         D64, I64 = f64_topk(name, q64, b64[:EXTRA_NB64], arg)
@@ -4678,7 +4735,7 @@ def breadth_metrics(xb, xq, dev) -> None:
                      "search_ms": s * 1e3}
         del idx
         torch.cuda.empty_cache()
-    phase("breadth_metrics", nb=NB, nq=EXTRA_NQ, f64_rows=EXTRA_NB64,
+    phase("breadth_metrics", nb=len(xb), nq=EXTRA_NQ, f64_rows=EXTRA_NB64,
           f64_nq_1m=EXTRA_NQ64, metrics=out)
 
 
@@ -4716,6 +4773,8 @@ LSQ_TRAIN_ITERS = 8
 POLY_ITERS = 2500
 # rows of the QINCo code check on the host
 QINCO_CPU_ROWS = 2000
+# 19f's base: the first 250k rows (cut from 1M to pay for phase 23)
+QINCO_NB = 250_000
 # rows the lattice encodes: its host encode of the 1M rows took 41.6 s on
 # the H100 machine's host, over the 30 s the phase allows it
 LATTICE_NB = 100_000
@@ -5039,14 +5098,19 @@ def codecs_polysemous(xb, xt, xq, gt, dev) -> None:
 
 def codecs_qinco(xb, xq, gt, dev):
     """19f: IndexQINCo(d 128, K 256, L 2, M 8, h 256) with the reference's
-    random weights: encode the 1M rows, decode, search 1000 queries; the
+    random weights: encode the first QINCO_NB rows, decode, search 1000
+    queries (recall against the exact ground truth of those rows); the
     card's codes on 2000 rows against the host's; the state dict round
     trip. Returns the index."""
+    xb = xb[:QINCO_NB]
     Qi = T.IndexQINCo(D, 256, 2, 8, 256, device=dev)
     (_, t_enc) = timed(lambda: Qi.add(xb), warm=lambda: None)
     (rows, t_dec) = timed(lambda: Qi._decode_packed(Qi._codes),
                           warm=lambda: None)
-    xs, gs = xq[:CODEC_NQ], gt[:CODEC_NQ]
+    xs = xq[:CODEC_NQ]
+    gs = gt[:CODEC_NQ] if len(xb) == NB else TD.knn(
+        torch.from_numpy(xs).to(dev), torch.from_numpy(xb).to(dev),
+        K)[1].cpu().numpy()
     (Dv, Iv), s = timed(lambda: Qi.search(xs, K))
     C = codec_recall_rows(rows, xs, gs, dev)
     if not (np.isfinite(Dv).all() and (Iv >= 0).all()):
@@ -5067,7 +5131,8 @@ def codecs_qinco(xb, xq, gt, dev):
             other.state_dict().values(), Qi.qinco.state_dict().values())):
         raise AssertionError("QINCo state dict round trip differs")
     phase("codecs_qinco", K=256, L=2, M=8, h=256, code_bytes=Qi.sa_code_size(),
-          encode_s=t_enc, encode_rows_a_s=NB / t_enc, decode_s=t_dec,
+          nb=len(xb), encode_s=t_enc, encode_rows_a_s=len(xb) / t_enc,
+          decode_s=t_dec,
           codec_recall=C, recall_at_10=rec, qps=len(xs) / s,
           card_equals_host_rows=same, state_dict_round_trip=True)
     return Qi
@@ -6503,10 +6568,12 @@ def tooling_phase(quant3, xb, xt, xq, gt, flat_rec, mem3, dev, tmp) -> int:
     return k3
 
 
-def phase3_setup(dev, mem=None):
+def phase3_setup(dev, mem=None, out=None):
     """Phase 3's data, exact ground truth and IVF4096,Flat: (its
     quantizer, xb, xt, xq, gt, its recall@10 at nprobe 16 / 32 / 64).
-    ``mem``, a dict, gets `index_memory`'s record of the IVF."""
+    ``mem``, a dict, gets `index_memory`'s record of the IVF; ``out``, a
+    dict, its (D, I) at each nprobe ("results") and the QPS of its
+    ``search`` there ("qps": median of TIMED_REPS after a warm-up)."""
     allx = T.sift_surrogate(NB + NT + NQ, seed=123, **T.SIFT1M_CALIBRATED)
     xb, xt, xq = allx[:NB], allx[NB:NB + NT], allx[NB + NT:]
     flat = T.IndexFlat(D, device=dev)
@@ -6521,10 +6588,19 @@ def phase3_setup(dev, mem=None):
     index.add(xb)
     if mem is not None:
         mem.update(index_memory(index, mem0))
-    rec = {n: T.recall_k_at_k(index.search(
-        xq, K, params=T.SearchParametersIVF(nprobe=n))[1], gt, K)
-        for n in (16, 32, 64)}
-    phase("ivf_flat", recall_at_10=rec)
+    rec, results, qps = {}, {}, {}
+    for n in (16, 32, 64):
+        p = T.SearchParametersIVF(nprobe=n)
+        if out is None:
+            Iv = index.search(xq, K, params=p)[1]
+        else:
+            (Dv, Iv), t = timed(lambda: index.search(xq, K, params=p),
+                                TIMED_REPS)
+            results[n], qps[n] = (Dv, Iv), NQ / t
+        rec[n] = T.recall_k_at_k(Iv, gt, K)
+    if out is not None:
+        out.update(results=results, qps=qps)
+    phase("ivf_flat", recall_at_10=rec, **({"qps": qps} if qps else {}))
     quant3 = index.quantizer
     del index
     torch.cuda.empty_cache()
@@ -6543,6 +6619,329 @@ def tooling_alone() -> None:
         tooling_phase(quant3, xb, xt, xq, gt, rec, mem3, dev, tmp)
 
 
+# -- phase 23: the C handle, the demos and the entry point --------------------
+
+# phase 23's sizes: the nprobes of the C handle's searches, the ranks of
+# the entry point's dryrun, the deadline of every child process (servers,
+# ranks, the standalone C example)
+HANDLES = {"nprobes": (16, 32, 64), "dryrun_ranks": 4, "timeout_s": 300.0}
+
+
+def c_library(path: str):
+    """ctypes binding of the port's C library (tpu_ann_torch/c_api), every
+    pointer passed as c_void_p."""
+    import ctypes
+
+    lib = ctypes.CDLL(path)
+    vp, i64, cp = ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p
+    pvp = ctypes.POINTER(ctypes.c_void_p)
+    sigs = {
+        "tpu_ann_init": [cp, ctypes.c_size_t],
+        "tpu_ann_index_factory": [ctypes.c_int, cp, ctypes.c_int, pvp],
+        "tpu_ann_index_free": [vp],
+        "tpu_ann_write_index": [vp, cp],
+        "tpu_ann_read_index": [cp, ctypes.c_int, pvp],
+        "tpu_ann_index_ntotal": [vp, ctypes.POINTER(i64)],
+        "tpu_ann_index_set_parameter": [vp, cp, ctypes.c_double],
+        "tpu_ann_index_train": [vp, i64, vp],
+        "tpu_ann_index_add": [vp, i64, vp],
+        "tpu_ann_index_search": [vp, i64, vp, i64, vp, vp],
+    }
+    for name, args in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+    lib.tpu_ann_last_error.restype = cp
+    return lib
+
+
+def c_call(lib, name, *args) -> None:
+    if getattr(lib, name)(*args) != 0:
+        raise AssertionError(f"23a: {name} failed: "
+                             f"{lib.tpu_ann_last_error().decode()}")
+
+
+def c_search(lib, h, xq, k):
+    """(D, I) of one search through the C library."""
+    Dv = np.empty((len(xq), k), np.float32)
+    Iv = np.empty((len(xq), k), np.int64)
+    c_call(lib, "tpu_ann_index_search", h, len(xq), xq.ctypes.data, k,
+           Dv.ctypes.data, Iv.ctypes.data)
+    return Dv, Iv
+
+
+def handle_example(built: dict, dev, tmp: str) -> dict:
+    """23a.1: the standalone C example (its own embedded interpreter) on
+    ``dev``: exit code 0 and its "C API example: OK" line."""
+    t0 = time.perf_counter()
+    run = subprocess.run([built["example"], os.path.join(tmp, "example.idx")],
+                         capture_output=True, text=True, cwd=tmp,
+                         timeout=HANDLES["timeout_s"],
+                         env=capi.example_env(str(dev)))
+    secs = time.perf_counter() - t0
+    lines = run.stdout.splitlines()
+    if run.returncode != 0 or "C API example: OK" not in lines:
+        raise AssertionError(f"23a: example_c exited {run.returncode}:\n"
+                             f"{run.stdout}\n{run.stderr[-3000:]}")
+    backend = [ln for ln in lines if ln.startswith("backend:")][0]
+    if not backend.startswith(f"backend: {dev.type}"):
+        raise AssertionError(f"23a: example_c ran on {backend}")
+    return {"seconds": secs, "backend": backend.split(": ", 1)[1],
+            "lines": lines}
+
+
+def handle_index(lib, quant3, xb, xt, xq, gt, flat_rec, flat_out, qps3, dev,
+                 tmp, cmp) -> int:
+    """23a.2-5: IVF4096,Flat built and searched through the C functions
+    alone (train on the 100k rows, add the 1M, search the 10k queries at
+    nprobe 16 / 32 / 64; one K3 launch a search, recall@10 at the floors);
+    its file read by tpu_ann_torch.read_index searches the same (D, I) bit
+    for bit; phase 3's lists written by tpu_ann_torch and read through the
+    C library search phase 3's (D, I) bit for bit. Returns K3's launches
+    (the Python searches that compare are left out)."""
+    import ctypes
+
+    one = int(dev.type == "cuda")
+    buf = ctypes.create_string_buffer(256)
+    c_call(lib, "tpu_ann_init", buf, len(buf))
+    name = buf.value.decode()
+    if dev.type == "cuda" and not name.startswith("cuda:"):
+        raise AssertionError(f"23a: the handle chose {name}")
+    xt_c, xb_c, xq_c = (np.ascontiguousarray(a, np.float32)
+                        for a in (xt, xb, xq))
+    h = ctypes.c_void_p()
+    t0 = time.perf_counter()
+    c_call(lib, "tpu_ann_index_factory", D, f"IVF{NLIST},Flat".encode(), 1,
+           ctypes.byref(h))
+    c_call(lib, "tpu_ann_index_train", h, len(xt_c), xt_c.ctypes.data)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c_call(lib, "tpu_ann_index_add", h, len(xb_c), xb_c.ctypes.data)
+    torch.cuda.synchronize()
+    t_add = time.perf_counter() - t0
+    nt = ctypes.c_int64()
+    c_call(lib, "tpu_ann_index_ntotal", h, ctypes.byref(nt))
+    if nt.value != NB:
+        raise AssertionError(f"23a: ntotal {nt.value}")
+    obj = capi._get(h.value)          # the Python index behind the handle
+    n, res, out = 0, {}, {}
+    for nprobe in HANDLES["nprobes"]:
+        c_call(lib, "tpu_ann_index_set_parameter", h, b"nprobe",
+               float(nprobe))
+        times, py_times = [], []
+        for rep in range(1 + TIMED_REPS):
+            before = F.LAUNCHES
+            t1 = time.perf_counter()
+            Dv, Iv = c_search(lib, h, xq_c, K)
+            times.append(time.perf_counter() - t1)
+            if F.LAUNCHES - before != one:
+                raise AssertionError(f"23a: a C search at nprobe {nprobe} "
+                                     f"launched K3 {F.LAUNCHES - before} "
+                                     f"times")
+            n += F.LAUNCHES - before
+            # the same object searched from Python, in turns with C
+            t1 = time.perf_counter()
+            Dp, Ip = uncounted(lambda: obj.search(xq, K), cmp)
+            py_times.append(time.perf_counter() - t1)
+            if not (np.array_equal(Dp, Dv) and np.array_equal(Ip, Iv)):
+                raise AssertionError(f"23a: the C search differs from the "
+                                     f"same index's Python search")
+        rec = T.recall_k_at_k(Iv, gt, K)
+        if rec < RECALL_FLOORS[nprobe]:
+            raise AssertionError(f"23a: recall@10 {rec} < "
+                                 f"{RECALL_FLOORS[nprobe]} at nprobe {nprobe}")
+        out[nprobe] = (Dv, Iv)
+        res[nprobe] = {"recall_at_10": rec, "floor": RECALL_FLOORS[nprobe],
+                       "qps": NQ / float(np.median(times[1:])),
+                       "python_qps_same_object":
+                           NQ / float(np.median(py_times[1:])),
+                       "phase3_qps": qps3.get(nprobe),
+                       "phase3_recall_at_10": flat_rec[nprobe]}
+    # the C index's file, read and searched by the Python package
+    path = os.path.join(tmp, "handle_ivf.tann")
+    t0 = time.perf_counter()
+    c_call(lib, "tpu_ann_write_index", h, path.encode())
+    t_write = time.perf_counter() - t0
+    del obj
+    c_call(lib, "tpu_ann_index_free", h)
+    py = IIO.read_index(path, device=dev)
+    for nprobe in HANDLES["nprobes"]:
+        py.nprobe = nprobe
+        (Dp, Ip), t = uncounted(lambda: timed(lambda: py.search(xq, K),
+                                              TIMED_REPS), cmp)
+        if not (np.array_equal(Dp, out[nprobe][0])
+                and np.array_equal(Ip, out[nprobe][1])):
+            raise AssertionError(f"23a: read_index of the C index's file "
+                                 f"differs at nprobe {nprobe}")
+        res[nprobe]["python_qps_read_copy"] = NQ / t
+    del py
+    os.remove(path)
+    # phase 3's lists, written by the package, read through the C library
+    idx3 = ivf_over(quant3, xb, np.arange(NB), xt, dev=dev)
+    IIO.write_index(idx3, path)
+    del idx3
+    torch.cuda.empty_cache()
+    h3 = ctypes.c_void_p()
+    c_call(lib, "tpu_ann_read_index", path.encode(), 1, ctypes.byref(h3))
+    for nprobe in HANDLES["nprobes"]:
+        c_call(lib, "tpu_ann_index_set_parameter", h3, b"nprobe",
+               float(nprobe))
+        before = F.LAUNCHES
+        Dv, Iv = c_search(lib, h3, xq_c, K)
+        n += F.LAUNCHES - before
+        if not (np.array_equal(Dv, flat_out[nprobe][0])
+                and np.array_equal(Iv, flat_out[nprobe][1])):
+            raise AssertionError(f"23a: phase 3's file through the C "
+                                 f"library differs at nprobe {nprobe}")
+    c_call(lib, "tpu_ann_index_free", h3)
+    os.remove(path)
+    torch.cuda.empty_cache()
+    phase("handle_index", device=name, factory=f"IVF{NLIST},Flat",
+          nb=NB, nq=NQ, train_s=t_train, add_s=t_add, write_s=t_write,
+          by_nprobe=res, one_k3_launch_a_search=True,
+          python_search_equal_c=True, python_read_equal_c=True,
+          phase3_file_equal_phase3=True,
+          k3_launches=n)
+    return n
+
+
+def handle_demos(dev) -> dict:
+    """23b: the eight demos on ``dev`` at their own sizes, each with its
+    asserts: the numbers each returns, its seconds and its launches (the
+    client/server demo's K3 launches are its servers'). The paged demo must
+    launch K4, the IVF demos K3, the codec demos nothing. Returns (K3 / K4
+    launches in all, those made in this process)."""
+    from tpu_ann_torch.demos import (demo_auto_tune, demo_client_server_ivf,
+                                     demo_custom_invlists, demo_ondisk_ivf,
+                                     demo_paged_outofcore, demo_qinco,
+                                     demo_residual_quantizer,
+                                     demo_sharded_search)
+
+    want = {"custom_invlists": "K3", "ondisk_ivf": "K3",
+            "paged_outofcore": "K4", "auto_tune": "K3",
+            "client_server_ivf": "K3", "sharded_search": None,
+            "residual_quantizer": None, "qinco": None}
+    mods = {"custom_invlists": demo_custom_invlists,
+            "ondisk_ivf": demo_ondisk_ivf,
+            "paged_outofcore": demo_paged_outofcore,
+            "auto_tune": demo_auto_tune,
+            "client_server_ivf": demo_client_server_ivf,
+            "sharded_search": demo_sharded_search,
+            "residual_quantizer": demo_residual_quantizer,
+            "qinco": demo_qinco}
+    total = {"ivf_scan_fused": 0, "ivf_scan_paged": 0}
+    here = dict(total)
+    for name, mod in mods.items():
+        kw = ({"timeout_s": HANDLES["timeout_s"]}
+              if name in ("client_server_ivf", "sharded_search") else {})
+        before = counts()
+        t0 = time.perf_counter()
+        out = mod.main(device=str(dev), **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = launched(before)
+        for k in here:
+            here[k] += got.get(k, 0)
+        got["ivf_scan_fused"] = (got.get("ivf_scan_fused", 0)
+                                 + out.get("server_k3_launches", 0))
+        got = {k: v for k, v in got.items() if v}
+        one = dev.type == "cuda"
+        kernel = {"K3": "ivf_scan_fused", "K4": "ivf_scan_paged",
+                  None: None}[want[name]]
+        if one and (set(got) != ({kernel} if kernel else set())):
+            raise AssertionError(f"23b: demo {name} launched {got}, "
+                                 f"expected {want[name] or 'nothing'}")
+        for k in total:
+            total[k] += got.get(k, 0)
+        phase("handle_demo", demo=name, seconds=secs, launches=got, **out)
+    return total, here
+
+
+def handle_entry(dev) -> dict:
+    """23c: entry()'s step on the card against the same step on a CPU copy
+    of its index (ids equal, distances within rtol 1e-5), then
+    dryrun_multichip over 2 x 2 ranks on the card (gloo). Returns K3 / K4
+    launches (the dryrun's, summed over its ranks)."""
+    from tpu_ann_torch import graft_entry as G
+
+    t0 = time.perf_counter()
+    fn, (xq_dev,) = G.entry(str(dev))
+    before = counts()
+    Dg, Ig = fn(xq_dev)
+    torch.cuda.synchronize()
+    t_entry = time.perf_counter() - t0
+    if launched(before):
+        raise AssertionError(f"23c: entry's step launched {launched(before)}")
+    cpu_index = IIO.deserialize_index(IIO.serialize_index(fn.index),
+                                      device="cpu")
+    fn_c, _ = G.entry("cpu", index=cpu_index)
+    Dc, Ic = fn_c(xq_dev.cpu())
+    if xq_dev.device.type != dev.type or not np.array_equal(
+            Ig.cpu().numpy(), Ic.numpy()):
+        raise AssertionError("23c: entry's ids differ from the CPU step's")
+    np.testing.assert_allclose(Dg.cpu().numpy(), Dc.numpy(), rtol=1e-5)
+    derr = float(np.abs(Dg.cpu().numpy() - Dc.numpy()).max())
+    t0 = time.perf_counter()
+    dry = G.dryrun_multichip(HANDLES["dryrun_ranks"], str(dev),
+                             timeout_s=HANDLES["timeout_s"])
+    t_dry = time.perf_counter() - t0
+    ranks = HANDLES["dryrun_ranks"]
+    if dev.type == "cuda" and not (dry["k3_launches"] == 2 * ranks
+                                   and dry["k4_launches"] >= ranks):
+        raise AssertionError(f"23c: the dryrun launched K3 "
+                             f"{dry['k3_launches']}, K4 {dry['k4_launches']}")
+    phase("handle_entry", entry_s=t_entry, entry_equal_cpu_ids=True,
+          entry_max_abs_err_vs_cpu=derr, dryrun_s=t_dry, **dry)
+    return {"ivf_scan_fused": dry["k3_launches"],
+            "ivf_scan_paged": dry["k4_launches"]}
+
+
+def handles_phase(quant3, xb, xt, xq, gt, flat_rec, flat_out, qps3, dev,
+                  tmp) -> dict:
+    """Phase 23: the port's C handle, its eight demos and its entry point
+    on the card (23a-c). Counts are reset before it; launches that only
+    compare are left out. Returns K3's and K4's launches of the phase."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    cmp: dict = {}
+    t0 = time.perf_counter()
+    built = capi.build_library()
+    t_build = time.perf_counter() - t0
+    ex = handle_example(built, dev, tmp)
+    phase("handle_example", build_s=t_build, **ex)
+    lib = c_library(built["library"])
+    n_a = handle_index(lib, quant3, xb, xt, xq, gt, flat_rec, flat_out, qps3,
+                       dev, tmp, cmp)
+    n_b, n_b_here = handle_demos(dev)
+    n_c = handle_entry(dev)
+    got = {k: v - cmp.get(k, 0) for k, v in launched().items()}
+    got = {k: v for k, v in got.items() if v}
+    want = {"ivf_scan_fused": n_a + n_b_here["ivf_scan_fused"],
+            "ivf_scan_paged": n_b_here["ivf_scan_paged"]}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"phase 23 launched {got} in this process, "
+                             f"expected {want}")
+    total = {k: n_a * (k == "ivf_scan_fused") + n_b[k] + n_c[k]
+             for k in ("ivf_scan_fused", "ivf_scan_paged")}
+    phase("handles", seconds=time.perf_counter() - t_phase,
+          launches=total, launches_in_process=got,
+          comparison_launches=cmp)
+    return total
+
+
+def handles_alone() -> None:
+    """--phase23: phase 23 alone: K3 and K4 built, phase 3's data, ground
+    truth, IVF4096,Flat and its searches, then handles_phase. Its phase
+    lines only."""
+    dev = require_gpu()
+    kernels.load_libraries(("ivf_scan_fused", "ivf_scan_paged"))
+    out3 = {}
+    quant3, xb, xt, xq, gt, rec = phase3_setup(dev, out=out3)
+    with tempfile.TemporaryDirectory(prefix="tpu_ann_smoke_") as tmp:
+        handles_phase(quant3, xb, xt, xq, gt, rec, out3["results"],
+                      out3["qps"], dev, tmp)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--k1-batches"]:
         k1_batches()
@@ -6556,9 +6955,11 @@ if __name__ == "__main__":
         sharded_alone()
     elif sys.argv[1:] == ["--phase22"]:
         tooling_alone()
+    elif sys.argv[1:] == ["--phase23"]:
+        handles_alone()
     elif sys.argv[1:]:
         raise SystemExit("usage: chip_smoke.py [--k1-batches | "
                          "--k2-batches | --phase19 | --phase20 | "
-                         "--phase21 | --phase22]")
+                         "--phase21 | --phase22 | --phase23]")
     else:
         main()

@@ -1,7 +1,9 @@
-"""The PyTorch port (tpu_ann_torch) stands alone: importing it, and its
-distribution layer tpu_ann_torch.parallel, loads neither jax, the JAX
-package nor ml_dtypes (the GPU machine has none of them), and no source
-file of it refers to them."""
+"""The PyTorch port (tpu_ann_torch) stands alone: importing it, its
+distribution layer tpu_ann_torch.parallel, its C handle's Python side
+tpu_ann_torch.capi and its entry points tpu_ann_torch.graft_entry loads
+neither jax, the JAX package nor ml_dtypes (the GPU machine has none of
+them), and no source file of it (Python, CUDA or C) refers to them: the C
+handle imports tpu_ann_torch.capi, never the JAX package's capi."""
 
 import os
 import subprocess
@@ -19,6 +21,8 @@ def test_import_loads_no_jax():
         "before = set(sys.modules)\n"
         "import tpu_ann_torch\n"
         "import tpu_ann_torch.parallel\n"
+        "import tpu_ann_torch.capi\n"
+        "import tpu_ann_torch.graft_entry\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
         "'tpu_ann', 'ml_dtypes'))\n"
@@ -33,7 +37,7 @@ def _sources():
     out = []
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files
-                if f.endswith((".py", ".cu", ".cuh"))]
+                if f.endswith((".py", ".cu", ".cuh", ".c", ".h"))]
     return sorted(out)
 
 
@@ -55,7 +59,20 @@ def test_sources_found():
             "utils/rpc.py", "utils/client_server.py",
             "utils/offline_pipeline.py", "utils/bench_fw.py",
             "utils/analyzers.py", "utils/datasets.py",
-            "utils/evaluation.py"} <= names
+            "utils/evaluation.py", "capi.py", "c_api/tpu_ann_c.c",
+            "c_api/tpu_ann_c.h", "c_api/example_c.c", "graft_entry.py",
+            "demos/__init__.py"} | {
+            f"demos/demo_{n}.py" for n in (
+                "custom_invlists", "ondisk_ivf", "paged_outofcore",
+                "auto_tune", "client_server_ivf", "sharded_search",
+                "residual_quantizer", "qinco")} <= names
+
+
+def test_c_handle_imports_the_port():
+    with open(os.path.join(PKG, "c_api", "tpu_ann_c.c")) as f:
+        src = f.read()
+    assert 'PyImport_ImportModule("tpu_ann_torch.capi")' in src
+    assert src.count("PyImport_ImportModule(") == 1
 
 
 @pytest.mark.parametrize("needle", ["import jax", "tpu_ann.", "ml_dtypes"])

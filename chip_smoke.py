@@ -21,6 +21,8 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
     python3 chip_smoke.py --phase23      # only phase 23 (the C handle,
                                          # the demos and the entry
                                          # point), likewise
+    python3 chip_smoke.py --phase24      # only phase 24 (the per-pair
+                                         # top-kp above kp 64), likewise
 
 Phases, one line each; any failure raises and exits non-zero:
   1. device  — a CUDA device is required; nvidia-smi's name and power limit.
@@ -93,14 +95,16 @@ Phases, one line each; any failure raises and exits non-zero:
      scan over a device copy of the same directory's arrays bit for bit;
      each search launches K4 once per planned call and no K3 / K1 / K2.
      Then the search at k 27 / 58 / 100 (kp 33 / 64 / 106: K4's
-     two-entries-a-lane kernel, and 32-row sub-blocks above kp 64) of
-     1024 queries at nprobe 32: K4 launched, (D, I) equal to K3's.
+     two-entries-a-lane kernel, and its lists in global memory above kp
+     64) of 1024 queries at nprobe 32: K4 launched, (D, I) equal to K3's.
   8. K4 vs its plain torch version at the path's shapes (10k queries,
      nprobe 32, the first call of each of the two default windows, the
      second merging into the first's result), and on the same window
      padded from d=96: bit for bit; kernel and plain times. Then at kp 33 /
-     58 / 64 / 100 / 106 (1024 queries, the first two windows) bit for
-     bit, timed at kp 58 and 100.
+     58 / 64 / 100 / 106 / 262 / 1030 (1024 queries, the first two
+     windows) bit for bit, one launch a call (of the global-list kernel
+     above kp 64), timed from kp 58 up, and the parent route (32-row
+     sub-blocks and a merge, `scan_window_wide`) above kp 64.
   9. IVFHNSW path on phase 3's data (the JAX package's bench.py config
      3): IndexIVFHNSW(128, 15625, M=16), efConstruction 40 -> train on the
      train slice (k-means, then the graph over the centroids) -> add -> search
@@ -113,7 +117,8 @@ Phases, one line each; any failure raises and exits non-zero:
   10. the graph section of the round-4 probe harness (benchs/r4/r4_queue4.py
      section A): its clustered set (RandomState(11): 1024 centres rand * 10
      plus N(0, 1), 1M base, 10k queries), exact ground truth on the card;
-     build_graph_knn(xb, 16, 40) twice (cold and warm), build_tiles_fused in
+     build_graph_knn(xb, 16, 40) once (twice, cold and warm, before phase
+     24), build_tiles_fused in
      the build's coarse order, tile_search_fused at (nprobe0 12, hops 1, F
      4), (12, 2) and (12, 0), scored on the node ids: recall@10 >= 0.97 at
      (12, 1) and hops 2 >= hops 1 > hops 0; 1 + hops K3 launches a search,
@@ -210,7 +215,8 @@ Phases, one line each; any failure raises and exits non-zero:
      so the launch is K3's wide-list kernel) plus the re-rank, recall >= (a)'s; search_preassigned over 100 queries at
      nprobe 32 equal to search, search_stats_per_query within rtol 1e-5;
      K3 at kp 46 (10k q, nprobe 32, k 40) and kp 106 (1000 q, nprobe 1, k
-     100) against its plain version on the same inputs, per pair and for
+     100; the global-list kernel) against its plain version on the same
+     inputs, per pair and for
      the whole scan: bit for bit on R's cache rounded to integers, within
      rtol 1e-5 (positions up to near-ties) on the cache itself, K3 faster
      than the plain version, with both times and the kp-32 launch's;
@@ -351,7 +357,8 @@ Phases, one line each; any failure raises and exits non-zero:
      Hamming quantiles 1 / 5 / 30% of a sample the pass share, recall@10
      and QPS beside ST_PQ's (faster than it at the 1% share), the pass
      count growing, every distance ST_PQ's ADC of its id; (f) IndexQINCo(128, K 256, L 2, M 8, h 256) with
-     QINCo.random's weights over the first 250k rows (1M before phase 23):
+     QINCo.random's weights over the first 125k rows (1M before phase 23,
+     250k before phase 24):
      encode / decode seconds, search of 1000 queries (recall against those
      rows' exact ground truth = C within 0.002), the card's codes on 2000 rows
      equal to the host's on >= 99.5%, the state dict round trip exact;
@@ -469,6 +476,21 @@ Phases, one line each; any failure raises and exits non-zero:
      CPU copy of its index (ids equal, distances within rtol 1e-5), and
      dryrun_multichip(4) as 2 x 2 gloo ranks on the card (every rank's
      results equal rank 0's; K3 2 a rank, K4 at least 1 a rank).
+  24. the per-pair top-kp above kp 64 (K3's, K3-SQ8's and K4's kernels
+     whose lists live in global memory) on phase 3's data and quantizer:
+     (a) IVF4096,Flat (phase 3's lists) searched at k 100 (kp 106) at
+     nprobe 16 / 32 / 64: each search exactly one K3 launch, of the
+     global-list kernel; recall@100 against the exact f32 ground truth at
+     k 100, not falling with nprobe; (D, I) equal to the plain route's bit
+     for bit; QPS in turns with k 10's; the kernel's time on each
+     search's plan and its bound. (b) K3 at kp 106 and 262 on the
+     10k-query plan at nprobe 32 and at kp 1030 on 1024 queries: per-pair
+     (D, P) equal to the plain version on the card bit for bit, the k-100
+     scan equal to scan_invlists_fused_reference; CUDA-event times beside
+     the parent route's (scan_pairs_wide over the kp-32 launch), the plain
+     version's and the bound. (c) K3-SQ8 at kp 106 on IVF4096,SQ8
+     (QT_8BIT: rtol 1e-5, positions up to near-ties) and QT_8BIT_DIRECT
+     (bit for bit), likewise.
 The last two lines are the kernels' JSON record (each with its time,
 its plain version's, the card's bound for the same work (a scan of
 lists: the valid rows it needs, each read once, not their blocks'
@@ -481,8 +503,11 @@ at d 64 (phase 18a), on the IVF-RQ cache and the 65,536-list RCQ lists
 (phase 20d / b), each kernel its phase-16 to phase-20 launches, K4 its
 times at kp 58 and 100 (phase 8), K3 its phase-21 launches and one
 rank's time there, its phase-22 launches (``launches_tooling``) and its
-phase-23 launches (``launches_handles``, K4's too), and K3 has a second
-record at batch 1) and
+phase-23 launches (``launches_handles``, K4's too), K4 its times at kp
+106, 262 and 1030 and the parent route's above 64, K3 has a second record at
+batch 1, and the global-list kernel a record of its own from phase 24:
+its launches there, its time, plain time, parent time and bound at kp
+106, 262 and 1030 and K3-SQ8's at kp 106) and
 {"ok": true, ...}.
 """
 
@@ -611,7 +636,9 @@ def ptxas_resources(log: str):
 def reset_counts() -> None:
     F.LAUNCHES = 0
     F.LAUNCHES_SQ8 = 0
+    F.LAUNCHES_GLOBAL = 0
     P.LAUNCHES = 0
+    P.LAUNCHES_GLOBAL = 0
     B2.LAUNCHES = 0
     for name in FK.LAUNCHES:
         FK.LAUNCHES[name] = 0
@@ -919,6 +946,7 @@ def main() -> None:
                                 qps3, dev, tmp)
     k3["launches_handles"] = handles["ivf_scan_fused"]
     k4["launches_handles"] = handles["ivf_scan_paged"]
+    k3_global = wide_phase(quant3, xb, xt, xq, dev)
     k3["launches_pq"] = pq_launches.get("ivf_scan_fused", 0)
     k3["launches_hnsw"] = hnsw_launches.get("ivf_scan_fused", 0)
     k3["launches_breadth"] = breadth_launches.get("ivf_scan_fused", 0)
@@ -965,7 +993,8 @@ def main() -> None:
     phase("profiler", traces_taken_again=PROFILE_RETRIES,
           event_timed_kernels=PROFILE_FALLBACKS)
     print(json.dumps({"kernels": [k3, *sq_records, *flat_records,
-                                  *variant_records, k4, b2, k3_b1]}),
+                                  *variant_records, k4, b2, k3_b1,
+                                  k3_global]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1548,11 +1577,12 @@ def pinned_gbps(dev, nbytes: int = 1 << 28) -> float:
 # device): the default window, many windows with straddling tiles, and
 # the hot tier
 # K4 above 32 entries a pair (phases 7-8): the searches' k (kp 33 / 64 /
-# 106: the two-entries-a-lane kernel, and 32-row sub-blocks above 64), the
-# kp held against the plain version (timed at 58 and 100), at WIDE_NQ
-# queries and nprobe 32
+# 106: the two-entries-a-lane kernel, and the lists in global memory above
+# 64), the kp held against the plain version (all timed from 58 up, and
+# the parent route, `scan_window_wide`, above 64), at WIDE_NQ queries and
+# nprobe 32
 WIDE_KS = (27, 58, 100)
-WIDE_KPS = (33, 58, 64, 100, 106)
+WIDE_KPS = (33, 58, 64, 100, 106, 262, 1030)
 WIDE_NQ = 1024
 PAGED_SETTINGS = (("default", 8192, False), ("w1024", 1024, False),
                   ("hot_half", 1024, True))
@@ -1784,8 +1814,10 @@ def paged_phases(xb, xt, xq, gt, dev, tmp):
 def k4_wide_check(pil, probes, q16, qn, W, tb_batch, dev, k4_err):
     """Phase 8's wide part: K4 at each of WIDE_KPS against its plain
     version after each of the first two windows (WIDE_NQ queries, nprobe
-    32), and its time, its plain version's and its bound at kp 58 and 100
-    on the first window. Returns (the kernels-line fields, the largest
+    32), one launch a call, of the global-list kernel above kp 64; its
+    time, its plain version's and its bound from kp 58 up on the first
+    window, and above kp 64 the parent route's (`scan_window_wide` over
+    the kp-32 launch). Returns (the kernels-line fields, the largest
     absolute error so far)."""
     plan = F.plan_pairs(probes, pil)
     tbs = plan.tile_bs.long().cpu().numpy()
@@ -1803,13 +1835,17 @@ def k4_wide_check(pil, probes, q16, qn, W, tb_batch, dev, k4_err):
         for kp in WIDE_KPS:
             r1 = tuple(t.clone() for t in run[kp])
             r0 = tuple(t.clone() for t in run[kp])
+            got = (P.LAUNCHES, P.LAUNCHES_GLOBAL)
             P.scan_window(q16, qn, plan, win, w0, ta, tb, *r1, False)
+            got = (P.LAUNCHES - got[0], P.LAUNCHES_GLOBAL - got[1])
+            if got != (1, int(kp > F.KP_MAX)):
+                raise AssertionError(f"K4 kp {kp}: launches {got}")
             P.scan_window_reference(q16, qn, plan, win, w0, ta, tb, *r0,
                                     False)
             assert_equal(f"K4 kp {kp} w0={w0} distances", r0[0], r1[0])
             assert_equal(f"K4 kp {kp} w0={w0} positions", r0[1], r1[1])
             k4_err = max(k4_err, max_abs_err(r0[0], r1[0]))
-            if kp in (58, 100) and w0 == firsts[0][0]:
+            if kp >= 58 and w0 == firsts[0][0]:
                 cur = tuple(t.clone() for t in run[kp])
 
                 def reset():
@@ -1830,10 +1866,17 @@ def k4_wide_check(pil, probes, q16, qn, W, tb_batch, dev, k4_err):
                 b = bound(*pair_scan_work(plan, win.ids, win.block_size, D,
                                           kp, w0, w0 + win.nblocks, ta, tb,
                                           running=True))
+                def parent():
+                    reset()
+                    P.scan_window_wide(q16, qn, plan, win, w0, ta, tb, *cur,
+                                       False, P._launch_fresh)
+
                 out.update({f"kp{kp}_ms": cuda_ms(call, 10) - copy_ms,
                             f"kp{kp}_plain_ms": host_ms(plain, 2) - copy_ms,
                             f"kp{kp}_bound_ms": b["bound_ms"],
                             f"kp{kp}_bound_by": b["bound_by"]})
+                if kp > F.KP_MAX:
+                    out[f"kp{kp}_parent_ms"] = cuda_ms(parent, 3) - copy_ms
             run[kp] = r1
         del win
     phase("paged_kernel_wide", nq=len(q16), nprobe=probes.shape[1],
@@ -2209,13 +2252,11 @@ def graph_phase(dev) -> None:
     _, gt = TD.knn(xq_dev, xb_dev, K)
     gt = gt.cpu().numpy()
     reset_counts()
-    builds = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        graph, assign = HN.build_graph_knn(xb_dev, 16, 40)
-        torch.cuda.synchronize()
-        builds.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph, assign = HN.build_graph_knn(xb_dev, 16, 40)
+    torch.cuda.synchronize()
+    builds = [time.perf_counter() - t0]
     if any(counts().values()):
         raise AssertionError(f"the graph build launched {counts()}")
     t0 = time.perf_counter()
@@ -3460,7 +3501,8 @@ def pq_phase(quant3, hquant, hnsw_auto, xb, xt, xq, gt, flat_rec, dev,
     # default_kp(40) = 46 rows a (query, list), above 32, so the search's
     # one launch is K3's wide-list kernel (two entries a lane), and at
     # nprobe 1, k 100 (kp 106, above KP_MAX 64, where a 32-row cap would
-    # drop hits) one launch over 32-row sub-blocks (F.scan_pairs_wide).
+    # drop hits) one launch of its kernel whose lists live in global
+    # memory.
     # Held against the plain version on the same inputs, per pair and for
     # the whole scan before the re-rank, at the search's shapes (10k q,
     # nprobe 32, k 40) and at nprobe 1, k 100, and faster than it: bit for
@@ -4769,15 +4811,19 @@ CODEC_NQ = 1000
 # LSQ's training rounds (the reference's default)
 LSQ_TRAIN_ITERS = 8
 # annealing steps a sub-quantizer of polysemous training (the reference's
-# default is 20000: 32 sub-quantizers take ~2 min on the host at that)
-POLY_ITERS = 2500
+# default is 20000: 32 sub-quantizers take ~2 min on the host at that; cut
+# from 2500 to pay for phase 24: the checks do not depend on the ordering
+# the annealing reaches)
+POLY_ITERS = 1250
 # rows of the QINCo code check on the host
 QINCO_CPU_ROWS = 2000
-# 19f's base: the first 250k rows (cut from 1M to pay for phase 23)
-QINCO_NB = 250_000
+# 19f's base: the first 125k rows (cut from 1M to pay for phase 23, then
+# from 250k for phase 24)
+QINCO_NB = 125_000
 # rows the lattice encodes: its host encode of the 1M rows took 41.6 s on
-# the H100 machine's host, over the 30 s the phase allows it
-LATTICE_NB = 100_000
+# the H100 machine's host, over the 30 s the phase allows it (100k until
+# phase 24)
+LATTICE_NB = 50_000
 # the additive coarse quantizers' codes: 2 stages of RCQ_BITS bits
 RCQ_BITS = 8
 
@@ -6942,6 +6988,201 @@ def handles_alone() -> None:
                       out3["qps"], dev, tmp)
 
 
+# -- phase 24: the per-pair top-kp above kp 64 --------------------------------
+
+# phase 24's sizes: the searches' k and nprobes (kp 106), the kp K3 is held
+# at on the 10k-query plan at nprobe 32 and on nq_big queries, the timed
+# repetitions
+WIDE = {"k": 100, "nprobes": (16, 32, 64), "kps": (106, 262),
+        "kp_big": 1030, "nq_big": 1024, "reps": 3}
+
+
+def wide_check(name, q16, qn, plan, lists, kp, exact) -> dict:
+    """One kernel at kp (above KP_MAX) on ``plan``: per-pair (D, P) against
+    the plain version on the card (bit for bit if ``exact``, else within
+    rtol 1e-5, positions up to near-ties); its CUDA-event time beside the
+    plain version's, the parent route's (`scan_pairs_wide` over the kp-32
+    launch) and the bound."""
+    before = (F.LAUNCHES + F.LAUNCHES_SQ8, F.LAUNCHES_GLOBAL)
+    d1, p1 = F.scan_pairs(q16, qn, plan, lists, kp, False)
+    torch.cuda.synchronize()
+    got = (F.LAUNCHES + F.LAUNCHES_SQ8 - before[0],
+           F.LAUNCHES_GLOBAL - before[1])
+    if got != (1, 1):
+        raise AssertionError(f"{name} kp {kp}: launches {got}, want one of "
+                             f"the global-list kernel")
+    d0, p0 = F.scan_pairs_reference(q16, qn, plan, lists, kp, False)
+    if exact:
+        assert_equal(f"{name} kp {kp} distances", d0, d1)
+        assert_equal(f"{name} kp {kp} positions", p0, p1)
+        err = max_abs_err(d0, d1)
+    else:
+        err = assert_close_pairs(f"{name} kp {kp}", d0, p0, d1, p1)
+    del d0, p0, d1, p1
+    u8 = F.stream_of(lists).dtype == torch.uint8
+    return {"kp": kp, "pairs": int(plan.pair_q.numel()), "max_abs_err": err,
+           "ms": cuda_ms(lambda: F.scan_pairs(q16, qn, plan, lists, kp,
+                                              False), WIDE["reps"]),
+           "parent_ms": cuda_ms(lambda: F.scan_pairs_wide(
+               q16, qn, plan, lists, kp, False, F._launch), WIDE["reps"]),
+           "plain_ms": host_ms(lambda: F.scan_pairs_reference(
+               q16, qn, plan, lists, kp, False), 1),
+           **bound(*pair_scan_work(plan, lists.ids, lists.block_size, D, kp,
+                                   0, lists.nblocks,
+                                   elem_bytes=1 if u8 else 2))}
+
+
+def wide_phase(quant3, xb, xt, xq, dev) -> dict:
+    """Phase 24: the per-pair top-kp above kp 64 (the kernels whose lists
+    live in global memory) on phase 3's data and quantizer. (a) IVF4096,
+    Flat (phase 3's lists) searched at k 100 (kp 106) at nprobe 16 / 32 /
+    64: each search exactly one K3 launch, of the global-list kernel;
+    recall@100 against the exact f32 ground truth at k 100; (D, I) equal
+    to the plain route's (`scan_invlists_fused_reference`) bit for bit;
+    QPS in turns with k 10's; the kernel's time on each search's plan
+    beside its bound. (b) K3 at kp 106 and 262 on the 10k-query
+    plan at nprobe 32 and at kp 1030 on 1024 queries: per-pair (D, P)
+    equal to the plain version bit for bit, the k-100 scan equal to
+    `scan_invlists_fused_reference`, CUDA-event times beside the parent
+    route's (`scan_pairs_wide` over the kp-32 launch) and the plain
+    version's, bounds. (c) K3-SQ8 at kp 106 on IVF4096,SQ8 (QT_8BIT,
+    within rtol 1e-5) and QT_8BIT_DIRECT (bit for bit), likewise. Returns
+    the kernels-line record of the global-list kernel."""
+    t_phase = time.perf_counter()
+    k = WIDE["k"]
+    flat = T.IndexFlat(D, device=dev)
+    flat.add(xb)
+    _, gt100 = flat.search(xq, k)
+    del flat
+    index = ivf_over(quant3, xb, np.arange(NB), xt, dev=dev)
+    il = index.invlists
+    xq_dev = torch.from_numpy(xq).to(dev)
+    probes = {n: index._coarse_search_device(xq_dev, n)[1]
+              for n in WIDE["nprobes"]}
+
+    # (a) the search at k 100, one launch each of the global-list kernel
+    reset_counts()
+    searches, n_k100, n_all = {}, 0, 0
+    for nprobe in WIDE["nprobes"]:
+        p = T.SearchParametersIVF(nprobe=nprobe)
+        Dv, Iv = index.search(xq, k, params=p)
+        index.search(xq, K, params=p)
+        ts = {K: [], k: []}
+        for kk in (K, k, k, K, K, k):
+            t0 = time.perf_counter()
+            index.search(xq, kk, params=p)
+            ts[kk].append(time.perf_counter() - t0)
+        n_k100 += 4
+        n_all += 8
+        if not (Dv.shape == Iv.shape == (NQ, k) and np.isfinite(Dv).all()
+                and (Iv >= 0).all() and (Iv < NB).all()
+                and (np.diff(Dv, axis=1) >= 0).all()):
+            raise AssertionError(f"k {k} nprobe {nprobe}: malformed results")
+        searches[nprobe] = {
+            "recall_at_100": T.recall_k_at_k(Iv, gt100, k),
+            "qps": NQ / float(np.median(ts[k])),
+            "qps_k10": NQ / float(np.median(ts[K])),
+            "search_ms": [t * 1e3 for t in ts[k]]}
+    path = {"ivf_scan_fused": F.LAUNCHES,
+            "ivf_scan_global": F.LAUNCHES_GLOBAL}
+    if path != {"ivf_scan_fused": n_all, "ivf_scan_global": n_k100} or \
+            F.LAUNCHES_SQ8 or P.LAUNCHES:
+        raise AssertionError(f"the k-{k} searches launched {path}, want "
+                             f"{n_all} K3 launches, {n_k100} of them the "
+                             f"global-list kernel")
+    c0 = F.LAUNCHES + F.LAUNCHES_SQ8
+    q16, qn = F.fold_queries(xq_dev, il, False)
+    kp = F.default_kp(k)
+    for nprobe in WIDE["nprobes"]:
+        plan = F.plan_pairs(probes[nprobe], il)
+        searches[nprobe].update(
+            kernel_ms=cuda_ms(lambda: F.scan_pairs(q16, qn, plan, il, kp,
+                                                   False), WIDE["reps"]),
+            **bound(*pair_scan_work(plan, il.ids, il.block_size, D, kp, 0,
+                                    il.nblocks)))
+        Dv, Iv = index.search(xq, k, params=T.SearchParametersIVF(
+            nprobe=nprobe))
+        D0, I0, _ = F.scan_invlists_fused_reference(xq_dev, probes[nprobe],
+                                                    il, k)
+        if not (np.array_equal(Dv, D0.cpu().numpy()) and np.array_equal(
+                Iv, index._map_ids(I0.cpu().numpy()))):
+            raise AssertionError(f"k {k} nprobe {nprobe}: (D, I) differ "
+                                 f"from the plain route's")
+        del D0, I0
+    recs = [searches[n]["recall_at_100"] for n in WIDE["nprobes"]]
+    if recs != sorted(recs):
+        raise AssertionError(f"recall@100 falls with nprobe: {recs}")
+    phase("wide_search", k=k, kp=kp, nq=NQ, searches=searches,
+          launches=path, equal_to_plain_route=True)
+
+    # (b) K3 at kp 106 / 262 (10k q, nprobe 32) and 1030 (1024 q)
+    plan32 = F.plan_pairs(probes[32], il)
+    k3 = {}
+    for kp in WIDE["kps"]:
+        k3[kp] = wide_check("K3", q16, qn, plan32, il, kp, True)
+    nb = WIDE["nq_big"]
+    plan_big = F.plan_pairs(probes[32][:nb], il)
+    k3[WIDE["kp_big"]] = wide_check("K3", q16[:nb], qn[:nb], plan_big, il,
+                                    WIDE["kp_big"], True)
+    for kp, nq_s in ((106, NQ), (262, NQ), (WIDE["kp_big"], nb)):
+        D1, I1, _ = F.scan_invlists_fused(xq_dev[:nq_s], probes[32][:nq_s],
+                                          il, k, kp=kp)
+        D0, I0, _ = F.scan_invlists_fused_reference(
+            xq_dev[:nq_s], probes[32][:nq_s], il, k, kp=kp)
+        assert_equal(f"K3 scan at k {k} kp {kp} distances", D0, D1)
+        assert_equal(f"K3 scan at k {k} kp {kp} ids", I0, I1)
+    del D0, I0, D1, I1, index, il
+    torch.cuda.empty_cache()
+
+    # (c) K3-SQ8 at kp 106 on both SQ8 indexes (10k q, nprobe 32)
+    sq8 = {}
+    for name, qtype in (("QT_8BIT", T.QT_8BIT),
+                        ("QT_8BIT_DIRECT", T.QT_8BIT_DIRECT)):
+        idx = ivf_over(quant3, xb, np.arange(NB), xt, qtype, dev=dev)
+        view = idx._sq8_view()
+        q8, qn8 = F.fold_queries(xq_dev, view, False)
+        sq8[name] = wide_check(f"K3-SQ8 {name}", q8, qn8,
+                               F.plan_pairs(probes[32], view), view, 106,
+                               name == "QT_8BIT_DIRECT")
+        del idx, view
+        torch.cuda.empty_cache()
+    phase("wide_kernels", nq=[NQ, nb], nprobe=32, k3=k3, k3_sq8=sq8,
+          comparison_launches=F.LAUNCHES + F.LAUNCHES_SQ8 - c0,
+          seconds=time.perf_counter() - t_phase)
+    at = k3[106]
+    return {
+        "name": "ivf_scan_global",
+        "route": "cuda",
+        "source": "tpu_ann_torch/csrc/ivf_scan_core.cuh (update_global; "
+                  "kernels in ivf_scan_fused.cu, ivf_scan_sq8.cu, "
+                  "ivf_scan_paged.cu)",
+        "replaces": "tpu_ann/ops/ivf_scan_pallas.py:217-250",
+        "launches": path["ivf_scan_global"],
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           [*k3.values(), *sq8.values()]),
+        "ms": at["ms"],
+        "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"],
+        "bound_by": at["bound_by"],
+        "library_ms": None,
+        "parent_ms": at["parent_ms"],
+        **{f"kp{kp}_{f}": r[f] for kp, r in k3.items() if kp != 106
+           for f in ("ms", "parent_ms", "plain_ms", "bound_ms")},
+        **{f"sq8_{n.lower()}_{f}": r[f] for n, r in sq8.items()
+           for f in ("ms", "parent_ms", "plain_ms", "bound_ms")},
+    }
+
+
+def wide_alone() -> None:
+    """--phase24: phase 24 alone: K3 and K3-SQ8 built, phase 3's data,
+    ground truth and IVF4096,Flat, then wide_phase. Its phase lines
+    only."""
+    dev = require_gpu()
+    kernels.load_libraries(("ivf_scan_fused", "ivf_scan_sq8"))
+    quant3, xb, xt, xq, _, _ = phase3_setup(dev)
+    wide_phase(quant3, xb, xt, xq, dev)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--k1-batches"]:
         k1_batches()
@@ -6957,9 +7198,11 @@ if __name__ == "__main__":
         tooling_alone()
     elif sys.argv[1:] == ["--phase23"]:
         handles_alone()
+    elif sys.argv[1:] == ["--phase24"]:
+        wide_alone()
     elif sys.argv[1:]:
         raise SystemExit("usage: chip_smoke.py [--k1-batches | "
                          "--k2-batches | --phase19 | --phase20 | "
-                         "--phase21 | --phase22 | --phase23]")
+                         "--phase21 | --phase22 | --phase23 | --phase24]")
     else:
         main()

@@ -118,13 +118,15 @@ def test_kernel_float_data_overlap():
 
 def test_kernel_rejects_unsupported():
     """A kp above the one-entry-a-lane 32 no longer goes to that kernel:
-    kp 33 is served by the wide lists and kp 65 by one launch over
-    sub-blocks, each equal to the plain version; a kp below 1 and a d
-    that is not a multiple of 8 still raise."""
+    kp 33 is served by the wide lists and kp 65 by the lists in global
+    memory, each in one launch equal to the plain version; a kp below 1
+    and a d that is not a multiple of 8 still raise."""
     dev = _cuda()
     xq, probes, il = _setup(dev, 128, 128, n=500, nq=10)
     for kp in (33, 65):
+        before = F.LAUNCHES
         d1, p1 = _pairs(F.scan_pairs, xq, probes, il, kp, 1)
+        assert F.LAUNCHES == before + 1
         d0, p0 = _pairs(F.scan_pairs_reference, xq, probes, il, kp, 1)
         assert np.array_equal(d0, d1) and np.array_equal(p0, p1)
     with pytest.raises(ValueError):
@@ -140,13 +142,16 @@ def test_kernel_rejects_unsupported():
     (96, 48, 106, 3, 0, False), (128, 16, 40, 6, 1, False),
     (128, 128, 46, 6, 1, True), (128, 64, 106, 1, 0, True),
     (128, 128, 64, 6, 0, False), (128, 16, 64, 6, 1, True),
-    (256, 128, 64, 3, 0, False), (128, 128, 65, 6, 0, False)])
+    (256, 128, 64, 3, 0, False), (128, 128, 65, 6, 0, False),
+    (128, 128, 65, 6, 1, True), (96, 48, 106, 6, 1, False),
+    (128, 16, 262, 6, 0, False), (128, 128, 262, 3, 1, True),
+    (128, 128, 1030, 6, 1, False), (256, 128, 1030, 2, 0, True)])
 def test_wide_kp_equals_plain(d, B, kp, nprobe, metric, sq8):
-    """kp above 32: ONE launch, of the wide-list kernel up to KP_MAX (64)
-    or over sub-blocks of at most 32 rows above it (`scan_pairs_wide`),
-    of K3, or K3-SQ8 on the SQ8 stream, gives the plain version's
-    per-pair top-kp bit for bit, positions included, and the whole scan's
-    (D, I) too."""
+    """kp above 32: ONE launch over the plan itself, of the wide-list
+    kernel up to KP_MAX (64) or of the kernel whose lists live in its
+    output rows above it, of K3, or K3-SQ8 on the SQ8 stream, gives the
+    plain version's per-pair top-kp bit for bit, positions included, and
+    the whole scan's (D, I) too."""
     from tpu_ann_torch.ops.ivf_scan import sq8_requantize_invlists
 
     dev = _cuda()
@@ -156,11 +161,12 @@ def test_wide_kp_equals_plain(d, B, kp, nprobe, metric, sq8):
     sim = TD.is_similarity_metric(metric)
     q, qn = F.fold_queries(xq, il, sim)
     plan = F.plan_pairs(probes, il)
-    before = (F.LAUNCHES, F.LAUNCHES_SQ8)
+    before = (F.LAUNCHES, F.LAUNCHES_SQ8, F.LAUNCHES_GLOBAL)
     d1, p1 = F.scan_pairs(q, qn, plan, il, kp, sim)
     torch.cuda.synchronize()
     got = (F.LAUNCHES - before[0], F.LAUNCHES_SQ8 - before[1])
     assert got == ((0, 1) if sq8 else (1, 0))
+    assert F.LAUNCHES_GLOBAL - before[2] == int(kp > F.KP_MAX)
     d0, p0 = F.scan_pairs_reference(q, qn, plan, il, kp, sim)
     assert torch.equal(d0, d1) and torch.equal(p0, p1)
     k = kp - 6
@@ -170,11 +176,38 @@ def test_wide_kp_equals_plain(d, B, kp, nprobe, metric, sq8):
     assert torch.equal(D0, D1) and torch.equal(I0, I1)
 
 
+@pytest.mark.parametrize("kp", [65, 106, 1030])
+@pytest.mark.parametrize("nq,nprobe,nlist", [(300, 6, 40), (64, 3, 7)])
 @pytest.mark.parametrize("sq8", [False, True])
-def test_wide_kp_without_pairs_launches_nothing(sq8):
+def test_global_lists_equal_plain(sq8, nq, nprobe, nlist, kp):
+    """The lists in global memory over lists of ~100 rows (37 filled
+    lists) and of ~1000 (4: many chunks, each list filled to kp and
+    merged into again): one launch, per-pair top-kp equal to the plain
+    version's bit for bit."""
+    from tpu_ann_torch.ops.ivf_scan import sq8_requantize_invlists
+
+    dev = _cuda()
+    xq, probes, il = _setup(dev, 128, 128, nlist=nlist, nq=nq,
+                            nprobe=nprobe)
+    if sq8:
+        il = sq8_requantize_invlists(il)
+    q16, qn = F.fold_queries(xq, il, False)
+    plan = F.plan_pairs(probes, il)
+    before = (F.LAUNCHES, F.LAUNCHES_SQ8, F.LAUNCHES_GLOBAL)
+    d1, p1 = F.scan_pairs(q16, qn, plan, il, kp, False)
+    torch.cuda.synchronize()
+    got = (F.LAUNCHES - before[0], F.LAUNCHES_SQ8 - before[1],
+           F.LAUNCHES_GLOBAL - before[2])
+    assert got == ((0, 1, 1) if sq8 else (1, 0, 1))
+    d0, p0 = F.scan_pairs_reference(q16, qn, plan, il, kp, False)
+    assert torch.equal(d0, d1) and torch.equal(p0, p1)
+
+
+@pytest.mark.parametrize("sq8", [False, True])
+def test_wide_kp_without_pairs_launches_once(sq8):
     """A scan above KP_MAX whose probes are all -1 (a tile hop that found
-    no fresh tile) has no sub-pair and launches nothing; it returns empty
-    slots only, as the plain version."""
+    no fresh tile) is one launch over empty tiles, as at any kp; it
+    returns empty slots only, as the plain version."""
     from tpu_ann_torch.ops.ivf_scan import sq8_requantize_invlists
 
     dev = _cuda()
@@ -186,7 +219,8 @@ def test_wide_kp_without_pairs_launches_nothing(sq8):
     before = (F.LAUNCHES, F.LAUNCHES_SQ8)
     d1, p1 = F.scan_pairs(q, qn, plan, il, 106, False)
     torch.cuda.synchronize()
-    assert (F.LAUNCHES - before[0], F.LAUNCHES_SQ8 - before[1]) == (0, 0)
+    assert (F.LAUNCHES - before[0], F.LAUNCHES_SQ8 - before[1]) == \
+        ((0, 1) if sq8 else (1, 0))
     d0, p0 = F.scan_pairs_reference(q, qn, plan, il, 106, False)
     assert torch.equal(d0, d1) and torch.equal(p0, p1)
     assert (p1 == -1).all() and torch.isinf(d1).all()
@@ -200,8 +234,8 @@ def test_k3_over_decoded_pq_cache(cache_dtype, k, nprobe):
     exact) through K3, or through K3-SQ8 for "sq8": one launch a search,
     (D, I) equal to the plain version at default_kp(k) over the same
     cache, above 32 at k 40 (an IVFPQR's k * k_factor: the wide lists)
-    and above KP_MAX at k 100, where nprobe 1 returns min(k, list size)
-    hits."""
+    and above KP_MAX at k 100 (the lists in global memory), where nprobe 1
+    returns min(k, list size) hits."""
     from tpu_ann_torch.models.flat import IndexFlat
     from tpu_ann_torch.models.ivf import SearchParametersIVF
     from tpu_ann_torch.models.ivf_pq import IndexIVFPQ

@@ -87,7 +87,7 @@ def _k4_every_call(path, d, kp, W, metric, B=128):
     rd = torch.full((plan.ntiles * F.PT, kp), float("inf"), device=dev)
     rp = torch.full(rd.shape, -1, dtype=torch.int32, device=dev)
     ref = (rd.clone(), rp.clone())
-    before = P.LAUNCHES
+    before = (P.LAUNCHES, P.LAUNCHES_GLOBAL)
     for w0, ta, tb in entries:
         win = whole.blocks(w0, min(W, pil.nblocks - w0))
         P.scan_window(q16, qn, plan, win, w0, ta, tb, rd, rp, sim)
@@ -95,10 +95,9 @@ def _k4_every_call(path, d, kp, W, metric, B=128):
         torch.cuda.synchronize()
         assert torch.equal(rd, ref[0]), (w0, ta, tb)
         assert torch.equal(rp, ref[1]), (w0, ta, tb)
-    if kp <= F.KP_MAX:
-        assert P.LAUNCHES - before == len(entries)
-    else:   # one launch a call that has a row to scan
-        assert 0 < P.LAUNCHES - before <= len(entries)
+    assert P.LAUNCHES - before[0] == len(entries)
+    assert P.LAUNCHES_GLOBAL - before[1] == \
+        (len(entries) if kp > F.KP_MAX else 0)
     assert (rp >= 0).any()
     # the same per-pair result as K3's plain version over the whole stream
     d3, p3 = F.scan_pairs_reference(q16, qn, plan, whole, kp, sim)
@@ -146,10 +145,12 @@ def test_pinned_pipeline_equals_synchronous(tmp_path, metric, W, TB):
 
 @pytest.mark.parametrize("metric", [TD.METRIC_L2, TD.METRIC_INNER_PRODUCT])
 @pytest.mark.parametrize("W", [1, 3, 1024])
-@pytest.mark.parametrize("kp", [33, 58, 64, 100])
+@pytest.mark.parametrize("kp", [33, 58, 64, 65, 100, 106, 262, 1030])
 def test_k4_wide_kp_equals_plain_every_call(tmp_path, kp, W, metric):
-    """Above 32 entries a pair: the two-entries-a-lane kernel up to kp 64,
-    the 32-row sub-blocks and their merge above."""
+    """Above 32 entries a pair, one launch a planned call: the
+    two-entries-a-lane kernel up to kp 64, the running lists merged in
+    place in global memory above (windows of 1 and 3 blocks cut lists, so
+    a pair's list is read back partly filled)."""
     _k4_every_call(str(tmp_path / "p"), 128, kp, W, metric)
 
 

@@ -177,10 +177,12 @@ def test_sq8_trained_search_overlap():
     assert overlap >= 0.999, overlap
 
 
+@pytest.mark.parametrize("kp", [16, 106])
 @pytest.mark.parametrize("stream", ["bf16", "sq8"])
-def test_grid_cut_plan_equal_plain(stream):
+def test_grid_cut_plan_equal_plain(stream, kp):
     """K3g: per-pair outputs over a cut plan, and the whole route, equal
-    the plain version; with grid2d_maxc's bound it equals K3 / K3-SQ8."""
+    the plain version; with grid2d_maxc's bound it equals K3 / K3-SQ8; at
+    kp 16 and at kp 106 (the lists in global memory)."""
     dev = _cuda()
     xq, probes, il = _setup(dev, 128, SQ.QT_8BIT_DIRECT, B=16)
     if stream == "bf16":
@@ -189,15 +191,18 @@ def test_grid_cut_plan_equal_plain(stream):
     mc = max(full // 4, 1)
     plan = F.truncate_plan(F.plan_pairs(probes, il), mc)
     assert (plan.tile_nb < F.plan_pairs(probes, il).tile_nb).any()
-    d1, p1 = _pairs(F.scan_pairs, xq, probes, il, 16, 1, plan)
-    d0, p0 = _pairs(F.scan_pairs_reference, xq, probes, il, 16, 1, plan)
+    d1, p1 = _pairs(F.scan_pairs, xq, probes, il, kp, 1, plan)
+    d0, p0 = _pairs(F.scan_pairs_reference, xq, probes, il, kp, 1, plan)
     np.testing.assert_array_equal(d1, d0)
     np.testing.assert_array_equal(p1, p0)
-    Dg, Ig, _ = F.scan_invlists_fused_grid(xq, probes, il, 10, maxc=mc)
-    Dr, Ir, _ = F.scan_invlists_fused_reference(xq, probes, il, 10, maxc=mc)
+    Dg, Ig, _ = F.scan_invlists_fused_grid(xq, probes, il, 10, maxc=mc,
+                                           kp=kp)
+    Dr, Ir, _ = F.scan_invlists_fused_reference(xq, probes, il, 10, maxc=mc,
+                                                kp=kp)
     assert torch.equal(Dg, Dr) and torch.equal(Ig, Ir)
-    Dg, Ig, _ = F.scan_invlists_fused_grid(xq, probes, il, 10, maxc=full)
-    D3, I3, _ = F.scan_invlists_fused(xq, probes, il, 10)
+    Dg, Ig, _ = F.scan_invlists_fused_grid(xq, probes, il, 10, maxc=full,
+                                           kp=kp)
+    D3, I3, _ = F.scan_invlists_fused(xq, probes, il, 10, kp=kp)
     assert torch.equal(Dg, D3) and torch.equal(Ig, I3)
 
 
@@ -231,14 +236,18 @@ def test_ivf_sq_direct_equals_ivf_flat_on_card():
 
 
 def test_sq8_rejects_unsupported():
-    """kp 33 is served (one launch over 32-row sub-blocks) and equals the
-    plain version bit for bit; kp below 1, a misaligned stream and a d
-    that is not a multiple of 8 raise."""
+    """kp 33 (the wide lists) and kp 106 (the lists in global memory) are
+    served, one launch each, equal to the plain version bit for bit; kp
+    below 1, a misaligned stream and a d that is not a multiple of 8
+    raise."""
     dev = _cuda()
     xq, probes, il = _setup(dev, 128, SQ.QT_8BIT_DIRECT, n=600, nq=10)
-    d1, p1 = _pairs(F.scan_pairs, xq, probes, il, 33, 1)
-    d0, p0 = _pairs(F.scan_pairs_reference, xq, probes, il, 33, 1)
-    assert np.array_equal(d0, d1) and np.array_equal(p0, p1)
+    for kp in (33, 106):
+        before = F.LAUNCHES_SQ8
+        d1, p1 = _pairs(F.scan_pairs, xq, probes, il, kp, 1)
+        assert F.LAUNCHES_SQ8 == before + 1
+        d0, p0 = _pairs(F.scan_pairs_reference, xq, probes, il, kp, 1)
+        assert np.array_equal(d0, d1) and np.array_equal(p0, p1)
     with pytest.raises(ValueError):
         F.scan_invlists_fused(xq, probes, il, 10, kp=-1)
     # a stream that is not 16-byte aligned

@@ -146,8 +146,8 @@ def test_wide_k_keeps_default_kp(data, nprobe):
     reference's width on every device. The port's search equals K3's plain
     version at default_kp(k) and the reference at rtol 0 (integer
     codebooks), with k hits wherever the probed lists hold k rows. On the
-    card the same width is one K3 launch over 32-row sub-blocks
-    (`scan_pairs_wide`, held to this plain version in
+    card the same width is one launch of K3's kernel whose lists live in
+    global memory (held to this plain version in
     tests/test_torch_cuda_kernels.py)."""
     xq = data[2]
     j, t = _pair(data)

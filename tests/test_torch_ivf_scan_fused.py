@@ -249,3 +249,65 @@ def test_wide_kp_without_pairs_calls_nothing(kp):
     assert seen == []
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert (got[1] == -1).all()
+
+
+@pytest.mark.parametrize("refine", [4, 0])
+@pytest.mark.parametrize("nprobe,metric,drop", CASES)
+@pytest.mark.parametrize("k", [100, 300])
+def test_fused_scan_wide_k_matches_reference_rw0(k, nprobe, metric, drop,
+                                                 refine):
+    """k 100 and 300 (kp 106 and 306: the kernels' lists in global memory
+    on the card) against the JAX kernel with its exact per-chunk epilogue
+    (RW=0): the same (D, I) bit for bit and the same ndis, on integer
+    data."""
+    xb, xq, cent, assign = _data(1 + nprobe)
+    jl, tl = _pair(xb, assign, 24)
+    probes = _probes(xq, cent, nprobe, metric, drop)
+    D0, I0, n0 = j_fused(jnp.asarray(xq), jnp.asarray(probes), jl, k,
+                         metric, PT=32, CB=2, RW=0, refine=refine,
+                         interpret=True)
+    D1, I1, n1 = F.scan_invlists_fused(torch.from_numpy(xq),
+                                       torch.from_numpy(probes), tl, k,
+                                       metric, refine=refine)
+    np.testing.assert_array_equal(D1.numpy(), np.asarray(D0))
+    np.testing.assert_array_equal(I1.numpy(), np.asarray(I0))
+    assert int(n1) == int(n0)
+
+
+@pytest.mark.parametrize("kp", [65, 106, 1030])
+@pytest.mark.parametrize("stream", ["bf16", "sq8"])
+def test_card_route_is_one_launch_over_the_plan(kp, stream, monkeypatch):
+    """Above KP_MAX the card's route is ONE call of the kernel function,
+    over the plan itself at the asked kp, and nothing of the sub-block
+    route (`scan_pairs_wide`) runs. A tensor off the CPU (here on the meta
+    device, with the launch replaced by a recorder that answers with the
+    plain version) takes the card's route."""
+    from tpu_ann_torch.ops.ivf_scan import sq8_requantize_invlists
+
+    xb, xq, cent, assign = _data(5, n=600, nq=20)
+    il = t_pack(xb, np.arange(len(xb)), assign, 24, block_size=B,
+                device="cpu")
+    if stream == "sq8":
+        il = sq8_requantize_invlists(il)
+    q, qn = F.fold_queries(torch.from_numpy(xq), il, False)
+    plan = F.plan_pairs(torch.from_numpy(_probes(xq, cent, 4, 1)), il)
+    reference = F.scan_pairs_reference
+    calls = []
+
+    def launch(xq_bf16, qn_, plan_, il_, kp_, sim, B=0):
+        calls.append((plan_, il_, kp_, B, xq_bf16.device.type))
+        return reference(q, qn, plan_, il_, kp_, sim)
+
+    def refused(*args, **kw):
+        raise AssertionError("the sub-block route ran")
+
+    monkeypatch.setattr(F, "_launch", launch)
+    monkeypatch.setattr(F, "scan_pairs_wide", refused)
+    monkeypatch.setattr(F, "sub_block_rows", refused)
+    monkeypatch.setattr(F, "scan_pairs_reference", refused)
+    got = F.scan_pairs(q.to("meta"), qn.to("meta"), plan, il, kp, False)
+    assert len(calls) == 1
+    assert calls[0][0] is plan and calls[0][1] is il
+    assert calls[0][2:] == (kp, 0, "meta")
+    want = reference(q, qn, plan, il, kp, False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -153,6 +153,26 @@ def test_scan_matches_reference_rw0(paged_pair, metric, W, TB):
         assert s1["windows"] >= 2
 
 
+@pytest.mark.parametrize("metric,W,TB", [
+    (L2, 2, 2), (L2, 4096, 64), (IP, 4, 2)])
+def test_scan_wide_k_matches_reference_rw0(paged_pair, metric, W, TB):
+    """k 100 (kp 106: K4's running lists in global memory on the card)
+    against the JAX window kernel with RW=0: (D, I) bit for bit, the same
+    ndis and windows."""
+    xq, probes, jp, tp = paged_pair
+    s0, s1 = {}, {}
+    D0, I0, n0 = JP.scan_invlists_paged(
+        xq, probes, jp, 100, metric, PT=32, window_blocks=W, TB=TB, RW=0,
+        interpret=True, stats=s0)
+    D1, I1, n1 = TP.scan_invlists_paged(
+        xq, probes, tp, 100, metric, PT=32, window_blocks=W, TB=TB,
+        stats=s1, device="cpu")
+    np.testing.assert_array_equal(D1, D0)
+    np.testing.assert_array_equal(I1, I0)
+    assert n1 == n0
+    assert (s1["windows"], s1["calls"]) == (s0["windows"], s0["calls"])
+
+
 def test_scan_float_data_matches_reference(tmp_path):
     """On float data both phases sum in another order than the reference
     (the exact f32 re-rank's 64-term dot products of magnitude ~16 differ
@@ -289,6 +309,40 @@ def test_window_at_wide_kp_equals_fused_reference(paged_pair, kp, metric):
             assert torch.equal(wide[0], ref[0]), (a, b)
             assert torch.equal(wide[1], ref[1]), (a, b)
         assert torch.equal(ref[0], d3) and torch.equal(ref[1], p3)
+
+
+@pytest.mark.parametrize("kp", [65, 106, 1030])
+def test_card_route_is_one_launch_over_the_plan(paged_pair, kp,
+                                                monkeypatch):
+    """Above KP_MAX K4's card route is ONE call of the kernel function over
+    the plan's tiles and the window as given, merging in place into the
+    running lists at the asked kp, and nothing of the sub-block route
+    (`scan_window_wide`, `scan_pairs_wide`) runs. Tensors off the CPU
+    (here on the meta device, with the launch replaced by a recorder) take
+    the card's route."""
+    xq, probes, _, tp = paged_pair
+    plan = F.plan_pairs(torch.from_numpy(probes).long(), tp, 128)
+    win = TP.upload_resident(tp, tp.nblocks, device="cpu").blocks(3, 9)
+    q16 = torch.from_numpy(xq).to(torch.bfloat16).to("meta")
+    qn = torch.zeros(len(xq), device="meta")
+    rd = torch.empty((plan.ntiles * F.PT, kp), device="meta")
+    rp = torch.empty(rd.shape, dtype=torch.int32, device="meta")
+    calls = []
+
+    def launch(xq_bf16, qn_, plan_, window, w0, nwin, ta, tb, run_d, run_p,
+               sim, B):
+        calls.append((plan_, window, w0, nwin, ta, tb, B))
+        assert run_d is rd and run_p is rp
+
+    def refused(*args, **kw):
+        raise AssertionError("the sub-block route ran")
+
+    monkeypatch.setattr(TP, "_launch", launch)
+    for name in ("scan_window_wide", "scan_pairs_wide", "_launch_fresh",
+                 "scan_window_reference"):
+        monkeypatch.setattr(TP, name, refused)
+    TP.scan_window(q16, qn, plan, win, 3, 0, plan.ntiles, rd, rp, False)
+    assert calls == [(plan, win, 3, 9, 0, plan.ntiles, tp.block_size)]
 
 
 def test_pipeline_under_thread_switching(paged_pair):

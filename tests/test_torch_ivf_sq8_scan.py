@@ -189,6 +189,31 @@ def test_sq8_fused_scan_matches_reference_rw0(data, qtype, metric, kp):
             _same_on_common(D0, I0, D1.numpy(), I1.numpy(), rtol=1e-5)
 
 
+@pytest.mark.parametrize("qtype,metric", [(q, m) for q, m, _ in SCAN_CASES])
+def test_sq8_fused_scan_wide_k_matches_reference_rw0(data, qtype, metric):
+    """k 100 (kp 106: K3-SQ8's lists in global memory on the card) against
+    the JAX kernel with RW=0, held as at k 10: bit for bit on
+    QT_8BIT_DIRECT, within rtol 1e-5 (ids overlapping >= 0.99) on
+    QT_8BIT."""
+    k = 100
+    _, _, xq, cent, _ = data
+    jl, tl = _views(data, qtype)
+    probes = _probes(xq, cent, 6, metric)
+    D0, I0, n0 = j_fused(jnp.asarray(xq), jnp.asarray(probes), jl, k,
+                         metric, PT=32, CB=2, RW=0, interpret=True)
+    D0, I0 = np.asarray(D0), np.asarray(I0)
+    D1, I1, n1 = F.scan_invlists_fused(torch.from_numpy(xq),
+                                       torch.from_numpy(probes), tl, k,
+                                       metric)
+    assert int(n1) == int(n0)
+    if qtype == TSQ.QT_8BIT_DIRECT:
+        np.testing.assert_array_equal(D1.numpy(), D0)
+        np.testing.assert_array_equal(I1.numpy(), I0)
+    else:
+        assert _overlap(I0, I1) >= 0.99
+        _same_on_common(D0, I0, D1.numpy(), I1.numpy(), rtol=1e-5)
+
+
 def test_sq8_direct_equals_bf16_stream(data):
     """On integer data the lossless codes give the bf16 stream's result."""
     _, _, xq, cent, _ = data

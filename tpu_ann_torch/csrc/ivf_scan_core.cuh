@@ -7,7 +7,8 @@
 // Replaces the body of the TPU kernels, tpu_ann/ops/ivf_scan_pallas.py::
 // _grouped_kernel, which K3 (scan_invlists_fused) launches over the whole
 // bf16 or uint8 stream and K4 (tpu_ann/ops/ivf_scan_paged.py::
-// _make_window_kernel) over one uploaded window.
+// _make_window_kernel) over one uploaded window, with its exact per-chunk
+// epilogue (ivf_scan_pallas.py:217-250, taken once 8 kp > RW) for every kp.
 //
 // The function: the wrapper sorts the pairs by list id and cuts them into
 // tiles of kPT pairs, one CTA each. A row counts for a pair if it lies in
@@ -18,11 +19,15 @@
 // bf16 stream. On the SQ8 stream (Elem = uint8_t) x is the code row, q the
 // query times the dequant scale (rounded to bf16 once), and qn folds in
 // the bias: |q|^2 - 2 q.bias for L2, q.bias for IP. Each pair keeps an
-// exact sorted top-kp spread over the lanes of the warp that owns it (lane
-// i holds entry i; up to kp 64 the wide instantiation, kR = 2, keeps two
-// entries a lane, i and 32 + i), ordered by (distance, stream position):
-// ties go to the lower position, empty slots are (+inf, -1). The wide
-// lists take twice the registers, so its kernels run one CTA an SM.
+// exact sorted top-kp ordered by (distance, stream position): ties go to
+// the lower position, empty slots are (+inf, -1). Where the list lives
+// depends on kp (the kR template argument):
+// - kp <= 32 (kR = 1): spread over the lanes of the warp that owns the
+//   pair, lane i holding entry i, in registers;
+// - kp 33..64 (kR = 2): two entries a lane, i and 32 + i. The wide lists
+//   take twice the registers, so its kernels run one CTA an SM;
+// - kp >= 65 (kR = kRGlobal): in global memory, the pair's own row of
+//   out_d / out_p (see "Lists in global memory" below); no cap on kp.
 //
 // What bounds it on the H100: a streamed row is 2d bytes of bf16 (d of
 // codes on the SQ8 stream) plus 8 B of id and norm, read once for every
@@ -72,6 +77,29 @@
 // kernels' launch bounds): one CTA's epilogue overlaps the other's loads
 // and products.
 //
+// Lists in global memory (kp >= 65). Registers cannot hold them: at 16
+// pairs a warp the lists alone would take 8 kp / 32 registers a thread
+// (128 at kp 128), and shared memory holds 128 pairs x kp x 8 B beside
+// the 108 KB body only up to kp ~110 (of 227 KB), so a larger kp would
+// need a smaller tile. Chosen: each pair's sorted list lives in its own
+// row of out_d / out_p (the output, as K4 already keeps its running
+// lists), which has no cap on kp. Per pair, shared memory keeps its
+// threshold (entry kp - 1, +inf while the list is not full) and its count
+// of filled entries, 1 KB a CTA. Each chunk's scores are filtered against
+// the threshold as in registers; only a pair with survivors reads its
+// list: the owning warp sorts the (at most 64) survivors with the warp
+// bitonic network and merges them into the list by ranks (update_global):
+// entry i of the list moves to i + (survivors before it), survivor j to
+// j + (entries before it), each found by a binary search over the other
+// sorted side, in blocks of 32 entries from the list's tail towards its
+// head, stopping at the first block whose entries all precede every
+// survivor (they stay). Entries only move towards the tail, so a block is
+// read before anything is written over it. The rows a CTA works on, 128
+// pairs x kp x 8 B (108 KB at kp 106; two CTAs an SM over 132 SMs, about
+// 29 MB), stay in the 50 MB L2 at kp 106; at kp 1030 (1 MB a CTA) they
+// spill to HBM. Registers hold no list, so these kernels run two CTAs an
+// SM as the kR = 1 ones do.
+//
 // The window (kWindow = true, K4): the kernel reads global stream rows
 // [wrow0, wrow1) only; they lie at data / ids / norms + (row - wrow0).
 // Every pair range is clamped to the window, and positions stay global. A
@@ -99,6 +127,7 @@ constexpr int kDS = 128;             // dims per slice
 constexpr int kStages = 2;           // chunks in the cp.async ring
 constexpr int kSS = kCR + 8;         // row stride of the score tile (f32)
 constexpr int kKPMax = 32;           // top-kp entries a lane holds, per kR
+constexpr int kRGlobal = 0;          // kR of the lists in global memory
 constexpr int kSerialMax = 6;        // more candidates: bitonic merge
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kInf = __builtin_huge_valf();
@@ -114,11 +143,12 @@ struct Layout {
   int rstride;     // bytes per staged code row (SQ8)
   int nslices;     // kDS-dim slices of d
   size_t qs, xs, raw, sid, snorm, sc, plo, phi, pq, pqn, sfirst, send, nseg;
+  size_t thr, nfill;  // lists in global memory only
   size_t total;
 };
 
 template <typename Elem>
-__host__ __device__ inline Layout layout(int d) {
+__host__ __device__ inline Layout layout(int d, bool glist) {
   constexpr bool kU8 = sizeof(Elem) == 1;
   Layout L;
   const int wmax = round16(d) < kDS ? round16(d) : kDS;
@@ -155,6 +185,11 @@ __host__ __device__ inline Layout layout(int d) {
   o += sizeof(int) * kPT;
   L.nseg = o;
   o += 16;
+  // per pair: the list's threshold and filled entries (global lists)
+  L.thr = o;
+  o += glist ? sizeof(float) * kPT : 0;
+  L.nfill = o;
+  o += glist ? sizeof(int) * kPT : 0;
   L.total = o;
   return L;
 }
@@ -443,6 +478,23 @@ __device__ __forceinline__ void bitonic64(Entry2& e, int lane) {
   bitonic32(e.db, e.pb, lane);
 }
 
+// Warp-wide: one chunk's candidates of a pair, rows row0 + lane (c0,
+// distance dis0) and row0 + 32 + lane (c1, dis1), sorted ascending by
+// (distance, position) into entries lane (a) and 32 + lane (b); the rest
+// are (+inf, INT_MAX). Two sorts of 32, the second reversed (bitonic),
+// then a bitonic merge.
+__device__ __forceinline__ Entry2 sorted_candidates(float dis0, bool c0,
+                                                    float dis1, bool c1,
+                                                    int row0, int lane) {
+  Entry2 c{c0 ? dis0 : kInf, c0 ? row0 + lane : INT_MAX, c1 ? dis1 : kInf,
+           c1 ? row0 + 32 + lane : INT_MAX};
+  sort32x2(c.da, c.pa, c.db, c.pb, lane);
+  c.db = __shfl_sync(kFull, c.db, 31 - lane);
+  c.pb = __shfl_sync(kFull, c.pb, 31 - lane);
+  bitonic64(c, lane);
+  return c;
+}
+
 // Warp-wide insert_each on a wide list: inserts the candidates of mask m
 // (lane l: distance dis, stream position row0 + l, in increasing position)
 // one by one.
@@ -497,13 +549,7 @@ __device__ __noinline__ Entry2 update_chunk2(Entry2 e, float dis0, bool c0,
     insert_each2(e, dis1, m1, row0 + 32, kp, lane);
     return e;
   }
-  Entry2 c{c0 ? dis0 : kInf, c0 ? row0 + lane : INT_MAX, c1 ? dis1 : kInf,
-           c1 ? row0 + 32 + lane : INT_MAX};
-  sort32x2(c.da, c.pa, c.db, c.pb, lane);
-  // a ascending, then b reversed: bitonic
-  c.db = __shfl_sync(kFull, c.db, 31 - lane);
-  c.pb = __shfl_sync(kFull, c.pb, 31 - lane);
-  bitonic64(c, lane);
+  Entry2 c = sorted_candidates(dis0, c0, dis1, c1, row0, lane);
   if (__shfl_sync(kFull, e.da, 0) == kInf) return c;
   // entry i of the list against entry 63 - i of the candidates
   const float rd0 = __shfl_sync(kFull, c.db, 31 - lane);
@@ -520,6 +566,113 @@ __device__ __noinline__ Entry2 update_chunk2(Entry2 e, float dis0, bool c0,
   }
   bitonic64(e, lane);
   return e;
+}
+
+// Warp-wide: how many of 32 (d, p) sorted ascending over the lanes,
+// (+inf, INT_MAX) past the real ones, come before (xd, xp); a binary
+// search with a lane argument of its own in every lane.
+__device__ __forceinline__ int rank_in32(float d, int p, float xd, int xp) {
+  int r = 0;
+#pragma unroll
+  for (int s = 32; s > 0; s >>= 1) {
+    const int t = r + s - 1;
+    const float yd = __shfl_sync(kFull, d, t & 31);
+    const int yp = __shfl_sync(kFull, p, t & 31);
+    if (t < 32 && before(yd, yp, xd, xp)) r += s;
+  }
+  return r;
+}
+
+// Warp-wide: how many of the 64 sorted candidates c (entry i in c.da / c.pa
+// of lane i, entry 32 + i in c.db / c.pb) come before (xd, xp).
+__device__ __forceinline__ int rank_in64(const Entry2& c, float xd, int xp) {
+  int r = 0;
+#pragma unroll
+  for (int s = 64; s > 0; s >>= 1) {
+    const int t = r + s - 1;
+    const float ad = __shfl_sync(kFull, c.da, t & 31);
+    const int ap = __shfl_sync(kFull, c.pa, t & 31);
+    const float bd = __shfl_sync(kFull, c.db, t & 31);
+    const int bp = __shfl_sync(kFull, c.pb, t & 31);
+    if (t < 32 ? before(ad, ap, xd, xp)
+               : t < 64 && before(bd, bp, xd, xp))
+      r += s;
+  }
+  return r;
+}
+
+// Warp-wide: the filled entries of a pair's sorted list in global memory
+// (its finite distances, a prefix of its kp).
+__device__ __forceinline__ int filled_entries(const float* ld, int kp,
+                                              int lane) {
+  for (int b = 0; b < kp; b += 32) {
+    const int i = b + lane;
+    const unsigned m = __ballot_sync(kFull, i >= kp || ld[i] == kInf);
+    if (m) return b + __ffs(m) - 1;
+  }
+  return kp;
+}
+
+// Warp-wide update of a list in global memory (kR = kRGlobal): merges one
+// chunk's candidates of a pair, rows row0 + lane (c0: below the list's
+// threshold, distance dis0) and row0 + 32 + lane (c1, dis1), into its
+// sorted list ld / lp (kp entries, the first *nfill filled, the rest not
+// read), and updates *thr (entry kp - 1 once the list is full) and
+// *nfill, both in shared memory. The candidates are sorted (at most 64);
+// then each moves to its rank in the merged list: list entry i to i +
+// (candidates before it), candidate j to j + (entries before it). The
+// list is walked in blocks of 32 from its tail: a block is read, its
+// ranks found, and its moved entries written (always to higher slots,
+// whose entries were read already); the walk stops at a block whose last
+// entry precedes every candidate, since it and all before it stay. A
+// rank at or past kp drops out. Not inlined, as update_chunk.
+__device__ __noinline__ void update_global(float dis0, bool c0, float dis1,
+                                           bool c1, int row0, int kp,
+                                           float* ld, int* lp, float* thr,
+                                           int* nfill, int lane) {
+  const int n = __popc(__ballot_sync(kFull, c0)) +
+                __popc(__ballot_sync(kFull, c1));
+  const Entry2 c = sorted_candidates(dis0, c0, dis1, c1, row0, lane);
+  const int nf = *nfill;
+  const float fd = __shfl_sync(kFull, c.da, 0);   // the first candidate
+  const int fp = __shfl_sync(kFull, c.pa, 0);
+  int head = 0;        // entries [0, head): before every candidate, stay
+  int na = 0, nb = 0;  // entries of the walked blocks before c.a / c.b
+  for (int b = (nf - 1) & ~31; b >= 0; b -= 32) {
+    const int i = b + lane;
+    const bool in = i < nf;
+    const float ed = in ? ld[i] : kInf;
+    const int ep = in ? lp[i] : INT_MAX;
+    const int last = min(nf - 1 - b, 31);
+    if (before(__shfl_sync(kFull, ed, last), __shfl_sync(kFull, ep, last),
+               fd, fp)) {
+      head = b + last + 1;
+      break;
+    }
+    const int r = rank_in64(c, ed, ep);
+    na += rank_in32(ed, ep, c.da, c.pa);
+    nb += rank_in32(ed, ep, c.db, c.pb);
+    __syncwarp();
+    if (in && r > 0 && i + r < kp) {
+      ld[i + r] = ed;
+      lp[i + r] = ep;
+      if (i + r == kp - 1) *thr = ed;
+    }
+  }
+  __syncwarp();
+  const int ra = head + na + lane, rb = head + nb + 32 + lane;
+  if (lane < n && ra < kp) {
+    ld[ra] = c.da;
+    lp[ra] = c.pa;
+    if (ra == kp - 1) *thr = c.da;
+  }
+  if (32 + lane < n && rb < kp) {
+    ld[rb] = c.db;
+    lp[rb] = c.pb;
+    if (rb == kp - 1) *thr = c.db;
+  }
+  if (lane == 0) *nfill = min(nf + n, kp);
+  __syncwarp();
 }
 
 // Warp 0: the tile's segments, runs of consecutive pairs with the same
@@ -557,7 +710,8 @@ struct Step {
 // The body of one CTA, for tile tile0 + blockIdx.x (see the header
 // comment). Elem is the stream's element: uint16_t (bf16 bits) or uint8_t
 // (SQ8 codes). kR is the list entries a lane: 1 (kp up to 32) or 2 (kp up
-// to 64, the wide list: lane i holds entries i and 32 + i).
+// to 64, the wide list: lane i holds entries i and 32 + i), or kRGlobal
+// (any kp: the lists in out_d / out_p).
 template <bool kWindow, typename Elem = uint16_t, int kR = 1>
 __device__ __forceinline__ void scan_tile(
     const uint16_t* __restrict__ xq,      // (nq, d) bf16 queries
@@ -575,10 +729,12 @@ __device__ __forceinline__ void scan_tile(
     float* __restrict__ out_d,            // (ntiles*kPT, kp)
     int* __restrict__ out_p) {            // (ntiles*kPT, kp) positions
   constexpr bool kU8 = sizeof(Elem) == 1;
+  constexpr bool kG = kR == kRGlobal;
+  constexpr int kRL = kG ? 1 : kR;      // list registers a lane (none if kG)
   (void)tile_bs;  // the segments replace the tile's block hull
   (void)tile_nb;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout<Elem>(d);
+  const Layout L = layout<Elem>(d, kG);
   uint16_t* qs = reinterpret_cast<uint16_t*>(smem + L.qs);
   uint16_t* xs = reinterpret_cast<uint16_t*>(smem + L.xs);
   unsigned char* raw = smem + L.raw;
@@ -592,6 +748,8 @@ __device__ __forceinline__ void scan_tile(
   int* sfirst = reinterpret_cast<int*>(smem + L.sfirst);
   int* send = reinterpret_cast<int*>(smem + L.send);
   int* snseg = reinterpret_cast<int*>(smem + L.nseg);
+  float* sthr = reinterpret_cast<float*>(smem + L.thr);
+  int* snfill = reinterpret_cast<int*>(smem + L.nfill);
   const int stride = L.stride;
   const int nslices = L.nslices;
 
@@ -616,20 +774,39 @@ __device__ __forceinline__ void scan_tile(
   const int nseg = *snseg;
 
   // the pairs' lists: warp w holds pairs w, w + 8, ..., entry 32 r + i in
-  // lane i, register r
-  float ld[kPW][kR];
-  int lp[kPW][kR];
+  // lane i, register r; or, for kG, their thresholds and filled entries
+  float ld[kPW][kRL];
+  int lp[kPW][kRL];
+  if constexpr (kG) {
+    for (int j = 0; j < kPW; ++j) {
+      const int p = j * kWarps + warp;
+      float t = kInf;
+      int nf = 0;
+      if (kWindow && phi[p] > plo[p]) {
+        const float* lrow = out_d + static_cast<size_t>(pbase + p) * kp;
+        t = lrow[kp - 1];
+        nf = t < kInf ? kp : filled_entries(lrow, kp, lane);
+      }
+      if (lane == 0) {
+        sthr[p] = t;
+        snfill[p] = nf;
+      }
+    }
+    __syncwarp();
+  } else {
 #pragma unroll
-  for (int j = 0; j < kPW; ++j) {
-    const int p = j * kWarps + warp;
+    for (int j = 0; j < kPW; ++j) {
+      const int p = j * kWarps + warp;
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      ld[j][r] = kInf;
-      lp[j][r] = -1;
-      if (kWindow && 32 * r + lane < kp && phi[p] > plo[p]) {
-        const size_t o = static_cast<size_t>(pbase + p) * kp + 32 * r + lane;
-        ld[j][r] = out_d[o];
-        lp[j][r] = ld[j][r] == kInf ? -1 : out_p[o];
+      for (int r = 0; r < kR; ++r) {
+        ld[j][r] = kInf;
+        lp[j][r] = -1;
+        if (kWindow && 32 * r + lane < kp && phi[p] > plo[p]) {
+          const size_t o =
+              static_cast<size_t>(pbase + p) * kp + 32 * r + lane;
+          ld[j][r] = out_d[o];
+          lp[j][r] = ld[j][r] == kInf ? -1 : out_p[o];
+        }
       }
     }
   }
@@ -828,13 +1005,19 @@ __device__ __forceinline__ void scan_tile(
         const float dis1 = similarity ? -ip1 - qv
                                       : fmaxf(qv + n1 - 2.0f * ip1, 0.0f);
         float thr;
-        if constexpr (kR == 1)
+        if constexpr (kG)
+          thr = sthr[p];
+        else if constexpr (kR == 1)
           thr = __shfl_sync(kFull, ld[j][0], kp - 1);
         else
           thr = kth2({ld[j][0], lp[j][0], ld[j][1], lp[j][1]}, kp);
         const bool cand0 = ok0 && dis0 < thr, cand1 = ok1 && dis1 < thr;
         if (!__any_sync(kFull, cand0 || cand1)) continue;
-        if constexpr (kR == 1) {
+        if constexpr (kG) {
+          const size_t o = static_cast<size_t>(pbase + p) * kp;
+          update_global(dis0, cand0, dis1, cand1, c0, kp, out_d + o,
+                        out_p + o, sthr + p, snfill + p, lane);
+        } else if constexpr (kR == 1) {
           const Entry e = update_chunk({ld[j][0], lp[j][0]}, dis0, cand0,
                                        dis1, cand1, c0, kp, srow, lane);
           ld[j][0] = e.d;
@@ -855,6 +1038,21 @@ __device__ __forceinline__ void scan_tile(
   }
   cp_async_wait<0>();
 
+  if constexpr (kG) {
+    // K3: the empty slots past each list's filled entries (K4's lists hold
+    // theirs already)
+    if (!kWindow) {
+      for (int j = 0; j < kPW; ++j) {
+        const int p = j * kWarps + warp;
+        const size_t o = static_cast<size_t>(pbase + p) * kp;
+        for (int i = snfill[p] + lane; i < kp; i += 32) {
+          out_d[o + i] = kInf;
+          out_p[o + i] = -1;
+        }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < kPW; ++j) {
     const int p = j * kWarps + warp;
@@ -885,8 +1083,9 @@ __device__ __forceinline__ void scan_tile(
       wrow1, tile0, d, B, kp, similarity, out_d, out_p
 
 // Launches `kernel` (a scan_tile kernel on a stream of Elem, kR list
-// entries a lane), one CTA per tile of [tile0, tile0 + ntiles), on
-// `stream`; allocates nothing. Returns cudaGetLastError() (0 on success).
+// entries a lane, or kRGlobal: no cap on kp), one CTA per tile of [tile0,
+// tile0 + ntiles), on `stream`; allocates nothing. Returns
+// cudaGetLastError() (0 on success).
 template <typename Elem = uint16_t, int kR = 1, typename Kernel>
 int launch_scan_tiles(Kernel kernel, const void* xq, const void* qn,
                       const void* pair_q, const void* pstart,
@@ -895,10 +1094,11 @@ int launch_scan_tiles(Kernel kernel, const void* xq, const void* qn,
                       const void* norms, int wrow0, int wrow1, int tile0,
                       int ntiles, int d, int B, int kp, int similarity,
                       void* out_d, void* out_p, void* stream) {
-  if (d <= 0 || d % 8 != 0 || B <= 0 || kp < 1 || kp > kR * kKPMax ||
-      ntiles < 0 || tile0 < 0 || wrow0 < 0 || wrow1 < wrow0)
+  if (d <= 0 || d % 8 != 0 || B <= 0 || kp < 1 ||
+      (kR != kRGlobal && kp > kR * kKPMax) || ntiles < 0 || tile0 < 0 ||
+      wrow0 < 0 || wrow1 < wrow0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = layout<Elem>(d).total;
+  const size_t smem = layout<Elem>(d, kR == kRGlobal).total;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -23,9 +23,10 @@
 // The kernel body, its design and what bounds it are in ivf_scan_core.cuh
 // (shared with K3): a tile streams only its segments' rows clamped to the
 // window, so a list the window cuts is finished by the next launch. As K3,
-// one kernel keeps kp up to 32 and a second, with two list entries a lane
-// (one CTA an SM), kp 33 to 64; a wider kp is scanned by the wrapper over
-// 32-row sub-blocks with the narrow kernel and merged there. On the
+// one kernel keeps kp up to 32, a second, with two list entries a lane
+// (one CTA an SM), kp 33 to 64, and a third any kp above, its running
+// lists merged in place in run_d / run_p (the global lists of
+// ivf_scan_core.cuh, which the running lists already are). On the
 // out-of-core path the scan of a window overlaps the host-to-device copy of
 // the next one; the pipeline is bound by that copy's bytes over the host
 // link when the window's scan takes less time.
@@ -49,6 +50,12 @@ ivf_scan_window_wide_kernel(IVF_SCAN_TILE_PARAMS(uint16_t)) {
   ivf_scan::scan_tile<true, uint16_t, 2>(IVF_SCAN_TILE_ARGS);
 }
 
+// The lists in global memory (kp 65 and up): two CTAs an SM.
+__global__ void __launch_bounds__(ivf_scan::kThreads, 2)
+ivf_scan_window_global_kernel(IVF_SCAN_TILE_PARAMS(uint16_t)) {
+  ivf_scan::scan_tile<true, uint16_t, ivf_scan::kRGlobal>(IVF_SCAN_TILE_ARGS);
+}
+
 }  // namespace
 
 extern "C" {
@@ -59,7 +66,7 @@ int ivf_scan_window_tile_pairs() { return ivf_scan::kPT; }
 // Scans tiles [tile0, tile0 + ntiles) against the window of blocks
 // [w0, w0 + nwin), whose rows lie at data / ids / norms, and merges the
 // result into run_d / run_p ((ntiles_total * kPT, kp), global positions) in
-// place (kp in [1, 64]). One CTA per tile on `stream`; allocates nothing.
+// place (any kp >= 1). One CTA per tile on `stream`; allocates nothing.
 // Returns cudaGetLastError() (0 on success).
 int ivf_scan_window(const void* xq, const void* qn, const void* pair_q,
                     const void* pstart, const void* pend, const void* tile_bs,
@@ -71,6 +78,11 @@ int ivf_scan_window(const void* xq, const void* qn, const void* pair_q,
       static_cast<long long>(w0 + static_cast<long long>(nwin)) * B >=
           INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (kp > 2 * ivf_scan::kKPMax)
+    return ivf_scan::launch_scan_tiles<uint16_t, ivf_scan::kRGlobal>(
+        ivf_scan_window_global_kernel, xq, qn, pair_q, pstart, pend, tile_bs,
+        tile_nb, data, ids, norms, w0 * B, (w0 + nwin) * B, tile0, ntiles, d,
+        B, kp, similarity, run_d, run_p, stream);
   if (kp > ivf_scan::kKPMax)
     return ivf_scan::launch_scan_tiles<uint16_t, 2>(
         ivf_scan_window_wide_kernel, xq, qn, pair_q, pstart, pend, tile_bs,

@@ -13,9 +13,10 @@
 // stream: each chunk's codes land in shared memory as bytes (8-byte
 // cp.async copies) and are widened there to the bf16 operand tile, so the
 // stream's HBM bytes halve while the tensor-core products and the top-kp
-// epilogue are K3's, with K3's two kernels: up to kp 32, and with two list
-// entries a lane up to kp 64. It is a library of its own so that K3's
-// instantiations, and their register counts, stay as they are.
+// epilogue are K3's, with K3's three kernels: up to kp 32, with two list
+// entries a lane up to kp 64, and with the lists in its output rows above.
+// It is a library of its own so that K3's instantiations, and their
+// register counts, stay as they are.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see tpu_ann_torch/kernels). Plain C interface.
@@ -36,6 +37,12 @@ ivf_scan_sq8_wide_kernel(IVF_SCAN_TILE_PARAMS(uint8_t)) {
   ivf_scan::scan_tile<false, uint8_t, 2>(IVF_SCAN_TILE_ARGS);
 }
 
+// K3's lists in global memory (kp 65 and up): two CTAs an SM.
+__global__ void __launch_bounds__(ivf_scan::kThreads, 2)
+ivf_scan_sq8_global_kernel(IVF_SCAN_TILE_PARAMS(uint8_t)) {
+  ivf_scan::scan_tile<false, uint8_t, ivf_scan::kRGlobal>(IVF_SCAN_TILE_ARGS);
+}
+
 }  // namespace
 
 extern "C" {
@@ -43,7 +50,7 @@ extern "C" {
 // pairs per tile the kernel is written for (the wrapper checks it)
 int ivf_scan_sq8_tile_pairs() { return ivf_scan::kPT; }
 
-// Launches one CTA per tile on `stream` (kp in [1, 64]); allocates
+// Launches one CTA per tile on `stream` (any kp >= 1); allocates
 // nothing. `codes` is the (rows, d) uint8 stream, each row 8-byte aligned
 // (d % 8 == 0). Returns cudaGetLastError() (0 on success).
 int ivf_scan_sq8(const void* xq, const void* qn, const void* pair_q,
@@ -51,6 +58,11 @@ int ivf_scan_sq8(const void* xq, const void* qn, const void* pair_q,
                  const void* tile_nb, const void* codes, const void* ids,
                  const void* norms, int ntiles, int d, int B, int kp,
                  int similarity, void* out_d, void* out_p, void* stream) {
+  if (kp > 2 * ivf_scan::kKPMax)
+    return ivf_scan::launch_scan_tiles<uint8_t, ivf_scan::kRGlobal>(
+        ivf_scan_sq8_global_kernel, xq, qn, pair_q, pstart, pend, tile_bs,
+        tile_nb, codes, ids, norms, /*wrow0=*/0, /*wrow1=*/INT_MAX,
+        /*tile0=*/0, ntiles, d, B, kp, similarity, out_d, out_p, stream);
   if (kp > ivf_scan::kKPMax)
     return ivf_scan::launch_scan_tiles<uint8_t, 2>(
         ivf_scan_sq8_wide_kernel, xq, qn, pair_q, pstart, pend, tile_bs,

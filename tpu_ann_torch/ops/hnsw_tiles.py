@@ -23,8 +23,7 @@ traversals share that layout:
   levels); each graph hop expands the best ``expand`` positions through
   the level-0 adjacency and scans the first F tiles not scanned yet (in
   parent-rank order). So a search is 1 + hops launches; each keeps the
-  exact top-kp of every (query, tile): in the kernel up to kp 64, over
-  sub-blocks above it (`ivf_scan_fused.scan_pairs_wide`);
+  exact top-kp of every (query, tile) inside the kernel, at any kp;
 * the PQ tiles (`PQTileGraph`, `tile_search_pq`; reference :528-678): the
   fused route's control flow over PQ code tiles, each scan the ADC table
   scan `ivf_scan.scan_invlists_pq` (plain torch, as the reference's is

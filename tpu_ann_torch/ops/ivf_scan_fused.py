@@ -27,11 +27,13 @@ Steps (the wrapper is plain torch around one kernel launch):
      dequantized codes), map stream positions to row ids, and flip the sign
      back for IP.
 
-The kernels keep at most KP_MAX (64) a pair: one list entry a lane up to
-kp 32, two above (a kernel of its own, chosen by kp at launch). A wider
-kp is served by one launch over sub-blocks of at most 32 rows, each kept
-whole, from which each pair's top-kp is selected (`scan_pairs_wide`): the
-same per-pair top-kp.
+Each library holds three kernels, chosen by kp at launch: the per-pair
+lists in registers, one entry a lane up to KP_LANE (32) and two up to
+KP_MAX (64), and in the output rows themselves for any kp above (a search
+at k >= 59). `scan_pairs_wide` computes the same per-pair top-kp another
+way, from one launch over sub-blocks of at most 32 rows and a selection in
+torch; no index route takes it, and `chip_smoke.py` times it beside the
+kernels.
 
 Unlike the reference, the per-pair top-kp is always exact: the reference's
 RW=512 lane-min reservoir (which can drop candidates) exists only because
@@ -55,15 +57,18 @@ from .ivf_scan import PackedInvLists, PackedInvListsSQ8
 
 # pairs per tile: the CUDA kernel is written for this tile (kPT in the .cu)
 PT = 128
-# per-pair widths the CUDA kernels keep (K3, K3-SQ8, K4): KP_LANE with
-# one list entry a lane, KP_MAX with two; a wider kp scans sub-blocks of
-# at most KP_LANE rows (`scan_pairs_wide`)
+# per-pair widths the CUDA kernels keep in registers (K3, K3-SQ8, K4):
+# KP_LANE with one list entry a lane, KP_MAX with two; a wider kp keeps
+# the lists in the output rows. `scan_pairs_wide` scans sub-blocks of at
+# most KP_LANE rows.
 KP_LANE = 32
 KP_MAX = 64
 # kernel launches made by `scan_pairs` (one per call on a CUDA tensor):
-# K3 on a bf16 stream, K3-SQ8 on a uint8 one
+# K3 on a bf16 stream, K3-SQ8 on a uint8 one; of them, those of the
+# kernels that keep the lists in global memory (kp above KP_MAX)
 LAUNCHES = 0
 LAUNCHES_SQ8 = 0
+LAUNCHES_GLOBAL = 0
 # the plain version's batches of tiles stay under this many f32 elements
 _PLAIN_BUDGET = 1 << 27
 
@@ -258,17 +263,13 @@ def _check(t: torch.Tensor, dtype, name: str, dev) -> None:
 
 def scan_pairs(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
                invlists: PackedInvLists, kp: int, similarity: bool):
-    """Per-pair exact top-kp: for CUDA tensors one launch of the CUDA
-    kernel of the stream's type (K3 on bf16 rows, K3-SQ8 on uint8 codes),
-    over the plan itself or, for kp above KP_MAX, over its sub-blocks
-    (`scan_pairs_wide`, no launch when no pair is real); for CPU tensors
-    the plain version. Returns (dist, pos) of shape (npairs_pad, kp)."""
+    """Per-pair exact top-kp: for CUDA tensors one launch, over the plan
+    itself at any kp, of the CUDA kernel of the stream's type (K3 on bf16
+    rows, K3-SQ8 on uint8 codes); for CPU tensors the plain version.
+    Returns (dist, pos) of shape (npairs_pad, kp)."""
     if xq_bf16.device.type == "cpu":
         return scan_pairs_reference(xq_bf16, qn, plan, invlists, kp,
                                     similarity)
-    if kp > KP_MAX:
-        return scan_pairs_wide(xq_bf16, qn, plan, invlists, kp, similarity,
-                               _launch)
     return _launch(xq_bf16, qn, plan, invlists, kp, similarity)
 
 
@@ -276,9 +277,9 @@ def _launch(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
             invlists: PackedInvLists, kp: int, similarity: bool,
             B: int = 0):
     """One launch of the kernel of the stream's type over ``plan``, whose
-    ranges count blocks of ``B`` rows (0: the lists' block size); kp in
-    [1, KP_MAX]."""
-    global LAUNCHES, LAUNCHES_SQ8
+    ranges count blocks of ``B`` rows (0: the lists' block size); any kp
+    >= 1."""
+    global LAUNCHES, LAUNCHES_SQ8, LAUNCHES_GLOBAL
     dev = xq_bf16.device
     if dev.type != "cuda":
         raise ValueError(f"ivf_scan_fused: unsupported device {dev}")
@@ -287,9 +288,8 @@ def _launch(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
     if d % 8:
         raise ValueError(f"ivf_scan_fused: d must be a multiple of 8 "
                          f"(got {d})")
-    if not 1 <= kp <= KP_MAX:
-        raise ValueError(f"ivf_scan_fused: kp must be in [1, {KP_MAX}] "
-                         f"(got {kp})")
+    if kp < 1:
+        raise ValueError(f"ivf_scan_fused: kp must be >= 1 (got {kp})")
     if (invlists.nblocks + 1) * invlists.block_size >= 2**31:
         raise ValueError("ivf_scan_fused: stream exceeds int32 positions")
     if plan.pair_q.shape[0] != plan.ntiles * PT:
@@ -334,6 +334,8 @@ def _launch(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
         LAUNCHES_SQ8 += 1
     else:
         LAUNCHES += 1
+    if kp > KP_MAX:
+        LAUNCHES_GLOBAL += 1
     return out_d, out_p
 
 
@@ -348,7 +350,9 @@ def scan_pairs_wide(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
                     invlists, kp: int, similarity: bool, pair_fn):
     """Per-pair exact top-kp for any kp from at most ONE call of
     ``pair_fn`` (the kernel's `_launch`, or `scan_pairs_reference`), none
-    when no pair has a row: each pair's range is cut into sub-blocks of r =
+    when no pair has a row, and a selection in torch. No index route takes
+    it: `chip_smoke.py` times it beside the kernels' one launch at kp above
+    KP_MAX, and the tests hold it to the plain version. each pair's range is cut into sub-blocks of r =
     `sub_block_rows` rows, a sub-pair each that keeps all its rows; the
     sub-pairs, sorted by sub-block so that the pairs of one list share its
     reads, form a plan of their own. Each pair's top-kp is then taken from
@@ -511,8 +515,8 @@ def scan_invlists_fused(xq: torch.Tensor, probes: torch.Tensor,
         codes, K3-SQ8). probes: (nq, nprobe)
         list ids, -1 entries skipped. refine: the top refine*k merged
         candidates are re-ranked in exact f32 (refine <= 1 keeps the bf16
-        distances). kp: per-pair width (0 = default_kp(k)); above KP_MAX
-        the launch scans sub-blocks (`scan_pairs_wide`), same result.
+        distances). kp: per-pair width (0 = default_kp(k)), any kp >= 1
+        in one launch.
     Returns (D, I, ndis): (nq, k) distances and stored row ids (int64,
     -1 for empty slots) and the scanned row count as a 0-d tensor.
     """

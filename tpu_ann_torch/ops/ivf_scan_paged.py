@@ -73,8 +73,11 @@ from .ivf_scan_fused import (
 
 # bf16 on disk, as raw bits (no numpy bf16 dtype is needed)
 _BF16_BITS = np.uint16
-# K4 launches made by `scan_window` (one per call on a CUDA tensor)
+# K4 launches made by `scan_window` (one per call on a CUDA tensor); of
+# them, those of the kernel that keeps the lists in global memory (kp
+# above KP_MAX)
 LAUNCHES = 0
+LAUNCHES_GLOBAL = 0
 # host threads of the staging copy and the re-rank's row gather
 _COPY_THREADS = max(1, min(8, os.cpu_count() or 1))
 
@@ -388,13 +391,15 @@ def scan_window_wide(xq_bf16: torch.Tensor, qn: torch.Tensor,
                      plan: PairPlan, window: Window, w0: int, ta: int,
                      tb: int, run_d: torch.Tensor, run_p: torch.Tensor,
                      similarity: bool, pair_fn) -> None:
-    """K4 for any kp: `scan_pairs_wide` over the window's rows (every range
-    clamped to the window and made window-local), its one call of
-    ``pair_fn`` scanning sub-blocks of at most KP_LANE rows, then
-    `merge_topk` of the running top-kp (first, so it wins ties) with the
-    window's. ``pair_fn`` is `_launch_fresh` (the kernel) on the card; the
-    tests give it `scan_pairs_reference`. Updates rows [ta * PT, tb * PT)
-    of run_d / run_p in place, as `scan_window_reference` does."""
+    """K4's function for any kp computed another way: `scan_pairs_wide`
+    over the window's rows (every range clamped to the window and made
+    window-local), its one call of ``pair_fn`` scanning sub-blocks of at
+    most KP_LANE rows, then `merge_topk` of the running top-kp (first, so
+    it wins ties) with the window's. No index route takes it:
+    `chip_smoke.py` times it with ``pair_fn`` `_launch_fresh` beside K4's
+    one launch; the tests give it `scan_pairs_reference`. Updates rows
+    [ta * PT, tb * PT) of run_d / run_p in place, as
+    `scan_window_reference` does."""
     pt = plan.pair_q.shape[0] // max(plan.ntiles, 1)
     kp = run_d.shape[1]
     sub = _window_plan(plan, w0, window.nblocks, ta, tb, pt)
@@ -441,17 +446,14 @@ def scan_window(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
     """K4: scan tiles [ta, tb) of `plan` (global block ranges) against the
     window of blocks [w0, w0 + window.nblocks) and merge into the running
     per-pair top-kp run_d / run_p ((ntiles * PT, kp), global positions) in
-    place. For CUDA tensors one launch of the CUDA kernel: over the plan
-    itself up to KP_MAX, over its sub-blocks above (`scan_window_wide`);
-    for CPU tensors the plain version. ``xq_bf16`` is (nq, dp),
-    zero-padded like the stream."""
+    place. For CUDA tensors one launch of the CUDA kernel over the plan
+    itself, at any kp; for CPU tensors the plain version. ``xq_bf16`` is
+    (nq, dp), zero-padded like the stream."""
     dev = xq_bf16.device
     if dev.type == "cpu":
         scan_window_reference(xq_bf16, qn, plan, window, w0, ta, tb, run_d,
                               run_p, similarity)
         return
-    if dev.type != "cuda":
-        raise ValueError(f"ivf_scan_paged: unsupported device {dev}")
     kp = run_d.shape[1]
     if kp < 1:
         raise ValueError(f"ivf_scan_paged: kp must be >= 1 (got {kp})")
@@ -466,20 +468,16 @@ def scan_window(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
                          "(ntiles * PT, kp)")
     if tb == ta:
         return
-    if kp > KP_MAX:
-        scan_window_wide(xq_bf16, qn, plan, window, w0, ta, tb, run_d, run_p,
-                         similarity, _launch_fresh)
-        return
     _launch(xq_bf16, qn, plan, window, w0, window.nblocks, ta, tb, run_d,
             run_p, similarity, window.block_size)
 
 
 def _launch_fresh(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
                   window: Window, kp: int, similarity: bool, B: int):
-    """`scan_pairs_wide`'s pair function on the card: one K4 launch over
-    ``plan`` (window-local ranges in blocks of B rows) from empty running
-    lists. Returns (dist, pos) of shape (ntiles * PT, kp), window-local
-    positions."""
+    """`scan_window_wide`'s pair function on the card (`chip_smoke.py`
+    times that route): one K4 launch over ``plan`` (window-local ranges in
+    blocks of B rows) from empty running lists. Returns (dist, pos) of
+    shape (ntiles * PT, kp), window-local positions."""
     dev = xq_bf16.device
     run_d = torch.full((plan.ntiles * PT, kp), float("inf"), device=dev)
     run_p = torch.full(run_d.shape, -1, dtype=torch.int32, device=dev)
@@ -493,17 +491,18 @@ def _launch(xq_bf16, qn, plan: PairPlan, window: Window, w0: int, nwin: int,
             ta: int, tb: int, run_d, run_p, similarity: bool, B: int):
     """One K4 launch: tiles [ta, tb) of ``plan``, whose ranges count blocks
     of B rows, against the window's rows as blocks [w0, w0 + nwin) of B
-    rows; kp in [1, KP_MAX]."""
-    global LAUNCHES
+    rows; any kp >= 1."""
+    global LAUNCHES, LAUNCHES_GLOBAL
     dev = xq_bf16.device
+    if dev.type != "cuda":
+        raise ValueError(f"ivf_scan_paged: unsupported device {dev}")
     dp = xq_bf16.shape[1]
     kp = run_d.shape[1]
     if window.data_bf16.shape[2] != dp or dp % 8:
         raise ValueError(f"ivf_scan_paged: the queries' width {dp} must be "
                          f"the window's and a multiple of 8")
-    if not 1 <= kp <= KP_MAX:
-        raise ValueError(f"ivf_scan_paged: kp must be in [1, {KP_MAX}] "
-                         f"(got {kp})")
+    if kp < 1:
+        raise ValueError(f"ivf_scan_paged: kp must be >= 1 (got {kp})")
     if (w0 + nwin) * B >= 2**31:
         raise ValueError("ivf_scan_paged: window exceeds int32 positions")
     _check(xq_bf16, torch.bfloat16, "xq_bf16", dev)
@@ -528,6 +527,8 @@ def _launch(xq_bf16, qn, plan: PairPlan, window: Window, w0: int, nwin: int,
         raise RuntimeError(f"ivf_scan_paged: kernel launch failed with CUDA "
                            f"error {err}")
     LAUNCHES += 1
+    if kp > KP_MAX:
+        LAUNCHES_GLOBAL += 1
 
 
 # ---------------------------------------------------------------------------

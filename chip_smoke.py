@@ -633,11 +633,52 @@ def ptxas_resources(log: str):
     return regs, spill
 
 
+# launches of the wide-list kernels (kp 33-64) on the main path: "k3" the
+# quantizer-mode searches of phase 9 (hop-0 scans at kp 64), "k4" the
+# paged searches of phase 7 at k 27 / 58 (kp 33 / 64); not in counts(),
+# whose phases compare launched-kernel sets
+WIDE_PATH = {}
+
+
+def wide_record(kp46, kp64, k4) -> dict:
+    """The kernels-line record of the wide-list kernels (two list entries
+    a lane, 64 pairs a CTA): their launches on the main path (WIDE_PATH);
+    K3 at IVFPQR's kp 46 (phase 16e: 10k q, nprobe 32) as its time, plain
+    time and bound; K3 at the hop-0 kp 64 (phase 17j) and K4 at kp 33 / 58
+    (phase 8: 1024 q, nprobe 32, window 0) beside them."""
+    n = WIDE_PATH["k3"] + WIDE_PATH["k4"]
+    if not (WIDE_PATH["k3"] and WIDE_PATH["k4"]):
+        raise AssertionError(f"the main path launched the wide-list "
+                             f"kernels {WIDE_PATH}")
+    return {
+        "name": "ivf_scan_wide",
+        "route": "cuda",
+        "source": "tpu_ann_torch/csrc/ivf_scan_core.cuh (update_chunk2, "
+                  "scan_tile<..., 2, kPTWide>; kernels in ivf_scan_fused.cu,"
+                  " ivf_scan_sq8.cu, ivf_scan_paged.cu)",
+        "replaces": "tpu_ann/ops/ivf_scan_pallas.py:217-250",
+        "launches": n,
+        "launches_k3": WIDE_PATH["k3"],
+        "launches_k4": WIDE_PATH["k4"],
+        "max_abs_err": max(kp46["max_abs_err"], kp64["max_abs_err"]),
+        "ms": kp46["ms"],
+        "plain_ms": kp46["plain_ms"],
+        "bound_ms": kp46["bound_ms"],
+        "bound_by": kp46["bound_by"],
+        "library_ms": None,
+        **{f"kp64_{f}": kp64[f] for f in ("ms", "plain_ms", "bound_ms")},
+        **{f"k4_kp{kp}_{f}": k4[f"kp{kp}_{f}"] for kp in (33, 58)
+           for f in ("ms", "plain_ms", "bound_ms")},
+    }
+
+
 def reset_counts() -> None:
     F.LAUNCHES = 0
     F.LAUNCHES_SQ8 = 0
+    F.LAUNCHES_WIDE = 0
     F.LAUNCHES_GLOBAL = 0
     P.LAUNCHES = 0
+    P.LAUNCHES_WIDE = 0
     P.LAUNCHES_GLOBAL = 0
     B2.LAUNCHES = 0
     for name in FK.LAUNCHES:
@@ -978,7 +1019,9 @@ def main() -> None:
     # kernel), its plain version and the kp-32 launch
     k3.update(kp46_ms=wide["ms"], kp46_plain_ms=wide["plain_ms"],
               kp46_ms_kp32=wide["ms_kp32"],
-              kp46_max_abs_err=wide["max_abs_err"])
+              kp46_max_abs_err=wide["max_abs_err"],
+              kp46_bound_ms=wide["bound_ms"])
+    k3_wide = wide_record(wide, kp64, k4)
     sq_records[0]["launches_pq"] = pq_launches.get("ivf_scan_sq8", 0)
     sq_records[0]["launches_hnsw"] = hnsw_launches.get("ivf_scan_sq8", 0)
     sq_records[0]["launches_breadth"] = breadth_launches.get("ivf_scan_sq8",
@@ -994,7 +1037,7 @@ def main() -> None:
           event_timed_kernels=PROFILE_FALLBACKS)
     print(json.dumps({"kernels": [k3, *sq_records, *flat_records,
                                   *variant_records, k4, b2, k3_b1,
-                                  k3_global]}),
+                                  k3_global, k3_wide]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1709,6 +1752,7 @@ def paged_phases(xb, xt, xq, gt, dev, tmp):
     # equal to K3's over the device copy
     _, probes_w = TD.knn(xq_dev[:WIDE_NQ], idx._cent_dev, 32)
     wide_launches = {}
+    P.LAUNCHES_WIDE = 0
     for k in WIDE_KS:
         before = P.LAUNCHES
         Dp, Ip = idx.search(xq[:WIDE_NQ], k,
@@ -1720,10 +1764,12 @@ def paged_phases(xb, xt, xq, gt, dev, tmp):
         if not (np.array_equal(Dp, D3.cpu().numpy())
                 and np.array_equal(Ip, I3.cpu().numpy())):
             raise AssertionError(f"k {k}: paged (D, I) differ from K3's")
+    WIDE_PATH["k4"] = P.LAUNCHES_WIDE
     del il
     torch.cuda.empty_cache()
     phase("paged_path", launches=paged_launches, equal_to_k3=True,
-          wide_k_launches=wide_launches, wide_k_equal_to_k3=True)
+          wide_k_launches=wide_launches, wide_k_equal_to_k3=True,
+          wide_kernel_launches=WIDE_PATH["k4"])
 
     # -- 8. K4 vs its plain version at the path's shapes -------------------
     _, probes = TD.knn(xq_dev, idx._cent_dev, 32)
@@ -1845,7 +1891,7 @@ def k4_wide_check(pil, probes, q16, qn, W, tb_batch, dev, k4_err):
             assert_equal(f"K4 kp {kp} w0={w0} distances", r0[0], r1[0])
             assert_equal(f"K4 kp {kp} w0={w0} positions", r0[1], r1[1])
             k4_err = max(k4_err, max_abs_err(r0[0], r1[0]))
-            if kp >= 58 and w0 == firsts[0][0]:
+            if w0 == firsts[0][0]:
                 cur = tuple(t.clone() for t in run[kp])
 
                 def reset():
@@ -2086,10 +2132,11 @@ def variant_phases(index, xb, xq, gt, refine_rec, dev) -> list:
     if any(v["HGMMA"] == 0 for v in flat_mma.values()) or \
             len({str(flat_mma[f]) for f in FK.PROBE_FOLDS}) != 1:
         raise AssertionError(f"the flat kernels' wgmma counts: {flat_mma}")
-    # K3, K3-SQ8 and K4 multiply on the tensor cores (mma.sync)
+    # K3, K3-SQ8 and K4 multiply on the tensor cores (mma.sync): each
+    # library's three kernels (kp up to 32, the wide lists, kp above 64)
     ivf_hmma = {name: {f: n["HMMA"] for f, n in sass_mma_counts(name).items()
                        if "_kernel" in f} for name in IVF_SCANS}
-    if any(not v or not min(v.values()) for v in ivf_hmma.values()):
+    if any(len(v) != 3 or not min(v.values()) for v in ivf_hmma.values()):
         raise AssertionError(f"an IVF scan kernel has no HMMA: {ivf_hmma}")
     k1_ms = ladder["serial"]["ms"]
     phase("b1_ladder", nq=NQ, nb=index.ntotal, W=W, R=data.shape[1],
@@ -2200,10 +2247,11 @@ def ivf_hnsw_phase(xb, xt, xq, gt, dev):
             xq, K, params=T.SearchParametersIVF(nprobe=64)))
     idx.coarse_mode = "auto"
     phase("ivf_hnsw_profile", nprobe=64, **profiles)
+    WIDE_PATH["k3"] = F.LAUNCHES_WIDE
     phase("ivf_hnsw", nlist=15625, M=16, train_s=t_train,
           kmeans_s=t_train - t_graph, graph_s=t_graph,
           tiles_s=idx.quantizer.build_seconds.get("tiles"), add_s=t_add,
-          launches=counts())
+          launches=counts(), wide_kernel_launches=WIDE_PATH["k3"])
     for nprobe, r in out.items():
         a, q = r["auto"]["recall_at_10"], r["quantizer"]["recall_at_10"]
         if a < IVFHNSW_FLOORS[nprobe] or r["fidelity"] < 0.99 or \
@@ -3553,6 +3601,9 @@ def pq_phase(quant3, hquant, hnsw_auto, xb, xt, xq, gt, flat_rec, dev,
                 q16, qn, plan, lists, 32, False), 5)
             rec["plain_ms"] = host_ms(lambda: F.scan_pairs_reference(
                 q16, qn, plan, lists, kp_w, False), 1)
+            rec.update(bound(*pair_scan_work(plan, lists.ids,
+                                             lists.block_size, D, kp_w, 0,
+                                             lists.nblocks)))
             if rec["ms"] >= rec["plain_ms"]:
                 raise AssertionError(f"{what}: K3 takes {rec['ms']} ms, its "
                                      f"plain version {rec['plain_ms']}")
@@ -7153,9 +7204,9 @@ def wide_phase(quant3, xb, xt, xq, dev) -> dict:
     return {
         "name": "ivf_scan_global",
         "route": "cuda",
-        "source": "tpu_ann_torch/csrc/ivf_scan_core.cuh (update_global; "
-                  "kernels in ivf_scan_fused.cu, ivf_scan_sq8.cu, "
-                  "ivf_scan_paged.cu)",
+        "source": "tpu_ann_torch/csrc/ivf_scan_core.cuh (update_list, "
+                  "sort_list, merge_run; kernels in ivf_scan_fused.cu, "
+                  "ivf_scan_sq8.cu, ivf_scan_paged.cu)",
         "replaces": "tpu_ann/ops/ivf_scan_pallas.py:217-250",
         "launches": path["ivf_scan_global"],
         "max_abs_err": max(r["max_abs_err"] for r in
@@ -7183,6 +7234,157 @@ def wide_alone() -> None:
     wide_phase(quant3, xb, xt, xq, dev)
 
 
+# -- --wide-ab: the kernels above kp 32 against another tree's ---------------
+
+def other_tree_kernels(root: str) -> dict:
+    """K3, K3-SQ8 and K4 built from ``root``/tpu_ann_torch/csrc (one nvcc
+    each, all started together, into this tree's build directory), bound
+    as this tree's wrappers bind theirs: {"ivf_scan_fused": fn,
+    "ivf_scan_sq8": fn, "ivf_scan_paged": library}."""
+    import concurrent.futures
+    import ctypes
+
+    def build(name):
+        so = os.path.join(kernels.BUILD_DIR, f"other_{name}.so")
+        src = os.path.join(root, "tpu_ann_torch", "csrc", name + ".cu")
+        subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-o", so,
+                        src], check=True, capture_output=True)
+        return ctypes.CDLL(so)
+
+    names = ("ivf_scan_fused", "ivf_scan_sq8", "ivf_scan_paged")
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        libs = dict(zip(names, pool.map(build, names)))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    out = {}
+    for name in names[:2]:
+        fn = getattr(libs[name], name)
+        fn.argtypes = [vp] * 10 + [ci] * 5 + [vp] * 3
+        fn.restype = ci
+        out[name] = fn
+    libs["ivf_scan_paged"].ivf_scan_window.argtypes = \
+        [vp] * 10 + [ci] * 8 + [vp] * 3
+    libs["ivf_scan_paged"].ivf_scan_window.restype = ci
+    out["ivf_scan_paged"] = libs["ivf_scan_paged"]
+    return out
+
+
+HOP0_ROWS = 15625     # --wide-ab's hop-0 graph: IVFHNSW15625's centroid count
+
+
+def wide_ab() -> None:
+    """--wide-ab ROOT: the IVF scan kernels above kp 32 of this tree
+    against those of the tree at ROOT (its csrc built here, called through
+    this tree's wrappers) on the same inputs, in turns (ROOT, this, this,
+    ROOT), CUDA events: K3 on phase 3's lists at 10k queries (kp 46 / 58 /
+    64 / 106 / 262 at nprobe 32, kp 106 at nprobe 16 and 64, kp 32 as the
+    control) and 1024 (kp 1030); K3 at kp 64 on a hop-0 plan (8192 queries
+    x 64 tiles of an HNSW16 over 15625 base rows, as phase 17j's over the
+    IVFHNSW15625 centroids); K3-SQ8 (QT_8BIT) at kp 46 and 106; K4 on the
+    first window (8192 blocks) of 1024 queries at nprobe 32 (kp 33 / 58 /
+    100 / 106 / 262 / 1030). Each shape's two outputs must be equal bit for
+    bit.
+    One JSON line a shape: both trees' times, the bound."""
+    dev = require_gpu()
+    other = other_tree_kernels(sys.argv[2])
+    kernels.load_libraries(("ivf_scan_fused", "ivf_scan_sq8",
+                            "ivf_scan_paged"))
+    mine = {"ivf_scan_fused": F._lib("ivf_scan_fused"),
+            "ivf_scan_sq8": F._lib("ivf_scan_sq8"),
+            "ivf_scan_paged": P._lib()}
+
+    def use(libs):
+        F._LIBS["ivf_scan_fused"] = libs["ivf_scan_fused"]
+        F._LIBS["ivf_scan_sq8"] = libs["ivf_scan_sq8"]
+        P._LIB = libs["ivf_scan_paged"]
+
+    def ab(name, fn, work, reps=5, reset=None):
+        outs, ts = {}, {"other": [], "this": []}
+        copy_ms = cuda_ms(reset, 20) if reset else 0.0
+        for who in ("other", "this", "this", "other"):
+            use(other if who == "other" else mine)
+            outs[who] = [t.clone() for t in fn()]
+            ts[who].append(cuda_ms(fn, reps) - copy_ms)
+        use(mine)
+        for a, b in zip(outs["other"], outs["this"]):
+            assert_equal(f"{name}: this tree against the other", a, b)
+        print(json.dumps({"ab": name, "other_ms": ts["other"],
+                          "this_ms": ts["this"], **bound(*work)}),
+              flush=True)
+
+    quant3, xb, xt, xq, _, _ = phase3_setup(dev)
+    index = ivf_over(quant3, xb, np.arange(NB), xt, dev=dev)
+    il = index.invlists
+    xq_dev = torch.from_numpy(xq).to(dev)
+    q16, qn = F.fold_queries(xq_dev, il, False)
+    for nprobe, kps in ((32, (32, 46, 58, 64, 106, 262)), (16, (106,)),
+                        (64, (106,))):
+        plan = F.plan_pairs(index._coarse_search_device(xq_dev, nprobe)[1],
+                            il)
+        for kp in kps:
+            ab(f"K3 kp {kp} nprobe {nprobe} 10k q",
+               lambda: F.scan_pairs(q16, qn, plan, il, kp, False),
+               pair_scan_work(plan, il.ids, il.block_size, D, kp, 0,
+                              il.nblocks))
+    nb = WIDE["nq_big"]
+    probes_b = index._coarse_search_device(xq_dev[:nb], 32)[1]
+    plan = F.plan_pairs(probes_b, il)
+    ab("K3 kp 1030 nprobe 32 1024 q",
+       lambda: F.scan_pairs(q16[:nb], qn[:nb], plan, il, 1030, False),
+       pair_scan_work(plan, il.ids, il.block_size, D, 1030, 0, il.nblocks))
+    # K4 on the first window of phase 8's planner, from phase 3's lists
+    win = P.Window(il.data_bf16, il.ids, il.norms)
+    tbs = plan.tile_bs.long().cpu().numpy()
+    tbe = tbs + plan.tile_nb.long().cpu().numpy()
+    w0, ta, tb = next(iter(P._plan_windows(tbs, tbe, 8192, 4096)))
+    win = win.blocks(w0, min(8192, il.nblocks - w0))
+    for kp in (33, 58, 100, 106, 262, 1030):
+        run = (torch.full((plan.ntiles * F.PT, kp), float("inf"),
+                          device=dev),
+               torch.full((plan.ntiles * F.PT, kp), -1, dtype=torch.int32,
+                          device=dev))
+        cur = tuple(t.clone() for t in run)
+
+        def reset():
+            cur[0].copy_(run[0])
+            cur[1].copy_(run[1])
+
+        def call():
+            reset()
+            P.scan_window(q16[:nb], qn[:nb], plan, win, w0, ta, tb, *cur,
+                          False)
+            return cur
+
+        ab(f"K4 kp {kp} window 0 1024 q", call,
+           pair_scan_work(plan, win.ids, win.block_size, D, kp, w0,
+                          w0 + win.nblocks, ta, tb, running=True),
+           reps=10, reset=reset)
+    del index, il, win
+    # K3-SQ8 at kp 106
+    idx8 = ivf_over(quant3, xb, np.arange(NB), xt, T.QT_8BIT, dev=dev)
+    view = idx8._sq8_view()
+    q8, qn8 = F.fold_queries(xq_dev, view, False)
+    plan8 = F.plan_pairs(idx8._coarse_search_device(xq_dev, 32)[1], view)
+    for kp in (46, 106):
+        ab(f"K3-SQ8 kp {kp} nprobe 32 10k q QT_8BIT",
+           lambda: F.scan_pairs(q8, qn8, plan8, view, kp, False),
+           pair_scan_work(plan8, view.ids, view.block_size, D, kp, 0,
+                          view.nblocks, elem_bytes=1))
+    del idx8, view
+    # K3 at kp 64 on a hop-0 plan
+    hq = T.IndexHNSWFlat(D, 16, device=dev)
+    hq.add(xb[np.linspace(0, NB - 1, HOP0_ROWS).astype(np.int64)])
+    ftq = hq._ensure_tiles_fused()
+    x8 = xq_dev[:hq.search_chunk]
+    _, seeds = TD.knn(x8, ftq.cent, 64, compute_dtype="bfloat16")
+    planh = F.plan_pairs(seeds.to(torch.int32), ftq.il)
+    qh, qnh = F.fold_queries(x8, ftq.il, False)
+    ab("K3 kp 64 hop 0 8192 q x 64 tiles",
+       lambda: F.scan_pairs(qh, qnh, planh, ftq.il, 64, False),
+       pair_scan_work(planh, ftq.il.ids, ftq.il.block_size, D, 64, 0,
+                      ftq.il.nblocks))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--k1-batches"]:
         k1_batches()
@@ -7200,9 +7402,12 @@ if __name__ == "__main__":
         handles_alone()
     elif sys.argv[1:] == ["--phase24"]:
         wide_alone()
+    elif sys.argv[1:2] == ["--wide-ab"] and len(sys.argv) == 3:
+        wide_ab()
     elif sys.argv[1:]:
         raise SystemExit("usage: chip_smoke.py [--k1-batches | "
                          "--k2-batches | --phase19 | --phase20 | "
-                         "--phase21 | --phase22 | --phase23 | --phase24]")
+                         "--phase21 | --phase22 | --phase23 | --phase24 | "
+                         "--wide-ab ROOT]")
     else:
         main()

@@ -22,6 +22,12 @@ from torch_parity import (PLAN_CASES, assert_topk_equal, case_probes,
 
 pytestmark = pytest.mark.cuda
 
+# the largest kp whose lists the kernels above KP_MAX keep in shared memory
+# at d 128 on the bf16 and the SQ8 stream (csrc/ivf_scan_core.cuh,
+# global_lists: eight pairs a CTA, one CTA an SM); the next kp keeps them
+# in the output rows
+LIST_SMEM_LAST = {False: 2969, True: 2985}
+
 
 def _cuda():
     if not torch.cuda.is_available():
@@ -30,11 +36,11 @@ def _cuda():
 
 
 def _setup(dev, d, B, nlist=40, n=4000, nq=300, nprobe=6, metric=1,
-           integer=True, seed=0):
+           integer=True, seed=0, levels=256):
     rs = np.random.RandomState(seed)
     if integer:
-        xb = rs.randint(0, 256, size=(n, d)).astype(np.float32)
-        xq = rs.randint(0, 256, size=(nq, d)).astype(np.float32)
+        xb = rs.randint(0, levels, size=(n, d)).astype(np.float32)
+        xq = rs.randint(0, levels, size=(nq, d)).astype(np.float32)
     else:
         xb = rs.randn(n, d).astype(np.float32)
         xq = rs.randn(nq, d).astype(np.float32)
@@ -145,13 +151,22 @@ def test_kernel_rejects_unsupported():
     (256, 128, 64, 3, 0, False), (128, 128, 65, 6, 0, False),
     (128, 128, 65, 6, 1, True), (96, 48, 106, 6, 1, False),
     (128, 16, 262, 6, 0, False), (128, 128, 262, 3, 1, True),
-    (128, 128, 1030, 6, 1, False), (256, 128, 1030, 2, 0, True)])
+    (128, 128, 1030, 6, 1, False), (256, 128, 1030, 2, 0, True),
+    (128, 128, 33, 6, 0, True), (128, 128, 109, 6, 1, False),
+    (128, 128, 110, 6, 0, False), (128, 128, 257, 6, 1, False),
+    (128, 128, 262, 6, 1, True), (128, 128, 553, 6, 0, False),
+    (128, 128, 554, 6, 1, False), (128, 128, 1145, 3, 1, False),
+    (128, 128, 1146, 3, 0, False), (128, 128, 2969, 2, 1, False),
+    (128, 128, 2970, 2, 1, False), (128, 128, 2985, 2, 0, True),
+    (128, 128, 2986, 2, 1, True)])
 def test_wide_kp_equals_plain(d, B, kp, nprobe, metric, sq8):
     """kp above 32: ONE launch over the plan itself, of the wide-list
-    kernel up to KP_MAX (64) or of the kernel whose lists live in its
-    output rows above it, of K3, or K3-SQ8 on the SQ8 stream, gives the
-    plain version's per-pair top-kp bit for bit, positions included, and
-    the whole scan's (D, I) too."""
+    kernel up to KP_MAX (64) or of the kernel whose lists live in shared
+    memory above it (in its output rows past LIST_SMEM_LAST), of K3, or
+    K3-SQ8 on the SQ8 stream, gives the plain version's per-pair top-kp
+    bit for bit, positions included, and the whole scan's (D, I) too; kp
+    109 / 110, 257 / 258, 553 / 554 and 1145 / 1146 sit where the pairs
+    a CTA change at d 128 (262: on the SQ8 stream)."""
     from tpu_ann_torch.ops.ivf_scan import sq8_requantize_invlists
 
     dev = _cuda()
@@ -176,30 +191,46 @@ def test_wide_kp_equals_plain(d, B, kp, nprobe, metric, sq8):
     assert torch.equal(D0, D1) and torch.equal(I0, I1)
 
 
-@pytest.mark.parametrize("kp", [65, 106, 1030])
-@pytest.mark.parametrize("nq,nprobe,nlist", [(300, 6, 40), (64, 3, 7)])
+@pytest.mark.parametrize("kp", [33, 64, 65, 106, 1030, "last", "next"])
+@pytest.mark.parametrize("nq,nprobe,nlist,n,levels,holes", [
+    (300, 6, 40, 4000, 256, 0.0), (64, 3, 7, 4000, 256, 0.0),
+    (32, 2, 5, 8000, 256, 0.0), (64, 3, 7, 4000, 2, 0.0),
+    (300, 6, 40, 4000, 256, 0.9)])
+@pytest.mark.parametrize("metric", [1, 0])
 @pytest.mark.parametrize("sq8", [False, True])
-def test_global_lists_equal_plain(sq8, nq, nprobe, nlist, kp):
-    """The lists in global memory over lists of ~100 rows (37 filled
-    lists) and of ~1000 (4: many chunks, each list filled to kp and
-    merged into again): one launch, per-pair top-kp equal to the plain
-    version's bit for bit."""
+def test_global_lists_equal_plain(sq8, metric, nq, nprobe, nlist, n, levels,
+                                  holes, kp):
+    """The kernels above 32 entries a pair over lists of ~100 rows (37
+    filled lists), of ~1000 (4: many chunks, each list filled to kp and
+    merged into again) and of ~4000 (2 lists of 60 chunks, filled even at
+    LIST_SMEM_LAST, "last", and the next kp, whose lists live in the
+    output rows); rows of 0 / 1 values (distances tie across chunks and
+    merges); probes -1 but the first for 90% of the queries and all -1 for
+    some: one launch, per-pair top-kp equal to the plain version's bit for
+    bit, L2 and IP."""
     from tpu_ann_torch.ops.ivf_scan import sq8_requantize_invlists
 
     dev = _cuda()
-    xq, probes, il = _setup(dev, 128, 128, nlist=nlist, nq=nq,
-                            nprobe=nprobe)
+    kp = {"last": LIST_SMEM_LAST[sq8],
+          "next": LIST_SMEM_LAST[sq8] + 1}.get(kp, kp)
+    xq, probes, il = _setup(dev, 128, 128, nlist=nlist, n=n, nq=nq,
+                            nprobe=nprobe, metric=metric, levels=levels)
+    if holes:
+        rs = np.random.RandomState(1)
+        probes[torch.from_numpy(rs.rand(nq) < holes).to(dev), 1:] = -1
+        probes[::17] = -1
     if sq8:
         il = sq8_requantize_invlists(il)
-    q16, qn = F.fold_queries(xq, il, False)
+    sim = TD.is_similarity_metric(metric)
+    q16, qn = F.fold_queries(xq, il, sim)
     plan = F.plan_pairs(probes, il)
     before = (F.LAUNCHES, F.LAUNCHES_SQ8, F.LAUNCHES_GLOBAL)
-    d1, p1 = F.scan_pairs(q16, qn, plan, il, kp, False)
+    d1, p1 = F.scan_pairs(q16, qn, plan, il, kp, sim)
     torch.cuda.synchronize()
     got = (F.LAUNCHES - before[0], F.LAUNCHES_SQ8 - before[1],
            F.LAUNCHES_GLOBAL - before[2])
-    assert got == ((0, 1, 1) if sq8 else (1, 0, 1))
-    d0, p0 = F.scan_pairs_reference(q16, qn, plan, il, kp, False)
+    assert got == ((0, 1) if sq8 else (1, 0)) + (int(kp > F.KP_MAX),)
+    d0, p0 = F.scan_pairs_reference(q16, qn, plan, il, kp, sim)
     assert torch.equal(d0, d1) and torch.equal(p0, p1)
 
 

@@ -51,13 +51,16 @@ def test_k4_equals_plain_every_call(tmp_path, d, kp, W, metric):
     _k4_every_call(str(tmp_path / "p"), d, kp, W, metric)
 
 
+@pytest.mark.parametrize("kp", [10, 46, 106, 3105, 3106])
 @pytest.mark.parametrize("metric", [TD.METRIC_L2, TD.METRIC_INNER_PRODUCT])
 @pytest.mark.parametrize("W", [2, 5])
-def test_k4_window_splits_lists(tmp_path, W, metric):
+def test_k4_window_splits_lists(tmp_path, W, metric, kp):
     """Block size 16, lists of about 7 blocks, windows of 2 or 5 blocks:
     window boundaries fall inside probed lists, so one list's segment is
-    scanned by two launches."""
-    plan, entries = _k4_every_call(str(tmp_path / "p"), 96, 10, W, metric,
+    scanned by two launches; in every kp class (one and two entries a
+    lane, lists in shared memory up to kp 3105 at d 96, in the running
+    rows above)."""
+    plan, entries = _k4_every_call(str(tmp_path / "p"), 96, kp, W, metric,
                                    B=16)
     ps, pe = plan.pstart.cpu().numpy(), plan.pend.cpu().numpy()
     real = pe > ps
@@ -145,12 +148,14 @@ def test_pinned_pipeline_equals_synchronous(tmp_path, metric, W, TB):
 
 @pytest.mark.parametrize("metric", [TD.METRIC_L2, TD.METRIC_INNER_PRODUCT])
 @pytest.mark.parametrize("W", [1, 3, 1024])
-@pytest.mark.parametrize("kp", [33, 58, 64, 65, 100, 106, 262, 1030])
+@pytest.mark.parametrize("kp", [33, 58, 64, 65, 100, 106, 109, 110, 262,
+                                553, 554, 1030, 2969, 2970])
 def test_k4_wide_kp_equals_plain_every_call(tmp_path, kp, W, metric):
     """Above 32 entries a pair, one launch a planned call: the
-    two-entries-a-lane kernel up to kp 64, the running lists merged in
-    place in global memory above (windows of 1 and 3 blocks cut lists, so
-    a pair's list is read back partly filled)."""
+    two-entries-a-lane kernel up to kp 64, above it the running lists
+    copied into shared memory, merged there and written back (in place in
+    the running rows past kp 2969 at d 128); windows of 1 and 3 blocks
+    cut lists, so a pair's list is read back partly filled."""
     _k4_every_call(str(tmp_path / "p"), 128, kp, W, metric)
 
 

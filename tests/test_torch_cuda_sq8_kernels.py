@@ -91,7 +91,7 @@ def _assert_pairs(qtype, d0, p0, d1, p1):
 
 @pytest.mark.parametrize("qtype", [SQ.QT_8BIT_DIRECT, SQ.QT_8BIT])
 @pytest.mark.parametrize("metric", [1, 0])
-@pytest.mark.parametrize("kp", [1, 10, 16, 32])
+@pytest.mark.parametrize("kp", [1, 10, 16, 32, 33, 64, 65, 106, 1030])
 @pytest.mark.parametrize("d", [32, 96, 128])
 def test_sq8_pairs_equal_plain(d, kp, metric, qtype):
     dev = _cuda()

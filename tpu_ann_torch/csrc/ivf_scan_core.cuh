@@ -11,7 +11,8 @@
 // epilogue (ivf_scan_pallas.py:217-250, taken once 8 kp > RW) for every kp.
 //
 // The function: the wrapper sorts the pairs by list id and cuts them into
-// tiles of kPT pairs, one CTA each. A row counts for a pair if it lies in
+// tiles of kPT pairs, one CTA each up to kp 32 (the wider lists split a
+// tile over several CTAs, below). A row counts for a pair if it lies in
 // the pair's block range [pstart, pend) and holds a real entry (id >= 0);
 // its score, with bf16 x bf16 -> f32 products, is
 //   L2: max(qn + |x|^2 - 2 q.x, 0)             IP: -q.x - qn
@@ -24,10 +25,13 @@
 // depends on kp (the kR template argument):
 // - kp <= 32 (kR = 1): spread over the lanes of the warp that owns the
 //   pair, lane i holding entry i, in registers;
-// - kp 33..64 (kR = 2): two entries a lane, i and 32 + i. The wide lists
-//   take twice the registers, so its kernels run one CTA an SM;
-// - kp >= 65 (kR = kRGlobal): in global memory, the pair's own row of
-//   out_d / out_p (see "Lists in global memory" below); no cap on kp.
+// - kp 33..64 (kR = 2): two entries a lane, i and 32 + i, in registers,
+//   each tile run by two CTAs of kPTWide = 64 pairs (four of 32 in K4; see
+//   "The wide lists" below);
+// - kp >= 65 (kR = kRGlobal): in shared memory, kp slots a pair, with
+//   fewer pairs a CTA as kp grows; past what shared memory holds (kp 2969
+//   at d = 128) in the pair's own row of out_d / out_p (see "Lists above
+//   kp 64" below); no cap on kp.
 //
 // What bounds it on the H100: a streamed row is 2d bytes of bf16 (d of
 // codes on the SQ8 stream) plus 8 B of id and norm, read once for every
@@ -77,28 +81,63 @@
 // kernels' launch bounds): one CTA's epilogue overlaps the other's loads
 // and products.
 //
-// Lists in global memory (kp >= 65). Registers cannot hold them: at 16
-// pairs a warp the lists alone would take 8 kp / 32 registers a thread
-// (128 at kp 128), and shared memory holds 128 pairs x kp x 8 B beside
-// the 108 KB body only up to kp ~110 (of 227 KB), so a larger kp would
-// need a smaller tile. Chosen: each pair's sorted list lives in its own
-// row of out_d / out_p (the output, as K4 already keeps its running
-// lists), which has no cap on kp. Per pair, shared memory keeps its
-// threshold (entry kp - 1, +inf while the list is not full) and its count
-// of filled entries, 1 KB a CTA. Each chunk's scores are filtered against
-// the threshold as in registers; only a pair with survivors reads its
-// list: the owning warp sorts the (at most 64) survivors with the warp
-// bitonic network and merges them into the list by ranks (update_global):
-// entry i of the list moves to i + (survivors before it), survivor j to
-// j + (entries before it), each found by a binary search over the other
-// sorted side, in blocks of 32 entries from the list's tail towards its
-// head, stopping at the first block whose entries all precede every
-// survivor (they stay). Entries only move towards the tail, so a block is
-// read before anything is written over it. The rows a CTA works on, 128
-// pairs x kp x 8 B (108 KB at kp 106; two CTAs an SM over 132 SMs, about
-// 29 MB), stay in the 50 MB L2 at kp 106; at kp 1030 (1 MB a CTA) they
-// spill to HBM. Registers hold no list, so these kernels run two CTAs an
-// SM as the kR = 1 ones do.
+// The wide lists (kp 33..64). Measured on the H100 (PERF.md, clock64
+// split of the earlier design, one CTA of 128 pairs an SM): the kernel did
+// the kp-32 kernel's warp work (5.1G against 4.8G warp-cycles at 10k
+// queries, nprobe 32), 62% of it the list updates, at half its warps an
+// SM, so it took twice its time (2.8 ms against 1.3). The lists of 16
+// pairs a warp took 64 registers a thread. Now a tile runs as two CTAs of
+// 64 pairs, 8 a warp: the lists take 32 registers, as kp 32's do, the
+// accumulators are zeroed once the chunk's products are in the score tile
+// (so they hold no register through the epilogue), and the kernels run two
+// CTAs an SM (128 registers, no spill) on 72 KB of shared memory each.
+// Both CTAs of a tile stream the rows their pairs need, the second mostly
+// from L2. K4's window state leaves no room for 8 pairs a warp at 128
+// registers: its wide kernel runs four CTAs of 32 pairs a tile. Measured
+// (PERF.md, 10k queries, nprobe 32): 1.82 ms at kp 46 (2.80 before), K4
+// 0.41 at kp 58 (0.76, 1024 queries).
+//
+// Lists above kp 64 (kR = kRGlobal). Registers cannot hold them (8 kp / 32
+// registers a thread at 8 pairs a warp). The earlier design kept each
+// sorted list in its own row of out_d / out_p and merged every chunk's
+// survivors into it by a walk of the list's tail in L2, ranks found with
+// shuffles: 59% of the warp time at kp 106 and 69% at kp 262 (PERF.md).
+// Now:
+// - The lists live in shared memory, kp slots a pair, beside their
+//   threshold (entry kp - 1, +inf while the list is not full) and filled
+//   count. The launch cuts a tile into kPT / np CTAs of np pairs, np the
+//   largest of 64, 32, 16, 8 whose layout lets two CTAs share an SM (113
+//   KB each), else one (227 KB) (global_lists). To leave room for them the
+//   score tile (row stride kSSG) lies in the chunk's operand tile once
+//   the products have read it. At d = 128: np 64 up to kp 109, 32 to 257,
+//   16 to 553, 8 to 1145, one CTA an SM to 2969; above, the lists stay in
+//   the output rows, 128 pairs a CTA; the same code runs on either memory.
+// - A list that is not full keeps its entries unsorted: each chunk's
+//   survivors (every real row, the threshold being +inf) are appended in
+//   stream order, with no sort. The first time the list reaches kp it is
+//   sorted once in place (sort_list: runs of 64 from its head, each sorted
+//   in registers by the warp bitonic network and merged into the sorted
+//   entries before it) and the threshold is set; a list that never fills
+//   (kp at or above its rows) is sorted at the end, with no merge at all.
+// - A full list takes each chunk's survivors by merge_run: the owning
+//   warp sorts the (at most 64) survivors in registers, puts them in its
+//   64 scratch slots of shared memory, and merges them into the list by
+//   ranks: survivor j moves to j + (entries before it), entry i to i +
+//   (survivors before it), each a binary search by one lane over the
+//   other sorted side in shared memory, the entries in blocks of 32 from
+//   the list's tail towards its head, stopping at the first block whose
+//   entries all precede every survivor (they stay). Entries only move
+//   towards the tail, so a block is read before anything is written over
+//   it. A chunk that would take a filling list past kp sorts its entries
+//   and merges the same way.
+// - At the end each CTA writes its lists to their rows (K3 with the empty
+//   slots, K4 only for pairs with rows in the window).
+// Measured (PERF.md, 10k queries, nprobe 32): 4.18 ms at kp 106 (4.36
+// before), 5.89 at kp 262 (6.06-6.26), 1.03 at kp 1030 on 1024 queries
+// (1.29-1.31); K4 0.80 / 0.88 / 0.83 at kp 100 / 262 / 1030 (0.85 / 1.12
+// / 1.22). An alternative merge (one survivor a lane, unsorted, its place
+// from counters and prefix sums) ran 1.3x slower, and one CTA of 16 warps
+// an SM over whole tiles no faster than two of 8 over sub-tiles.
 //
 // The window (kWindow = true, K4): the kernel reads global stream rows
 // [wrow0, wrow1) only; they lie at data / ids / norms + (row - wrow0).
@@ -118,14 +157,17 @@
 
 namespace ivf_scan {
 
-constexpr int kPT = 128;             // pairs per tile (one CTA)
+constexpr int kPT = 128;             // pairs per tile of the plan
+constexpr int kPTWide = 64;          // pairs per CTA of the wide lists
+constexpr int kPTWideWindow = 32;    // the same for K4 (its window state
+                                     // leaves no room for 64 at 128 regs)
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kPW = kPT / kWarps;    // pairs per warp: pair p is warp p % 8's
 constexpr int kCR = 64;              // stream rows per chunk (8 n8 tiles)
 constexpr int kDS = 128;             // dims per slice
 constexpr int kStages = 2;           // chunks in the cp.async ring
 constexpr int kSS = kCR + 8;         // row stride of the score tile (f32)
+constexpr int kSSG = kCR + 4;        // the same for the kp >= 65 lists
 constexpr int kKPMax = 32;           // top-kp entries a lane holds, per kR
 constexpr int kRGlobal = 0;          // kR of the lists in global memory
 constexpr int kSerialMax = 6;        // more candidates: bitonic merge
@@ -143,12 +185,24 @@ struct Layout {
   int rstride;     // bytes per staged code row (SQ8)
   int nslices;     // kDS-dim slices of d
   size_t qs, xs, raw, sid, snorm, sc, plo, phi, pq, pqn, sfirst, send, nseg;
-  size_t thr, nfill;  // lists in global memory only
+  size_t thr, nfill;  // the lists of kp >= 65 only
+  size_t csd, csp;    // the kp >= 65 merges' scratch, 64 slots a warp
+  size_t ld, lp;      // the lists of kp >= 65 kept in shared memory
   size_t total;
+  int sstride;        // f32 row stride of the score tile
+  bool sc_xs;         // the score tile lies in the chunk's operand tile
 };
 
+// Per-SM shared memory of the H100: up to 227 KB for one CTA, and 113 KB
+// each for two (228 KB an SM, 1 KB of it reserved a CTA)
+constexpr size_t kSmemOne = 232448;
+constexpr size_t kSmemTwo = 115712;
+
+// np: pairs a CTA; glist: the per-pair threshold and count of the kp >= 65
+// lists; kpl: list entries a pair kept in shared memory (0: none)
 template <typename Elem>
-__host__ __device__ inline Layout layout(int d, bool glist) {
+__host__ __device__ inline Layout layout(int d, int np, bool glist,
+                                         int kpl) {
   constexpr bool kU8 = sizeof(Elem) == 1;
   Layout L;
   const int wmax = round16(d) < kDS ? round16(d) : kDS;
@@ -159,7 +213,7 @@ __host__ __device__ inline Layout layout(int d, bool glist) {
   size_t o = 0;
   // the tile's queries once (one slice), or each stage's slice of them
   L.qs = o;
-  o += (L.nslices > 1 ? kStages : 1) * kPT * row;
+  o += (L.nslices > 1 ? kStages : 1) * np * row;
   // bf16 chunks: one per stage; SQ8: one widened tile, the codes per stage
   L.xs = o;
   o += (kU8 ? 1 : kStages) * kCR * row;
@@ -169,27 +223,41 @@ __host__ __device__ inline Layout layout(int d, bool glist) {
   o += sizeof(int) * kStages * kCR;
   L.snorm = o;
   o += sizeof(float) * kStages * kCR;
+  // the score tile: the products write blocks of 16 pair rows. For the
+  // kp >= 65 lists it takes the chunk's operand tile when that holds it
+  // (the operand is read by then; the next chunk loads into the other)
+  const int srows = np < 16 ? 16 : np;
+  L.sstride = glist ? kSSG : kSS;
+  L.sc_xs = glist && sizeof(float) * srows * L.sstride <= kCR * row;
   L.sc = o;
-  o += sizeof(float) * kPT * kSS;
+  o += L.sc_xs ? 0 : sizeof(float) * srows * L.sstride;
   L.plo = o;
-  o += sizeof(int) * kPT;
+  o += sizeof(int) * np;
   L.phi = o;
-  o += sizeof(int) * kPT;
+  o += sizeof(int) * np;
   L.pq = o;
-  o += sizeof(int) * kPT;
+  o += sizeof(int) * np;
   L.pqn = o;
-  o += sizeof(float) * kPT;
+  o += sizeof(float) * np;
   L.sfirst = o;
-  o += sizeof(int) * kPT;
+  o += sizeof(int) * np;
   L.send = o;
-  o += sizeof(int) * kPT;
+  o += sizeof(int) * np;
   L.nseg = o;
   o += 16;
-  // per pair: the list's threshold and filled entries (global lists)
+  // per pair: the list's threshold and filled entries (kp >= 65)
   L.thr = o;
-  o += glist ? sizeof(float) * kPT : 0;
+  o += glist ? sizeof(float) * np : 0;
   L.nfill = o;
-  o += glist ? sizeof(int) * kPT : 0;
+  o += glist ? sizeof(int) * np : 0;
+  L.csd = o;
+  o += glist ? sizeof(float) * kWarps * 64 : 0;
+  L.csp = o;
+  o += glist ? sizeof(int) * kWarps * 64 : 0;
+  L.ld = o;
+  o += sizeof(float) * np * kpl;
+  L.lp = o;
+  o += sizeof(int) * np * kpl;
   L.total = o;
   return L;
 }
@@ -478,20 +546,26 @@ __device__ __forceinline__ void bitonic64(Entry2& e, int lane) {
   bitonic32(e.db, e.pb, lane);
 }
 
+// Warp-wide: sorts 64 entries, c.a of lane i entry i and c.b entry 32 + i,
+// ascending by (distance, position) in place: two sorts of 32, the second
+// reversed (bitonic), then a bitonic merge.
+__device__ __forceinline__ void sort64(Entry2& c, int lane) {
+  sort32x2(c.da, c.pa, c.db, c.pb, lane);
+  c.db = __shfl_sync(kFull, c.db, 31 - lane);
+  c.pb = __shfl_sync(kFull, c.pb, 31 - lane);
+  bitonic64(c, lane);
+}
+
 // Warp-wide: one chunk's candidates of a pair, rows row0 + lane (c0,
 // distance dis0) and row0 + 32 + lane (c1, dis1), sorted ascending by
 // (distance, position) into entries lane (a) and 32 + lane (b); the rest
-// are (+inf, INT_MAX). Two sorts of 32, the second reversed (bitonic),
-// then a bitonic merge.
+// are (+inf, INT_MAX).
 __device__ __forceinline__ Entry2 sorted_candidates(float dis0, bool c0,
                                                     float dis1, bool c1,
                                                     int row0, int lane) {
   Entry2 c{c0 ? dis0 : kInf, c0 ? row0 + lane : INT_MAX, c1 ? dis1 : kInf,
            c1 ? row0 + 32 + lane : INT_MAX};
-  sort32x2(c.da, c.pa, c.db, c.pb, lane);
-  c.db = __shfl_sync(kFull, c.db, 31 - lane);
-  c.pb = __shfl_sync(kFull, c.pb, 31 - lane);
-  bitonic64(c, lane);
+  sort64(c, lane);
   return c;
 }
 
@@ -568,39 +642,6 @@ __device__ __noinline__ Entry2 update_chunk2(Entry2 e, float dis0, bool c0,
   return e;
 }
 
-// Warp-wide: how many of 32 (d, p) sorted ascending over the lanes,
-// (+inf, INT_MAX) past the real ones, come before (xd, xp); a binary
-// search with a lane argument of its own in every lane.
-__device__ __forceinline__ int rank_in32(float d, int p, float xd, int xp) {
-  int r = 0;
-#pragma unroll
-  for (int s = 32; s > 0; s >>= 1) {
-    const int t = r + s - 1;
-    const float yd = __shfl_sync(kFull, d, t & 31);
-    const int yp = __shfl_sync(kFull, p, t & 31);
-    if (t < 32 && before(yd, yp, xd, xp)) r += s;
-  }
-  return r;
-}
-
-// Warp-wide: how many of the 64 sorted candidates c (entry i in c.da / c.pa
-// of lane i, entry 32 + i in c.db / c.pb) come before (xd, xp).
-__device__ __forceinline__ int rank_in64(const Entry2& c, float xd, int xp) {
-  int r = 0;
-#pragma unroll
-  for (int s = 64; s > 0; s >>= 1) {
-    const int t = r + s - 1;
-    const float ad = __shfl_sync(kFull, c.da, t & 31);
-    const int ap = __shfl_sync(kFull, c.pa, t & 31);
-    const float bd = __shfl_sync(kFull, c.db, t & 31);
-    const int bp = __shfl_sync(kFull, c.pb, t & 31);
-    if (t < 32 ? before(ad, ap, xd, xp)
-               : t < 64 && before(bd, bp, xd, xp))
-      r += s;
-  }
-  return r;
-}
-
 // Warp-wide: the filled entries of a pair's sorted list in global memory
 // (its finite distances, a prefix of its kp).
 __device__ __forceinline__ int filled_entries(const float* ld, int kp,
@@ -613,31 +654,44 @@ __device__ __forceinline__ int filled_entries(const float* ld, int kp,
   return kp;
 }
 
-// Warp-wide update of a list in global memory (kR = kRGlobal): merges one
-// chunk's candidates of a pair, rows row0 + lane (c0: below the list's
-// threshold, distance dis0) and row0 + 32 + lane (c1, dis1), into its
-// sorted list ld / lp (kp entries, the first *nfill filled, the rest not
-// read), and updates *thr (entry kp - 1 once the list is full) and
-// *nfill, both in shared memory. The candidates are sorted (at most 64);
-// then each moves to its rank in the merged list: list entry i to i +
-// (candidates before it), candidate j to j + (entries before it). The
-// list is walked in blocks of 32 from its tail: a block is read, its
-// ranks found, and its moved entries written (always to higher slots,
-// whose entries were read already); the walk stops at a block whose last
-// entry precedes every candidate, since it and all before it stay. A
-// rank at or past kp drops out. Not inlined, as update_chunk.
-__device__ __noinline__ void update_global(float dis0, bool c0, float dis1,
-                                           bool c1, int row0, int kp,
-                                           float* ld, int* lp, float* thr,
-                                           int* nfill, int lane) {
-  const int n = __popc(__ballot_sync(kFull, c0)) +
-                __popc(__ballot_sync(kFull, c1));
-  const Entry2 c = sorted_candidates(dis0, c0, dis1, c1, row0, lane);
-  const int nf = *nfill;
-  const float fd = __shfl_sync(kFull, c.da, 0);   // the first candidate
+// One lane: how many of the n entries of a sorted list (ld, lp) come
+// before (xd, xp); a binary search of ceil(log2(n + 1)) steps.
+__device__ __forceinline__ int rank_in_list(const float* ld, const int* lp,
+                                            int n, float xd, int xp) {
+  int r = 0;
+  for (int s = 1 << (31 - __clz(n | 1)); s > 0; s >>= 1) {
+    const int t = r + s;
+    if (t <= n && before(ld[t - 1], lp[t - 1], xd, xp)) r = t;
+  }
+  return r;
+}
+
+// Warp-wide: merges m (at most 64) sorted entries c (entry i in c.da /
+// c.pa of lane i, entry 32 + i in c.db / c.pb) into the sorted list (ld,
+// lp) of nf entries, keeping its first cap; returns its new count. cs_d /
+// cs_p: the warp's 64 scratch slots in shared memory. Each entry of c
+// moves to j + (list entries before it), each list entry i to i + (entries
+// of c before it), both found by binary searches (rank_in_list), the
+// list's in blocks of 32 from its tail towards its head, stopping at the
+// first block whose entries all precede every entry of c (they stay).
+// Entries only move towards the tail, so a block is read before anything
+// is written over it; the entries of c are written last.
+__device__ __noinline__ int merge_run(Entry2 c, int m, float* ld, int* lp,
+                                      int nf, int cap, float* cs_d,
+                                      int* cs_p, int lane) {
+  __syncwarp();
+  cs_d[lane] = c.da;
+  cs_p[lane] = c.pa;
+  cs_d[32 + lane] = c.db;
+  cs_p[32 + lane] = c.pb;
+  const int ra = lane < m ? lane + rank_in_list(ld, lp, nf, c.da, c.pa)
+                          : cap;
+  const int rb = 32 + lane < m
+                     ? 32 + lane + rank_in_list(ld, lp, nf, c.db, c.pb)
+                     : cap;
+  __syncwarp();
+  const float fd = __shfl_sync(kFull, c.da, 0);   // the first entry of c
   const int fp = __shfl_sync(kFull, c.pa, 0);
-  int head = 0;        // entries [0, head): before every candidate, stay
-  int na = 0, nb = 0;  // entries of the walked blocks before c.a / c.b
   for (int b = (nf - 1) & ~31; b >= 0; b -= 32) {
     const int i = b + lane;
     const bool in = i < nf;
@@ -645,52 +699,113 @@ __device__ __noinline__ void update_global(float dis0, bool c0, float dis1,
     const int ep = in ? lp[i] : INT_MAX;
     const int last = min(nf - 1 - b, 31);
     if (before(__shfl_sync(kFull, ed, last), __shfl_sync(kFull, ep, last),
-               fd, fp)) {
-      head = b + last + 1;
+               fd, fp))
       break;
-    }
-    const int r = rank_in64(c, ed, ep);
-    na += rank_in32(ed, ep, c.da, c.pa);
-    nb += rank_in32(ed, ep, c.db, c.pb);
+    const int r = in ? rank_in_list(cs_d, cs_p, m, ed, ep) : 0;
     __syncwarp();
-    if (in && r > 0 && i + r < kp) {
+    if (in && r > 0 && i + r < cap) {
       ld[i + r] = ed;
       lp[i + r] = ep;
-      if (i + r == kp - 1) *thr = ed;
     }
   }
   __syncwarp();
-  const int ra = head + na + lane, rb = head + nb + 32 + lane;
-  if (lane < n && ra < kp) {
+  if (ra < cap) {
     ld[ra] = c.da;
     lp[ra] = c.pa;
-    if (ra == kp - 1) *thr = c.da;
   }
-  if (32 + lane < n && rb < kp) {
+  if (rb < cap) {
     ld[rb] = c.db;
     lp[rb] = c.pb;
-    if (rb == kp - 1) *thr = c.db;
   }
-  if (lane == 0) *nfill = min(nf + n, kp);
+  __syncwarp();
+  return min(nf + m, cap);
+}
+
+// Warp-wide: sorts the n entries of a list (ld, lp), shared or global
+// memory, ascending by (distance, position), in runs of 64 from its head:
+// each run is sorted in registers (sort64) and merged into the sorted
+// entries before it (merge_run). Not inlined, as update_chunk.
+__device__ __noinline__ void sort_list(float* ld, int* lp, int n,
+                                       float* cs_d, int* cs_p, int lane) {
+  __syncwarp();
+  for (int b = 0; b < n; b += 64) {
+    const int m = min(64, n - b);
+    Entry2 c{lane < m ? ld[b + lane] : kInf,
+             lane < m ? lp[b + lane] : INT_MAX,
+             32 + lane < m ? ld[b + 32 + lane] : kInf,
+             32 + lane < m ? lp[b + 32 + lane] : INT_MAX};
+    sort64(c, lane);
+    merge_run(c, m, ld, lp, b, b + m, cs_d, cs_p, lane);
+  }
+}
+
+// Warp-wide update of a kp >= 65 list (ld, lp: the pair's slots in shared
+// memory, or its row of out_d / out_p) with one chunk's candidates, rows
+// row0 + lane (c0: below the threshold, distance dis0) and row0 + 32 +
+// lane (c1, dis1). *nfill entries are held, *thr is entry kp - 1 once
+// the list is full (+inf before). A list that is not full holds its
+// entries unsorted (only a threshold needs order, and there is none
+// before kp entries): the candidates are appended in stream order, and
+// the first time the list reaches kp it is sorted once (sort_list). If the
+// candidates would pass kp, the entries are sorted and the candidates,
+// sorted, merged into them (merge_run), as every chunk's are into a full
+// list. cs_d / cs_p: the warp's scratch. Not inlined, as update_chunk.
+__device__ __noinline__ void update_list(float dis0, bool c0, float dis1,
+                                         bool c1, int row0, int kp,
+                                         float* ld, int* lp, float* thr,
+                                         int* nfill, float* cs_d, int* cs_p,
+                                         int lane) {
+  const unsigned m0 = __ballot_sync(kFull, c0);
+  const unsigned m1 = __ballot_sync(kFull, c1);
+  const int n0 = __popc(m0), m = n0 + __popc(m1);
+  const int nf = *nfill;
+  if (nf + m > kp) {
+    if (nf < kp) sort_list(ld, lp, nf, cs_d, cs_p, lane);
+    merge_run(sorted_candidates(dis0, c0, dis1, c1, row0, lane), m, ld, lp,
+              nf, kp, cs_d, cs_p, lane);
+    if (lane == 0) {
+      *thr = ld[kp - 1];
+      *nfill = kp;
+    }
+    __syncwarp();
+    return;
+  }
+  const unsigned below = (1u << lane) - 1u;
+  if (c0) {
+    const int i = nf + __popc(m0 & below);
+    ld[i] = dis0;
+    lp[i] = row0 + lane;
+  }
+  if (c1) {
+    const int i = nf + n0 + __popc(m1 & below);
+    ld[i] = dis1;
+    lp[i] = row0 + 32 + lane;
+  }
+  if (nf + m == kp) {
+    sort_list(ld, lp, kp, cs_d, cs_p, lane);
+    if (lane == 0) *thr = ld[kp - 1];
+  }
+  __syncwarp();
+  if (lane == 0) *nfill = nf + m;
   __syncwarp();
 }
 
-// Warp 0: the tile's segments, runs of consecutive pairs with the same
-// non-empty row range [lo[p], hi[p]): sfirst[i], send[i] bound segment i's
-// pairs, *nseg counts them.
+// Warp 0: the CTA's segments, runs of consecutive pairs (of its np) with
+// the same non-empty row range [lo[p], hi[p]): sfirst[i], send[i] bound
+// segment i's pairs, *nseg counts them.
 __device__ __forceinline__ void find_segments(const int* lo, const int* hi,
                                               int* sfirst, int* send,
-                                              int* nseg, int lane) {
+                                              int* nseg, int np, int lane) {
   int ns = 0, ne = 0;
   const unsigned below = (1u << lane) - 1u;
 #pragma unroll
-  for (int b = 0; b < kPT; b += 32) {
+  for (int b = 0; b < np; b += 32) {
     const int p = b + lane;
-    const bool real = hi[p] > lo[p];
+    const bool real = p < np && hi[p] > lo[p];
     const bool same_prev =
         p > 0 && lo[p - 1] == lo[p] && hi[p - 1] == hi[p];
     const bool same_next =
-        p + 1 < kPT && lo[p + 1] == lo[p] && hi[p + 1] == hi[p];
+        p + 1 < np && lo[p + 1] == lo[p] && hi[p + 1] == hi[p];
     const unsigned ms = __ballot_sync(kFull, real && !same_prev);
     const unsigned me = __ballot_sync(kFull, real && !same_next);
     if (real && !same_prev) sfirst[ns + __popc(ms & below)] = p;
@@ -707,12 +822,15 @@ struct Step {
   int seg, c0, s;
 };
 
-// The body of one CTA, for tile tile0 + blockIdx.x (see the header
-// comment). Elem is the stream's element: uint16_t (bf16 bits) or uint8_t
-// (SQ8 codes). kR is the list entries a lane: 1 (kp up to 32) or 2 (kp up
-// to 64, the wide list: lane i holds entries i and 32 + i), or kRGlobal
-// (any kp: the lists in out_d / out_p).
-template <bool kWindow, typename Elem = uint16_t, int kR = 1>
+// The body of one CTA (see the header comment): np pairs of a tile of kPT,
+// CTA b taking tile tile0 + b / (kPT / np), its np pairs from (b % (kPT /
+// np)) np on. Elem is the stream's element: uint16_t (bf16 bits) or
+// uint8_t (SQ8 codes). kR is the list entries a lane: 1 (kp up to 32) or 2
+// (kp up to 64, the wide list: lane i holds entries i and 32 + i), or
+// kRGlobal (any kp: the lists in shared memory, kpl = kp slots a pair, or
+// with kpl = 0 in out_d / out_p). kP is the np of the register lists (kR 1
+// or 2); kRGlobal takes np from the launch.
+template <bool kWindow, typename Elem = uint16_t, int kR = 1, int kP = kPT>
 __device__ __forceinline__ void scan_tile(
     const uint16_t* __restrict__ xq,      // (nq, d) bf16 queries
     const float* __restrict__ qn,         // (nq,) f32 per-query offset
@@ -727,20 +845,24 @@ __device__ __forceinline__ void scan_tile(
     int wrow0, int wrow1, int tile0,      // window rows; first tile
     int d, int B, int kp, int similarity,
     float* __restrict__ out_d,            // (ntiles*kPT, kp)
-    int* __restrict__ out_p) {            // (ntiles*kPT, kp) positions
+    int* __restrict__ out_p,              // (ntiles*kPT, kp) positions
+    int np_g, int kpl) {                  // kRGlobal: pairs a CTA, slots
   constexpr bool kU8 = sizeof(Elem) == 1;
   constexpr bool kG = kR == kRGlobal;
   constexpr int kRL = kG ? 1 : kR;      // list registers a lane (none if kG)
+  constexpr int kPW = kP / kWarps;      // pairs a warp (register lists)
+  const int np = kG ? np_g : kP;        // pairs of this CTA
   (void)tile_bs;  // the segments replace the tile's block hull
   (void)tile_nb;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout<Elem>(d, kG);
+  const Layout L = layout<Elem>(d, np, kG, kG ? kpl : 0);
   uint16_t* qs = reinterpret_cast<uint16_t*>(smem + L.qs);
   uint16_t* xs = reinterpret_cast<uint16_t*>(smem + L.xs);
   unsigned char* raw = smem + L.raw;
   int* sid = reinterpret_cast<int*>(smem + L.sid);
   float* snorm = reinterpret_cast<float*>(smem + L.snorm);
-  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  float* const sc_own = reinterpret_cast<float*>(smem + L.sc);
+  const int ss = L.sstride;
   int* plo = reinterpret_cast<int*>(smem + L.plo);
   int* phi = reinterpret_cast<int*>(smem + L.phi);
   int* pq = reinterpret_cast<int*>(smem + L.pq);
@@ -750,18 +872,25 @@ __device__ __forceinline__ void scan_tile(
   int* snseg = reinterpret_cast<int*>(smem + L.nseg);
   float* sthr = reinterpret_cast<float*>(smem + L.thr);
   int* snfill = reinterpret_cast<int*>(smem + L.nfill);
+  float* sld = reinterpret_cast<float*>(smem + L.ld);
+  int* slp = reinterpret_cast<int*>(smem + L.lp);
   const int stride = L.stride;
   const int nslices = L.nslices;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int tile = kWindow ? tile0 + static_cast<int>(blockIdx.x)
-                           : static_cast<int>(blockIdx.x);
+  // the warp's merge scratch (kG)
+  float* cs_d = reinterpret_cast<float*>(smem + L.csd) + warp * 64;
+  int* cs_p = reinterpret_cast<int*>(smem + L.csp) + warp * 64;
+  const int per = kPT / np;                 // CTAs a tile
+  const int blk = static_cast<int>(blockIdx.x);
+  const int tile = (kWindow ? tile0 : 0) + blk / per;
   const int base = kWindow ? wrow0 : 0;     // stream row of data[0]
-  const long long pbase = static_cast<long long>(tile) * kPT;
+  const long long pbase = static_cast<long long>(tile) * kPT +
+                          static_cast<long long>(blk % per) * np;
 
-  if (tid < kPT) {
+  if (tid < np) {
     const int q = pair_q[pbase + tid];
     pq[tid] = q;
     plo[tid] = in_window<kWindow>(pstart[pbase + tid] * B, wrow0, wrow1);
@@ -769,23 +898,37 @@ __device__ __forceinline__ void scan_tile(
     pqn[tid] = qn[q];
   }
   __syncthreads();
-  if (warp == 0) find_segments(plo, phi, sfirst, send, snseg, lane);
+  if (warp == 0) find_segments(plo, phi, sfirst, send, snseg, np, lane);
   __syncthreads();
   const int nseg = *snseg;
 
   // the pairs' lists: warp w holds pairs w, w + 8, ..., entry 32 r + i in
-  // lane i, register r; or, for kG, their thresholds and filled entries
+  // lane i, register r; or, for kG, their thresholds and filled entries,
+  // and with kpl the lists themselves in shared memory (K4: its running
+  // lists' filled entries copied in)
   float ld[kPW][kRL];
   int lp[kPW][kRL];
+  // a kG list: slot 0 of pair p's entries
+  auto list_d = [&](int p) {
+    return kpl ? sld + p * kpl : out_d + static_cast<size_t>(pbase + p) * kp;
+  };
+  auto list_p = [&](int p) {
+    return kpl ? slp + p * kpl : out_p + static_cast<size_t>(pbase + p) * kp;
+  };
   if constexpr (kG) {
-    for (int j = 0; j < kPW; ++j) {
-      const int p = j * kWarps + warp;
+    for (int p = warp; p < np; p += kWarps) {
       float t = kInf;
       int nf = 0;
       if (kWindow && phi[p] > plo[p]) {
-        const float* lrow = out_d + static_cast<size_t>(pbase + p) * kp;
-        t = lrow[kp - 1];
-        nf = t < kInf ? kp : filled_entries(lrow, kp, lane);
+        const size_t o = static_cast<size_t>(pbase + p) * kp;
+        t = out_d[o + kp - 1];
+        nf = t < kInf ? kp : filled_entries(out_d + o, kp, lane);
+        if (kpl) {
+          for (int i = lane; i < nf; i += 32) {
+            sld[p * kpl + i] = out_d[o + i];
+            slp[p * kpl + i] = out_p[o + i];
+          }
+        }
       }
       if (lane == 0) {
         sthr[p] = t;
@@ -857,7 +1000,7 @@ __device__ __forceinline__ void scan_tile(
         const bool ok = v < nreal;
         const uint16_t* src =
             ok ? xq + static_cast<size_t>(pq[s0 + pl]) * d + d0 + v * 8 : xq;
-        cp_async<16>(qs + (slot * kPT + pl) * stride + v * 8, src, ok);
+        cp_async<16>(qs + (slot * np + pl) * stride + v * 8, src, ok);
       }
     }
   };
@@ -865,7 +1008,7 @@ __device__ __forceinline__ void scan_tile(
   if (nslices == 1) {
     // the tile's queries, once: rows of the pairs in some segment
     const int nv = round16(d) / 8, nreal = d / 8;
-    for (int i = tid; i < kPT * nv; i += kThreads) {
+    for (int i = tid; i < np * nv; i += kThreads) {
       const int p = i / nv, v = i - p * nv;
       if (phi[p] > plo[p]) {
         const bool ok = v < nreal;
@@ -931,10 +1074,10 @@ __device__ __forceinline__ void scan_tile(
     }
     if (mine) {
       // A rows: the segment's pairs (past the tile: any row, unused)
-      const uint16_t* qt = nslices > 1 ? qs + slot * kPT * stride : qs;
+      const uint16_t* qt = nslices > 1 ? qs + slot * np * stride : qs;
       const int q0 = nslices > 1 ? 0 : s0;
-      const int ra = min(q0 + 32 * mg + (lane & 15), kPT - 1);
-      const int rb = min(q0 + 32 * mg + 16 + (lane & 15), kPT - 1);
+      const int ra = min(q0 + 32 * mg + (lane & 15), np - 1);
+      const int rb = min(q0 + 32 * mg + 16 + (lane & 15), np - 1);
       const uint16_t* pa = qt + ra * stride + (lane >> 4) * 8;
       const uint16_t* pb = qt + rb * stride + (lane >> 4) * 8;
       // B rows: lanes 8i .. 8i + 7 address matrix i = (n-tile, k half)
@@ -965,6 +1108,10 @@ __device__ __forceinline__ void scan_tile(
       }
     }
     if (cur.s == nslices - 1) {
+      float* const sc = L.sc_xs
+          ? reinterpret_cast<float*>(const_cast<uint16_t*>(xt))
+          : sc_own;
+      if (L.sc_xs) __syncthreads();   // every warp is done with the operand
       if (mine) {
 #pragma unroll
         for (int a = 0; a < 2; ++a) {
@@ -972,16 +1119,27 @@ __device__ __forceinline__ void scan_tile(
 #pragma unroll
             for (int n = 0; n < 4; ++n) {
               if (n < nw) {
-                float* o = sc + (32 * mg + 16 * a + (lane >> 2)) * kSS +
+                float* o = sc + (32 * mg + 16 * a + (lane >> 2)) * ss +
                            8 * (ng * nw + n) + 2 * (lane & 3);
                 *reinterpret_cast<float2*>(o) =
                     make_float2(acc[a][n][0], acc[a][n][1]);
-                *reinterpret_cast<float2*>(o + 8 * kSS) =
+                *reinterpret_cast<float2*>(o + 8 * ss) =
                     make_float2(acc[a][n][2], acc[a][n][3]);
               }
             }
           }
         }
+      }
+      if constexpr (kR != 1) {
+        // the chunk's products are in the score tile: the next chunk
+        // starts from zero, so the accumulators hold no register through
+        // the epilogue (the wide and global lists need them)
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
       }
       __syncthreads();
 
@@ -993,11 +1151,29 @@ __device__ __forceinline__ void scan_tile(
       const bool ok0 = c0 + lane < hi && cid[lane] >= 0;
       const bool ok1 = c0 + lane + 32 < hi && cid[lane + 32] >= 0;
       const float n0 = cn[lane], n1 = cn[lane + 32];
+      if constexpr (kG) {
+#pragma unroll 1
+        for (int p = warp; p < np; p += kWarps) {
+          if (p < s0 || p >= s0 + S) continue;          // warp-uniform
+          const float* srow = sc + (p - s0) * ss;
+          const float qv = pqn[p];
+          const float ip0 = srow[lane], ip1 = srow[lane + 32];
+          const float dis0 = similarity ? -ip0 - qv
+                                        : fmaxf(qv + n0 - 2.0f * ip0, 0.0f);
+          const float dis1 = similarity ? -ip1 - qv
+                                        : fmaxf(qv + n1 - 2.0f * ip1, 0.0f);
+          const float thr = sthr[p];
+          const bool cand0 = ok0 && dis0 < thr, cand1 = ok1 && dis1 < thr;
+          if (!__any_sync(kFull, cand0 || cand1)) continue;
+          update_list(dis0, cand0, dis1, cand1, c0, kp, list_d(p),
+                      list_p(p), sthr + p, snfill + p, cs_d, cs_p, lane);
+        }
+      } else {
 #pragma unroll
       for (int j = 0; j < kPW; ++j) {
         const int p = j * kWarps + warp;
         if (p < s0 || p >= s0 + S) continue;            // warp-uniform
-        float* srow = sc + (p - s0) * kSS;
+        float* srow = sc + (p - s0) * ss;
         const float qv = pqn[p];
         const float ip0 = srow[lane], ip1 = srow[lane + 32];
         const float dis0 = similarity ? -ip0 - qv
@@ -1005,19 +1181,13 @@ __device__ __forceinline__ void scan_tile(
         const float dis1 = similarity ? -ip1 - qv
                                       : fmaxf(qv + n1 - 2.0f * ip1, 0.0f);
         float thr;
-        if constexpr (kG)
-          thr = sthr[p];
-        else if constexpr (kR == 1)
+        if constexpr (kR == 1)
           thr = __shfl_sync(kFull, ld[j][0], kp - 1);
         else
           thr = kth2({ld[j][0], lp[j][0], ld[j][1], lp[j][1]}, kp);
         const bool cand0 = ok0 && dis0 < thr, cand1 = ok1 && dis1 < thr;
         if (!__any_sync(kFull, cand0 || cand1)) continue;
-        if constexpr (kG) {
-          const size_t o = static_cast<size_t>(pbase + p) * kp;
-          update_global(dis0, cand0, dis1, cand1, c0, kp, out_d + o,
-                        out_p + o, sthr + p, snfill + p, lane);
-        } else if constexpr (kR == 1) {
+        if constexpr (kR == 1) {
           const Entry e = update_chunk({ld[j][0], lp[j][0]}, dis0, cand0,
                                        dis1, cand1, c0, kp, srow, lane);
           ld[j][0] = e.d;
@@ -1032,6 +1202,7 @@ __device__ __forceinline__ void scan_tile(
           lp[j][1] = e.pb;
         }
       }
+      }
     }
     cur = advance(cur);
     slot = (slot + 1) % kStages;
@@ -1039,13 +1210,25 @@ __device__ __forceinline__ void scan_tile(
   cp_async_wait<0>();
 
   if constexpr (kG) {
-    // K3: the empty slots past each list's filled entries (K4's lists hold
-    // theirs already)
-    if (!kWindow) {
-      for (int j = 0; j < kPW; ++j) {
-        const int p = j * kWarps + warp;
-        const size_t o = static_cast<size_t>(pbase + p) * kp;
-        for (int i = snfill[p] + lane; i < kp; i += 32) {
+    // a list that never filled is sorted now; lists in shared memory go to
+    // their rows; K3 writes the empty slots past each list's entries (K4's
+    // running lists hold theirs already, and a pair with no rows in the
+    // window keeps its list untouched)
+    for (int p = warp; p < np; p += kWarps) {
+      if (kWindow && !(phi[p] > plo[p])) continue;
+      const int nf = snfill[p];
+      float* ld_p = list_d(p);
+      int* lp_p = list_p(p);
+      if (nf < kp) sort_list(ld_p, lp_p, nf, cs_d, cs_p, lane);
+      const size_t o = static_cast<size_t>(pbase + p) * kp;
+      if (kpl) {
+        for (int i = lane; i < nf; i += 32) {
+          out_d[o + i] = ld_p[i];
+          out_p[o + i] = lp_p[i];
+        }
+      }
+      if (!kWindow) {
+        for (int i = nf + lane; i < kp; i += 32) {
           out_d[o + i] = kInf;
           out_p[o + i] = -1;
         }
@@ -1077,16 +1260,38 @@ __device__ __forceinline__ void scan_tile(
       const int *__restrict__ tile_nb, const Elem *__restrict__ data,       \
       const int *__restrict__ ids, const float *__restrict__ norms,         \
       int wrow0, int wrow1, int tile0, int d, int B, int kp, int similarity, \
-      float *__restrict__ out_d, int *__restrict__ out_p
+      float *__restrict__ out_d, int *__restrict__ out_p, int np, int kpl
 #define IVF_SCAN_TILE_ARGS                                                   \
   xq, qn, pair_q, pstart, pend, tile_bs, tile_nb, data, ids, norms, wrow0,  \
-      wrow1, tile0, d, B, kp, similarity, out_d, out_p
+      wrow1, tile0, d, B, kp, similarity, out_d, out_p, np, kpl
+
+// Where the kp >= 65 lists live: in shared memory, kpl = kp slots a pair,
+// at the largest np (pairs a CTA, 64 down to 8) whose layout lets two CTAs
+// share an SM, else one; past that (kp above ~2900 at d = 128) in the
+// output rows (kpl = 0), a tile a CTA.
+template <typename Elem>
+inline void global_lists(int d, int kp, int& np, int& kpl) {
+  const size_t caps[2] = {kSmemTwo, kSmemOne};
+  for (int c = 0; c < 2; ++c) {
+    for (int n = 64; n >= 8; n >>= 1) {
+      if (layout<Elem>(d, n, true, kp).total <= caps[c]) {
+        np = n;
+        kpl = kp;
+        return;
+      }
+    }
+  }
+  np = kPT;
+  kpl = 0;
+}
 
 // Launches `kernel` (a scan_tile kernel on a stream of Elem, kR list
-// entries a lane, or kRGlobal: no cap on kp), one CTA per tile of [tile0,
-// tile0 + ntiles), on `stream`; allocates nothing. Returns
+// entries a lane and kP pairs a CTA, or kRGlobal: no cap on kp, the pairs
+// a CTA from global_lists) over the tiles [tile0, tile0 + ntiles), kPT /
+// np CTAs a tile, on `stream`; allocates nothing. Returns
 // cudaGetLastError() (0 on success).
-template <typename Elem = uint16_t, int kR = 1, typename Kernel>
+template <typename Elem = uint16_t, int kR = 1, int kP = kPT,
+          typename Kernel>
 int launch_scan_tiles(Kernel kernel, const void* xq, const void* qn,
                       const void* pair_q, const void* pstart,
                       const void* pend, const void* tile_bs,
@@ -1098,7 +1303,9 @@ int launch_scan_tiles(Kernel kernel, const void* xq, const void* qn,
       (kR != kRGlobal && kp > kR * kKPMax) || ntiles < 0 || tile0 < 0 ||
       wrow0 < 0 || wrow1 < wrow0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = layout<Elem>(d, kR == kRGlobal).total;
+  int np = kP, kpl = 0;
+  if (kR == kRGlobal) global_lists<Elem>(d, kp, np, kpl);
+  const size_t smem = layout<Elem>(d, np, kR == kRGlobal, kpl).total;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1108,14 +1315,15 @@ int launch_scan_tiles(Kernel kernel, const void* xq, const void* qn,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (ntiles > 0) {
-    kernel<<<ntiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<ntiles * (kPT / np), kThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint16_t*>(xq), static_cast<const float*>(qn),
         static_cast<const int*>(pair_q), static_cast<const int*>(pstart),
         static_cast<const int*>(pend), static_cast<const int*>(tile_bs),
         static_cast<const int*>(tile_nb), static_cast<const Elem*>(data),
         static_cast<const int*>(ids), static_cast<const float*>(norms), wrow0,
         wrow1, tile0, d, B, kp, similarity, static_cast<float*>(out_d),
-        static_cast<int*>(out_p));
+        static_cast<int*>(out_p), np, kpl);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,9 +9,9 @@
 // ivf_scan_paged.cu) share; K3 runs its instantiation without the window
 // code, over the whole bf16 stream: one kernel up to kp 32, one with two
 // list entries a lane up to kp 64 (an IVFHNSW quantizer's hop-0 scan, an
-// IVFPQR's kp 46), and one with the lists in its output rows for any kp
-// above (a search at k >= 59, an IVFPQR at k >= 15), chosen by kp at
-// launch.
+// IVFPQR's kp 46), and one with the lists in shared memory (in its output
+// rows past 2969 entries at d 128) for any kp above (a search at k >= 59,
+// an IVFPQR at k >= 15), chosen by kp at launch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see tpu_ann_torch/kernels). Plain C interface.
@@ -27,14 +27,17 @@ ivf_scan_fused_kernel(IVF_SCAN_TILE_PARAMS(uint16_t)) {
   ivf_scan::scan_tile<false>(IVF_SCAN_TILE_ARGS);
 }
 
-// The wide lists (kp 33 to 64): twice the list registers, one CTA an SM.
-__global__ void __launch_bounds__(ivf_scan::kThreads, 1)
+// The wide lists (kp 33 to 64): two list entries a lane, 64 pairs a CTA
+// (two CTAs a tile), two CTAs an SM.
+__global__ void __launch_bounds__(ivf_scan::kThreads, 2)
 ivf_scan_fused_wide_kernel(IVF_SCAN_TILE_PARAMS(uint16_t)) {
-  ivf_scan::scan_tile<false, uint16_t, 2>(IVF_SCAN_TILE_ARGS);
+  ivf_scan::scan_tile<false, uint16_t, 2, ivf_scan::kPTWide>(
+      IVF_SCAN_TILE_ARGS);
 }
 
-// The lists in global memory (kp 65 and up): no list registers, two CTAs
-// an SM.
+// The lists in shared memory (kp 65 and up; in the output rows past what
+// it holds): no list registers, np pairs a CTA (global_lists), two CTAs
+// an SM where they fit.
 __global__ void __launch_bounds__(ivf_scan::kThreads, 2)
 ivf_scan_fused_global_kernel(IVF_SCAN_TILE_PARAMS(uint16_t)) {
   ivf_scan::scan_tile<false, uint16_t, ivf_scan::kRGlobal>(
@@ -61,7 +64,7 @@ int ivf_scan_fused(const void* xq, const void* qn, const void* pair_q,
         tile_nb, data, ids, norms, /*wrow0=*/0, /*wrow1=*/INT_MAX,
         /*tile0=*/0, ntiles, d, B, kp, similarity, out_d, out_p, stream);
   if (kp > ivf_scan::kKPMax)
-    return ivf_scan::launch_scan_tiles<uint16_t, 2>(
+    return ivf_scan::launch_scan_tiles<uint16_t, 2, ivf_scan::kPTWide>(
         ivf_scan_fused_wide_kernel, xq, qn, pair_q, pstart, pend, tile_bs,
         tile_nb, data, ids, norms, /*wrow0=*/0, /*wrow1=*/INT_MAX,
         /*tile0=*/0, ntiles, d, B, kp, similarity, out_d, out_p, stream);

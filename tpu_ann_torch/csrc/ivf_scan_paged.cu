@@ -24,12 +24,13 @@
 // (shared with K3): a tile streams only its segments' rows clamped to the
 // window, so a list the window cuts is finished by the next launch. As K3,
 // one kernel keeps kp up to 32, a second, with two list entries a lane
-// (one CTA an SM), kp 33 to 64, and a third any kp above, its running
-// lists merged in place in run_d / run_p (the global lists of
-// ivf_scan_core.cuh, which the running lists already are). On the
-// out-of-core path the scan of a window overlaps the host-to-device copy of
-// the next one; the pipeline is bound by that copy's bytes over the host
-// link when the window's scan takes less time.
+// (32 pairs a CTA, two CTAs an SM), kp 33 to 64, and a third any kp
+// above, its running lists copied from run_d / run_p into shared memory,
+// merged there and written back (past what shared memory holds, merged
+// in place in run_d / run_p). On the out-of-core path the scan of a
+// window overlaps the host-to-device copy of the next one; the pipeline
+// is bound by that copy's bytes over the host link when the window's scan
+// takes less time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see tpu_ann_torch/kernels). Plain C interface.
@@ -44,13 +45,15 @@ ivf_scan_window_kernel(IVF_SCAN_TILE_PARAMS(uint16_t)) {
   ivf_scan::scan_tile<true>(IVF_SCAN_TILE_ARGS);
 }
 
-// The wide lists (kp 33 to 64): twice the list registers, one CTA an SM.
-__global__ void __launch_bounds__(ivf_scan::kThreads, 1)
+// The wide lists (kp 33 to 64): 32 pairs a CTA (at 64 the window kernel
+// needs more than 128 registers), two CTAs an SM.
+__global__ void __launch_bounds__(ivf_scan::kThreads, 2)
 ivf_scan_window_wide_kernel(IVF_SCAN_TILE_PARAMS(uint16_t)) {
-  ivf_scan::scan_tile<true, uint16_t, 2>(IVF_SCAN_TILE_ARGS);
+  ivf_scan::scan_tile<true, uint16_t, 2, ivf_scan::kPTWideWindow>(
+      IVF_SCAN_TILE_ARGS);
 }
 
-// The lists in global memory (kp 65 and up): two CTAs an SM.
+// The lists above kp 64: in shared memory, np pairs a CTA.
 __global__ void __launch_bounds__(ivf_scan::kThreads, 2)
 ivf_scan_window_global_kernel(IVF_SCAN_TILE_PARAMS(uint16_t)) {
   ivf_scan::scan_tile<true, uint16_t, ivf_scan::kRGlobal>(IVF_SCAN_TILE_ARGS);
@@ -84,7 +87,7 @@ int ivf_scan_window(const void* xq, const void* qn, const void* pair_q,
         tile_nb, data, ids, norms, w0 * B, (w0 + nwin) * B, tile0, ntiles, d,
         B, kp, similarity, run_d, run_p, stream);
   if (kp > ivf_scan::kKPMax)
-    return ivf_scan::launch_scan_tiles<uint16_t, 2>(
+    return ivf_scan::launch_scan_tiles<uint16_t, 2, ivf_scan::kPTWideWindow>(
         ivf_scan_window_wide_kernel, xq, qn, pair_q, pstart, pend, tile_bs,
         tile_nb, data, ids, norms, w0 * B, (w0 + nwin) * B, tile0, ntiles, d,
         B, kp, similarity, run_d, run_p, stream);

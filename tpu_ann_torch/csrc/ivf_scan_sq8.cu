@@ -14,7 +14,8 @@
 // cp.async copies) and are widened there to the bf16 operand tile, so the
 // stream's HBM bytes halve while the tensor-core products and the top-kp
 // epilogue are K3's, with K3's three kernels: up to kp 32, with two list
-// entries a lane up to kp 64, and with the lists in its output rows above.
+// entries a lane up to kp 64, and with the lists in shared memory (in its
+// output rows past what it holds) above.
 // It is a library of its own so that K3's instantiations, and their
 // register counts, stay as they are.
 //
@@ -31,13 +32,14 @@ ivf_scan_sq8_kernel(IVF_SCAN_TILE_PARAMS(uint8_t)) {
   ivf_scan::scan_tile<false>(IVF_SCAN_TILE_ARGS);
 }
 
-// K3's wide lists (kp 33 to 64): one CTA an SM.
-__global__ void __launch_bounds__(ivf_scan::kThreads, 1)
+// K3's wide lists (kp 33 to 64): 64 pairs a CTA, two CTAs an SM.
+__global__ void __launch_bounds__(ivf_scan::kThreads, 2)
 ivf_scan_sq8_wide_kernel(IVF_SCAN_TILE_PARAMS(uint8_t)) {
-  ivf_scan::scan_tile<false, uint8_t, 2>(IVF_SCAN_TILE_ARGS);
+  ivf_scan::scan_tile<false, uint8_t, 2, ivf_scan::kPTWide>(
+      IVF_SCAN_TILE_ARGS);
 }
 
-// K3's lists in global memory (kp 65 and up): two CTAs an SM.
+// K3's lists above kp 64: in shared memory, np pairs a CTA.
 __global__ void __launch_bounds__(ivf_scan::kThreads, 2)
 ivf_scan_sq8_global_kernel(IVF_SCAN_TILE_PARAMS(uint8_t)) {
   ivf_scan::scan_tile<false, uint8_t, ivf_scan::kRGlobal>(IVF_SCAN_TILE_ARGS);
@@ -64,7 +66,7 @@ int ivf_scan_sq8(const void* xq, const void* qn, const void* pair_q,
         tile_nb, codes, ids, norms, /*wrow0=*/0, /*wrow1=*/INT_MAX,
         /*tile0=*/0, ntiles, d, B, kp, similarity, out_d, out_p, stream);
   if (kp > ivf_scan::kKPMax)
-    return ivf_scan::launch_scan_tiles<uint8_t, 2>(
+    return ivf_scan::launch_scan_tiles<uint8_t, 2, ivf_scan::kPTWide>(
         ivf_scan_sq8_wide_kernel, xq, qn, pair_q, pstart, pend, tile_bs,
         tile_nb, codes, ids, norms, /*wrow0=*/0, /*wrow1=*/INT_MAX,
         /*tile0=*/0, ntiles, d, B, kp, similarity, out_d, out_p, stream);

@@ -59,15 +59,17 @@ from .ivf_scan import PackedInvLists, PackedInvListsSQ8
 PT = 128
 # per-pair widths the CUDA kernels keep in registers (K3, K3-SQ8, K4):
 # KP_LANE with one list entry a lane, KP_MAX with two; a wider kp keeps
-# the lists in the output rows. `scan_pairs_wide` scans sub-blocks of at
-# most KP_LANE rows.
+# the lists in shared memory (in the output rows past 2969 at d 128).
+# `scan_pairs_wide` scans sub-blocks of at most KP_LANE rows.
 KP_LANE = 32
 KP_MAX = 64
 # kernel launches made by `scan_pairs` (one per call on a CUDA tensor):
 # K3 on a bf16 stream, K3-SQ8 on a uint8 one; of them, those of the
-# kernels that keep the lists in global memory (kp above KP_MAX)
+# kernels with two list entries a lane (kp above KP_LANE up to KP_MAX)
+# and of those whose lists live outside the registers (kp above KP_MAX)
 LAUNCHES = 0
 LAUNCHES_SQ8 = 0
+LAUNCHES_WIDE = 0
 LAUNCHES_GLOBAL = 0
 # the plain version's batches of tiles stay under this many f32 elements
 _PLAIN_BUDGET = 1 << 27
@@ -279,7 +281,7 @@ def _launch(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
     """One launch of the kernel of the stream's type over ``plan``, whose
     ranges count blocks of ``B`` rows (0: the lists' block size); any kp
     >= 1."""
-    global LAUNCHES, LAUNCHES_SQ8, LAUNCHES_GLOBAL
+    global LAUNCHES, LAUNCHES_SQ8, LAUNCHES_WIDE, LAUNCHES_GLOBAL
     dev = xq_bf16.device
     if dev.type != "cuda":
         raise ValueError(f"ivf_scan_fused: unsupported device {dev}")
@@ -336,6 +338,8 @@ def _launch(xq_bf16: torch.Tensor, qn: torch.Tensor, plan: PairPlan,
         LAUNCHES += 1
     if kp > KP_MAX:
         LAUNCHES_GLOBAL += 1
+    elif kp > KP_LANE:
+        LAUNCHES_WIDE += 1
     return out_d, out_p
 
 

@@ -61,6 +61,7 @@ import torch
 from . import distances as D
 from . import topk as TK
 from .ivf_scan_fused import (
+    KP_LANE,
     KP_MAX,
     PT,
     PairPlan,
@@ -74,9 +75,11 @@ from .ivf_scan_fused import (
 # bf16 on disk, as raw bits (no numpy bf16 dtype is needed)
 _BF16_BITS = np.uint16
 # K4 launches made by `scan_window` (one per call on a CUDA tensor); of
-# them, those of the kernel that keeps the lists in global memory (kp
-# above KP_MAX)
+# them, those of the kernel with two list entries a lane (kp above
+# KP_LANE up to KP_MAX) and of the one whose lists live outside the
+# registers (kp above KP_MAX)
 LAUNCHES = 0
+LAUNCHES_WIDE = 0
 LAUNCHES_GLOBAL = 0
 # host threads of the staging copy and the re-rank's row gather
 _COPY_THREADS = max(1, min(8, os.cpu_count() or 1))
@@ -492,7 +495,7 @@ def _launch(xq_bf16, qn, plan: PairPlan, window: Window, w0: int, nwin: int,
     """One K4 launch: tiles [ta, tb) of ``plan``, whose ranges count blocks
     of B rows, against the window's rows as blocks [w0, w0 + nwin) of B
     rows; any kp >= 1."""
-    global LAUNCHES, LAUNCHES_GLOBAL
+    global LAUNCHES, LAUNCHES_WIDE, LAUNCHES_GLOBAL
     dev = xq_bf16.device
     if dev.type != "cuda":
         raise ValueError(f"ivf_scan_paged: unsupported device {dev}")
@@ -529,6 +532,8 @@ def _launch(xq_bf16, qn, plan: PairPlan, window: Window, w0: int, nwin: int,
     LAUNCHES += 1
     if kp > KP_MAX:
         LAUNCHES_GLOBAL += 1
+    elif kp > KP_LANE:
+        LAUNCHES_WIDE += 1
 
 
 # ---------------------------------------------------------------------------

@@ -21,8 +21,11 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
     python3 chip_smoke.py --phase23      # only phase 23 (the C handle,
                                          # the demos and the entry
                                          # point), likewise
-    python3 chip_smoke.py --phase24      # only phase 24 (the per-pair
-                                         # top-kp above kp 64), likewise
+    python3 chip_smoke.py --phase24      # only phase 24 (the searches
+                                         # past kp 32: IVF4096,Flat at k
+                                         # 100, IVF4096,SQ8 at k 50 /
+                                         # 100), likewise, with the exact
+                                         # top 100
 
 Phases, one line each; any failure raises and exits non-zero:
   1. device  — a CUDA device is required; nvidia-smi's name and power limit.
@@ -114,6 +117,12 @@ Phases, one line each; any failure raises and exits non-zero:
      top-nprobe lists and recall@10 within 0.01 of auto's, with 1 +
      fused_hops K3 launches per 8192-query chunk for the tiles and one for
      the lists. Build split (k-means, graph, add) and QPS are printed.
+     Then k 100 (kp 106) at nprobe 32 / 64 in both modes: one launch of
+     K3's global-list kernel a search (after the hop launches in
+     "quantizer" mode), (D, I) equal to the plain route's on the same
+     probes bit for bit, recall@100 against the exact top 100 not falling
+     with nprobe; the kernel on each auto plan (lists of 64 rows on
+     average) bit for bit against its plain version, its time and bound.
   10. the graph section of the round-4 probe harness (benchs/r4/r4_queue4.py
      section A): its clustered set (RandomState(11): 1024 centres rand * 10
      plus N(0, 1), 1M base, 10k queries), exact ground truth on the card;
@@ -245,7 +254,12 @@ Phases, one line each; any failure raises and exits non-zero:
      index_factory(128, "HNSW16,SQ8") builds the graph once: 1 + fused_hops
      K3-SQ8 launches a chunk and no K3, recall@10 >= C x F - 0.01, the
      device holds its uint8 tiles and no f32 / bf16 stream or storage,
-     reconstruct equals the dequantized code; (b) "HNSW16,SQbf16" and
+     reconstruct equals the dequantized code; at k 100 and efSearch 128 /
+     256 (kp 64 on every scan: 1 + fused_hops launches a chunk, all of the
+     wide-list kernels, K3-SQ8 for (a) and K3 for F) recall@100 >= C x F
+     - 0.01 (C the codec's recall@100), and K3-SQ8's hop-0 launch at kp
+     64 against its plain version (rtol 1e-5), its time and bound;
+     (b) "HNSW16,SQbf16" and
      "HNSW16,SQfp16" on (a)'s graph set by hand: (D, I) bit for bit F's
      (lossless on integers), K3 only, stream bytes; (c) "HNSW16,PQ32":
      no launch, recall >= C x F' - 0.01 with F' F's tiles searched at the
@@ -476,21 +490,31 @@ Phases, one line each; any failure raises and exits non-zero:
      CPU copy of its index (ids equal, distances within rtol 1e-5), and
      dryrun_multichip(4) as 2 x 2 gloo ranks on the card (every rank's
      results equal rank 0's; K3 2 a rank, K4 at least 1 a rank).
-  24. the per-pair top-kp above kp 64 (K3's, K3-SQ8's and K4's kernels
-     whose lists live in global memory) on phase 3's data and quantizer:
-     (a) IVF4096,Flat (phase 3's lists) searched at k 100 (kp 106) at
-     nprobe 16 / 32 / 64: each search exactly one K3 launch, of the
-     global-list kernel; recall@100 against the exact f32 ground truth at
-     k 100, not falling with nprobe; (D, I) equal to the plain route's bit
-     for bit; QPS in turns with k 10's; the kernel's time on each
-     search's plan and its bound. (b) K3 at kp 106 and 262 on the
+  24. the searches past kp 32 (K3's and K3-SQ8's kernels with two list
+     entries a lane and those whose lists live in shared memory) on phase
+     3's data and quantizer, against the exact top 100 (computed once with
+     phase 3's ground truth, shared with phases 9 and 17a): (a)
+     IVF4096,Flat (phase 3's lists) searched at k 100 (kp 106) at nprobe
+     16 / 32 / 64: each search exactly one K3 launch, of the global-list
+     kernel; recall@100 not falling with nprobe; (D, I) equal to the plain
+     route's bit for bit; QPS in turns with k 10's; the kernel's time on
+     each search's plan and its bound; one search at k 50 (kp 56, the
+     wide-list kernel) a nprobe for (c). (b) K3 at kp 106 and 262 on the
      10k-query plan at nprobe 32 and at kp 1030 on 1024 queries: per-pair
      (D, P) equal to the plain version on the card bit for bit, the k-100
      scan equal to scan_invlists_fused_reference; CUDA-event times beside
      the parent route's (scan_pairs_wide over the kp-32 launch), the plain
-     version's and the bound. (c) K3-SQ8 at kp 106 on IVF4096,SQ8
-     (QT_8BIT: rtol 1e-5, positions up to near-ties) and QT_8BIT_DIRECT
-     (bit for bit), likewise.
+     version's and the bound. (c) IVF4096,SQ8 with QT_8BIT and
+     QT_8BIT_DIRECT searched at k 50 (kp 56) and k 100 (kp 106) at nprobe
+     16 / 32 / 64: each search one K3-SQ8 launch, of the wide-list kernel
+     at k 50 and of the global-list one at k 100, no K3 or K4 launch; (D,
+     I) against the plain route on the SQ8 view (QT_8BIT_DIRECT bit for
+     bit, QT_8BIT within rtol 1e-5, ids apart only on near-ties);
+     QT_8BIT_DIRECT's (D, I) equal to IVF4096,Flat's bit for bit;
+     recall@50 / @100 not falling with nprobe, QT_8BIT's within 0.015 of
+     IVF-Flat's; QPS in turns with k 10's; the kernel's time on each
+     search's plan beside its plain version's and the bound. Then K3-SQ8 at
+     kp 106 on the nprobe-32 plan of both qtypes as K3 in (b).
 The last two lines are the kernels' JSON record (each with its time,
 its plain version's, the card's bound for the same work (a scan of
 lists: the valid rows it needs, each read once, not their blocks'
@@ -507,8 +531,10 @@ phase-23 launches (``launches_handles``, K4's too), K4 its times at kp
 106, 262 and 1030 and the parent route's above 64, K3 has a second record at
 batch 1, and the global-list kernel a record of its own from phase 24:
 its launches there, its time, plain time, parent time and bound at kp
-106, 262 and 1030 and K3-SQ8's at kp 106) and
-{"ok": true, ...}.
+106, 262 and 1030 and K3-SQ8's at kp 106, plus its launches and times on
+phase 9's k-100 searches; K3-SQ8's kp 33-64 and kp >= 65 kernels a record
+each, their launches on phase 24's IVF4096,SQ8 searches (and 17a's at k
+100) and their times on those searches' plans) and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -633,21 +659,24 @@ def ptxas_resources(log: str):
     return regs, spill
 
 
-# launches of the wide-list kernels (kp 33-64) on the main path: "k3" the
-# quantizer-mode searches of phase 9 (hop-0 scans at kp 64), "k4" the
-# paged searches of phase 7 at k 27 / 58 (kp 33 / 64); not in counts(),
-# whose phases compare launched-kernel sets
+# launches of the wide-list kernels (kp 33-64) of K3 and K4 on the main
+# path: "k3" the quantizer-mode searches of phase 9 (hop-0 scans at kp
+# 64), "k3_hnsw" phase 17a's IndexHNSWFlat at k 100 (kp 64), "k3_ivf"
+# phase 24's IVF4096,Flat at k 50 (kp 56), "k4" the paged searches of
+# phase 7 at k 27 / 58 (kp 33 / 64); not in counts(), whose phases compare
+# launched-kernel sets
 WIDE_PATH = {}
 
 
 def wide_record(kp46, kp64, k4) -> dict:
-    """The kernels-line record of the wide-list kernels (two list entries
-    a lane, 64 pairs a CTA): their launches on the main path (WIDE_PATH);
-    K3 at IVFPQR's kp 46 (phase 16e: 10k q, nprobe 32) as its time, plain
-    time and bound; K3 at the hop-0 kp 64 (phase 17j) and K4 at kp 33 / 58
-    (phase 8: 1024 q, nprobe 32, window 0) beside them."""
-    n = WIDE_PATH["k3"] + WIDE_PATH["k4"]
-    if not (WIDE_PATH["k3"] and WIDE_PATH["k4"]):
+    """The kernels-line record of the wide-list kernels of K3 and K4 (two
+    list entries a lane, 64 pairs a CTA): their launches on the main path
+    (WIDE_PATH); K3 at IVFPQR's kp 46 (phase 16e: 10k q, nprobe 32) as its
+    time, plain time and bound; K3 at the hop-0 kp 64 (phase 17j) and K4
+    at kp 33 / 58 (phase 8: 1024 q, nprobe 32, window 0) beside them."""
+    k3 = WIDE_PATH["k3"] + WIDE_PATH["k3_hnsw"] + WIDE_PATH["k3_ivf"]
+    n = k3 + WIDE_PATH["k4"]
+    if not all(WIDE_PATH.values()):
         raise AssertionError(f"the main path launched the wide-list "
                              f"kernels {WIDE_PATH}")
     return {
@@ -658,7 +687,10 @@ def wide_record(kp46, kp64, k4) -> dict:
                   " ivf_scan_sq8.cu, ivf_scan_paged.cu)",
         "replaces": "tpu_ann/ops/ivf_scan_pallas.py:217-250",
         "launches": n,
-        "launches_k3": WIDE_PATH["k3"],
+        "launches_k3": k3,
+        "launches_k3_ivfhnsw": WIDE_PATH["k3"],
+        "launches_k3_hnsw": WIDE_PATH["k3_hnsw"],
+        "launches_k3_ivf": WIDE_PATH["k3_ivf"],
         "launches_k4": WIDE_PATH["k4"],
         "max_abs_err": max(kp46["max_abs_err"], kp64["max_abs_err"]),
         "ms": kp46["ms"],
@@ -803,6 +835,8 @@ def main() -> None:
     flat = T.IndexFlat(D, device="cuda")
     flat.add(xb)
     _, gt = flat.search(xq, K)
+    # the exact top 100, shared by phases 9, 17a and 24
+    _, gt100 = flat.search(xq, WIDE["k"])
     t_gt = time.perf_counter() - t0
     del flat
     if any(counts().values()):
@@ -961,7 +995,8 @@ def main() -> None:
     # every file of phases 7-14, 16 and 18 lives here; removed at the end
     with tempfile.TemporaryDirectory(prefix="tpu_ann_smoke_") as tmp:
         paged, k4 = paged_phases(xb, xt, xq, gt, dev, tmp)
-        hidx, hnsw_auto = ivf_hnsw_phase(xb, xt, xq, gt, dev)
+        hidx, hnsw_auto, hnsw_k100 = ivf_hnsw_phase(xb, xt, xq, gt, gt100,
+                                                    dev)
         graph_phase(dev)
         b2 = row_copy_phase(xb, dev)
         k3_b1 = workflow_phase(hidx, quant3, paged, xb, xt, xq, gt, dev, tmp)
@@ -969,8 +1004,8 @@ def main() -> None:
         ivf_api_phase(quant3, xb, xt, xq, gt, results, dev)
         pq_launches, wide = pq_phase(quant3, hidx.quantizer, hnsw_auto, xb,
                                      xt, xq, gt, results, dev, tmp)
-        hnsw_launches, kp64 = hnsw_rest_phase(hidx, hnsw_auto, xb, xt, xq,
-                                              gt, dev, tmp)
+        hnsw_launches, kp64, sq8_k100 = hnsw_rest_phase(
+            hidx, hnsw_auto, xb, xt, xq, gt, gt100, dev, tmp)
         breadth_launches, k3_d64 = breadth_phase(quant3, hidx, xb, xt, xq,
                                                  gt, results, dev, tmp)
         del hidx
@@ -987,7 +1022,7 @@ def main() -> None:
                                 qps3, dev, tmp)
     k3["launches_handles"] = handles["ivf_scan_fused"]
     k4["launches_handles"] = handles["ivf_scan_paged"]
-    k3_global = wide_phase(quant3, xb, xt, xq, dev)
+    wide24 = wide_phase(quant3, xb, xt, xq, gt100, dev)
     k3["launches_pq"] = pq_launches.get("ivf_scan_fused", 0)
     k3["launches_hnsw"] = hnsw_launches.get("ivf_scan_fused", 0)
     k3["launches_breadth"] = breadth_launches.get("ivf_scan_fused", 0)
@@ -1021,7 +1056,22 @@ def main() -> None:
               kp46_ms_kp32=wide["ms_kp32"],
               kp46_max_abs_err=wide["max_abs_err"],
               kp46_bound_ms=wide["bound_ms"])
+    # the kp 33-64 kernels on 17a's k-100 searches (FL: K3; HNSW16,SQ8:
+    # K3-SQ8) and phase 24's IVF searches at k 50; the global-list kernels
+    # on phase 9's IVFHNSW15625 searches at k 100 (K3)
+    WIDE_PATH.update(k3_hnsw=sq8_k100["k3"], k3_ivf=wide24["k3_wide"])
     k3_wide = wide_record(wide, kp64, k4)
+    k3_global = wide24["global"]
+    k3_global["launches_ivfhnsw"] = hnsw_k100["global"]
+    k3_global["launches"] += hnsw_k100["global"]
+    k3_global.update({f"ivfhnsw_nprobe{n}_{f}": r[f]
+                      for n, r in hnsw_k100["kernel"].items()
+                      for f in ("ms", "plain_ms", "bound_ms")})
+    sq8_wide = wide24["sq8_wide"]
+    sq8_wide["launches_hnsw_sq8"] = sq8_k100["sq8"]
+    sq8_wide["launches"] += sq8_k100["sq8"]
+    sq8_wide.update({f"hnsw_hop0_{f}": sq8_k100["hop0"][f]
+                     for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")})
     sq_records[0]["launches_pq"] = pq_launches.get("ivf_scan_sq8", 0)
     sq_records[0]["launches_hnsw"] = hnsw_launches.get("ivf_scan_sq8", 0)
     sq_records[0]["launches_breadth"] = breadth_launches.get("ivf_scan_sq8",
@@ -1037,7 +1087,8 @@ def main() -> None:
           event_timed_kernels=PROFILE_FALLBACKS)
     print(json.dumps({"kernels": [k3, *sq_records, *flat_records,
                                   *variant_records, k4, b2, k3_b1,
-                                  k3_global, k3_wide]}),
+                                  k3_global, k3_wide, sq8_wide,
+                                  wide24["sq8_global"]]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2205,10 +2256,101 @@ def ivf_hnsw_search(idx, xq_dev, xq, gt, nprobe, mode, n_chunks) -> dict:
             "launches_per_search": per}
 
 
-def ivf_hnsw_phase(xb, xt, xq, gt, dev):
-    """Phase 9: the namesake IVFHNSW at the JAX package's bench config 3;
-    returns the index (phase 14 saves and reopens it) and its auto recalls
-    at nprobe 32 / 64 (phase 16's floors)."""
+def ivf_hnsw_wide(idx, xq_dev, xq, gt100, probes, n_chunks) -> dict:
+    """Phase 9 at k 100 (kp 106): IVFHNSW15625 searched at nprobe 32 / 64
+    in both coarse modes, a warm-up and TIMED_REPS timed searches each.
+    A search is one launch of K3's global-list kernel (lists of 64 rows on
+    average; ``pairs_over_kp`` counts the probed lists longer than kp, the
+    ones whose list fills and merges), after the quantizer's hop launches
+    in "quantizer" mode as at k 10; (D, I) equal to the plain route's
+    (`scan_invlists_fused_reference`) bit for bit on the same probes
+    (``probes[(nprobe, mode)]``, the coarse search's); recall@100 must not
+    fall with nprobe. Then the kernel on each auto plan: per-pair (D, P)
+    equal to its plain version, CUDA-event time beside the plain
+    version's and the bound. Returns {"global": the path's global-list
+    launches, "wide": its kp 33-64 launches, "kernel": {nprobe:
+    record}}."""
+    k = WIDE["k"]
+    kp = F.default_kp(k)
+    hops = idx.quantizer.hnsw.fused_hops
+    il = idx.invlists
+    res = {"auto": {}, "quantizer": {}}
+    n_global = n_wide = 0
+    for nprobe in (32, 64):
+        p = T.SearchParametersIVF(nprobe=nprobe)
+        for mode in res:
+            idx.coarse_mode = mode
+            per = 1 if mode == "auto" else n_chunks * (1 + hops) + 1
+            before = counts()
+            g0, w0 = F.LAUNCHES_GLOBAL, F.LAUNCHES_WIDE
+            Dv, Iv = idx.search(xq, k, params=p)
+            times = []
+            for _ in range(TIMED_REPS):
+                t1 = time.perf_counter()
+                idx.search(xq, k, params=p)
+                times.append(time.perf_counter() - t1)
+            n = 1 + TIMED_REPS
+            got = launched(before)
+            if got != {"ivf_scan_fused": per * n} or \
+                    F.LAUNCHES_GLOBAL - g0 != n:
+                raise AssertionError(
+                    f"IVFHNSW {mode} nprobe={nprobe} k {k}: launches {got}, "
+                    f"{F.LAUNCHES_GLOBAL - g0} of the global-list kernel; "
+                    f"want {per} a search, one of them global")
+            n_global += n
+            n_wide += F.LAUNCHES_WIDE - w0
+            if not (Dv.shape == Iv.shape == (NQ, k) and np.isfinite(Dv).all()
+                    and (Iv >= 0).all() and (Iv < NB).all()):
+                raise AssertionError(f"IVFHNSW {mode} nprobe={nprobe} k {k}: "
+                                     f"malformed")
+            D0, I0, _ = F.scan_invlists_fused_reference(
+                xq_dev, probes[(nprobe, mode)], il, k)
+            if not (np.array_equal(Dv, D0.cpu().numpy()) and np.array_equal(
+                    Iv, idx._map_ids(I0.cpu().numpy()))):
+                raise AssertionError(f"IVFHNSW {mode} nprobe={nprobe} k {k}: "
+                                     f"(D, I) differ from the plain route's")
+            del D0, I0
+            res[mode][nprobe] = {
+                "recall_at_100": T.recall_k_at_k(Iv, gt100, k),
+                "qps": NQ / float(np.median(times)),
+                "search_ms": [t * 1e3 for t in times]}
+    idx.coarse_mode = "auto"
+    for mode, r in res.items():
+        if r[32]["recall_at_100"] > r[64]["recall_at_100"]:
+            raise AssertionError(f"IVFHNSW {mode}: recall@100 falls with "
+                                 f"nprobe: {r}")
+    q16, qn = F.fold_queries(xq_dev, il, False)
+    kern = {}
+    for nprobe in (32, 64):
+        plan = F.plan_pairs(probes[(nprobe, "auto")], il)
+        d1, p1 = F.scan_pairs(q16, qn, plan, il, kp, False)
+        d0, p0 = F.scan_pairs_reference(q16, qn, plan, il, kp, False)
+        assert_equal(f"K3 kp {kp} IVFHNSW nprobe {nprobe} distances", d0, d1)
+        assert_equal(f"K3 kp {kp} IVFHNSW nprobe {nprobe} positions", p0, p1)
+        kern[nprobe] = {
+            "kp": kp, "pairs": int(plan.pair_q.numel()),
+            "rows_a_list": NB / idx.nlist,
+            "pairs_over_kp": int((idx._list_sizes_device()[
+                probes[(nprobe, "auto")]] > kp).sum()),
+            "max_abs_err": max_abs_err(d0, d1),
+            "ms": cuda_ms(lambda: F.scan_pairs(q16, qn, plan, il, kp, False),
+                          WIDE["reps"]),
+            "plain_ms": host_ms(lambda: F.scan_pairs_reference(
+                q16, qn, plan, il, kp, False), 1),
+            **bound(*pair_scan_work(plan, il.ids, il.block_size, D, kp, 0,
+                                    il.nblocks))}
+        del d0, p0, d1, p1
+    phase("ivf_hnsw_wide", k=k, kp=kp, nq=NQ, searches=res, kernel=kern,
+          path_launches={"global": n_global, "wide": n_wide},
+          equal_to_plain_route=True)
+    return {"global": n_global, "wide": n_wide, "kernel": kern}
+
+
+def ivf_hnsw_phase(xb, xt, xq, gt, gt100, dev):
+    """Phase 9: the namesake IVFHNSW at the JAX package's bench config 3,
+    at k 10 and (`ivf_hnsw_wide`) at k 100; returns the index (phase 14
+    saves and reopens it), its auto recalls at nprobe 32 / 64 (phase 16's
+    floors) and `ivf_hnsw_wide`'s record."""
     reset_counts()
     t0 = time.perf_counter()
     idx = T.IndexIVFHNSW(D, 15625, M=16, device="cuda")
@@ -2225,16 +2367,19 @@ def ivf_hnsw_phase(xb, xt, xq, gt, dev):
     t_graph = idx.quantizer.build_seconds["graph"]
     xq_dev = torch.from_numpy(xq).to(dev)
     n_chunks = -(-NQ // idx.quantizer.search_chunk)
-    out = {}
+    out, probes = {}, {}
     for nprobe in (32, 64):
         auto = ivf_hnsw_search(idx, xq_dev, xq, gt, nprobe, "auto", n_chunks)
         quant = ivf_hnsw_search(idx, xq_dev, xq, gt, nprobe, "quantizer",
                                 n_chunks)
         idx.coarse_mode = "quantizer"
-        _, hp = idx._coarse_search_device(xq_dev, nprobe)
+        _, probes[(nprobe, "quantizer")] = idx._coarse_search_device(
+            xq_dev, nprobe)
         idx.coarse_mode = "auto"
-        _, ep = idx._coarse_search_device(xq_dev, nprobe)
-        hp, ep = hp.cpu().numpy(), ep.cpu().numpy()
+        _, probes[(nprobe, "auto")] = idx._coarse_search_device(xq_dev,
+                                                                nprobe)
+        hp, ep = (probes[(nprobe, m)].cpu().numpy()
+                  for m in ("quantizer", "auto"))
         fid = float(np.mean([len(set(a) & set(b)) / nprobe
                              for a, b in zip(hp, ep)]))
         out[nprobe] = {"auto": auto, "quantizer": quant, "fidelity": fid}
@@ -2259,8 +2404,9 @@ def ivf_hnsw_phase(xb, xt, xq, gt, dev):
             raise AssertionError(f"IVFHNSW nprobe={nprobe}: auto {a} (floor "
                                  f"{IVFHNSW_FLOORS[nprobe]}), quantizer {q}, "
                                  f"fidelity {r['fidelity']}")
-    idx.coarse_mode = "auto"
-    return idx, {n: r["auto"]["recall_at_10"] for n, r in out.items()}
+    wide = ivf_hnsw_wide(idx, xq_dev, xq, gt100, probes, n_chunks)
+    WIDE_PATH["k3"] += wide["wide"]
+    return idx, {n: r["auto"]["recall_at_10"] for n, r in out.items()}, wide
 
 
 def launch_bounds(call, kp: int) -> list:
@@ -3320,10 +3466,10 @@ def rows_by_id(lists, n: int, dev) -> torch.Tensor:
     return out
 
 
-def codec_recall_rows(rows, xq, gt, dev) -> float:
-    """C: recall@10 of an exact f32 search over decoded rows."""
-    _, I = TD.knn(torch.from_numpy(xq).to(dev), rows, K)
-    return T.recall_k_at_k(I.cpu().numpy(), gt, K)
+def codec_recall_rows(rows, xq, gt, dev, k=K) -> float:
+    """C: recall@k of an exact f32 search over decoded rows."""
+    _, I = TD.knn(torch.from_numpy(xq).to(dev), rows, k)
+    return T.recall_k_at_k(I.cpu().numpy(), gt, k)
 
 
 def overlap_close(name, E, Dv, Iv, rtol) -> float:
@@ -3808,28 +3954,28 @@ def on_graph(idx, src, xb):
     return idx
 
 
-def hnsw_searches(idx, xq, gt, name, want_per_chunk, efs=HNSW_EFS):
+def hnsw_searches(idx, xq, gt, name, want_per_chunk, efs=HNSW_EFS, k=K):
     """At each efSearch a warm-up and TIMED_REPS timed searches of all
-    queries, each launching ``want_per_chunk`` (a launches dict) per
-    8192-query chunk; returns {ef: {recall_at_10, qps, D, I}}."""
+    queries at ``k``, each launching ``want_per_chunk`` (a launches dict)
+    per 8192-query chunk; returns {ef: {recall_at_<k>, qps, D, I}}."""
     out = {}
     n_chunks = -(-len(xq) // idx.search_chunk)
     for ef in efs:
         p = T.SearchParametersHNSW(efSearch=ef)
         before = counts()
-        Dv, Iv = idx.search(xq, K, params=p)
+        Dv, Iv = idx.search(xq, k, params=p)
         times = []
         for _ in range(TIMED_REPS):
             t1 = time.perf_counter()
-            Dv, Iv = idx.search(xq, K, params=p)
+            Dv, Iv = idx.search(xq, k, params=p)
             times.append(time.perf_counter() - t1)
         expect_launches(f"{name} ef={ef}", before,
-                        {k: v * n_chunks * (1 + TIMED_REPS)
-                         for k, v in want_per_chunk.items()})
-        if not (Dv.shape == Iv.shape == (len(xq), K) and
+                        {n: v * n_chunks * (1 + TIMED_REPS)
+                         for n, v in want_per_chunk.items()})
+        if not (Dv.shape == Iv.shape == (len(xq), k) and
                 np.isfinite(Dv).all() and (Iv >= 0).all()):
             raise AssertionError(f"{name} ef={ef}: malformed")
-        out[ef] = {"recall_at_10": T.recall_k_at_k(Iv, gt, K),
+        out[ef] = {f"recall_at_{k}": T.recall_k_at_k(Iv, gt, k),
                    "qps": len(xq) / float(np.median(times)), "D": Dv,
                    "I": Iv}
     return out
@@ -3840,14 +3986,15 @@ def public(res) -> dict:
             for ef, r in res.items()}
 
 
-def codec_floor(name, res, C, flat) -> None:
-    """recall@10 >= C x F - 0.01 at each efSearch."""
+def codec_floor(name, res, C, flat, k=K) -> None:
+    """recall@k >= C x F - 0.01 at each efSearch."""
+    key = f"recall_at_{k}"
     for ef, r in res.items():
-        floor = C * flat[ef]["recall_at_10"] - 0.01
+        floor = C * flat[ef][key] - 0.01
         r["floor"] = floor
-        if r["recall_at_10"] < floor:
-            raise AssertionError(f"{name} ef={ef}: recall@10 "
-                                 f"{r['recall_at_10']} < {floor}")
+        if r[key] < floor:
+            raise AssertionError(f"{name} ef={ef}: recall@{k} {r[key]} < "
+                                 f"{floor}")
 
 
 def uncounted(fn, acc: dict):
@@ -3861,13 +4008,75 @@ def uncounted(fn, acc: dict):
     return out
 
 
-def hnsw_rest_phase(hidx, hnsw_auto, xb, xt, xq, gt, dev, tmp) -> dict:
+# 17a at k 100: the efSearch values (hop-0 tile budgets of 64 and 128)
+HNSW_EFS_K100 = (128, 256)
+
+
+def hnsw_sq8_k100(A, FL, rows8, xq, xq_dev, gt100, dev, cmp) -> dict:
+    """Phase 17a at k 100: HNSW16,SQ8 (``A``, K3-SQ8) and IndexHNSWFlat
+    ``FL`` on its graph (K3) at efSearch 128 and 256. The kp rule gives kp
+    64 on every scan: each 8192-query chunk makes 1 + fused_hops launches,
+    all of the wide-list kernels (kp 33-64). recall@100 against the exact
+    f32 ground truth >= C x FL's - 0.01, C the codec's own recall@100.
+    K3-SQ8 at kp 64 on the hop-0 plan of one chunk at efSearch 128 (64
+    tiles a query) against its plain version (within rtol 1e-5), its time
+    beside the plain version's and the bound. Returns {"k3": FL's launches,
+    "sq8": A's, "hop0": the K3-SQ8 record}."""
+    k = gt100.shape[1]
+    hops = A.hnsw.fused_hops
+    w0 = F.LAUNCHES_WIDE
+    res_f = hnsw_searches(FL, xq, gt100, "IndexHNSWFlat FL k100",
+                          {"ivf_scan_fused": 1 + hops}, HNSW_EFS_K100, k)
+    n_fl = F.LAUNCHES_WIDE - w0
+    res_a = hnsw_searches(A, xq, gt100, "HNSW16,SQ8 k100",
+                          {"ivf_scan_sq8": 1 + hops}, HNSW_EFS_K100, k)
+    n_sq8 = F.LAUNCHES_WIDE - w0 - n_fl
+    want = (len(HNSW_EFS_K100) * -(-len(xq) // A.search_chunk) * (1 + hops)
+            * (1 + TIMED_REPS))
+    if (n_fl, n_sq8) != (want, want):
+        raise AssertionError(f"17a at k {k}: wide-list launches FL {n_fl}, "
+                             f"SQ8 {n_sq8}, want {want} each")
+    C = codec_recall_rows(rows8, xq, gt100, dev, k)
+    codec_floor(f"HNSW16,SQ8 k {k}", res_a, C, res_f, k)
+    ftg = A._tiles_fused
+    il = ftg.il
+    kp = max(A.hnsw.fused_kp, min(ftg.b, k, A.hnsw.fused_kp_max))
+    x8 = xq_dev[:A.search_chunk]
+    nprobe0 = max(8, HNSW_EFS_K100[0] // 2)
+    _, seeds = TD.knn(x8, ftg.cent, min(nprobe0, il.nlist),
+                      compute_dtype="bfloat16", approx=il.nlist > 4096)
+    plan = F.plan_pairs(seeds.to(torch.int32), il)
+    q8, qn8 = F.fold_queries(x8, il, False)
+
+    def scan():
+        return F.scan_pairs(q8, qn8, plan, il, kp, False)
+
+    d1, p1 = uncounted(scan, cmp)
+    d0, p0 = F.scan_pairs_reference(q8, qn8, plan, il, kp, False)
+    hop0 = {"kp": kp, "nq": len(x8), "tiles": int(seeds.shape[1]),
+            "max_abs_err": assert_close_pairs(f"K3-SQ8 hop 0 kp {kp}", d0,
+                                              p0, d1, p1),
+            "ms": uncounted(lambda: cuda_ms(scan, WIDE["reps"]), cmp),
+            "plain_ms": host_ms(lambda: F.scan_pairs_reference(
+                q8, qn8, plan, il, kp, False), 1),
+            **bound(*pair_scan_work(plan, il.ids, il.block_size, D, kp, 0,
+                                    il.nblocks, elem_bytes=1))}
+    del d0, p0, d1, p1
+    phase("hnsw_sq8_k100", k=k, kp=kp, codec_recall_at_100=C,
+          flat=public(res_f), sq8=public(res_a),
+          wide_launches={"k3": n_fl, "k3_sq8": n_sq8}, hop0_k3_sq8=hop0)
+    return {"k3": n_fl, "sq8": n_sq8, "hop0": hop0}
+
+
+def hnsw_rest_phase(hidx, hnsw_auto, xb, xt, xq, gt, gt100, dev,
+                    tmp) -> dict:
     """Phase 17: IndexHNSWSQ (sq8 / bf16 / fp16), IndexHNSWPQ,
     IndexHNSW2Level, the tile beam, wave insertion, extend_graph,
     range_search, their files and the fused tiles above kp 32, on phase
     3's SIFT surrogate (phase 5's float set for the IP beam, phase 9's
-    IVFHNSW15625 for the quantizer). Returns the phase's K3 / K3-SQ8
-    launches."""
+    IVFHNSW15625 for the quantizer); 17a also at k 100 against ``gt100``.
+    Returns the phase's K3 / K3-SQ8 launches, 17j's kp-64 record and
+    `hnsw_sq8_k100`'s."""
     t_phase = time.perf_counter()
     reset_counts()
     cmp = {}                             # comparison launches
@@ -3912,6 +4121,7 @@ def hnsw_rest_phase(hidx, hnsw_auto, xb, xt, xq, gt, dev, tmp) -> dict:
           codec_recall=C8, tile_bytes=il.codes.nbytes,
           device_bytes=sum(t.nbytes for t in (il.codes, il.ids, il.norms)),
           flat=public(res_f), sq8=public(res_a))
+    wide8 = hnsw_sq8_k100(A, FL, rows8, xq, xq_dev, gt100, dev, cmp)
     del rows8
 
     # -- 17b. SQbf16 / SQfp16 on (a)'s graph: bit for bit FL's (K3) ---------
@@ -4259,7 +4469,7 @@ def hnsw_rest_phase(hidx, hnsw_auto, xb, xt, xq, gt, dev, tmp) -> dict:
            if v != cmp.get(k, 0)}
     phase("hnsw_rest", seconds=time.perf_counter() - t_phase, launches=got,
           comparison_launches=cmp, kp64=wide)
-    return got, wide
+    return got, wide, wide8
 
 
 # -- phase 18: the index API breadth -------------------------------------------
@@ -7043,9 +7253,20 @@ def handles_alone() -> None:
 
 # phase 24's sizes: the searches' k and nprobes (kp 106), the kp K3 is held
 # at on the 10k-query plan at nprobe 32 and on nq_big queries, the timed
-# repetitions
+# repetitions; the k of the IVF4096,SQ8 searches (kp 56 and 106), and how
+# much recall QT_8BIT may lose against IVF-Flat at the same k and nprobe
+# (its largest loss at k 10, 0.0122 at nprobe 64, is what SQ8_MAX_LOSS
+# allows there)
 WIDE = {"k": 100, "nprobes": (16, 32, 64), "kps": (106, 262),
-        "kp_big": 1030, "nq_big": 1024, "reps": 3}
+        "kp_big": 1030, "nq_big": 1024, "reps": 3, "sq8_ks": (50, 100),
+        "sq8_max_loss": 0.015}
+
+
+def exact_ground_truth(xb, xq, k, dev) -> np.ndarray:
+    """(nq, k) ids of the exact f32 top-k of xq over xb."""
+    flat = T.IndexFlat(D, device=dev)
+    flat.add(xb)
+    return flat.search(xq, k)[1]
 
 
 def wide_check(name, q16, qn, plan, lists, kp, exact) -> dict:
@@ -7072,39 +7293,184 @@ def wide_check(name, q16, qn, plan, lists, kp, exact) -> dict:
     del d0, p0, d1, p1
     u8 = F.stream_of(lists).dtype == torch.uint8
     return {"kp": kp, "pairs": int(plan.pair_q.numel()), "max_abs_err": err,
-           "ms": cuda_ms(lambda: F.scan_pairs(q16, qn, plan, lists, kp,
-                                              False), WIDE["reps"]),
-           "parent_ms": cuda_ms(lambda: F.scan_pairs_wide(
-               q16, qn, plan, lists, kp, False, F._launch), WIDE["reps"]),
-           "plain_ms": host_ms(lambda: F.scan_pairs_reference(
-               q16, qn, plan, lists, kp, False), 1),
-           **bound(*pair_scan_work(plan, lists.ids, lists.block_size, D, kp,
-                                   0, lists.nblocks,
-                                   elem_bytes=1 if u8 else 2))}
+            "ms": cuda_ms(lambda: F.scan_pairs(q16, qn, plan, lists, kp,
+                                               False), WIDE["reps"]),
+            "parent_ms": cuda_ms(lambda: F.scan_pairs_wide(
+                q16, qn, plan, lists, kp, False, F._launch), WIDE["reps"]),
+            "plain_ms": host_ms(lambda: F.scan_pairs_reference(
+                q16, qn, plan, lists, kp, False), 1),
+            **bound(*pair_scan_work(plan, lists.ids, lists.block_size, D, kp,
+                                    0, lists.nblocks,
+                                    elem_bytes=1 if u8 else 2))}
 
 
-def wide_phase(quant3, xb, xt, xq, dev) -> dict:
-    """Phase 24: the per-pair top-kp above kp 64 (the kernels whose lists
-    live in global memory) on phase 3's data and quantizer. (a) IVF4096,
-    Flat (phase 3's lists) searched at k 100 (kp 106) at nprobe 16 / 32 /
-    64: each search exactly one K3 launch, of the global-list kernel;
-    recall@100 against the exact f32 ground truth at k 100; (D, I) equal
-    to the plain route's (`scan_invlists_fused_reference`) bit for bit;
-    QPS in turns with k 10's; the kernel's time on each search's plan
-    beside its bound. (b) K3 at kp 106 and 262 on the 10k-query
+def scan_launches() -> tuple:
+    """(K3, K3-SQ8, kp 33-64, kp >= 65, K4) launch counts."""
+    return (F.LAUNCHES, F.LAUNCHES_SQ8, F.LAUNCHES_WIDE, F.LAUNCHES_GLOBAL,
+            P.LAUNCHES)
+
+
+def since(before: tuple) -> tuple:
+    return tuple(a - b for a, b in zip(scan_launches(), before))
+
+
+def sq8_wide_searches(idx, name, xq, xq_dev, gt100, probes, flat,
+                      flat_rec) -> dict:
+    """Phase 24(c) for one IVF4096,SQ8 index: at each nprobe a search at
+    k 50 (kp 56) and one at k 100 (kp 106), each exactly one K3-SQ8 launch,
+    of the kp 33-64 kernel and of the global-list kernel; then k 10's
+    warm-up and three timed searches at each k in turns, no K3 or K4
+    launch among them. (D, I) against the plain route on the SQ8 view (bit
+    for bit for QT_8BIT_DIRECT; QT_8BIT within rtol 1e-5, ids apart only
+    on near-ties); QT_8BIT_DIRECT's equal to IVF4096,Flat's (``flat``)
+    bit for bit; recall@50 / @100 against the exact top 100 must not fall
+    with nprobe, and QT_8BIT's stays within WIDE["sq8_max_loss"] of
+    IVF-Flat's (``flat_rec``). The kernel on each search's plan: its
+    CUDA-event time, the plain version's and the bound; at nprobe 32 and
+    kp 56 its per-pair (D, P) against the plain version's (kp 106's is
+    `wide_check`'s). Returns {"searches":
+    {nprobe: {k: record}}, "launches": the path's K3-SQ8 launches (kp
+    33-64, kp >= 65, all)}."""
+    lossy = idx.qtype != T.QT_8BIT_DIRECT
+    view = idx._sq8_view()
+    q8, qn8 = F.fold_queries(xq_dev, view, False)
+    ks = WIDE["sq8_ks"]
+    out, path = {}, [0, 0, 0]
+    for nprobe in WIDE["nprobes"]:
+        p = T.SearchParametersIVF(nprobe=nprobe)
+        res = {}
+        for k in ks:
+            before = scan_launches()
+            res[k] = idx.search(xq, k, params=p)
+            wide = F.default_kp(k) <= F.KP_MAX
+            if since(before) != (0, 1, int(wide), int(not wide), 0):
+                raise AssertionError(f"{name} k {k} nprobe {nprobe}: "
+                                     f"launches {since(before)}, want one "
+                                     f"K3-SQ8 launch of the "
+                                     f"{'wide' if wide else 'global'}-list "
+                                     f"kernel")
+            path[0 if wide else 1] += 1
+            path[2] += 1
+        before = scan_launches()
+        idx.search(xq, K, params=p)
+        ts = {kk: [] for kk in (K, *ks)}
+        order = (K, *ks, *ks[::-1], K) + (K, *ks)
+        for kk in order:
+            t0 = time.perf_counter()
+            idx.search(xq, kk, params=p)
+            ts[kk].append(time.perf_counter() - t0)
+        n = {kk: order.count(kk) for kk in ks}
+        if since(before) != (0, 1 + len(order), n[ks[0]], n[ks[1]], 0):
+            raise AssertionError(f"{name} nprobe {nprobe}: the timed "
+                                 f"searches launched {since(before)}")
+        path[0] += n[ks[0]]
+        path[1] += n[ks[1]]
+        path[2] += 1 + len(order)
+        row = {}
+        for k in ks:
+            Dv, Iv = res[k]
+            kp = F.default_kp(k)
+            where = f"{name} k {k} nprobe {nprobe}"
+            if not (Dv.shape == Iv.shape == (NQ, k) and np.isfinite(Dv).all()
+                    and (Iv >= 0).all() and (Iv < NB).all()
+                    and (np.diff(Dv, axis=1) >= 0).all()):
+                raise AssertionError(f"{where}: malformed results")
+            D0, I0, _ = F.scan_invlists_fused_reference(xq_dev, probes[nprobe],
+                                                        view, k)
+            D0, I0 = D0.cpu().numpy(), idx._map_ids(I0.cpu().numpy())
+            if lossy:
+                assert_close_pairs(f"{where} against the plain route",
+                                   *(torch.from_numpy(a) for a in
+                                     (D0, I0, Dv, Iv)))
+            elif not (np.array_equal(Dv, D0) and np.array_equal(Iv, I0)):
+                raise AssertionError(f"{where}: (D, I) differ from the plain "
+                                     f"route's")
+            equal_flat = bool(np.array_equal(Dv, flat[(k, nprobe)][0]) and
+                              np.array_equal(Iv, flat[(k, nprobe)][1]))
+            if not lossy and not equal_flat:
+                raise AssertionError(f"{where}: (D, I) differ from "
+                                     f"IVF4096,Flat's")
+            rec = T.recall_k_at_k(Iv, gt100, k)
+            floor = flat_rec[(k, nprobe)] - WIDE["sq8_max_loss"]
+            if lossy and rec < floor:
+                raise AssertionError(f"{where}: recall@{k} {rec} < {floor}")
+            plan = F.plan_pairs(probes[nprobe], view)
+            r = {f"recall_at_{k}": rec, "ivf_flat_recall": flat_rec[
+                (k, nprobe)], "equal_to_ivf_flat": equal_flat,
+                 "qps": NQ / float(np.median(ts[k])),
+                 "qps_k10": NQ / float(np.median(ts[K])),
+                 "search_ms": [t * 1e3 for t in ts[k]], "kp": kp,
+                 "ms": cuda_ms(lambda: F.scan_pairs(q8, qn8, plan, view, kp,
+                                                    False), WIDE["reps"]),
+                 "plain_ms": host_ms(lambda: F.scan_pairs_reference(
+                     q8, qn8, plan, view, kp, False), 1),
+                 **bound(*pair_scan_work(plan, view.ids, view.block_size, D,
+                                         kp, 0, view.nblocks, elem_bytes=1))}
+            if nprobe == 32 and kp <= F.KP_MAX:
+                d1, p1 = F.scan_pairs(q8, qn8, plan, view, kp, False)
+                d0, p0 = F.scan_pairs_reference(q8, qn8, plan, view, kp,
+                                                False)
+                if not lossy:
+                    assert_equal(f"K3-SQ8 {where} distances", d0, d1)
+                    assert_equal(f"K3-SQ8 {where} positions", p0, p1)
+                r["max_abs_err"] = assert_close_pairs(f"K3-SQ8 {where}", d0,
+                                                      p0, d1, p1)
+                del d0, p0, d1, p1
+            row[k] = r
+        out[nprobe] = row
+    for k in ks:
+        recs = [out[n][k][f"recall_at_{k}"] for n in WIDE["nprobes"]]
+        if recs != sorted(recs):
+            raise AssertionError(f"{name}: recall@{k} falls with nprobe: "
+                                 f"{recs}")
+    phase("wide_sq8_search", qtype=name, nq=NQ, searches=out,
+          path_launches={"wide": path[0], "global": path[1],
+                         "all": path[2]})
+    return {"searches": out, "launches": tuple(path)}
+
+
+def sq8_record(name, kp_class, launches, at, err, **extra) -> dict:
+    """A kernels-line record of a K3-SQ8 kernel above kp 32, its time at
+    ``at`` (a `sq8_wide_searches` record: QT_8BIT at nprobe 32), ``err``
+    its largest difference from the plain version."""
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "tpu_ann_torch/csrc/ivf_scan_sq8.cu (body in "
+                  "tpu_ann_torch/csrc/ivf_scan_core.cuh, " + kp_class + ")",
+        "replaces": "tpu_ann/ops/ivf_scan_pallas.py:217-250",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": at["ms"],
+        "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"],
+        "bound_by": at["bound_by"],
+        "library_ms": None,
+        **extra,
+    }
+
+
+def wide_phase(quant3, xb, xt, xq, gt100, dev) -> dict:
+    """Phase 24: the searches past kp 32 on phase 3's data and quantizer,
+    ``gt100`` the exact top 100. (a) IVF4096,Flat (phase 3's lists)
+    searched at k 100 (kp 106) at nprobe 16 / 32 / 64: each search exactly
+    one K3 launch, of the global-list kernel; recall@100; (D, I) equal to
+    the plain route's (`scan_invlists_fused_reference`) bit for bit; QPS
+    in turns with k 10's; the kernel's time on each search's plan beside
+    its bound; and one search at k 50 (kp 56, the wide lists) a nprobe,
+    which (c) compares with. (b) K3 at kp 106 and 262 on the 10k-query
     plan at nprobe 32 and at kp 1030 on 1024 queries: per-pair (D, P)
     equal to the plain version bit for bit, the k-100 scan equal to
     `scan_invlists_fused_reference`, CUDA-event times beside the parent
     route's (`scan_pairs_wide` over the kp-32 launch) and the plain
-    version's, bounds. (c) K3-SQ8 at kp 106 on IVF4096,SQ8 (QT_8BIT,
-    within rtol 1e-5) and QT_8BIT_DIRECT (bit for bit), likewise. Returns
-    the kernels-line record of the global-list kernel."""
+    version's, bounds. (c) IVF4096,SQ8 with QT_8BIT and QT_8BIT_DIRECT
+    searched at k 50 and 100 (`sq8_wide_searches`), then K3-SQ8 at kp 106
+    on the nprobe-32 plan as (b). Returns {"global": the kernels-line
+    record of the global-list kernels, "sq8_wide" / "sq8_global": K3-SQ8's
+    kp 33-64 / kp >= 65 records, "k3_wide": (a)'s kp 33-64 launches}."""
     t_phase = time.perf_counter()
     k = WIDE["k"]
-    flat = T.IndexFlat(D, device=dev)
-    flat.add(xb)
-    _, gt100 = flat.search(xq, k)
-    del flat
+    k50 = WIDE["sq8_ks"][0]
     index = ivf_over(quant3, xb, np.arange(NB), xt, dev=dev)
     il = index.invlists
     xq_dev = torch.from_numpy(xq).to(dev)
@@ -7113,10 +7479,12 @@ def wide_phase(quant3, xb, xt, xq, dev) -> dict:
 
     # (a) the search at k 100, one launch each of the global-list kernel
     reset_counts()
-    searches, n_k100, n_all = {}, 0, 0
+    searches, flat, flat_rec, n_k100, n_all = {}, {}, {}, 0, 0
     for nprobe in WIDE["nprobes"]:
         p = T.SearchParametersIVF(nprobe=nprobe)
         Dv, Iv = index.search(xq, k, params=p)
+        flat[(k50, nprobe)] = index.search(xq, k50, params=p)
+        flat[(k, nprobe)] = (Dv, Iv)
         index.search(xq, K, params=p)
         ts = {K: [], k: []}
         for kk in (K, k, k, K, K, k):
@@ -7124,23 +7492,29 @@ def wide_phase(quant3, xb, xt, xq, dev) -> dict:
             index.search(xq, kk, params=p)
             ts[kk].append(time.perf_counter() - t0)
         n_k100 += 4
-        n_all += 8
+        n_all += 9
         if not (Dv.shape == Iv.shape == (NQ, k) and np.isfinite(Dv).all()
                 and (Iv >= 0).all() and (Iv < NB).all()
                 and (np.diff(Dv, axis=1) >= 0).all()):
             raise AssertionError(f"k {k} nprobe {nprobe}: malformed results")
+        for kk in (k50, k):
+            flat_rec[(kk, nprobe)] = T.recall_k_at_k(flat[(kk, nprobe)][1],
+                                                     gt100, kk)
         searches[nprobe] = {
-            "recall_at_100": T.recall_k_at_k(Iv, gt100, k),
+            "recall_at_100": flat_rec[(k, nprobe)],
+            "recall_at_50": flat_rec[(k50, nprobe)],
             "qps": NQ / float(np.median(ts[k])),
             "qps_k10": NQ / float(np.median(ts[K])),
             "search_ms": [t * 1e3 for t in ts[k]]}
+    n_k50 = len(WIDE["nprobes"])
     path = {"ivf_scan_fused": F.LAUNCHES,
-            "ivf_scan_global": F.LAUNCHES_GLOBAL}
-    if path != {"ivf_scan_fused": n_all, "ivf_scan_global": n_k100} or \
-            F.LAUNCHES_SQ8 or P.LAUNCHES:
+            "ivf_scan_global": F.LAUNCHES_GLOBAL,
+            "ivf_scan_wide": F.LAUNCHES_WIDE}
+    if path != {"ivf_scan_fused": n_all, "ivf_scan_global": n_k100,
+                "ivf_scan_wide": n_k50} or F.LAUNCHES_SQ8 or P.LAUNCHES:
         raise AssertionError(f"the k-{k} searches launched {path}, want "
                              f"{n_all} K3 launches, {n_k100} of them the "
-                             f"global-list kernel")
+                             f"global-list kernel and {n_k50} the wide one")
     c0 = F.LAUNCHES + F.LAUNCHES_SQ8
     q16, qn = F.fold_queries(xq_dev, il, False)
     kp = F.default_kp(k)
@@ -7151,8 +7525,7 @@ def wide_phase(quant3, xb, xt, xq, dev) -> dict:
                                                    False), WIDE["reps"]),
             **bound(*pair_scan_work(plan, il.ids, il.block_size, D, kp, 0,
                                     il.nblocks)))
-        Dv, Iv = index.search(xq, k, params=T.SearchParametersIVF(
-            nprobe=nprobe))
+        Dv, Iv = flat[(k, nprobe)]
         D0, I0, _ = F.scan_invlists_fused_reference(xq_dev, probes[nprobe],
                                                     il, k)
         if not (np.array_equal(Dv, D0.cpu().numpy()) and np.array_equal(
@@ -7184,12 +7557,17 @@ def wide_phase(quant3, xb, xt, xq, dev) -> dict:
         assert_equal(f"K3 scan at k {k} kp {kp} ids", I0, I1)
     del D0, I0, D1, I1, index, il
     torch.cuda.empty_cache()
+    c_ab = F.LAUNCHES + F.LAUNCHES_SQ8 - c0
 
-    # (c) K3-SQ8 at kp 106 on both SQ8 indexes (10k q, nprobe 32)
-    sq8 = {}
+    # (c) IVF4096,SQ8 at k 50 / 100, then K3-SQ8 at kp 106 (10k q, nprobe
+    # 32) on both qtypes
+    sq8, sq8_path = {}, {}
+    c1 = F.LAUNCHES + F.LAUNCHES_SQ8
     for name, qtype in (("QT_8BIT", T.QT_8BIT),
                         ("QT_8BIT_DIRECT", T.QT_8BIT_DIRECT)):
         idx = ivf_over(quant3, xb, np.arange(NB), xt, qtype, dev=dev)
+        sq8_path[name] = sq8_wide_searches(idx, name, xq, xq_dev, gt100,
+                                           probes, flat, flat_rec)
         view = idx._sq8_view()
         q8, qn8 = F.fold_queries(xq_dev, view, False)
         sq8[name] = wide_check(f"K3-SQ8 {name}", q8, qn8,
@@ -7197,11 +7575,21 @@ def wide_phase(quant3, xb, xt, xq, dev) -> dict:
                                name == "QT_8BIT_DIRECT")
         del idx, view
         torch.cuda.empty_cache()
+    n_wide8, n_global8, n_all8 = (sum(r["launches"][i]
+                                      for r in sq8_path.values())
+                                  for i in range(3))
     phase("wide_kernels", nq=[NQ, nb], nprobe=32, k3=k3, k3_sq8=sq8,
-          comparison_launches=F.LAUNCHES + F.LAUNCHES_SQ8 - c0,
-          seconds=time.perf_counter() - t_phase)
+          comparison_launches=c_ab + F.LAUNCHES + F.LAUNCHES_SQ8 - c1
+          - n_all8, seconds=time.perf_counter() - t_phase)
     at = k3[106]
-    return {
+
+    def sq8_times(kk):
+        return {f"{n.lower()}_nprobe{nprobe}_{f}":
+                r["searches"][nprobe][kk][f] for n, r in sq8_path.items()
+                for nprobe in WIDE["nprobes"]
+                for f in ("ms", "plain_ms", "bound_ms")}
+
+    return {"global": {
         "name": "ivf_scan_global",
         "route": "cuda",
         "source": "tpu_ann_torch/csrc/ivf_scan_core.cuh (update_list, "
@@ -7209,6 +7597,7 @@ def wide_phase(quant3, xb, xt, xq, dev) -> dict:
                   "ivf_scan_sq8.cu, ivf_scan_paged.cu)",
         "replaces": "tpu_ann/ops/ivf_scan_pallas.py:217-250",
         "launches": path["ivf_scan_global"],
+        "launches_ivf_flat": path["ivf_scan_global"],
         "max_abs_err": max(r["max_abs_err"] for r in
                            [*k3.values(), *sq8.values()]),
         "ms": at["ms"],
@@ -7221,17 +7610,28 @@ def wide_phase(quant3, xb, xt, xq, dev) -> dict:
            for f in ("ms", "parent_ms", "plain_ms", "bound_ms")},
         **{f"sq8_{n.lower()}_{f}": r[f] for n, r in sq8.items()
            for f in ("ms", "parent_ms", "plain_ms", "bound_ms")},
-    }
+    }, "sq8_wide": sq8_record(
+        "ivf_scan_sq8_wide", "update_chunk2, scan_tile<..., 2, kPTWide>",
+        n_wide8, sq8_path["QT_8BIT"]["searches"][32][k50],
+        max(r["searches"][32][k50]["max_abs_err"]
+            for r in sq8_path.values()),
+        launches_ivf_sq8=n_wide8, **sq8_times(k50)),
+       "sq8_global": sq8_record(
+        "ivf_scan_sq8_global", "update_list, sort_list, merge_run",
+        n_global8, sq8_path["QT_8BIT"]["searches"][32][k],
+        max(r["max_abs_err"] for r in sq8.values()), **sq8_times(k)),
+       "k3_wide": n_k50}
 
 
 def wide_alone() -> None:
     """--phase24: phase 24 alone: K3 and K3-SQ8 built, phase 3's data,
-    ground truth and IVF4096,Flat, then wide_phase. Its phase lines
-    only."""
+    ground truth and IVF4096,Flat, the exact top 100, then wide_phase. Its
+    phase lines only."""
     dev = require_gpu()
     kernels.load_libraries(("ivf_scan_fused", "ivf_scan_sq8"))
     quant3, xb, xt, xq, _, _ = phase3_setup(dev)
-    wide_phase(quant3, xb, xt, xq, dev)
+    wide_phase(quant3, xb, xt, xq, exact_ground_truth(xb, xq, WIDE["k"], dev),
+               dev)
 
 
 # -- --wide-ab: the kernels above kp 32 against another tree's ---------------

@@ -235,6 +235,54 @@ def test_ivf_sq_direct_equals_ivf_flat_on_card():
     np.testing.assert_array_equal(I2, I1)
 
 
+@pytest.mark.parametrize("qtype", [SQ.QT_8BIT_DIRECT, SQ.QT_8BIT])
+@pytest.mark.parametrize("metric", [1, 0])
+@pytest.mark.parametrize("k", [50, 100])
+def test_ivf_sq_wide_k_search_equals_cpu_route(k, metric, qtype):
+    """IndexIVFScalarQuantizer.search at k 50 (kp 56, the wide lists) and
+    k 100 (kp 106, the lists in shared memory) on the card: one K3-SQ8
+    launch of that kernel a search, no K3 launch, and (D, I) equal to the
+    same index built on the CPU (the plain route): bit for bit for
+    QT_8BIT_DIRECT codes of integer data; for QT_8BIT distances within
+    rtol 1e-5 and ids equal outside near-ties."""
+    dev = _cuda()
+    rs = np.random.RandomState(4)
+    d, nlist = 128, 32
+    if qtype == SQ.QT_8BIT_DIRECT:
+        xb = rs.randint(0, 256, size=(8000, d)).astype(np.float32)
+        xq = rs.randint(0, 256, size=(300, d)).astype(np.float32)
+    else:
+        xb = (rs.randn(8000, d) * rs.uniform(0.5, 3.0, d)).astype(np.float32)
+        xq = (rs.randn(300, d) * rs.uniform(0.5, 3.0, d)).astype(np.float32)
+    cent = xb[rs.choice(len(xb), nlist, replace=False)]
+    out = {}
+    for where in ("cuda", "cpu"):
+        quant = IndexFlat(d, metric, device=where)
+        quant.add(cent)
+        idx = IndexIVFScalarQuantizer(quant, d, nlist, qtype, metric,
+                                      device=where)
+        idx.quantizer_trains_alone = 1
+        idx.train(xb[:2000])
+        idx.add(xb)
+        idx.nprobe = 6
+        before = (F.LAUNCHES, F.LAUNCHES_SQ8, F.LAUNCHES_WIDE,
+                  F.LAUNCHES_GLOBAL)
+        out[where] = idx.search(xq, k)
+        got = tuple(a - b for a, b in zip(
+            (F.LAUNCHES, F.LAUNCHES_SQ8, F.LAUNCHES_WIDE, F.LAUNCHES_GLOBAL),
+            before))
+        want = (0, 1, int(k == 50), int(k == 100)) if where == "cuda" \
+            else (0, 0, 0, 0)
+        assert got == want, (where, got)
+    (D1, I1), (D0, I0) = out["cuda"], out["cpu"]
+    assert D1.shape == I1.shape == (len(xq), k) and (I1 >= 0).all()
+    if qtype == SQ.QT_8BIT_DIRECT:
+        np.testing.assert_array_equal(D1, D0)
+        np.testing.assert_array_equal(I1, I0)
+    else:
+        assert_topk_equal(D0, I0, D1, I1, rtol=1e-5)
+
+
 def test_sq8_rejects_unsupported():
     """kp 33 (the wide lists) and kp 106 (the lists in global memory) are
     served, one launch each, equal to the plain version bit for bit; kp

@@ -61,7 +61,11 @@ Covered today:
   serialize; IndexIVFHNSW.save_to_disk / load), on-disk inverted lists and
   merge_ondisk (utils.invlists_io), index_factory (utils.factory), the
   per-query latency stats (search_stats_per_query, search_preassigned)
-  and the benchmark grid with its P50 / P99 / P99.9 (utils.benchmark).
+  and the benchmark grid with its P50 / P99 / P99.9 (utils.benchmark);
+- the IVF search's spans (trace): each step of IndexIVF.search (input,
+  upload, coarse, plan, kernel, merge, output) in a range of the
+  profiler's trace, and all but the kernel in search_stats' fields, free
+  when neither is on.
 """
 
 from .models import (  # noqa: F401

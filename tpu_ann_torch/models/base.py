@@ -46,10 +46,35 @@ class QueryLatencyStats:
 @dataclasses.dataclass
 class SearchStats:
     """Per-search timing and counters (fork's QueryLatencyStats +
-    IndexIVFStats). Times are wall-clock microseconds for the whole batch,
-    fenced by device synchronisation (see `Timer`). ``extra`` holds an
-    index's own counters (the paged scan's windows and times); like
-    ``per_query`` it is not summed, listed or reset with the rest."""
+    IndexIVFStats). Times are microseconds for the whole batch. The
+    fork's three:
+
+    - ``quantization_us``: the coarse step, on the host clock fenced by
+      device syncs at both edges (`Timer`'s clock);
+    - ``list_scan_us``: the same clock around the list scan, plus
+      ``output_us``: so it also holds the copy of the results to the host
+      and the map to user ids;
+    - ``total_us``: the two summed (the input checks and the upload are
+      not in it, as in the fork).
+
+    `IndexIVF.search_stats` fills these from the spans of its steps
+    (`tpu_ann_torch.trace`), and five more:
+
+    - ``input_us``: the checks and parameters (``_ready``,
+      ``_check_input``, ``_effective_params``, ``_sel_mask``), fenced host
+      clock;
+    - ``upload_us``: the queries' copy to the device, fenced host clock;
+    - ``plan_us``, ``merge_us``: the fused scan's pair plan, and its merge
+      and re-rank, on the device's clock (a CUDA event pair each, read
+      after the list scan's closing sync; the host clock on a CPU device);
+      zero where the query-major scan runs;
+    - ``output_us``: the copy out and the map to user ids, host clock (it
+      starts after the list scan's closing sync, and the copy blocks the
+      host until it is done).
+
+    ``extra`` holds an index's own counters (the paged scan's windows and
+    times); like ``per_query`` it is not summed, listed or reset with the
+    rest."""
 
     nq: int = 0
     total_us: float = 0.0
@@ -57,6 +82,11 @@ class SearchStats:
     list_scan_us: float = 0.0
     ndis: int = 0           # number of distances evaluated
     nlist_visited: int = 0  # number of invlists scanned
+    input_us: float = 0.0
+    upload_us: float = 0.0
+    plan_us: float = 0.0
+    merge_us: float = 0.0
+    output_us: float = 0.0
     per_query: Optional[QueryLatencyStats] = None
     extra: Optional[dict] = None
 

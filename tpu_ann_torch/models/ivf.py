@@ -14,7 +14,8 @@ fallback to another scan. The reference's rule sends a search to the
 query-major scan (`ops.ivf_scan.scan_invlists`, plain torch) instead: an
 IDSelector, an explicit max_codes below the default cap, or
 ``scan_mode="query"``. `search_stats` reports the fork's quantization /
-list-scan split (faiss/IndexIVF.h:28-32).
+list-scan split (faiss/IndexIVF.h:28-32) and the split of its steps, from
+the spans that `search` runs them in (`tpu_ann_torch.trace`).
 
 The DirectMap (invlists/DirectMap.h; row -> packed slot, built at each
 repack) lets remove_ids and update_vectors edit the device invlists in
@@ -37,6 +38,7 @@ from ..ops import ivf_scan
 from ..ops.ivf_scan_fused import scan_invlists_fused
 from ..ops.kmeans import ClusteringParameters, kmeans
 from ..ops.range_search import range_search_ivf
+from ..trace import collect, fence, span
 from . import base
 from .base import Index, SearchStats, Timer
 from .flat import IndexFlat
@@ -459,10 +461,15 @@ class IndexIVF(Index):
 
     def _search_device(self, xq_dev: torch.Tensor, k: int, nprobe: int,
                        mnb: Optional[int] = None, id_mask=None):
-        """Coarse quantization + invlist scan, all on the device. Returns
-        (D, I) tensors; I holds stored row indices."""
-        _, probes = self._coarse_search_device(xq_dev, nprobe)
-        return self._scan_probes(xq_dev, probes, k, mnb, id_mask)[:2]
+        """Coarse quantization + invlist scan, all on the device, the
+        coarse step in its span and the scan in ``list_scan_us``'s fence
+        (`tpu_ann_torch.trace`). Returns (D, I, probes, ndis); I holds
+        stored row indices, ndis is `_scan_probes`'."""
+        with span("ivf.coarse"):
+            _, probes = self._coarse_search_device(xq_dev, nprobe)
+        with fence("list_scan_us"):
+            Dv, Iv, ndis = self._scan_probes(xq_dev, probes, k, mnb, id_mask)
+        return Dv, Iv, probes, ndis
 
     def _scan_probes(self, xq_dev: torch.Tensor, probes: torch.Tensor,
                      k: int, mnb: Optional[int] = None, id_mask=None):
@@ -488,53 +495,88 @@ class IndexIVF(Index):
 
     def search(self, x, k: int, *,
                params: Optional[SearchParametersIVF] = None):
-        """Both phases on the device, one sync at the end."""
-        self._ready()
-        x = self._check_input(x)
-        if self.search_chunk and len(x) > self.search_chunk:
-            outs = [self.search(x[i:i + self.search_chunk], k, params=params)
-                    for i in range(0, len(x), self.search_chunk)]
+        """Both phases on the device, one sync at the end (the copy out).
+        Each step runs in its span (`tpu_ann_torch.trace`)."""
+        with span("ivf.search"):
+            x, *setting = self._search_input(x, params)
+            step = self.search_chunk
+            if not step or len(x) <= step:
+                return self._search_steps(x, k, *setting)[:2]
+            outs = [self._search_steps(x[i:i + step], k, *setting)
+                    for i in range(0, len(x), step)]
             return (np.concatenate([o[0] for o in outs]),
                     np.concatenate([o[1] for o in outs]))
-        nprobe, mnb = self._effective_params(params)
-        Dv, Iv = self._search_device(self._to_device(x), k, nprobe, mnb,
-                                     id_mask=self._sel_mask(params))
-        return Dv.cpu().numpy(), self._map_ids(Iv.cpu().numpy())
+
+    def _search_input(self, x, params):
+        """The input step of a search, in its span: (the checked rows,
+        nprobe, blocks read per list, the selector's row mask or None)."""
+        with span("ivf.input"):
+            self._ready()
+            x = self._check_input(x)
+            nprobe, mnb = self._effective_params(params)
+            return x, nprobe, mnb, self._sel_mask(params)
+
+    def _search_steps(self, x: np.ndarray, k: int, nprobe: int,
+                      mnb: Optional[int], id_mask):
+        """The search after its input step, each step in its span: the
+        upload, `_search_device`, the copy out with the map to user ids.
+        Returns (D, I user ids, probes, ndis)."""
+        with span("ivf.upload"):
+            xq_dev = self._to_device(x)
+        Dv, Iv, probes, ndis = self._search_device(xq_dev, k, nprobe, mnb,
+                                                   id_mask)
+        with span("ivf.output"):
+            Dv, Iv = Dv.cpu().numpy(), self._map_ids(Iv.cpu().numpy())
+        return Dv, Iv, probes, ndis
 
     def search_device(self, xq_dev: torch.Tensor, k: int):
         """Device-in/device-out search with the index's current settings;
         map the returned row indices with `_map_ids` after copying."""
         self._ready()
-        return self._search_device(xq_dev, k, *self._effective_params(None))
+        return self._search_device(xq_dev, k,
+                                   *self._effective_params(None))[:2]
 
     def search_stats(self, x, k: int, *,
                      params: Optional[SearchParametersIVF] = None):
         """search + the QueryLatencyStats split (fork's
-        IndexIVF::search_stats, faiss/IndexIVF.cpp:727-860); the phases
-        are fenced by device syncs, so use search() for throughput.
-        ``ndis`` is the query-major scan's count where that scan runs, else
-        the entries of the probed lists (faiss IndexIVFStats.ndis; the
-        fused scan also reads block padding). Unlike the reference's, this
-        applies ``params.sel``, as search() does."""
-        self._ready()
-        x = self._check_input(x)
-        nprobe, mnb = self._effective_params(params)
-        id_mask = self._sel_mask(params)
-        xq_dev = self._to_device(x)
-        with Timer(self.device) as t_q:
-            _, probes = self._coarse_search_device(xq_dev, nprobe)
-        with Timer(self.device) as t_s:
-            Dv, Iv, ndis = self._scan_probes(xq_dev, probes, k, mnb, id_mask)
-            Dv = Dv.cpu().numpy()
-            Iv = self._map_ids(Iv.cpu().numpy())
+        IndexIVF::search_stats, faiss/IndexIVF.cpp:727-860), filled by the
+        spans of search's steps (`tpu_ann_torch.trace`), whose fields,
+        each in microseconds for the batch, are:
+
+        - ``quantization_us``: the coarse step, host clock, fenced by
+          device syncs at both edges;
+        - ``list_scan_us``: the list scan on the same clock, plus
+          ``output_us`` (the copy of the results to the host and the map
+          to user ids);
+        - ``total_us``: the two summed;
+        - ``input_us`` (checks and parameters), ``upload_us`` (the
+          queries' copy to the device): fenced host clock;
+        - ``plan_us``, ``merge_us``: the fused scan's pair plan, and its
+          merge and re-rank, on the device's clock (CUDA events read after
+          the list scan's closing sync; the host clock on a CPU device),
+          zero where the query-major scan runs;
+        - ``output_us``: the copy out and the map to user ids, host clock
+          (it starts after the scan's closing sync and the copy blocks).
+
+        The fences sync the device, so use search() for throughput (search
+        runs the same spans without the fences or the events, and they
+        cost nothing unless the profiler is on). ``ndis`` is the
+        query-major scan's count where that scan runs, else the entries of
+        the probed lists (faiss IndexIVFStats.ndis; the fused scan also
+        reads block padding). Unlike the reference's, this applies
+        ``params.sel``, as search() does."""
+        stats = SearchStats()
+        with collect(stats, self.device), span("ivf.search"):
+            x, nprobe, mnb, id_mask = self._search_input(x, params)
+            Dv, Iv, probes, ndis = self._search_steps(x, k, nprobe, mnb,
+                                                      id_mask)
         if ndis is None:
             sizes = self._list_sizes_device()
             ndis = torch.where(probes >= 0, sizes[probes.clamp(min=0)],
                                0).sum()
-        stats = SearchStats(
-            nq=len(x), total_us=t_q.us + t_s.us, quantization_us=t_q.us,
-            list_scan_us=t_s.us, ndis=int(ndis),
-            nlist_visited=len(x) * nprobe)
+        stats.nq, stats.ndis = len(x), int(ndis)
+        stats.nlist_visited = len(x) * nprobe
+        stats.total_us = stats.quantization_us + stats.list_scan_us
         base.indexIVF_stats.accumulate(stats)
         return Dv, Iv, stats
 

@@ -27,6 +27,9 @@ Steps (the wrapper is plain torch around one kernel launch):
      dequantized codes), map stream positions to row ids, and flip the sign
      back for IP.
 
+The three steps run in the spans ``ivf.plan`` (with the queries' fold),
+``ivf.kernel`` and ``ivf.merge`` (`tpu_ann_torch.trace`).
+
 Each library holds three kernels, chosen by kp at launch: the per-pair
 lists in registers, one entry a lane up to KP_LANE (32) and two up to
 KP_MAX (64), and in the output rows themselves for any kp above (a search
@@ -52,6 +55,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..trace import span
 from . import distances as D
 from .ivf_scan import PackedInvLists, PackedInvListsSQ8
 
@@ -497,13 +501,17 @@ def _scan(xq, probes, invlists, k, metric, refine, kp, pair_fn, pt,
     similarity = D.is_similarity_metric(metric)
     xq = xq.float()
     kp = int(kp) if kp else default_kp(k)
-    plan = plan_pairs(probes, invlists, pt)
-    if cut is not None:
-        plan = truncate_plan(plan, *cut)
-    q, qn = fold_queries(xq, invlists, similarity)
-    pd, pp = pair_fn(q, qn, plan, invlists, kp, similarity)
-    Dv, Iv = merge_pairs(xq, pd, pp, plan, k, probes.shape[1], similarity,
-                         refine, invlists.rows_at, invlists.ids_at)
+    with span("ivf.plan"):
+        plan = plan_pairs(probes, invlists, pt)
+        if cut is not None:
+            plan = truncate_plan(plan, *cut)
+        q, qn = fold_queries(xq, invlists, similarity)
+    with span("ivf.kernel"):
+        pd, pp = pair_fn(q, qn, plan, invlists, kp, similarity)
+    with span("ivf.merge"):
+        Dv, Iv = merge_pairs(xq, pd, pp, plan, k, probes.shape[1],
+                             similarity, refine, invlists.rows_at,
+                             invlists.ids_at)
     return Dv, Iv, plan.ndis
 
 

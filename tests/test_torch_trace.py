@@ -16,7 +16,8 @@ from tpu_ann_torch import trace
 from tpu_ann_torch.models import base as tbase
 
 N, NQ, D, K, NLIST, NPROBE = 2000, 16, 16, 5, 16, 4
-NEW_FIELDS = ("input_us", "upload_us", "plan_us", "merge_us", "output_us")
+NEW_FIELDS = ("input_us", "upload_us", "plan_us", "merge_us", "output_us",
+              "pinned_bytes")
 SCAN_PARTS = ("plan_us", "merge_us", "output_us")
 
 
@@ -113,6 +114,44 @@ def test_search_stats_fills_accumulates_and_lists_the_new_fields(ivf):
         assert getattr(total, f) == pytest.approx(2 * listed[f]), f
     total.reset()
     assert all(getattr(total, f) == 0 for f in NEW_FIELDS)
+
+
+def test_search_stats_sums_lists_and_resets_pinned_bytes():
+    st = T.SearchStats(nq=4, pinned_bytes=4 * D * 4 + 4 * K * 12)
+    assert st.as_dict()["pinned_bytes"] == 4 * D * 4 + 4 * K * 12
+    total = T.SearchStats()
+    total.accumulate(st)
+    total.accumulate(st)
+    assert total.pinned_bytes == 2 * st.pinned_bytes
+    total.reset()
+    assert total.pinned_bytes == 0 and type(total.pinned_bytes) is int
+
+
+def test_pinned_bytes_is_zero_on_a_cpu_device(ivf):
+    """A CPU index copies nothing through page-locked memory, whatever the
+    input: a numpy array, a read-only one, a tensor."""
+    index, xq = ivf
+    ro = xq.copy()
+    ro.flags.writeable = False
+    D0, I0 = index.search(xq, K)
+    for x in (xq, ro, torch.from_numpy(xq)):
+        Dx, Ix, st = index.search_stats(x, K)
+        assert st.pinned_bytes == 0 and st.nq == NQ
+        np.testing.assert_array_equal(Dx, D0)
+        np.testing.assert_array_equal(Ix, I0)
+
+
+def test_count_adds_only_under_a_collector():
+    """trace.count is a no-op without a collector; under one it adds to
+    the field, inside a timed span too (a count is no time)."""
+    trace.count("pinned_bytes", 100)
+    st = T.SearchStats()
+    with trace.collect(st, "cpu"):
+        trace.count("pinned_bytes", 100)
+        with trace.span("ivf.output"):
+            trace.count("pinned_bytes", 20)
+    trace.count("pinned_bytes", 100)
+    assert st.pinned_bytes == 120 and type(st.pinned_bytes) is int
 
 
 def test_scan_parts_lie_within_list_scan_us(ivf):

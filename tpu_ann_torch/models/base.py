@@ -58,7 +58,7 @@ class SearchStats:
       not in it, as in the fork).
 
     `IndexIVF.search_stats` fills these from the spans of its steps
-    (`tpu_ann_torch.trace`), and five more:
+    (`tpu_ann_torch.trace`), and six more:
 
     - ``input_us``: the checks and parameters (``_ready``,
       ``_check_input``, ``_effective_params``, ``_sel_mask``), fenced host
@@ -69,8 +69,13 @@ class SearchStats:
       after the list scan's closing sync; the host clock on a CPU device);
       zero where the query-major scan runs;
     - ``output_us``: the copy out and the map to user ids, host clock (it
-      starts after the list scan's closing sync, and the copy blocks the
-      host until it is done).
+      starts after the list scan's closing sync, and ends after the sync
+      that waits for the copy: on a CUDA device, of the stream, once the
+      copies into page-locked memory are issued);
+    - ``pinned_bytes``: the bytes of the search's host <-> device copies
+      that went through page-locked host memory (the queries up and the
+      results down: ``nq*d*4 + nq*k*(4 + 8)`` on a CUDA device, 0 on the
+      CPU), counted by `tpu_ann_torch.trace.count`.
 
     ``extra`` holds an index's own counters (the paged scan's windows and
     times); like ``per_query`` it is not summed, listed or reset with the
@@ -87,6 +92,7 @@ class SearchStats:
     plan_us: float = 0.0
     merge_us: float = 0.0
     output_us: float = 0.0
+    pinned_bytes: int = 0
     per_query: Optional[QueryLatencyStats] = None
     extra: Optional[dict] = None
 

@@ -38,7 +38,7 @@ from ..ops import ivf_scan
 from ..ops.ivf_scan_fused import scan_invlists_fused
 from ..ops.kmeans import ClusteringParameters, kmeans
 from ..ops.range_search import range_search_ivf
-from ..trace import collect, fence, span
+from ..trace import collect, count, fence, span
 from . import base
 from .base import Index, SearchStats, Timer
 from .flat import IndexFlat
@@ -495,8 +495,10 @@ class IndexIVF(Index):
 
     def search(self, x, k: int, *,
                params: Optional[SearchParametersIVF] = None):
-        """Both phases on the device, one sync at the end (the copy out).
-        Each step runs in its span (`tpu_ann_torch.trace`)."""
+        """Both phases on the device, one sync at the end (the copy out:
+        on a CUDA device a sync of the stream after the copies into
+        page-locked memory). Each step runs in its span
+        (`tpu_ann_torch.trace`)."""
         with span("ivf.search"):
             x, *setting = self._search_input(x, params)
             step = self.search_chunk
@@ -522,12 +524,48 @@ class IndexIVF(Index):
         upload, `_search_device`, the copy out with the map to user ids.
         Returns (D, I user ids, probes, ndis)."""
         with span("ivf.upload"):
-            xq_dev = self._to_device(x)
+            xq_dev = self._upload(x)
         Dv, Iv, probes, ndis = self._search_device(xq_dev, k, nprobe, mnb,
                                                    id_mask)
         with span("ivf.output"):
-            Dv, Iv = Dv.cpu().numpy(), self._map_ids(Iv.cpu().numpy())
+            Dv, Iv = self._copy_out(Dv, Iv)
+            Iv = self._map_ids(Iv)
         return Dv, Iv, probes, ndis
+
+    def _upload(self, x) -> torch.Tensor:
+        """The queries on the device. A numpy array bound for a CUDA device
+        is copied on the host into a page-locked block of torch's caching
+        host allocator, then sent by an asynchronous copy (the allocator
+        reuses the block only once that copy is done), with no staging
+        through pageable memory; a tensor, or a CPU device, takes
+        `_to_device`."""
+        if self.device.type != "cuda" or isinstance(x, torch.Tensor):
+            return self._to_device(x)
+        host = torch.empty(x.shape, dtype=torch.float32, pin_memory=True)
+        if x.flags.writeable:
+            host.copy_(torch.from_numpy(x))   # torch's threaded host copy
+        else:                                 # from_numpy warns on it
+            host.numpy()[...] = x
+        count("pinned_bytes", host.nbytes)
+        return host.to(self.device, non_blocking=True)
+
+    def _copy_out(self, *outs: torch.Tensor) -> list:
+        """``outs`` as numpy arrays on the host. From a CUDA device each is
+        copied into a page-locked block of its own, and one sync of the
+        stream waits for them all; an array keeps its block until it is
+        dropped, so results that a caller holds never share memory. The
+        cache grows to the results a caller holds at once: each new block
+        is a page-locked allocation (milliseconds for megabytes), paid in
+        the first calls after a caller starts holding more."""
+        if self.device.type != "cuda":
+            return [o.cpu().numpy() for o in outs]
+        host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                for o in outs]
+        for h, o in zip(host, outs):
+            h.copy_(o, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        count("pinned_bytes", sum(h.nbytes for h in host))
+        return [h.numpy() for h in host]
 
     def search_device(self, xq_dev: torch.Tensor, k: int):
         """Device-in/device-out search with the index's current settings;
@@ -556,7 +594,10 @@ class IndexIVF(Index):
           the list scan's closing sync; the host clock on a CPU device),
           zero where the query-major scan runs;
         - ``output_us``: the copy out and the map to user ids, host clock
-          (it starts after the scan's closing sync and the copy blocks).
+          (it starts after the scan's closing sync and ends after the sync
+          that waits for the copy);
+        - ``pinned_bytes``: the bytes that the upload and the copy out sent
+          through page-locked host memory (a count, 0 on a CPU device).
 
         The fences sync the device, so use search() for throughput (search
         runs the same spans without the fences or the events, and they

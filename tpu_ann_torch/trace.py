@@ -16,8 +16,8 @@ one flag check and returns a shared no-op context. It has two consumers:
     `models.base.Timer` is), so the interval holds the device work queued
     inside it;
   - ``HOST``: the host clock alone, for a step that starts after a fence
-    and blocks the host until its device work is done (the pageable copy
-    out);
+    and blocks the host until its device work is done (the copy out, which
+    waits on the stream once its copies are issued);
   - ``DEVICE``: a CUDA event pair around the span, read once the
     enclosing `fence` has synced, so the span adds no sync of its own; on
     a CPU device, the host clock.
@@ -25,7 +25,8 @@ one flag check and returns a shared no-op context. It has two consumers:
 A span or fence inside a timed span of the same collector adds nothing (a
 scan inside a graph quantizer's coarse step counts as coarse time).
 `fence` is a fenced interval with no profiler range (the list scan's part
-of ``list_scan_us``).
+of ``list_scan_us``). `count` adds to a counter field of the collector's
+`SearchStats` (``pinned_bytes``), and is a no-op without one.
 """
 
 from __future__ import annotations
@@ -146,6 +147,14 @@ def _fenced(col: _Collector, field: str):
     col.sync()
     col.add((field,), (time.perf_counter() - t0) * 1e6)
     col.settle()
+
+
+def count(field: str, n: int) -> None:
+    """Under a collector, add ``n`` to its `SearchStats` field ``field``;
+    otherwise a no-op."""
+    col = _collector.get()
+    if col is not None:
+        col.add((field,), n)
 
 
 @contextlib.contextmanager
